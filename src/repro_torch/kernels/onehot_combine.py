@@ -1,0 +1,54 @@
+"""``onehot_fold``: ``acc + one_hot(keys)ᵀ @ values`` on the H100.
+
+Counterpart of ``repro/kernels/onehot_combine.py::onehot_fold``.  The
+kernel (``csrc/onehot_fold.cu``) folds the chunk in two deterministic
+passes with no float atomics; :func:`onehot_fold_plain` is the same
+function in plain PyTorch, used for CPU tensors and as the kernel's oracle.
+Call both through :func:`repro_torch.kernels.ops.onehot_fold`, which checks
+shapes and picks the tiling.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+
+def onehot_fold_plain(keys: torch.Tensor, values: torch.Tensor,
+                      acc: torch.Tensor, block_k: int | None = None
+                      ) -> torch.Tensor:
+    """[N] keys, [N, D] values, [K, D] acc -> acc + per-key sums (f32).
+
+    The one-hot contraction one key block at a time, so the live one-hot is
+    ``[N, block_k]``; keys outside ``[0, K)`` match no row."""
+    k_space = acc.shape[0]
+    block_k = k_space if block_k is None else block_k
+    vals = values.to(torch.float32)
+    keys64 = keys.to(torch.int64)
+    delta = torch.empty(acc.shape, dtype=torch.float32, device=acc.device)
+    for lo in range(0, k_space, block_k):
+        hi = min(lo + block_k, k_space)
+        iota = torch.arange(lo, hi, device=keys.device)
+        onehot = (keys64[:, None] == iota[None, :]).to(torch.float32)
+        delta[lo:hi] = onehot.T @ vals
+    return acc.to(torch.float32) + delta
+
+
+def onehot_fold_cuda(keys: torch.Tensor, values: torch.Tensor,
+                     acc: torch.Tensor, *, block_k: int, tile_n: int,
+                     seg_len: int, n_seg: int) -> torch.Tensor:
+    """Launch the kernel; the wrapper in ``ops`` has checked the inputs."""
+    lib = _build.library("onehot_fold")
+    n, d = values.shape
+    k_space = acc.shape[0]
+    out = torch.empty_like(acc)
+    partial = torch.empty((n_seg, k_space, d), dtype=torch.float32,
+                          device=acc.device)
+    err = lib.onehot_fold_launch(
+        keys.data_ptr(), values.data_ptr(), acc.data_ptr(), out.data_ptr(),
+        partial.data_ptr(), n, d, k_space, block_k, tile_n, seg_len, n_seg,
+        torch.cuda.current_stream(acc.device).cuda_stream)
+    _build.check("onehot_fold", lib, err)
+    _build.count_launch("onehot_fold")
+    return out
