@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.core import MapReduceApp, ValueSpec
 from repro_torch.data import datasets
+from repro_torch.device import resolve_device
 
 I32 = torch.int32
 F32 = torch.float32
@@ -149,10 +150,33 @@ class WordCount(MapReduceApp):
         return values.sum()
 
 
+class KeyedSum(MapReduceApp):
+    """Per-key sums over a large sparse key space: items of 8 keys, each
+    emitted with its weight (``datasets.keyed_sum_data``); the sort flow's
+    workload, as ``benchmarks/bench_flow_sweep.py::make_app`` in the
+    reference."""
+
+    emit_capacity = 8
+    max_values_per_key = 64
+
+    def __init__(self, key_space: int, dtype: torch.dtype = F32):
+        self.key_space = key_space
+        self.value_spec = ValueSpec((), dtype)
+
+    def map(self, item, emit):  # item: ([8] keys, [8] weights)
+        keys, weights = item
+        emit(keys, weights)
+
+    def reduce(self, key, values, count):
+        return values.sum(0)
+
+
 def build(name: str, rng: np.random.Generator, scale: float = 1.0,
-          device="cpu"):
+          device=None):
     """(app, items) of benchmark ``name``; the inputs are those of the
-    reference's ``benchmarks/apps.py::build`` for the same generator."""
+    reference's ``benchmarks/apps.py::build`` for the same generator, on
+    ``device`` (None: the card)."""
+    device = resolve_device(device)
     s = lambda n: max(16, int(n * scale))  # noqa: E731
 
     def t(*arrays):

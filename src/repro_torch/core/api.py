@@ -36,6 +36,7 @@ from repro_torch.core import autotune as at
 from repro_torch.core import combiner as C
 from repro_torch.core import engine as eng
 from repro_torch.core.plan import ExecutionPlan, plan_execution
+from repro_torch.device import resolve_device
 
 
 class MapReduceApp:
@@ -78,12 +79,16 @@ Emitter = eng.Emitter
 
 @dataclasses.dataclass(frozen=True)
 class ExecutionOptions:
-    """Run-time overrides of the stream flow's lowering; ``None`` keeps
-    the MapReduce constructor's choice."""
+    """Run-time overrides of the lowering; ``None`` keeps the MapReduce
+    constructor's choice.  ``key_block`` is the stream flow's;
+    ``bucket_size`` (the leaf bucket) and ``level_fanouts`` (the radix
+    levels) are the sort flow's."""
 
     use_kernels: bool | None = None
     chunk_pairs: int | None = None
     key_block: int | None = None
+    bucket_size: int | None = None
+    level_fanouts: tuple[int, ...] | None = None
 
 
 @dataclasses.dataclass
@@ -105,16 +110,6 @@ class MapReduceResult:
                 for k in np.nonzero(counts > 0)[0]}
 
 
-def resolve_device(device) -> torch.device:
-    """``None`` means the card; a CUDA device needs one to be present."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "repro_torch runs on a CUDA device and none is available; pass "
-            "device='cpu' to run the plain PyTorch path on the CPU")
-    return dev
-
-
 def to_device(items, device):
     """Items (tensors or numpy arrays, or a tuple of them) on ``device``."""
     return pytree.tree_map(lambda a: torch.as_tensor(a).to(device), items)
@@ -123,10 +118,12 @@ def to_device(items, device):
 class MapReduce:
     """``MapReduce(app).run(items)`` — the framework entry point.
 
-    flow: "auto" or "stream" (the only flow ported so far).  Construction
+    flow: "auto" (the stream flow), "stream" or "sort".  Construction
     plans: derives the combiner from ``app.reduce`` (or takes
-    ``app.manual_combiner``) and tiles the stream fold;
-    ``stream_chunk_pairs`` / ``stream_key_block`` pin the tiling.
+    ``app.manual_combiner``) and tiles the flow's fold;
+    ``stream_chunk_pairs`` pins the chunk of either flow and
+    ``stream_key_block`` the stream fold's key block.  ``n_pairs_hint``
+    (the reference's cost-model ranking) is not ported and raises.
     """
 
     def __init__(self, app: MapReduceApp, *, flow: str = "auto",
@@ -134,6 +131,7 @@ class MapReduce:
                  use_kernels: bool | None = None,
                  stream_chunk_pairs: int | str = "auto",
                  stream_key_block: int | str | None = "auto",
+                 n_pairs_hint: int | None = None,
                  device=None):
         if app.key_space <= 0:
             raise ValueError("app.key_space must be positive")
@@ -142,7 +140,14 @@ class MapReduce:
         self.use_kernels = (self.device.type == "cuda" if use_kernels is None
                             else use_kernels)
         self.plan = plan_execution(app, flow=flow,
-                                   trust_semantics=trust_semantics)
+                                   trust_semantics=trust_semantics,
+                                   n_pairs_hint=n_pairs_hint)
+        if self.plan.flow == "sort":
+            self.tiling = at.autotune_sort(
+                app, self.plan.spec, device=self.device,
+                use_kernels=self.use_kernels, chunk_pairs=stream_chunk_pairs)
+            self.plan.tiling = self.tiling
+            return
         self.tiling = at.autotune_stream(
             app, self.plan.spec, device=self.device,
             use_kernels=self.use_kernels, chunk_pairs=stream_chunk_pairs,
@@ -155,22 +160,42 @@ class MapReduce:
 
     def run(self, items, *, options: ExecutionOptions | None = None,
             n_valid: int | None = None) -> MapReduceResult:
-        """Run the stream flow over ``items`` (the first ``n_valid`` of
+        """Run the planned flow over ``items`` (the first ``n_valid`` of
         them when given) and finalize the tables."""
         opts = options if options is not None else ExecutionOptions()
         use_kernels = (self.use_kernels if opts.use_kernels is None
                        else opts.use_kernels)
         chunk = (self.tiling.chunk_pairs if opts.chunk_pairs is None
                  else opts.chunk_pairs)
-        key_block = (opts.key_block if opts.key_block is not None else
-                     self.tiling.key_block if self.tiling.blocked else None)
         items = to_device(items, self.device)
         with torch.no_grad():
-            keys, values, counts = eng.run_local_stream(
-                self.app, self.plan.spec, items, chunk_pairs=chunk,
-                device=self.device, use_kernels=use_kernels,
-                key_block=key_block, n_valid=n_valid)
+            if self.plan.flow == "sort":
+                keys, values, counts = eng.run_local_sort(
+                    self.app, self.plan.spec, items, chunk_pairs=chunk,
+                    device=self.device, use_kernels=use_kernels,
+                    n_valid=n_valid, **self._sort_plan(opts))
+            else:
+                key_block = (opts.key_block if opts.key_block is not None
+                             else self.tiling.key_block
+                             if self.tiling.blocked else None)
+                keys, values, counts = eng.run_local_stream(
+                    self.app, self.plan.spec, items, chunk_pairs=chunk,
+                    device=self.device, use_kernels=use_kernels,
+                    key_block=key_block, n_valid=n_valid)
         return MapReduceResult(keys, values, counts, self.plan)
+
+    def _sort_plan(self, opts: ExecutionOptions) -> dict:
+        """The radix plan of a sort run: the options' bucket and levels,
+        else the tiling's; none when the tiling has no feasible plan (the
+        engine then re-plans, and raises if it needs the kernels)."""
+        t = self.tiling
+        bucket = (opts.bucket_size if opts.bucket_size is not None
+                  else t.key_block if t.feasible else None)
+        fanouts = (tuple(opts.level_fanouts)
+                   if opts.level_fanouts is not None
+                   else t.level_fanouts if t.feasible
+                   and opts.bucket_size is None else None)
+        return {"bucket_size": bucket, "level_fanouts": fanouts}
 
     def explain(self) -> str:
         return self.plan.explain()

@@ -24,6 +24,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch import numerics
+from repro_torch.device import resolve_device
 
 PyTree = Any
 
@@ -35,10 +36,12 @@ class ValueSpec:
     shape: tuple[int, ...]
     dtype: torch.dtype
 
-    def zeros(self, n: int | None = None, device="cpu") -> torch.Tensor:
+    def zeros(self, n: int | None = None, device=None) -> torch.Tensor:
+        """Zeros of ``n`` values (one value when ``n`` is None); ``device``
+        None means the card, as everywhere in the port."""
         lead = () if n is None else (n,)
         return torch.zeros(lead + tuple(self.shape), dtype=self.dtype,
-                           device=device)
+                           device=resolve_device(device))
 
     @classmethod
     def of(cls, t: torch.Tensor) -> "ValueSpec":
@@ -119,9 +122,9 @@ class Monoid:
     #: whether ``op`` is a plain sum (one-hot contraction / onehot_fold)
     is_additive: bool = False
 
-    def identity_like(self, shape, dtype, device="cpu") -> torch.Tensor:
+    def identity_like(self, shape, dtype, device=None) -> torch.Tensor:
         return torch.full(tuple(shape), self.identity(dtype), dtype=dtype,
-                          device=device)
+                          device=resolve_device(device))
 
 
 ADD = Monoid("add", torch.add, lambda dt: False if dt == torch.bool else 0,
@@ -160,7 +163,7 @@ STRATEGY_SCAN = "scan_fold"
 class CombinerSpec:
     """initialize/combine/finalize plus cross-shard merge and premap.
 
-    * ``init(value_spec) -> holder``            identity holder (CPU)
+    * ``init(value_spec) -> holder``            identity holder (on the CPU)
     * ``premap(values[n, ...]) -> mapped``      batched pre-map (map side)
     * ``combine(holder, mapped, n) -> holder``  fold ONE mapped value; ``n``
                                                 is the number already folded
@@ -218,8 +221,9 @@ class CombinerSpec:
                         for l in pytree.tree_leaves(self.init(value_spec))))
 
     def init_tables(self, key_space: int, value_spec: ValueSpec,
-                    device="cpu") -> tuple[PyTree, torch.Tensor]:
+                    device=None) -> tuple[PyTree, torch.Tensor]:
         """Identity-initialized holder tables ``[K, *holder]`` and counts."""
+        device = resolve_device(device)
         tables = pytree.tree_map(
             lambda l: l.to(device).expand((key_space,) + tuple(l.shape))
             .clone(), self.init(value_spec))
@@ -238,9 +242,10 @@ def monoid_spec(monoid: Monoid | str, *, premap: Callable = _identity,
     m = MONOIDS[monoid] if isinstance(monoid, str) else monoid
 
     def init(value_spec):
-        mapped = premap(value_spec.zeros(1))
-        return pytree.tree_map(lambda x: m.identity_like(x.shape[1:], x.dtype),
-                         mapped)
+        mapped = premap(value_spec.zeros(1, device="cpu"))
+        return pytree.tree_map(
+            lambda x: m.identity_like(x.shape[1:], x.dtype, device="cpu"),
+            mapped)
 
     def combine(holder, mapped, n):
         del n

@@ -1,10 +1,12 @@
-"""Execution engine of the stream flow: the map phase and the chunked fold.
+"""Execution engine of the stream and sort flows: the map phase and the
+chunked fold.
 
-Counterpart of the stream-flow part of ``repro/core/engine.py``
-(``Emitter``, ``map_phase``, ``_fold_items_chunked``,
-``stream_local_tables``, ``run_local_stream``).  The reference scans the
-chunks with ``lax.scan``; here the chunk loop is a Python loop, so chunks
-are large (see ``autotune``) and each one is a handful of launches.
+Counterpart of the local part of ``repro/core/engine.py`` (``Emitter``,
+``map_phase``, ``_fold_items_chunked``, ``stream_local_tables``,
+``run_local_stream``, ``sort_local_tables``, ``run_local_sort``).  The
+reference scans the chunks with ``lax.scan``; here the chunk loop is a
+Python loop, so chunks are large (see ``autotune``) and each one is a
+handful of launches.
 """
 
 from __future__ import annotations
@@ -125,11 +127,12 @@ def stream_combiner(app, spec, *, device, use_kernels=False,
                               chunk_pairs=chunk_pairs, key_block=key_block)
 
 
-def fold_items_chunked(app, combiner: col.StreamCombiner, items,
-                       chunk_items: int, n_valid: int | None = None,
-                       state=None):
+def fold_items_chunked(app, combiner, items, chunk_items: int,
+                       n_valid: int | None = None, state=None):
     """Map ``items`` a chunk at a time and fold each chunk's pairs into the
     carried collector state (``state`` seeds it; default: the identity).
+    ``combiner`` is the stream flow's :class:`~collector.StreamCombiner` or
+    the sort flow's :class:`~collector.SortCombiner`.
 
     Items at index ``n_valid`` and beyond are mapped but their pairs are
     masked to the sentinel key, as in the reference's padded serving path.
@@ -172,5 +175,71 @@ def stream_local_tables(app, spec, items, *, chunk_pairs: int,
 
 def run_local_stream(app, spec, items, **kw):
     tables, counts = stream_local_tables(app, spec, items, **kw)
+    grouped = col.finalize_tables(spec, tables, counts, app.key_space)
+    return grouped.keys, grouped.values, grouped.counts
+
+
+def _sort_fold_kernel(use_kernels: bool, bucket_size: int | None,
+                      level_fanouts: tuple[int, ...] | None
+                      ) -> Callable | None:
+    """The radix partition + segment reduce pipeline for the sort
+    collector, bound to its level plan."""
+    if not use_kernels:
+        return None
+    from repro_torch.kernels import ops
+
+    return partial(ops.sort_segment_fold, bucket_size=bucket_size,
+                   fanouts=level_fanouts)
+
+
+def _check_sort_kernel_plan(spec, key_space: int, value_spec,
+                           use_kernels: bool, bucket_size: int | None,
+                           level_fanouts: tuple[int, ...] | None):
+    """Resolve the radix level plan of the kernel sort fold:
+    ``(bucket_size, level_fanouts)``.
+
+    A key space past the level budget has no kernel plan, and the fold
+    raises with the plan's reason: asked for its kernels, the sort flow
+    runs them or nothing (the reference warns and takes its plain fold)."""
+    if not use_kernels or bucket_size is not None:
+        return bucket_size, level_fanouts
+    if not spec.kernel_monoid_ok(value_spec):
+        return bucket_size, level_fanouts  # the kernels are not used
+    from repro_torch.kernels import ops
+
+    d, _ = spec.holder_width(value_spec)
+    plan = ops.plan_radix_levels(key_space, d=d + 1)
+    if not plan.feasible:
+        raise ValueError(
+            f"sort flow: {plan.reason}; the radix kernels cannot take this "
+            f"key space (pass use_kernels=False for the plain sorted fold)")
+    return plan.bucket_size, plan.fanouts
+
+
+def sort_local_tables(app, spec, items, *, chunk_pairs: int, device,
+                      use_kernels: bool = False,
+                      bucket_size: int | None = None,
+                      level_fanouts: tuple[int, ...] | None = None,
+                      n_valid: int | None = None):
+    """Sort flow over ``items``: the stream flow's chunk loop, each chunk
+    partitioned by key and reduced a run (or a leaf bucket) at a time into
+    the carried tables (:class:`collector.SortCombiner`).  Returns
+    un-finalized ``(tables, counts)``."""
+    n_items = items_length(items)
+    cap = max(app.emit_capacity, 1)
+    chunk_items = max(1, min(n_items, chunk_pairs // cap))
+    bucket_size, level_fanouts = _check_sort_kernel_plan(
+        spec, app.key_space, app.value_spec, use_kernels, bucket_size,
+        level_fanouts)
+    sc = col.SortCombiner(
+        spec, app.key_space, app.value_spec, device=device,
+        sort_fold_fn=_sort_fold_kernel(use_kernels, bucket_size,
+                                       level_fanouts))
+    state = fold_items_chunked(app, sc, items, chunk_items, n_valid=n_valid)
+    return sc.tables_counts(state)
+
+
+def run_local_sort(app, spec, items, **kw):
+    tables, counts = sort_local_tables(app, spec, items, **kw)
     grouped = col.finalize_tables(spec, tables, counts, app.key_space)
     return grouped.keys, grouped.values, grouped.counts

@@ -77,7 +77,7 @@ def derive_combiner(reduce_fn: Callable, key_spec: C.ValueSpec,
 
     t2 = time.perf_counter()
     validated = False
-    ksamp = key_spec.zeros()
+    ksamp = key_spec.zeros(device="cpu")
     if spec is not None and not trust_semantics:
         try:
             ok = C.validate_combiner(spec, reduce_fn, value_spec,
@@ -126,9 +126,10 @@ def _monoid_or_first(an: S.Analysis) -> tuple[C.CombinerSpec, str]:
     premap = S.build_premap(an)
 
     def init(value_spec):
-        mapped = premap(value_spec.zeros(1))
+        mapped = premap(value_spec.zeros(1, device="cpu"))
         return tuple(
-            f.monoid.identity_like(m.shape[1:], m.dtype) if f.kind == "monoid"
+            f.monoid.identity_like(m.shape[1:], m.dtype, device="cpu")
+            if f.kind == "monoid"
             else torch.zeros(m.shape[1:], dtype=m.dtype)
             for f, m in zip(fronts, mapped))
 

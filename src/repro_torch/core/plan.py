@@ -1,11 +1,13 @@
 """Execution planning: run the optimizer, pick the flow, record the decision.
 
-Counterpart of ``repro/core/plan.py``.  The port runs the stream flow only;
-every other flow, and a reducer the optimizer cannot turn into a combiner
-(the reference would run it in the reduce flow), raises
-``NotImplementedError`` naming the ROADMAP item that ports it.  There is no
-cost model and no ``n_pairs_hint`` yet: the reference's cost-model profiles
-were measured for a TPU and a CPU, not for this card.
+Counterpart of ``repro/core/plan.py``.  The port runs the stream and sort
+flows; ``flow="auto"`` picks the stream flow.  The combine and reduce flows,
+and a reducer the optimizer cannot turn into a combiner (the reference
+would run it in the reduce flow), raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.  There is no cost model yet, so
+``n_pairs_hint`` (with which the reference ranks stream against sort)
+raises too: the reference's cost-model profiles were measured for a TPU
+and a CPU, not for this card.
 """
 
 from __future__ import annotations
@@ -19,19 +21,21 @@ FLOWS = ("auto", "stream", "sort", "combine", "reduce")
 
 #: ROADMAP items that port the flows the port cannot run yet
 NOT_PORTED = {
-    "sort": "A7 (sort flow)",
     "combine": "A8 (combine and reduce flows)",
     "reduce": "A8 (combine and reduce flows)",
 }
 
+#: the ROADMAP item that ports the cost model behind ``n_pairs_hint``
+COST_MODEL_ITEM = "A6 (cost model and flow=auto ranking)"
+
 
 @dataclasses.dataclass
 class ExecutionPlan:
-    flow: str  # "stream"
+    flow: str  # "stream" | "sort"
     derivation: Derivation | None
     spec: C.CombinerSpec | None
     reason: str = ""
-    #: the StreamTiling chosen for the stream flow (set by the API layer)
+    #: the StreamTiling / SortTiling of the flow (set by the API layer)
     tiling: object | None = None
     diagnostics: tuple[str, ...] = ()
 
@@ -64,13 +68,20 @@ def _not_ported(flow: str, why: str) -> NotImplementedError:
 
 
 def plan_execution(app, *, flow: str = "auto",
-                   trust_semantics: bool = False) -> ExecutionPlan:
+                   trust_semantics: bool = False,
+                   n_pairs_hint: int | None = None) -> ExecutionPlan:
     """Pick the execution flow: derive (or take the manual) combiner and
-    run the stream flow with it."""
+    run the stream flow with it, or the sort flow when asked for."""
     if flow not in FLOWS:
         raise ValueError(f"unknown flow {flow!r}")
     if flow in NOT_PORTED:
         raise _not_ported(flow, f"flow={flow!r} requested")
+    if n_pairs_hint is not None:
+        raise NotImplementedError(
+            f"n_pairs_hint={n_pairs_hint}: the cost model that ranks the "
+            f"flows for a workload size is not ported to repro_torch yet "
+            f"(ROADMAP {COST_MODEL_ITEM}); pass flow='stream' or "
+            f"flow='sort'")
     spec = getattr(app, "manual_combiner", None)
     if spec is not None:
         derived = Derivation(spec=spec, strategy=C.STRATEGY_MANUAL,
@@ -81,10 +92,11 @@ def plan_execution(app, *, flow: str = "auto",
         derived = derive_combiner(app.reduce, KEY_SPEC, app.value_spec,
                                   trust_semantics=trust_semantics)
         if not derived.combinable:
-            if flow == "stream":
-                raise ValueError(f"stream flow forced but derivation "
+            if flow in ("stream", "sort"):
+                raise ValueError(f"{flow} flow forced but derivation "
                                  f"failed: {derived.failure}")
             raise _not_ported("reduce", f"not combinable "
                                         f"({derived.failure})")
         reason = f"derived ({derived.strategy})"
-    return ExecutionPlan("stream", derived, derived.spec, reason=reason)
+    return ExecutionPlan("sort" if flow == "sort" else "stream", derived,
+                         derived.spec, reason=reason)

@@ -149,14 +149,15 @@ class Analysis:
 def trace(reduce_fn: Callable, key_spec: C.ValueSpec,
           value_spec: C.ValueSpec, max_len: int) -> torch.fx.GraphModule:
     values = C.ValueSpec((max_len,) + tuple(value_spec.shape),
-                         value_spec.dtype).zeros()
+                         value_spec.dtype).zeros(device="cpu")
     count = torch.zeros((), dtype=torch.int32)
 
     def fn(key, values, count):  # make_fx counts a bound method's self
         return reduce_fn(key, values, count)
 
     try:
-        return make_fx(fn, tracing_mode="fake")(key_spec.zeros(), values,
+        return make_fx(fn, tracing_mode="fake")(key_spec.zeros(device="cpu"),
+                                                values,
                                                 count)
     except Exception as e:  # the boundary to user code: whatever the
         # tracer refuses (data-dependent control flow, an op without a fake

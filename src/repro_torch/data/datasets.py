@@ -52,6 +52,16 @@ def string_match_data(rng, *, n: int = 1 << 12, match_rate: float = 0.22):
     return np.where(hits, which, -1).astype(np.int32)
 
 
+def keyed_sum_data(rng, *, items: int, key_space: int, width: int = 8):
+    """Items of ``width`` uniform keys in ``[0, key_space)`` and as many f32
+    weights in ``[0, 1)``: the large sparse key space of the sort flow
+    (the reference's ``benchmarks/bench_flow_sweep.py`` app, with drawn
+    weights in place of ones so that sums are tested, not only counts)."""
+    keys = rng.integers(0, key_space, size=(items, width)).astype(np.int32)
+    weights = rng.random((items, width), dtype=np.float32)
+    return keys, weights
+
+
 def wordcount_data(rng, *, tokens: int = 1 << 16, vocab: int = 8192,
                    zipf_a: float = 1.2):
     t = rng.zipf(zipf_a, size=tokens) % vocab

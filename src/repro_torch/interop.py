@@ -1,14 +1,16 @@
-"""Carry a stream fold's state between ``repro`` and the port.
+"""Carry a stream or sort fold's state between ``repro`` and the port.
 
-The stream collector's carried state is the system's only long-lived data
-(what weights are to a model).  ``repro`` keeps it as numpy-convertible
-arrays in one of three layouts, and so does the port's
-:class:`~repro_torch.core.collector.StreamCombiner`:
+The collectors' carried state is the system's only long-lived data (what
+weights are to a model).  ``repro`` keeps it as numpy-convertible arrays
+in one of three layouts, and so do the port's
+:class:`~repro_torch.core.collector.StreamCombiner` and
+:class:`~repro_torch.core.collector.SortCombiner`:
 
 * fused   — one f32 ``[K, ΣD + 1]`` accumulator, counts in the last column
-            (additive float holders folded by the ``onehot_fold`` kernel);
+            (additive float holders: the stream flow's ``onehot_fold``
+            kernel, the sort flow's plain path);
 * tables  — ``(holder tables, counts)``, the tables a pytree of
-            ``[K, *leaf]`` arrays;
+            ``[K, *leaf]`` arrays (the sort flow's kernel path too);
 * size    — ``[K]`` int32 counts alone.
 
 :func:`state_from_repro` turns a reference state (as numpy) into the
@@ -25,10 +27,10 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-from repro_torch.core.collector import StreamCombiner
+from repro_torch.core.collector import CarriedTables
 
 
-def _split_fused(comb: StreamCombiner, acc: np.ndarray):
+def _split_fused(comb: CarriedTables, acc: np.ndarray):
     """(tables leaves, counts) of a fused accumulator, per the port's
     holder leaves."""
     leaves, off = [], 0
@@ -40,7 +42,7 @@ def _split_fused(comb: StreamCombiner, acc: np.ndarray):
     return leaves, acc[:, -1].astype(np.int32)
 
 
-def state_from_repro(comb: StreamCombiner, state):
+def state_from_repro(comb: CarriedTables, state):
     """The port's carried state for ``comb`` from a reference state given
     as numpy arrays (``np.asarray`` of each leaf of the reference's
     state)."""
@@ -66,7 +68,7 @@ def state_from_repro(comb: StreamCombiner, state):
     return (pytree.tree_unflatten(leaves, comb._holder_treedef), counts)
 
 
-def state_to_repro(comb: StreamCombiner, state, *, fused: bool):
+def state_to_repro(comb: CarriedTables, state, *, fused: bool):
     """The reference's carried state (numpy) from the port's; ``fused``
     picks the reference combiner's layout (its ``_fused_acc``)."""
     if comb.mode == "size":

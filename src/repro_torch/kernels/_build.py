@@ -22,7 +22,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 
 #: one shared library per source; each maps to its launch function's name.
-KERNELS = ("onehot_fold", "chunk_monoid_fold")
+KERNELS = ("onehot_fold", "chunk_monoid_fold", "radix_partition",
+           "radix_partition_multi", "segment_reduce")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -35,6 +36,17 @@ _ARGTYPES = {
     "onehot_fold": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "chunk_monoid_fold": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                           _P],
+    "radix_partition": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "radix_partition_multi": [_P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P,
+                              _P, _P],
+    "segment_reduce": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+}
+#: argument types of ``<name>_scratch_bytes``, for the kernels whose scratch
+#: the launch function sizes itself (it returns -1 for a shape it refuses).
+_SCRATCH_ARGTYPES = {
+    "radix_partition": [_I, _I, _I, _I, _I],
+    "radix_partition_multi": [_I, _I, _I, _I, _P, _I, _I],
+    "segment_reduce": [_I, _I, _I, _I, _I],
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -129,6 +141,10 @@ def library(name: str) -> ctypes.CDLL:
         err_str = getattr(lib, f"{name}_error_string")
         err_str.argtypes = [ctypes.c_int]
         err_str.restype = ctypes.c_char_p
+        if name in _SCRATCH_ARGTYPES:
+            scratch = getattr(lib, f"{name}_scratch_bytes")
+            scratch.argtypes = _SCRATCH_ARGTYPES[name]
+            scratch.restype = ctypes.c_longlong
         _libs[name] = lib
     return lib
 

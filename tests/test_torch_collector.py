@@ -104,9 +104,9 @@ def _combiners(name, mode, kernels, key_block, chunk):
     jc = JCOL.StreamCombiner(js, K, jv, fold_fn=jfold, monoid_fold_fn=jmono,
                              chunk_pairs=chunk, key_block=key_block,
                              mode=mode)
-    tc = TCOL.StreamCombiner(ts, K, tv, fold_fn=tfold, monoid_fold_fn=tmono,
-                             chunk_pairs=chunk, key_block=key_block,
-                             mode=mode)
+    tc = TCOL.StreamCombiner(ts, K, tv, device="cpu", fold_fn=tfold,
+                             monoid_fold_fn=tmono, chunk_pairs=chunk,
+                             key_block=key_block, mode=mode)
     return jc, tc
 
 
@@ -161,7 +161,7 @@ def test_sequential_mode_matches_reference():
     jv = jax.ShapeDtypeStruct((), jnp.float32)
     tv = TC.ValueSpec((), torch.float32)
     jc = JCOL.StreamCombiner(jspec, K, jv)
-    tc = TCOL.StreamCombiner(tspec, K, tv)
+    tc = TCOL.StreamCombiner(tspec, K, tv, device="cpu")
     assert jc.mode == tc.mode == "sequential"
     js, ts = jc.init_state(), tc.init_state()
     for keys, vals in chunks:
@@ -179,7 +179,8 @@ def test_sequential_mode_matches_reference():
 def test_scatter_budget_warns_and_matches_mode():
     _, _, ts, tv = _specs("centroid")
     with pytest.warns(TCOL.LoweringFallbackWarning):
-        tc = TCOL.StreamCombiner(ts, K, tv, chunk_pairs=1 << 24)
+        tc = TCOL.StreamCombiner(ts, K, tv, device="cpu",
+                                 chunk_pairs=1 << 24)
     assert tc.mode == "scatter"
 
 

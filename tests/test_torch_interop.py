@@ -67,7 +67,8 @@ def test_fold_seeded_from_reference_state_continues_exactly(name, jkern,
         monoid_fold_fn=(partial(jops.chunk_monoid_fold, interpret=True)
                         if jkern else None))
     tc = TCOL.StreamCombiner(
-        tspec, K, tv, fold_fn=tops.onehot_fold if tkern else None,
+        tspec, K, tv, device="cpu",
+        fold_fn=tops.onehot_fold if tkern else None,
         monoid_fold_fn=tops.chunk_monoid_fold if tkern else None)
     rng = np.random.default_rng(len(name))
     (ka, va), (kb, vb) = _chunk(rng, shape, dt), _chunk(rng, shape, dt)

@@ -165,7 +165,9 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     keys, vals, acc = _t(*_pairs(0, 64, 2, 8))
     ops.onehot_fold(keys, vals, acc)
     ops.chunk_monoid_fold(keys, vals, acc, "max")
-    assert ops.launch_counts() == {"onehot_fold": 0, "chunk_monoid_fold": 0}
+    counts = ops.launch_counts()
+    assert {"onehot_fold", "chunk_monoid_fold"} <= set(counts)
+    assert set(counts.values()) == {0}, counts
 
 
 @pytest.mark.parametrize("n,k,d", [(1, 1, 1), (100, 100, 4), (1 << 22, 100, 4),

@@ -60,7 +60,8 @@ def _reference(name, use_kernels):
 @pytest.mark.parametrize("name", list(tapps.ALL) + ["BB"])
 def test_run_matches_reference(name, use_kernels):
     flow, strategy, mode, jcounts, jvals = _reference(name, use_kernels)
-    tapp, titems = tapps.build(name, np.random.default_rng(0), scale=SCALE)
+    tapp, titems = tapps.build(name, np.random.default_rng(0), scale=SCALE,
+                               device="cpu")
     mr = T.MapReduce(tapp, device="cpu", use_kernels=use_kernels)
     res = mr.run(titems)
     assert (mr.plan.flow, mr.plan.derivation.strategy, mr.tiling.mode) == (
@@ -84,35 +85,49 @@ def test_map_phase_hands_the_kernels_dense_pairs(name):
     from vmap expanded with stride 0; the map phase must densify them."""
     from repro_torch.core import engine
 
-    tapp, titems = tapps.build(name, np.random.default_rng(0), scale=SCALE)
+    tapp, titems = tapps.build(name, np.random.default_rng(0), scale=SCALE,
+                               device="cpu")
     stream = engine.map_phase(tapp, titems, "cpu")
     assert stream.keys.is_contiguous() and stream.values.is_contiguous()
     assert stream.keys.dtype == torch.int32
 
 
 def test_kernels_on_cpu_count_no_launch_and_use_the_fused_accumulator():
-    tapp, titems = tapps.build("KM", np.random.default_rng(1), scale=SCALE)
+    tapp, titems = tapps.build("KM", np.random.default_rng(1), scale=SCALE,
+                               device="cpu")
     tops.reset_launch_counts()
     mr = T.MapReduce(tapp, device="cpu", use_kernels=True)
     mr.run(titems)
-    assert tops.launch_counts() == {"onehot_fold": 0, "chunk_monoid_fold": 0}
+    counts = tops.launch_counts()
+    assert {"onehot_fold", "chunk_monoid_fold"} <= set(counts)
+    assert set(counts.values()) == {0}, counts
     assert mr.use_kernels and mr.tiling.mode == "additive"
 
 
 def test_default_device_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    tapp, titems = tapps.build("WC", np.random.default_rng(0), scale=SCALE)
+    tapp, titems = tapps.build("WC", np.random.default_rng(0), scale=SCALE,
+                               device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         T.MapReduce(tapp).run(titems)
 
 
-@pytest.mark.parametrize("flow,item", [("sort", "A7"), ("combine", "A8"),
-                                       ("reduce", "A8")])
+@pytest.mark.parametrize("flow,item", [("combine", "A8"), ("reduce", "A8")])
 def test_flows_not_ported_name_their_roadmap_item(flow, item):
-    tapp, _ = tapps.build("WC", np.random.default_rng(0), scale=SCALE)
+    tapp, _ = tapps.build("WC", np.random.default_rng(0), scale=SCALE,
+                          device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         T.MapReduce(tapp, flow=flow, device="cpu")
+
+
+def test_n_pairs_hint_names_the_cost_model_item():
+    """The sort flow is ported; ranking it against the stream flow for a
+    workload size (the reference's cost model) is not."""
+    tapp, _ = tapps.build("WC", np.random.default_rng(0), scale=SCALE,
+                          device="cpu")
+    with pytest.raises(NotImplementedError, match="A6"):
+        T.MapReduce(tapp, n_pairs_hint=1 << 20, device="cpu")
 
 
 def test_underivable_reducer_is_not_substituted():

@@ -39,9 +39,10 @@ class JBoundingBox(japps.KMeans):
 def _pair(name):
     rng = np.random.default_rng(0)
     if name == "BB":
-        return JBoundingBox(), tapps.build("BB", rng, scale=0.01)[0]
+        return JBoundingBox(), tapps.build("BB", rng, scale=0.01,
+                                                device="cpu")[0]
     return (japps.build(name, np.random.default_rng(0), scale=0.01)[0],
-            tapps.build(name, rng, scale=0.01)[0])
+            tapps.build(name, rng, scale=0.01, device="cpu")[0])
 
 
 def _monoid_names(spec):
@@ -154,7 +155,8 @@ def test_monoid_identities_match_the_reference(name, dtype):
     jm, tm = JC.MONOIDS[name], TC.MONOIDS[name]
     want = np.asarray(jm.identity_like(
         jax.ShapeDtypeStruct((2,), getattr(jnp, dtype))))
-    got = tm.identity_like((2,), getattr(torch, dtype)).numpy()
+    got = tm.identity_like((2,), getattr(torch, dtype),
+                           device="cpu").numpy()
     assert got.dtype == want.dtype
     np.testing.assert_array_equal(got, want)
 
