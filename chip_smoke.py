@@ -16,7 +16,9 @@ Phases (each raises on failure, and the script then exits non-zero):
    values at real slots), the hierarchy's leaf layout equal to the
    one-level partition's, and segment_reduce on those layouts, with
    ragged sizes, a key space that is no multiple of the bucket, sentinel
-   and out-of-range keys, and pad_align 8, 16 and 256;
+   and out-of-range keys, and pad_align 8, 16 and 256.  The combine
+   flow's kernels too, by the same rules: K = 1 to 2^16, D = 1 to 128,
+   bf16 values, sentinel and out-of-range keys, NaN and signed zeros;
 3. main path, additive: ``MapReduce(KMeans()).run`` on 2^24 points of the
    Phoenix kmeans shape (3 dimensions, 100 means); the plan must be the
    stream flow with a derived monoid, ``onehot_fold`` must have launched,
@@ -33,9 +35,20 @@ Phases (each raises on failure, and the script then exits non-zero):
    ``segment_reduce``, must have launched, the counts must equal
    ``np.bincount`` and the sums a float64 numpy reference (rtol = atol =
    1e-5); then the seven Phoenix apps under ``flow="sort"``, card == CPU;
-6. time each kernel, its plain version and one PyTorch library call at the
-   main path's shapes (CUDA events), each main-path run after warm-up, and
-   profile one run of each (device time by kernel, busy share).
+6. the combine flow's main paths on the 2^24 KMeans points:
+   ``MapReduce(KMeans(), flow="combine")`` (the one-hot lowering,
+   ``onehot_combine`` for the values and the counts) and the bounding-box
+   app (the scatter lowering, ``combine_scatter`` for max and min), counts
+   exact, centroids against float64 numpy and boxes bit for bit; then the
+   seven Phoenix apps under ``flow="combine"``;
+7. the reduce flow (the paper's baseline, no kernel): KMeans with its
+   window as long as the largest count, counts exact and centroids against
+   float64 numpy; then the Phoenix apps under ``flow="reduce"``;
+8. time each kernel, its plain version and one PyTorch library call at the
+   main path's shapes (CUDA events), each main-path run after warm-up, the
+   ratio of the reduce flow's time to the combine and stream flows' (the
+   paper's speedup), and profile one run of each (device time by kernel,
+   busy share).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels' numbers as JSON.  Without a CUDA device it exits 1
@@ -169,6 +182,23 @@ def check_kernels(rng) -> None:
             f"block_k={block_k}")
 
 
+def kmeans_centroids(pts, assign):
+    """(counts, float64 centroids) of the KMeans points, by numpy."""
+    counts = np.bincount(assign, minlength=100)
+    sums = np.stack([np.bincount(assign, weights=pts[:, j].astype(np.float64),
+                                 minlength=100) for j in range(3)], axis=1)
+    return counts, sums / np.maximum(counts, 1)[:, None]
+
+
+def numpy_boxes(pts, assign):
+    """Per-key max and min of the KMeans points, by numpy."""
+    order = np.argsort(assign, kind="stable")
+    starts = np.searchsorted(assign[order], np.arange(100))
+    spts = pts[order]
+    return np.concatenate([np.maximum.reduceat(spts, starts, axis=0),
+                           np.minimum.reduceat(spts, starts, axis=0)], axis=1)
+
+
 def main_path_additive(pts, assign):
     """Phase 3."""
     import torch
@@ -188,13 +218,10 @@ def main_path_additive(pts, assign):
     if launches["onehot_fold"] <= 0:
         raise AssertionError(f"onehot_fold never launched: {launches}")
     log(mr.explain())
-    want_counts = np.bincount(assign, minlength=100)
+    want_counts, want = kmeans_centroids(pts, assign)
     counts = res.counts.cpu().numpy()
     if not np.array_equal(counts, want_counts):
         raise AssertionError("KMeans counts != np.bincount")
-    sums = np.stack([np.bincount(assign, weights=pts[:, j].astype(np.float64),
-                                 minlength=100) for j in range(3)], axis=1)
-    want = sums / np.maximum(want_counts, 1)[:, None]
     got = res.values.cpu().numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     log(f"main path additive: KMeans {len(assign)} points, counts exact "
@@ -218,11 +245,7 @@ def main_path_dense(pts, assign, items):
     launches = ops.launch_counts()
     if launches["chunk_monoid_fold"] <= 0:
         raise AssertionError(f"chunk_monoid_fold never launched: {launches}")
-    order = np.argsort(assign, kind="stable")
-    starts = np.searchsorted(assign[order], np.arange(100))
-    spts = pts[order]
-    want = np.concatenate([np.maximum.reduceat(spts, starts, axis=0),
-                           np.minimum.reduceat(spts, starts, axis=0)], axis=1)
+    want = numpy_boxes(pts, assign)
     got = res.values.cpu().numpy()
     if not np.array_equal(got.view(np.uint32), want.view(np.uint32)):
         raise AssertionError("bounding boxes != numpy per-key max/min")
@@ -232,9 +255,10 @@ def main_path_dense(pts, assign, items):
 
 
 def phoenix_on_card(flow: str = "auto") -> None:
-    """Phases 4b and 5b: the seven Phoenix apps (small inputs) on the card
-    equal the same runs on the CPU — integer results and counts exactly,
-    float sums within rtol = atol = 1e-5 (another summation order)."""
+    """Phases 4b, 5b, 6b and 7b: the seven Phoenix apps (small inputs) on
+    the card equal the same runs on the CPU — integer results and counts
+    exactly, float sums within rtol = atol = 1e-5 (another summation
+    order)."""
     from repro_torch import MapReduce, apps
 
     for name in apps.ALL:
@@ -254,7 +278,7 @@ def phoenix_on_card(flow: str = "auto") -> None:
 
 
 def kernel_rows(rng, launches_add, launches_dense) -> list[dict]:
-    """Phase 5: kernel, plain and library times at the main path's shapes."""
+    """Phase 8: kernel, plain and library times at the main path's shapes."""
     import torch
     from repro_torch.core.autotune import CUDA_CHUNK_PAIRS
     from repro_torch.kernels import ops
@@ -301,6 +325,212 @@ def kernel_rows(rng, launches_add, launches_dense) -> list[dict]:
             "library_ms": time_ms(lib, 20),
             "shape": {"n": n, "d": d, "k": k, "op": op},
         })
+    return rows
+
+
+# -- the combine and reduce flows ---------------------------------------------
+
+
+def combine_pairs(rng, n, d, k, *, specials: bool, dtype=np.float32):
+    """Keys in [0, K) with sentinel (K) and out-of-range keys mixed in;
+    values (NaN and signed zeros with ``specials``) of ``dtype``."""
+    import torch
+    keys = rng.integers(0, k, size=n).astype(np.int32)
+    bad = rng.random(n) < 0.1
+    keys[bad] = rng.choice(np.array([k, k + 3, -1, -7], np.int32),
+                           size=int(bad.sum()))
+    vals = rng.standard_normal((n, d)).astype(np.float32)
+    if specials:
+        flat = vals.reshape(-1)
+        p = rng.random(flat.size)
+        flat[p < 0.1] = 0.0
+        flat[(p >= 0.1) & (p < 0.2)] = -0.0
+        flat[(p >= 0.2) & (p < 0.201)] = np.nan
+    vals = torch.from_numpy(vals).cuda()
+    if dtype != np.float32:
+        vals = vals.to(torch.bfloat16)
+    return torch.from_numpy(keys).cuda(), vals
+
+
+def check_combine_kernels(rng) -> None:
+    """Phase 2, combine flow: onehot_combine and combine_scatter against
+    their plain versions on the card (sums within 1e-5 of each key's sum of
+    |v|, max/min bit for bit, two runs bit for bit)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.combine_scatter import combine_scatter_plain
+    from repro_torch.kernels.onehot_combine import onehot_combine_plain
+
+    def twice(fn, what):
+        a, b = fn(), fn()
+        if not torch.equal(bits(a), bits(b)):
+            raise AssertionError(f"{what}: two runs differ")
+        return a
+
+    cases = [  # (n, d, k, label); N a multiple of no tile
+        (N_POINTS, 3, 100, "main path (KMeans values)"),
+        (N_POINTS, 1, 100, "main path (KMeans counts)"),
+        (1_000_003, 9, 37, "ragged"),
+        (5_001, 8, 2048, "the one-hot cutoff"),
+        (777, 1, 1, "one key"),
+        (3, 128, 100, "fewer pairs than a tile"),
+        (100_003, 1, 1 << 16, "K = 2^16 (the additive fallback)"),
+        (20_001, 128, 1 << 16, "K = 2^16, D = 128"),
+    ]
+    for n, d, k, label in cases:
+        plain_block = ops.auto_key_block(k) if k > 2048 else None
+        for dtype in (np.float32, "bf16") if d == 3 else (np.float32,):
+            keys, vals = combine_pairs(rng, n, d, k, specials=False,
+                                       dtype=dtype)
+            v32 = vals.float()
+            plain = onehot_combine_plain(keys, v32, k, block_k=plain_block)
+            tol = SUM_RTOL * onehot_combine_plain(
+                keys, v32.abs(), k, block_k=plain_block) + SUM_RTOL
+            for name, fn in (
+                    ("onehot_combine",
+                     lambda: ops.onehot_combine(keys, vals, k)),
+                    ("combine_scatter",
+                     lambda: ops.combine_scatter(keys, vals, k, "add"))):
+                err = (twice(fn, f"{name} add ({label})") - plain).abs()
+                if not bool((err <= tol).all()):
+                    raise AssertionError(
+                        f"{name} add != plain ({label}, {dtype}): max abs "
+                        f"err {err.max().item()}")
+        for op in ("max", "min"):
+            keys, vals = combine_pairs(rng, n, d, k, specials=True)
+            got = twice(lambda: ops.combine_scatter(keys, vals, k, op),
+                        f"combine_scatter {op} ({label})")
+            want = combine_scatter_plain(keys, vals, k, op)
+            if not torch.equal(bits(got), bits(want)):
+                diff = (bits(got) != bits(want)).sum().item()
+                raise AssertionError(
+                    f"combine_scatter {op} != plain bitwise ({label}): "
+                    f"{diff} elements differ")
+        log(f"onehot_combine, combine_scatter == plain: {label} n={n} d={d} "
+            f"k={k}")
+
+
+def main_path_combine(pts, assign, items):
+    """Phase 6: KMeans (one-hot) and BoundingBox (scatter) under
+    ``flow="combine"`` on the 2^24 points."""
+    import torch
+    from repro_torch import MapReduce, apps
+    from repro_torch.core import collector as col
+    from repro_torch.kernels import ops
+
+    runs = {}
+    for label, app, impl, kernel in (
+            ("kmeans", apps.KMeans(), "onehot", "onehot_combine"),
+            ("bounding_box", apps.BoundingBox(), "scatter",
+             "combine_scatter")):
+        mr = MapReduce(app, flow="combine")
+        chosen, _ = col.choose_combine_impl(mr.plan.spec, app.key_space,
+                                            len(assign), onehot_kernel=True)
+        if mr.plan.flow != "combine" or chosen != impl or not mr.use_kernels:
+            raise AssertionError(f"unexpected plan ({chosen}):\n"
+                                 f"{mr.explain()}")
+        ops.reset_launch_counts()
+        res = mr.run(items)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        want_launches = 2  # KMeans: values and counts; boxes: max and min
+        if launches[kernel] != want_launches or sum(launches.values()) != 2:
+            raise AssertionError(f"{label} combine: expected {kernel} x2, "
+                                 f"got {launches}")
+        counts = res.counts.cpu().numpy()
+        if not np.array_equal(counts, np.bincount(assign, minlength=100)):
+            raise AssertionError(f"{label} combine: counts != np.bincount")
+        got = res.values.cpu().numpy()
+        if label == "kmeans":
+            np.testing.assert_allclose(got, kmeans_centroids(pts, assign)[1],
+                                       rtol=SUM_RTOL, atol=SUM_RTOL)
+        elif not np.array_equal(got.view(np.uint32),
+                                numpy_boxes(pts, assign).view(np.uint32)):
+            raise AssertionError("combine: bounding boxes != numpy max/min")
+        log(mr.explain())
+        log(f"main path combine: {label} impl={impl}, counts exact, "
+            f"launches {launches}")
+        runs[label] = (mr, launches)
+    return runs
+
+
+def main_path_reduce(pts, assign, items):
+    """Phase 7: KMeans under ``flow="reduce"`` (no kernel: the reference
+    has none), Lmax set to the largest count so no value is cut off."""
+    import torch
+    from repro_torch import MapReduce, apps
+
+    app = apps.KMeans()
+    app.max_values_per_key = int(np.bincount(assign).max())
+    mr = MapReduce(app, flow="reduce")
+    if mr.plan.flow != "reduce" or mr.plan.optimized:
+        raise AssertionError(f"unexpected plan:\n{mr.explain()}")
+    res = mr.run(items)
+    torch.cuda.synchronize()
+    want_counts, want = kmeans_centroids(pts, assign)
+    if not np.array_equal(res.counts.cpu().numpy(), want_counts):
+        raise AssertionError("KMeans reduce: counts != np.bincount")
+    got = res.values.cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=SUM_RTOL, atol=SUM_RTOL)
+    log(mr.explain())
+    log(f"main path reduce: KMeans Lmax={app.max_values_per_key}, counts "
+        f"exact, centroids max abs err {np.abs(got - want).max():.3g}")
+    return mr
+
+
+def combine_kernel_rows(rng, launches) -> list[dict]:
+    """Phase 8, combine flow: B6 and B7 at the combine main path's shapes
+    (2^24 pairs, D = 3, K = 100), and B7's additive fallback at K = 2^16."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.combine_scatter import combine_scatter_plain
+    from repro_torch.kernels.onehot_combine import onehot_combine_plain
+
+    n, d, k = N_POINTS, 3, 100
+    keys = torch.randint(0, k, (n,), dtype=torch.int32, device="cuda")
+    vals = torch.randn((n, d), device="cuda")
+    keys64 = keys.long()
+    idx = keys64[:, None].expand(n, d).contiguous()
+    nbytes = n * (4 + 4 * d) + k * d * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n * d / F32_OPS_PER_S * 1e3
+    src = "src/repro_torch/kernels/csrc/"
+    rows = []
+    for name, op, kern, plain, lib, replaces in (
+            ("onehot_combine", "add",
+             lambda: ops.onehot_combine(keys, vals, k),
+             lambda: onehot_combine_plain(keys, vals, k),
+             lambda: torch.zeros((k, d), device="cuda").index_add_(
+                 0, keys64, vals),
+             "src/repro/kernels/onehot_combine.py:123"),
+            ("combine_scatter", "max",
+             lambda: ops.combine_scatter(keys, vals, k, "max"),
+             lambda: combine_scatter_plain(keys, vals, k, "max"),
+             lambda: torch.full((k, d), float("-inf"), device="cuda")
+             .scatter_reduce_(0, idx, vals, "amax", include_self=True),
+             "src/repro/kernels/combine_scatter.py:52")):
+        err = (kern() - plain()).abs().max().item()
+        ms = time_ms(kern, 10)
+        rows.append({
+            "name": name, "route": "cuda", "source": src + name + ".cu",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err, "ms": ms, "kernel_ms": ms,
+            "plain_ms": time_ms(plain, 3),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": time_ms(lib, 10),
+            "shape": {"n": n, "d": d, "k": k, "op": op},
+        })
+    # the additive fallback past the one-hot cutoff: O(N·K) compares
+    n2, k2 = 1 << 22, 1 << 16
+    keys = torch.randint(0, k2, (n2,), dtype=torch.int32, device="cuda")
+    vals = torch.randn((n2, 1), device="cuda")
+    rows[-1]["k65536_add"] = {
+        "n": n2, "d": 1, "k": k2,
+        "ms": time_ms(lambda: ops.combine_scatter(keys, vals, k2, "add"), 3),
+        "bound_ms": (n2 * 8 + k2 * 4) / HBM_BYTES_PER_S * 1e3,
+        "library_ms": time_ms(lambda: torch.zeros(
+            (k2, 1), device="cuda").index_add_(0, keys.long(), vals), 3)}
     return rows
 
 
@@ -496,7 +726,7 @@ def main_path_sort(key_space: int):
 
 
 def sort_kernel_rows(rng, launches) -> list[dict]:
-    """Phase 6, sort flow: B3, B4 and B5 at the main paths' shapes."""
+    """Phase 8, sort flow: B3, B4 and B5 at the main paths' shapes."""
     import torch
     from repro_torch.core.autotune import CUDA_CHUNK_PAIRS
     from repro_torch.kernels import ops
@@ -636,6 +866,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     check_kernels(rng)
     check_sort_kernels(rng)
+    check_combine_kernels(rng)
 
     pts, assign, clusters = datasets.kmeans_data(
         np.random.default_rng(1), points=N_POINTS)
@@ -645,20 +876,39 @@ def main() -> int:
     phoenix_on_card()
     sort_runs = {k: main_path_sort(k) for k in SORT_KEY_SPACES}
     phoenix_on_card("sort")
+    combine_runs = main_path_combine(pts, assign, items)
+    phoenix_on_card("combine")
+    mr_reduce = main_path_reduce(pts, assign, items)
+    phoenix_on_card("reduce")
 
     rows = kernel_rows(rng, launches_add, launches_dense)
     launches_sort = {name: sum(run[2][name] for run in sort_runs.values())
                      for name in ("radix_partition", "radix_partition_multi",
                                   "segment_reduce")}
     rows += sort_kernel_rows(rng, launches_sort)
+    rows += combine_kernel_rows(rng, {
+        "onehot_combine": combine_runs["kmeans"][1]["onehot_combine"],
+        "combine_scatter":
+            combine_runs["bounding_box"][1]["combine_scatter"]})
     main_ms = {"kmeans_ms": run_ms(mr_add, items),
                "bounding_box_ms": run_ms(mr_dense, items),
                "points": N_POINTS, "card": card}
     for k, (mr, sitems, _) in sort_runs.items():
         main_ms[f"keyed_sum_K{k}_ms"] = run_ms(mr, sitems)
     main_ms["sort_pairs"] = SORT_ITEMS * 8
+    flows = {"kmeans_combine": combine_runs["kmeans"][0],
+             "bounding_box_combine": combine_runs["bounding_box"][0],
+             "kmeans_reduce": mr_reduce}
+    for label, mr in flows.items():
+        main_ms[f"{label}_ms"] = run_ms(mr, items)
+    # the paper's quantity: the baseline reduce flow over an optimized flow
+    main_ms["kmeans_reduce_over_combine"] = (main_ms["kmeans_reduce_ms"]
+                                             / main_ms["kmeans_combine_ms"])
+    main_ms["kmeans_reduce_over_stream"] = (main_ms["kmeans_reduce_ms"]
+                                            / main_ms["kmeans_ms"])
     log(json.dumps({"main_path": main_ms}))
-    for label, mr in (("kmeans", mr_add), ("bounding_box", mr_dense)):
+    for label, mr in (("kmeans", mr_add), ("bounding_box", mr_dense),
+                      *flows.items()):
         log(json.dumps({"profile": label,
                         **profile(mr, items, main_ms[f"{label}_ms"])}))
     for k, (mr, sitems, _) in sort_runs.items():

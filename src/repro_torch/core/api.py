@@ -18,9 +18,11 @@ writes ``map`` and ``reduce`` with torch ops::
 The run happens on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without ``device="cpu"`` the constructor raises.
 ``use_kernels`` (default: on when the device is CUDA) routes the folds
-through the hand-written kernels.  Staging (``lower/optimize/compile``),
-the plan cache, distributed, resilient and served runs are not ported yet
-(ROADMAP A9, A11–A13).
+through the hand-written kernels.  All four flows run: stream, sort,
+combine and reduce (the paper's baseline, also the ``flow="auto"`` choice
+for a reducer the optimizer cannot turn into a combiner).  Staging
+(``lower/optimize/compile``), the plan cache, distributed, resilient and
+served runs are not ported yet (ROADMAP A9, A11–A13).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.core import autotune as at
+from repro_torch.core import collector as col
 from repro_torch.core import combiner as C
 from repro_torch.core import engine as eng
 from repro_torch.core.plan import ExecutionPlan, plan_execution
@@ -45,8 +48,8 @@ class MapReduceApp:
     key_space: dense key-id capacity K (keys are int32 in [0, K)).
     value_spec: shape and dtype of one emitted value.
     emit_capacity: max pairs one ``map(item, emit)`` call may emit.
-    max_values_per_key: Lmax of the reduce flow (kept for parity; the port
-    has no reduce flow yet).
+    max_values_per_key: Lmax of the reduce flow: a key's first Lmax values
+    (in emission order) fill its window, padded with ``pad_value``.
     """
 
     key_space: int = 0
@@ -80,10 +83,12 @@ Emitter = eng.Emitter
 @dataclasses.dataclass(frozen=True)
 class ExecutionOptions:
     """Run-time overrides of the lowering; ``None`` keeps the MapReduce
-    constructor's choice.  ``key_block`` is the stream flow's;
-    ``bucket_size`` (the leaf bucket) and ``level_fanouts`` (the radix
-    levels) are the sort flow's."""
+    constructor's choice.  ``combine_impl`` is the combine flow's
+    (``auto``, ``onehot``, ``scatter``, ``first``, ``segment``);
+    ``key_block`` the stream flow's; ``bucket_size`` (the leaf bucket) and
+    ``level_fanouts`` (the radix levels) the sort flow's."""
 
+    combine_impl: str | None = None
     use_kernels: bool | None = None
     chunk_pairs: int | None = None
     key_block: int | None = None
@@ -118,16 +123,20 @@ def to_device(items, device):
 class MapReduce:
     """``MapReduce(app).run(items)`` — the framework entry point.
 
-    flow: "auto" (the stream flow), "stream" or "sort".  Construction
-    plans: derives the combiner from ``app.reduce`` (or takes
-    ``app.manual_combiner``) and tiles the flow's fold;
-    ``stream_chunk_pairs`` pins the chunk of either flow and
-    ``stream_key_block`` the stream fold's key block.  ``n_pairs_hint``
-    (the reference's cost-model ranking) is not ported and raises.
+    flow: "auto" (the stream flow, or the reduce flow when no combiner
+    can be derived), "stream", "sort", "combine" or "reduce".
+    Construction plans: derives the combiner from ``app.reduce`` (or takes
+    ``app.manual_combiner``) and tiles the stream or sort flow's fold;
+    ``stream_chunk_pairs`` pins the chunk of either and
+    ``stream_key_block`` the stream fold's key block.  The combine and
+    reduce flows have no tiling; ``combine_impl`` picks the combine flow's
+    lowering.  ``n_pairs_hint`` (the reference's cost-model ranking) is
+    not ported and raises.
     """
 
     def __init__(self, app: MapReduceApp, *, flow: str = "auto",
                  trust_semantics: bool = False,
+                 combine_impl: str = "auto",
                  use_kernels: bool | None = None,
                  stream_chunk_pairs: int | str = "auto",
                  stream_key_block: int | str | None = "auto",
@@ -139,9 +148,15 @@ class MapReduce:
         self.app = app
         self.use_kernels = (self.device.type == "cuda" if use_kernels is None
                             else use_kernels)
+        self.combine_impl = combine_impl
         self.plan = plan_execution(app, flow=flow,
                                    trust_semantics=trust_semantics,
                                    n_pairs_hint=n_pairs_hint)
+        if self.plan.flow in ("combine", "reduce"):
+            self.tiling = None
+            if self.plan.flow == "combine":
+                self._combine_diagnostics()
+            return
         if self.plan.flow == "sort":
             self.tiling = at.autotune_sort(
                 app, self.plan.spec, device=self.device,
@@ -158,6 +173,22 @@ class MapReduce:
                 "stream fold degraded to exact scatter (dense budget "
                 "exceeded) — see tiling notes",)
 
+    def _combine_diagnostics(self) -> None:
+        """Flag, at plan time, a combine flow that the collector's rule
+        (:func:`~repro_torch.core.collector.choose_combine_impl`) degrades
+        to the scatter fallback once the pair count passes the fused
+        contraction's (below the one-hot cutoff it holds at any count)."""
+        _, reason = col.choose_combine_impl(
+            self.plan.spec, self.app.key_space,
+            col.ADDITIVE_FOLD_PAIRS_FUSED + 1,
+            onehot_kernel=self.use_kernels)
+        if reason is None:
+            return
+        self.plan.diagnostics += (
+            f"combine flow: {reason}; the collector uses the exact scatter "
+            f"fallback there (LoweringFallbackWarning at run time) — the "
+            f"stream flow has no such limit",)
+
     def run(self, items, *, options: ExecutionOptions | None = None,
             n_valid: int | None = None) -> MapReduceResult:
         """Run the planned flow over ``items`` (the first ``n_valid`` of
@@ -165,9 +196,18 @@ class MapReduce:
         opts = options if options is not None else ExecutionOptions()
         use_kernels = (self.use_kernels if opts.use_kernels is None
                        else opts.use_kernels)
+        items = to_device(items, self.device)
+        if self.tiling is None:  # the combine and reduce flows
+            impl = (self.combine_impl if opts.combine_impl is None
+                    else opts.combine_impl)
+            with torch.no_grad():
+                keys, values, counts = eng.run_local(
+                    self.app, self.plan, items, device=self.device,
+                    combine_impl=impl, use_kernels=use_kernels,
+                    n_valid=n_valid)
+            return MapReduceResult(keys, values, counts, self.plan)
         chunk = (self.tiling.chunk_pairs if opts.chunk_pairs is None
                  else opts.chunk_pairs)
-        items = to_device(items, self.device)
         with torch.no_grad():
             if self.plan.flow == "sort":
                 keys, values, counts = eng.run_local_sort(

@@ -1,21 +1,28 @@
-"""The stream and sort flows' collectors: pair chunks folded into carried
-holder tables.
+"""The collectors of the four flows.
 
-Counterpart of the stream- and sort-flow parts of
-``repro/core/collector.py`` (``PairStream``, ``Grouped``,
-``finalize_tables``, ``stream_mode``, ``choose_dense_key_block``,
-``StreamCombiner``, ``_sequential_fold``, ``stable_sort_by_key``,
-``segmented_scan``, ``_run_aggregate``, ``SortCombiner`` and
-``sort_flow``).
+Counterpart of ``repro/core/collector.py``:
+
+* stream and sort flows — pair chunks folded into carried holder tables
+  (``PairStream``, ``Grouped``, ``finalize_tables``, ``stream_mode``,
+  ``choose_dense_key_block``, ``StreamCombiner``, ``_sequential_fold``,
+  ``stable_sort_by_key``, ``segmented_scan``, ``_run_aggregate``,
+  ``SortCombiner``, ``sort_flow``);
+* combine flow — the whole pair buffer folded into fresh holder tables in
+  one pass (``combine_flow`` with its ``onehot``, ``scatter``, ``first``
+  and ``segment`` lowerings);
+* reduce flow — the paper's baseline: the pairs sorted, grouped into
+  padded windows and handed to the user's ``reduce`` (``reduce_flow``).
+
 Keys are dense int32 ids in ``[0, key_space)``; an invalid emission carries
 the sentinel ``key_space`` and never lands.
 
 Every fold is deterministic on the card: float sums go through the one-hot
-contraction, the ``onehot_fold`` or ``segment_reduce`` kernel (no float
-atomics) or the difference of a sorted chunk's running sum (one result per
-run end, written without accumulation), integer sums through ``index_add_``
-in the table's own integer dtype (integer atomics give the same result in
-any order), and max/min follow JAX's NaN and signed-zero rules.
+contraction, the ``onehot_fold``, ``onehot_combine``, ``combine_scatter`` or
+``segment_reduce`` kernel (no float atomics), a sorted ``index_put_``, or
+the difference of a sorted chunk's running sum (one result per run end,
+written without accumulation), integer sums through ``index_add_`` in the
+table's own integer dtype (integer atomics give the same result in any
+order), and max/min follow JAX's NaN and signed-zero rules.
 """
 
 from __future__ import annotations
@@ -587,3 +594,258 @@ def sort_flow(spec: C.CombinerSpec, stream: PairStream, *,
     sc = SortCombiner(spec, stream.key_space, value_spec,
                       device=stream.keys.device, sort_fold_fn=sort_fold_fn)
     return sc.finalize(sc.fold_chunk(sc.init_state(), stream))
+
+
+# ---------------------------------------------------------------------------
+# Reduce flow (the paper's baseline: no combiner)
+# ---------------------------------------------------------------------------
+
+#: largest ``[keys, Lmax]`` window block the reduce flow gathers at once; the
+#: user reduce runs one block of keys at a time (the same result: it is
+#: vmapped over keys)
+REDUCE_WINDOW_ELEMS = 1 << 24
+
+
+def reduce_flow(reduce_fn: Callable, stream: PairStream, *,
+                max_values_per_key: int, pad_value) -> Grouped:
+    """Materialize → stable sort → group → per-key user reduce.
+
+    Each key's values, in emission order, fill a window of
+    ``max_values_per_key`` (Lmax) rows padded with ``pad_value``; the user
+    ``reduce(key, window, min(count, Lmax))`` runs on every key under
+    ``torch.func.vmap``.  A key with more than Lmax values reduces its
+    first Lmax; the returned counts are not clipped (as in the reference).
+    """
+    K = stream.key_space
+    lmax = int(max_values_per_key)
+    keys = torch.where((stream.keys >= 0) & (stream.keys < K), stream.keys,
+                       K).to(torch.int64)
+    n = keys.shape[0]
+    dev = keys.device
+    # stable: order-dependent reducers see their values in emission order
+    order = torch.argsort(keys, stable=True)
+    counts = torch.bincount(keys, minlength=K + 1)[:K]
+    offsets = torch.cumsum(counts, 0) - counts
+    counts = counts.to(torch.int32)
+    clipped = counts.clamp(max=lmax)
+    slot = torch.arange(lmax, device=dev)
+    block = max(1, REDUCE_WINDOW_ELEMS // max(lmax, 1))
+    outs = []
+    for lo in range(0, K, block):
+        hi = min(lo + block, K)
+        inside = slot[None, :] < counts[lo:hi, None]  # [kb, Lmax]
+        pos = (offsets[lo:hi, None] + slot[None, :]).clamp(max=max(n - 1, 0))
+        idx = order[pos] if n else pos
+
+        def window(v, inside=inside, idx=idx):
+            pad = torch.tensor(pad_value, dtype=v.dtype, device=dev)
+            if v.shape[0] == 0:
+                return pad.expand(idx.shape + tuple(v.shape[1:])).clone()
+            m = inside.reshape(inside.shape + (1,) * (v.ndim - 1))
+            return torch.where(m, v[idx], pad)
+
+        wins = pytree.tree_map(window, stream.values)
+        keys_blk = torch.arange(lo, hi, dtype=torch.int32, device=dev)
+        outs.append(torch.func.vmap(reduce_fn)(keys_blk, wins,
+                                               clipped[lo:hi]))
+    values = pytree.tree_map(lambda *xs: torch.cat(xs), *outs)
+    return Grouped(torch.arange(K, dtype=torch.int32, device=dev), values,
+                   counts)
+
+
+# ---------------------------------------------------------------------------
+# Combine flow (the optimizer's single-shot flow)
+# ---------------------------------------------------------------------------
+
+#: key-space cutoff of the combine flow's one-hot lowering (the reference's
+#: value): with a one-hot kernel the flow takes it up to this many keys
+#: only, and past it degrades to the scatter lowering
+ONEHOT_MAX_KEYS = 2048
+
+#: pair count up to which the combine flow keeps the plain one-hot
+#: contraction past :data:`ONEHOT_MAX_KEYS` (the reference's value, which
+#: it measured as XLA's fused-contraction regime); the plain contraction's
+#: ``[N, K]`` one-hot stays at most ``2048 × K``
+ADDITIVE_FOLD_PAIRS_FUSED = 2048
+
+
+def _emit_fallback(msg: str, on_fallback: Callable | None) -> None:
+    """Route a fallback diagnostic to ``on_fallback`` (the plan's sink:
+    warn once per plan, record every message) when given, else warn."""
+    if on_fallback is not None:
+        on_fallback(msg)
+    else:
+        warnings.warn(msg, LoweringFallbackWarning, stacklevel=3)
+
+
+def _premap_stream(spec: C.CombinerSpec, values):
+    """(channels, treedef): the batched premap's leaves ``[N, *leaf]`` and
+    the structure of the spec's holder, which the tables take."""
+    holder = spec.init(C.ValueSpec(tuple(values.shape[1:]), values.dtype))
+    return (pytree.tree_leaves(spec.premap(values)),
+            pytree.tree_structure(holder))
+
+
+def combine_scatter(spec: C.CombinerSpec, stream: PairStream, *,
+                    scatter_fn: Callable | None = None
+                    ) -> tuple[Any, torch.Tensor]:
+    """Holder tables by ``identity.at[keys].<monoid>(channel)`` scatters.
+
+    ``scatter_fn(keys, mat, K, op)`` (the ``combine_scatter`` kernel) takes
+    f32 add/max/min leaves; the rest, and every leaf without it, take the
+    monoid's exact scatter.  Counts: ``bincount``."""
+    assert spec.monoids is not None
+    K = stream.key_space
+    n = stream.keys.shape[0]
+    chans, treedef = _premap_stream(spec, stream.values)
+    tables = []
+    for mono, chan in zip(spec.monoids, chans):
+        if (scatter_fn is not None and chan.dtype == torch.float32
+                and mono.name in ("add", "max", "min")):
+            tab = scatter_fn(stream.keys, _rows_f32(chan, n), K, mono.name)
+            tables.append(tab.reshape((K,) + tuple(chan.shape[1:])))
+            continue
+        init = mono.identity_like((K,) + tuple(chan.shape[1:]), chan.dtype,
+                                  device=chan.device)
+        tables.append(mono.scatter(init, stream.keys, chan))
+    counts = _counts(stream.keys, stream.valid, K)
+    return pytree.tree_unflatten(tables, treedef), counts
+
+
+def combine_onehot(spec: C.CombinerSpec, stream: PairStream, *,
+                   onehot_fn: Callable | None = None
+                   ) -> tuple[Any, torch.Tensor]:
+    """Additive holders by the one-hot contraction ``one_hot(keys)ᵀ @ chan``.
+
+    ``onehot_fn(keys, mat, K)`` (the ``onehot_combine`` kernel) takes every
+    channel in f32, integer ones too (exact up to 2^24 per key, ROADMAP
+    C.6), and the counts, as in the reference.  Without it float channels
+    take the plain contraction in f32 and integer channels an exact
+    ``index_add_`` in their own dtype (ROADMAP C.5); counts ``bincount``."""
+    assert spec.sum_lowerable
+    K = stream.key_space
+    n = stream.keys.shape[0]
+    valid = stream.valid
+    chans, treedef = _premap_stream(spec, stream.values)
+    tables = []
+    for chan in chans:
+        shape = (K,) + tuple(chan.shape[1:])
+        if onehot_fn is not None:
+            tab = onehot_fn(stream.keys, _rows_f32(chan, n), K)
+        elif chan.is_floating_point():
+            from repro_torch.kernels.onehot_combine import onehot_combine_plain
+
+            tab = onehot_combine_plain(stream.keys, _rows_f32(chan, n), K)
+        else:  # invalid pairs add 0 to row 0: exact, and no host sync
+            vmask = valid.reshape((n,) + (1,) * (chan.ndim - 1))
+            tab = torch.zeros(shape, dtype=chan.dtype,
+                              device=chan.device).index_add_(
+                0, torch.where(valid, stream.keys, 0).to(torch.int64),
+                torch.where(vmask, chan, 0))
+        tables.append(tab.reshape(shape).to(chan.dtype))
+    if onehot_fn is not None:
+        counts = onehot_fn(stream.keys, valid.to(torch.float32)[:, None],
+                           K)[:, 0].to(torch.int32)
+    else:
+        counts = _counts(stream.keys, valid, K)
+    return pytree.tree_unflatten(tables, treedef), counts
+
+
+def combine_first(spec: C.CombinerSpec, stream: PairStream
+                  ) -> tuple[Any, torch.Tensor]:
+    """First-element idiom: each key's first-arrived value (a scatter-min
+    of arrival positions).  An absent key holds the last pair's value, as
+    in the reference; its count is 0."""
+    K = stream.key_space
+    n = stream.keys.shape[0]
+    valid = stream.valid
+    chans, treedef = _premap_stream(spec, stream.values)
+    pos = torch.arange(n, device=stream.keys.device)
+    first_pos = torch.full((K + 1,), n, dtype=torch.int64,
+                           device=stream.keys.device).scatter_reduce(
+        0, torch.where(valid, stream.keys, K).long(), pos, "amin",
+        include_self=True)[:K]
+    safe = first_pos.clamp(max=max(n - 1, 0))
+    tables = [chan[safe] for chan in chans]
+    return (pytree.tree_unflatten(tables, treedef),
+            _counts(stream.keys, valid, K))
+
+
+def combine_segment(spec: C.CombinerSpec, stream: PairStream
+                    ) -> tuple[Any, torch.Tensor]:
+    """Coupled holders: the stably key-sorted pairs folded one at a time
+    (:func:`_sequential_fold`)."""
+    sk, order = stable_sort_by_key(stream.keys, stream.key_space)
+    svals = pytree.tree_map(lambda v: v[order], stream.values)
+    value_spec = C.ValueSpec(tuple(stream.values.shape[1:]),
+                             stream.values.dtype)
+    tables0, counts0 = spec.init_tables(stream.key_space, value_spec,
+                                        stream.keys.device)
+    return _sequential_fold(spec, tables0, counts0, sk, svals)
+
+
+def choose_combine_impl(spec: C.CombinerSpec, key_space: int, n_pairs: int,
+                        *, onehot_kernel: bool) -> tuple[str, str | None]:
+    """``(impl, fallback reason)`` of ``combine_flow(impl="auto")``: the
+    reference's rule.  The reason is set when a sum-lowerable spec
+    degrades to the scatter lowering."""
+    onehot_ok = (key_space <= ONEHOT_MAX_KEYS
+                 or (not onehot_kernel
+                     and n_pairs <= ADDITIVE_FOLD_PAIRS_FUSED))
+    if spec.strategy == C.STRATEGY_SIZE:
+        return "scatter", None  # counts only
+    if spec.strategy == C.STRATEGY_FIRST:
+        return "first", None
+    if spec.sum_lowerable and onehot_ok:
+        return "onehot", None
+    if not spec.scatter_lowerable:
+        return "segment", None
+    if not spec.sum_lowerable:
+        return "scatter", None
+    if onehot_kernel:
+        reason = (f"key_space={key_space} > {ONEHOT_MAX_KEYS}, the key-space "
+                  f"cutoff of the onehot_combine kernel (the reference's "
+                  f"rule, kept)")
+    else:
+        reason = (f"key_space={key_space} > {ONEHOT_MAX_KEYS} and more than "
+                  f"{ADDITIVE_FOLD_PAIRS_FUSED} pairs, past which the plain "
+                  f"one-hot contraction is not taken")
+    return "scatter", reason
+
+
+def combine_flow(spec: C.CombinerSpec, stream: PairStream, *,
+                 impl: str = "auto", onehot_fn: Callable | None = None,
+                 scatter_fn: Callable | None = None,
+                 on_fallback: Callable | None = None) -> Grouped:
+    """The combining collector over a whole pair buffer, with the lowering
+    ``impl`` (``"auto"``: :func:`choose_combine_impl`): ``onehot``,
+    ``scatter``, ``first`` or ``segment``.  A sum-lowerable spec that
+    degrades to ``scatter`` reports it to ``on_fallback`` (else a
+    :class:`LoweringFallbackWarning`)."""
+    K = stream.key_space
+    if impl == "auto":
+        impl, reason = choose_combine_impl(
+            spec, K, stream.keys.shape[0], onehot_kernel=onehot_fn is not None)
+        if reason is not None:
+            _emit_fallback(
+                f"combine flow: {reason}; degrading to the exact scatter "
+                f"fallback. The chunked stream flow keeps large pair "
+                f"streams on the one-hot fold.", on_fallback)
+    if impl == "scatter":
+        if spec.strategy == C.STRATEGY_SIZE:
+            tables, counts = (), _counts(stream.keys, stream.valid, K)
+        else:
+            tables, counts = combine_scatter(spec, stream,
+                                             scatter_fn=scatter_fn)
+    elif impl == "onehot":
+        if not spec.sum_lowerable:
+            raise ValueError(f"combine impl 'onehot' needs a sum-lowerable "
+                             f"combiner, got {spec.describe}")
+        tables, counts = combine_onehot(spec, stream, onehot_fn=onehot_fn)
+    elif impl == "first":
+        tables, counts = combine_first(spec, stream)
+    elif impl == "segment":
+        tables, counts = combine_segment(spec, stream)
+    else:
+        raise ValueError(f"unknown combine impl {impl!r}")
+    return finalize_tables(spec, tables, counts, K)

@@ -1,16 +1,18 @@
-"""Execution engine of the stream and sort flows: the map phase and the
-chunked fold.
+"""Execution engine: the map phase, the stream and sort flows' chunked
+fold, and the single-shot combine and reduce flows.
 
 Counterpart of the local part of ``repro/core/engine.py`` (``Emitter``,
 ``map_phase``, ``_fold_items_chunked``, ``stream_local_tables``,
-``run_local_stream``, ``sort_local_tables``, ``run_local_sort``).  The
-reference scans the chunks with ``lax.scan``; here the chunk loop is a
-Python loop, so chunks are large (see ``autotune``) and each one is a
-handful of launches.
+``run_local_stream``, ``sort_local_tables``, ``run_local_sort``,
+``run_local``).  The reference scans the chunks with ``lax.scan``; here the
+chunk loop is a Python loop, so chunks are large (see ``autotune``) and
+each one is a handful of launches.  The combine and reduce flows map every
+item at once and hand the whole pair buffer to their collector.
 """
 
 from __future__ import annotations
 
+import warnings
 from functools import partial
 from typing import Callable
 
@@ -242,4 +244,71 @@ def sort_local_tables(app, spec, items, *, chunk_pairs: int, device,
 def run_local_sort(app, spec, items, **kw):
     tables, counts = sort_local_tables(app, spec, items, **kw)
     grouped = col.finalize_tables(spec, tables, counts, app.key_space)
+    return grouped.keys, grouped.values, grouped.counts
+
+
+# ---------------------------------------------------------------------------
+# Combine and reduce flows (single shot)
+# ---------------------------------------------------------------------------
+
+
+def _onehot_kernel(use_kernels: bool) -> Callable | None:
+    if not use_kernels:
+        return None
+    from repro_torch.kernels import ops
+
+    return ops.onehot_combine
+
+
+def _scatter_kernel(use_kernels: bool) -> Callable | None:
+    if not use_kernels:
+        return None
+    from repro_torch.kernels import ops
+
+    return ops.combine_scatter
+
+
+def _plan_fallback_cb(plan) -> Callable | None:
+    """The plan's fallback sink: warn once per plan, and record every
+    message on ``plan.diagnostics`` for ``explain()``."""
+    if plan is None:
+        return None
+
+    def cb(msg: str) -> None:
+        if not getattr(plan, "_fallback_warned", False):
+            warnings.warn(msg, col.LoweringFallbackWarning, stacklevel=4)
+            plan._fallback_warned = True
+        if msg not in plan.diagnostics:
+            plan.diagnostics += (msg,)
+
+    return cb
+
+
+def run_local(app, plan, items, *, device, combine_impl: str = "auto",
+              use_kernels: bool = False, n_valid: int | None = None):
+    """The combine or reduce flow over ``items``: one map phase over every
+    item, the pairs of items at ``n_valid`` and beyond masked to the
+    sentinel, then ``combine_flow`` (kernels bound by ``use_kernels``) or
+    ``reduce_flow``.  Returns ``(keys, values, counts)``."""
+    stream = map_phase(app, items, device)
+    if n_valid is not None:
+        n_items = items_length(items)
+        item_ok = torch.arange(n_items, device=stream.keys.device) < n_valid
+        stream = col.PairStream(
+            torch.where(item_ok.repeat_interleave(app.emit_capacity),
+                        stream.keys, app.key_space),
+            stream.values, app.key_space)
+    if plan.flow == "combine":
+        grouped = col.combine_flow(
+            plan.spec, stream, impl=combine_impl,
+            onehot_fn=_onehot_kernel(use_kernels),
+            scatter_fn=_scatter_kernel(use_kernels),
+            on_fallback=_plan_fallback_cb(plan))
+    elif plan.flow == "reduce":
+        grouped = col.reduce_flow(
+            app.reduce, stream, max_values_per_key=app.max_values_per_key,
+            pad_value=app.pad_value)
+    else:
+        raise ValueError(f"run_local runs the combine and reduce flows, not "
+                         f"{plan.flow!r}")
     return grouped.keys, grouped.values, grouped.counts

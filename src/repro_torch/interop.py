@@ -18,7 +18,9 @@ port's state for a given combiner, converting between the fused and the
 per-leaf layouts when the two sides chose differently; a fold seeded with
 it continues exactly as the reference's next fold would.
 :func:`state_to_repro` goes back.  Holder dtypes follow the port's
-combiner (torch sums integers into int64, the reference into int32).
+combiner (torch sums integers into int64, the reference into int32).  The
+combine and reduce flows keep no state between runs, so there is nothing
+of theirs to carry.
 """
 
 from __future__ import annotations

@@ -1,9 +1,13 @@
 // Deterministic keyed fold of an unsorted pair chunk into a [K, D] f32 table,
-// shared by onehot_fold.cu (sums) and chunk_monoid_fold.cu (add/max/min).
+// shared by onehot_fold.cu (sums) and chunk_monoid_fold.cu (add/max/min),
+// which fold onto a carried table, and by onehot_combine.cu (sums) and
+// combine_scatter.cu (add/max/min), which build the table from the identity.
 //
 // What it computes: out[k, :] = acc[k, :] (op) fold_op{ vals[i, :] : keys[i] == k },
 // with keys outside [0, K) (the sentinel K included) dropped.  Rows of keys
-// absent from the chunk fold only the identity, so they pass through.
+// absent from the chunk fold only the identity, so they pass through.  With
+// acc == nullptr no table is read: out[k, :] is the fold alone, and the
+// identity for an absent key.
 //
 // Design.  The Pallas kernels ran their grid in order on one TPU core and kept
 // the [Kb, D] table block resident in VMEM across the pair tiles.  Blocks on
@@ -16,11 +20,13 @@
 //           in index order.  It writes partial[segment, key, cols].
 //   pass 2  one warp per (key, column): lane l folds segments l, l+32, ... in
 //           order, a fixed shuffle tree joins the lanes, and the result is
-//           combined onto acc.  The order of every addition is fixed by the
-//           shapes alone, so two runs give the same bits.
+//           combined onto acc (when there is one).  The order of every
+//           addition is fixed by the shapes alone, so two runs give the same
+//           bits.
 //
 // Bound on this card: bytes.  The function must read N*(4 + 4D) bytes of pairs
-// and K*D*4 of acc and write K*D*4; at 3.35 TB/s that is the floor.  The design
+// and K*D*4 of acc (none without acc) and write K*D*4; at 3.35 TB/s that is
+// the floor.  The design
 // reads each pair once from device memory (the staging loads are coalesced),
 // but every thread of a key block scans every staged key, so the work is
 // O(N * K) compares: the kernel is bound by instruction throughput, not
@@ -124,7 +130,7 @@ __global__ void merge_segments(const float* __restrict__ acc,
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     r = combine<OP>(r, __shfl_down_sync(0xffffffffu, r, off));
-  if (lane == 0) out[e] = combine<OP>(acc[e], r);
+  if (lane == 0) out[e] = acc != nullptr ? combine<OP>(acc[e], r) : r;
 }
 
 template <int OP>

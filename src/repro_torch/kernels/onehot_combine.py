@@ -1,11 +1,18 @@
-"""``onehot_fold``: ``acc + one_hot(keys)ᵀ @ values`` on the H100.
+"""``onehot_fold`` and ``onehot_combine``: per-key sums on the H100.
 
-Counterpart of ``repro/kernels/onehot_combine.py::onehot_fold``.  The
-kernel (``csrc/onehot_fold.cu``) folds the chunk in two deterministic
-passes with no float atomics; :func:`onehot_fold_plain` is the same
-function in plain PyTorch, used for CPU tensors and as the kernel's oracle.
-Call both through :func:`repro_torch.kernels.ops.onehot_fold`, which checks
-shapes and picks the tiling.
+Counterpart of ``repro/kernels/onehot_combine.py``.
+
+* ``onehot_fold`` — ``acc + one_hot(keys)ᵀ @ values``, the stream flow's
+  additive chunk fold (``csrc/onehot_fold.cu``);
+* ``onehot_combine`` — ``one_hot(keys)ᵀ @ values`` of a whole pair buffer,
+  the combine flow's additive fold (``csrc/onehot_combine.cu``).
+
+Both kernels fold in two deterministic passes with no float atomics; the
+``*_plain`` functions are the same functions in plain PyTorch, used for CPU
+tensors and as the kernels' oracles.  Call them through
+:func:`repro_torch.kernels.ops.onehot_fold` and
+:func:`repro_torch.kernels.ops.onehot_combine`, which check shapes and pick
+the tiling.
 """
 
 from __future__ import annotations
@@ -52,3 +59,43 @@ def onehot_fold_cuda(keys: torch.Tensor, values: torch.Tensor,
     _build.check("onehot_fold", lib, err)
     _build.count_launch("onehot_fold")
     return out
+
+
+def onehot_combine_plain(keys: torch.Tensor, values: torch.Tensor,
+                         key_space: int, block_k: int | None = None
+                         ) -> torch.Tensor:
+    """[N] keys, [N, D] values -> [K, D] per-key sums (f32); keys outside
+    ``[0, K)`` (the sentinel ``K`` among them) are dropped."""
+    zeros = torch.zeros((key_space, values.shape[1]), dtype=torch.float32,
+                        device=values.device)
+    return onehot_fold_plain(keys, values, zeros, block_k=block_k)
+
+
+def keyed_table_cuda(name: str, keys: torch.Tensor, values: torch.Tensor,
+                     key_space: int, *extra: int, block_k: int, tile_n: int,
+                     seg_len: int, n_seg: int) -> torch.Tensor:
+    """Launch kernel ``name`` over the two-pass keyed fold that builds a
+    fresh ``[K, D]`` f32 table (``onehot_combine``, ``combine_scatter``);
+    ``extra`` are the launch arguments between ``K`` and the tiling."""
+    lib = _build.library(name)
+    n, d = values.shape
+    out = torch.empty((key_space, d), dtype=torch.float32,
+                      device=values.device)
+    partial = torch.empty((n_seg, key_space, d), dtype=torch.float32,
+                          device=values.device)
+    err = getattr(lib, f"{name}_launch")(
+        keys.data_ptr(), values.data_ptr(), out.data_ptr(),
+        partial.data_ptr(), n, d, key_space, *extra, block_k, tile_n,
+        seg_len, n_seg, torch.cuda.current_stream(values.device).cuda_stream)
+    _build.check(name, lib, err)
+    _build.count_launch(name)
+    return out
+
+
+def onehot_combine_cuda(keys: torch.Tensor, values: torch.Tensor,
+                        key_space: int, *, block_k: int, tile_n: int,
+                        seg_len: int, n_seg: int) -> torch.Tensor:
+    """Launch the kernel; the wrapper in ``ops`` has checked the inputs."""
+    return keyed_table_cuda("onehot_combine", keys, values, key_space,
+                            block_k=block_k, tile_n=tile_n, seg_len=seg_len,
+                            n_seg=n_seg)

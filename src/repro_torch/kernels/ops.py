@@ -16,6 +16,7 @@ import torch
 
 from repro_torch import numerics
 from repro_torch.kernels import _build
+from repro_torch.kernels import combine_scatter as _cs
 from repro_torch.kernels import onehot_combine as _oc
 from repro_torch.kernels import radix_partition as _rp
 from repro_torch.kernels import segment_reduce as _sr
@@ -93,12 +94,18 @@ def _check_cuda(name, keys, values, acc, block_k):
     for t, what in ((keys, "keys"), (values, "values"), (acc, "acc")):
         if not t.is_contiguous():
             raise ValueError(f"{name}: {what} must be contiguous")
-    n, d = values.shape
-    if n >= 2**31 or acc.numel() >= 2**31:
+    _check_fold_launch(name, values.shape[0], acc.numel(), acc.shape[0],
+                       block_k)
+
+
+def _check_fold_launch(name, n, table_elems, key_space, block_k):
+    """The fold kernels' launch limits: int32 sizes, and a grid of key
+    blocks CUDA can launch."""
+    if n >= 2**31 or table_elems >= 2**31:
         raise ValueError(f"{name}: sizes past 2^31 elements are not taken")
-    if not 1 <= block_k <= 1024 or -(-acc.shape[0] // block_k) > 65535:
+    if not 1 <= block_k <= 1024 or -(-key_space // block_k) > 65535:
         raise ValueError(f"{name}: block_k={block_k} keys per block is not "
-                         f"a launchable block for K={acc.shape[0]}")
+                         f"a launchable block for K={key_space}")
 
 
 def _block(block_k, key_space):
@@ -467,3 +474,76 @@ def sort_segment_fold(keys, values, acc, op="add", *, bucket_size=None,
                                       fanouts=fanouts, pad_align=pad_align)
     return segment_reduce(pkeys, pvals, key_space, op, tile_n=pad_align,
                           block_k=bucket_size, acc=acc)
+
+
+# ---------------------------------------------------------------------------
+# Combine flow: whole pair buffers into fresh tables
+# ---------------------------------------------------------------------------
+
+
+def _combine_inputs(name, keys, values, key_space, block_k):
+    """Checks shared by onehot_combine and combine_scatter; the values
+    cast to f32 (bf16 values are taken, as in the reference) and the keys
+    per block."""
+    _check_pairs(name, keys, values)
+    if key_space < 1:
+        raise ValueError(f"{name}: key_space must be positive, got "
+                         f"{key_space}")
+    return values.to(torch.float32), _block(block_k, key_space)
+
+
+def _combine_cuda(name, keys, values, key_space, block_k):
+    """The CUDA path's checks and the fold kernels' tiling:
+    ``(tile_n, seg_len, n_seg)``."""
+    _check_cuda_pairs(name, keys, values)
+    n, d = values.shape
+    _check_fold_launch(name, n, key_space * d, key_space, block_k)
+    return (fold_tile_n(d),) + fold_segments(n, key_space, d, block_k)
+
+
+def onehot_combine(keys, values, key_space, *, block_k=None):
+    """Additive combine of a whole pair buffer: ``one_hot(keys)ᵀ @ values``.
+
+    [N] int32 keys, [N, D] float values -> [K, D] f32 per-key sums; keys
+    outside ``[0, K)`` (the sentinel ``K`` among them) never land.  The
+    combine flow's ``onehot_fn(keys, mat, K)``."""
+    values, block_k = _combine_inputs("onehot_combine", keys, values,
+                                      key_space, block_k)
+    n, d = values.shape
+    if n == 0 or d == 0:  # no pair: every sum is 0
+        return torch.zeros((key_space, d), dtype=torch.float32,
+                           device=values.device)
+    if keys.device.type == "cpu":
+        return _oc.onehot_combine_plain(keys, values, key_space,
+                                        block_k=block_k)
+    tile_n, seg_len, n_seg = _combine_cuda("onehot_combine", keys, values,
+                                           key_space, block_k)
+    return _oc.onehot_combine_cuda(keys, values, key_space, block_k=block_k,
+                                   tile_n=tile_n, seg_len=seg_len,
+                                   n_seg=n_seg)
+
+
+def combine_scatter(keys, values, key_space, op="add", *, block_k=None):
+    """Monoid combine of a whole pair buffer into a fresh table:
+    ``identity.at[keys].<op>(values)``.
+
+    [N] int32 keys, [N, D] float values -> [K, D] f32; ``op`` is add, max
+    or min (max/min follow JAX's NaN and signed-zero rules); keys outside
+    ``[0, K)`` never land and absent keys keep the identity.  The combine
+    flow's ``scatter_fn(keys, mat, K, op)``."""
+    if op not in _sr.OPS:
+        raise ValueError(f"op must be one of {sorted(_sr.OPS)}, got {op!r}")
+    values, block_k = _combine_inputs("combine_scatter", keys, values,
+                                      key_space, block_k)
+    n, d = values.shape
+    if n == 0 or d == 0:  # no pair: the identity table
+        ident = {"add": 0.0, "max": float("-inf"), "min": float("inf")}[op]
+        return torch.full((key_space, d), ident, dtype=torch.float32,
+                          device=values.device)
+    if keys.device.type == "cpu":
+        return _cs.combine_scatter_plain(keys, values, key_space, op)
+    tile_n, seg_len, n_seg = _combine_cuda("combine_scatter", keys, values,
+                                           key_space, block_k)
+    return _cs.combine_scatter_cuda(keys, values, key_space, op,
+                                    block_k=block_k, tile_n=tile_n,
+                                    seg_len=seg_len, n_seg=n_seg)

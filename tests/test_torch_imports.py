@@ -21,9 +21,10 @@ names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 16, names
+assert len(names) >= 17, names
 for name in ("repro_torch.kernels.radix_partition",
-             "repro_torch.kernels.segment_reduce", "repro_torch.device",
+             "repro_torch.kernels.segment_reduce",
+             "repro_torch.kernels.combine_scatter", "repro_torch.device",
              "repro_torch.core.collector", "repro_torch.interop"):
     assert name in names, name
 bad = sorted(m for m in sys.modules
@@ -40,7 +41,7 @@ def test_every_module_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", PROBE], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 16
+    assert int(out.stdout.strip()) >= 17
 
 
 def _imported(path):

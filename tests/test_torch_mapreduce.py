@@ -113,12 +113,20 @@ def test_default_device_without_a_card_raises():
         T.MapReduce(tapp).run(titems)
 
 
-@pytest.mark.parametrize("flow,item", [("combine", "A8"), ("reduce", "A8")])
-def test_flows_not_ported_name_their_roadmap_item(flow, item):
-    tapp, _ = tapps.build("WC", np.random.default_rng(0), scale=SCALE,
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        T.MapReduce(tapp, flow=flow, device="cpu")
+@pytest.mark.parametrize("flow", ["combine", "reduce"],
+                         ids=["combine-A8", "reduce-A8"])
+def test_flows_not_ported_name_their_roadmap_item(flow):
+    """The flows ROADMAP A8 named as not ported now run, and give the
+    reference's counts and word counts (int64 values in the port, C.5)."""
+    tapp, titems = tapps.build("WC", np.random.default_rng(0), scale=SCALE,
+                               device="cpu")
+    japp, jitems = japps.build("WC", np.random.default_rng(0), scale=SCALE)
+    mr = T.MapReduce(tapp, flow=flow, device="cpu")
+    assert mr.plan.flow == flow and mr.tiling is None
+    res = mr.run(titems)
+    jres = J.MapReduce(japp, flow=flow, cache=False).run(jitems)
+    np.testing.assert_array_equal(res.counts.numpy(), np.asarray(jres.counts))
+    np.testing.assert_array_equal(res.values.numpy(), np.asarray(jres.values))
 
 
 def test_n_pairs_hint_names_the_cost_model_item():
@@ -131,12 +139,26 @@ def test_n_pairs_hint_names_the_cost_model_item():
 
 
 def test_underivable_reducer_is_not_substituted():
+    """No combiner stands in for a reducer the optimizer cannot derive:
+    ``auto`` plans the reduce flow, which runs the user's own reduce, and
+    the values are the reference's."""
     app = T.make_app(lambda item, emit: emit(item, item.float()),
                      lambda k, v, c: v[0] + v[1], key_space=8,
                      value_spec=TC.ValueSpec((), torch.float32),
                      emit_capacity=1)
-    with pytest.raises(NotImplementedError, match="reduce flow"):
-        T.MapReduce(app, device="cpu")
+    japp = J.make_app(lambda item, emit: emit(item, item.astype(jnp.float32)),
+                      lambda k, v, c: v[0] + v[1], key_space=8,
+                      value_aval=jax.ShapeDtypeStruct((), jnp.float32),
+                      emit_capacity=1)
+    mr = T.MapReduce(app, device="cpu")
+    assert mr.plan.flow == "reduce" and mr.plan.spec is None
+    assert "not combinable" in mr.plan.reason
+    items = np.array([1, 3, 1, 5, 3, 1, 7, 9], np.int32)
+    res = mr.run(items)
+    jres = J.MapReduce(japp, cache=False).run(items)
+    np.testing.assert_array_equal(res.counts.numpy(), np.asarray(jres.counts))
+    np.testing.assert_array_equal(res.values.numpy(), np.asarray(jres.values))
+    assert res.to_dict()[1] == 2.0  # 1 + 1: the first two values of key 1
 
 
 def _wc_items():
