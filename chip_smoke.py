@@ -18,7 +18,12 @@ Phases (each raises on failure, and the script then exits non-zero):
    ragged sizes, a key space that is no multiple of the bucket, sentinel
    and out-of-range keys, and pad_align 8, 16 and 256.  The combine
    flow's kernels too, by the same rules: K = 1 to 2^16, D = 1 to 128,
-   bf16 values, sentinel and out-of-range keys, NaN and signed zeros;
+   bf16 values, sentinel and out-of-range keys, NaN and signed zeros.
+   And flash_decode, f32 and bf16, at the reference kernel test's shapes,
+   the bench shape and llama3-8b's decode shape, with ragged kv_len (0, 1,
+   S and lengths that are no multiple of a tile), within 1e-5 (both sides
+   fold the same inputs in f32), two runs bit for bit, and three planted
+   faults (a position, a head map, a tile) must each miss that tolerance;
 3. main path, additive: ``MapReduce(KMeans()).run`` on 2^24 points of the
    Phoenix kmeans shape (3 dimensions, 100 means); the plan must be the
    stream flow with a derived monoid, ``onehot_fold`` must have launched,
@@ -37,18 +42,37 @@ Phases (each raises on failure, and the script then exits non-zero):
    1e-5); then the seven Phoenix apps under ``flow="sort"``, card == CPU;
 6. the combine flow's main paths on the 2^24 KMeans points:
    ``MapReduce(KMeans(), flow="combine")`` (the one-hot lowering,
-   ``onehot_combine`` for the values and the counts) and the bounding-box
-   app (the scatter lowering, ``combine_scatter`` for max and min), counts
-   exact, centroids against float64 numpy and boxes bit for bit; then the
-   seven Phoenix apps under ``flow="combine"``;
+   ``onehot_combine`` for the values and the counts), the bounding-box
+   app (the scatter lowering; its max and min leaves take the sort route,
+   radix_partition + segment_reduce) and KMeans with
+   ``combine_impl="scatter"`` (``combine_scatter`` for the sum), counts
+   exact, centroids against float64 numpy and boxes bit for bit; then
+   ``KeyedSum(2^16)`` on 2^22 pairs, past the one-hot cutoff: the scatter
+   lowering's sort route (radix_partition + segment_reduce, never
+   combine_scatter), counts exact, sums against float64 numpy, two runs
+   bit for bit; then the seven Phoenix apps under ``flow="combine"``;
 7. the reduce flow (the paper's baseline, no kernel): KMeans with its
    window as long as the largest count, counts exact and centroids against
    float64 numpy; then the Phoenix apps under ``flow="reduce"``;
-8. time each kernel, its plain version and one PyTorch library call at the
-   main path's shapes (CUDA events), each main-path run after warm-up, the
-   ratio of the reduce flow's time to the combine and stream flows' (the
-   paper's speedup), and profile one run of each (device time by kernel,
-   busy share).
+8. the serve main path: ``serving.serve_step.generate`` on llama3-8b at
+   full width and depth (32 layers, bf16, random weights from a seeded
+   generator), batch 4, a 2048-token prompt, 32 greedy tokens;
+   flash_decode must launch 32 x 31 times, a second run must give the same
+   tokens, the teacher-forced logits must repeat bit for bit and agree
+   with the plain decode on the card within SERVE_RMS_TOL / SERVE_MAX_TOL,
+   and three planted faults must each fall outside them; prefill ms,
+   decode ms per token and tokens/s over the whole decode loop (one
+   synchronisation at its end; the median of three runs), the median step
+   (CUDA events), and a profile of one decode step (flash_decode against
+   the matmuls);
+9. time each kernel, its plain version and one PyTorch library call at the
+   main path's shapes (CUDA events; flash_decode at llama3-8b's decode
+   shape and the bench shape, against SDPA), the scatter lowering's route
+   sweep (combine_scatter against sort_segment_fold over K), the
+   BoundingBox and KMeans scatter-lowering runs on each route, each
+   main-path run after warm-up, the ratio of the reduce flow's time to the
+   combine and stream flows' (the paper's speedup), and profile one run of
+   each (device time by kernel, busy share).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels' numbers as JSON.  Without a CUDA device it exits 1
@@ -411,21 +435,28 @@ def check_combine_kernels(rng) -> None:
 
 
 def main_path_combine(pts, assign, items):
-    """Phase 6: KMeans (one-hot) and BoundingBox (scatter) under
-    ``flow="combine"`` on the 2^24 points."""
+    """Phase 6: under ``flow="combine"`` on the 2^24 points, KMeans (the
+    one-hot lowering), BoundingBox (the scatter lowering, whose max and min
+    leaves take the sort route) and KMeans with ``combine_impl="scatter"``
+    (its add leaf below 256 keys: combine_scatter)."""
     import torch
     from repro_torch import MapReduce, apps
     from repro_torch.core import collector as col
     from repro_torch.kernels import ops
 
     runs = {}
-    for label, app, impl, kernel in (
-            ("kmeans", apps.KMeans(), "onehot", "onehot_combine"),
-            ("bounding_box", apps.BoundingBox(), "scatter",
-             "combine_scatter")):
-        mr = MapReduce(app, flow="combine")
-        chosen, _ = col.choose_combine_impl(mr.plan.spec, app.key_space,
-                                            len(assign), onehot_kernel=True)
+    for label, app, forced, impl, want in (
+            ("kmeans", apps.KMeans(), "auto", "onehot",
+             {"onehot_combine": 2}),  # the values and the counts
+            ("bounding_box", apps.BoundingBox(), "auto", "scatter",
+             {"radix_partition": 2, "segment_reduce": 2}),  # max, min
+            ("kmeans_scatter", apps.KMeans(), "scatter", "scatter",
+             {"combine_scatter": 1})):  # the values; counts by bincount
+        mr = MapReduce(app, flow="combine", combine_impl=forced)
+        chosen = forced
+        if forced == "auto":
+            chosen, _ = col.choose_combine_impl(
+                mr.plan.spec, app.key_space, len(assign), onehot_kernel=True)
         if mr.plan.flow != "combine" or chosen != impl or not mr.use_kernels:
             raise AssertionError(f"unexpected plan ({chosen}):\n"
                                  f"{mr.explain()}")
@@ -433,15 +464,14 @@ def main_path_combine(pts, assign, items):
         res = mr.run(items)
         torch.cuda.synchronize()
         launches = ops.launch_counts()
-        want_launches = 2  # KMeans: values and counts; boxes: max and min
-        if launches[kernel] != want_launches or sum(launches.values()) != 2:
-            raise AssertionError(f"{label} combine: expected {kernel} x2, "
-                                 f"got {launches}")
+        if launches != {name: want.get(name, 0) for name in launches}:
+            raise AssertionError(f"{label} combine: expected {want}, got "
+                                 f"{launches}")
         counts = res.counts.cpu().numpy()
         if not np.array_equal(counts, np.bincount(assign, minlength=100)):
             raise AssertionError(f"{label} combine: counts != np.bincount")
         got = res.values.cpu().numpy()
-        if label == "kmeans":
+        if label != "bounding_box":
             np.testing.assert_allclose(got, kmeans_centroids(pts, assign)[1],
                                        rtol=SUM_RTOL, atol=SUM_RTOL)
         elif not np.array_equal(got.view(np.uint32),
@@ -490,7 +520,6 @@ def combine_kernel_rows(rng, launches) -> list[dict]:
     keys = torch.randint(0, k, (n,), dtype=torch.int32, device="cuda")
     vals = torch.randn((n, d), device="cuda")
     keys64 = keys.long()
-    idx = keys64[:, None].expand(n, d).contiguous()
     nbytes = n * (4 + 4 * d) + k * d * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = n * d / F32_OPS_PER_S * 1e3
@@ -503,11 +532,11 @@ def combine_kernel_rows(rng, launches) -> list[dict]:
              lambda: torch.zeros((k, d), device="cuda").index_add_(
                  0, keys64, vals),
              "src/repro/kernels/onehot_combine.py:123"),
-            ("combine_scatter", "max",
-             lambda: ops.combine_scatter(keys, vals, k, "max"),
-             lambda: combine_scatter_plain(keys, vals, k, "max"),
-             lambda: torch.full((k, d), float("-inf"), device="cuda")
-             .scatter_reduce_(0, idx, vals, "amax", include_self=True),
+            ("combine_scatter", "add",
+             lambda: ops.combine_scatter(keys, vals, k, "add"),
+             lambda: combine_scatter_plain(keys, vals, k, "add"),
+             lambda: torch.zeros((k, d), device="cuda").index_add_(
+                 0, keys64, vals),
              "src/repro/kernels/combine_scatter.py:52")):
         err = (kern() - plain()).abs().max().item()
         ms = time_ms(kern, 10)
@@ -521,7 +550,8 @@ def combine_kernel_rows(rng, launches) -> list[dict]:
             "library_ms": time_ms(lib, 10),
             "shape": {"n": n, "d": d, "k": k, "op": op},
         })
-    # the additive fallback past the one-hot cutoff: O(N·K) compares
+    # B7 on the scatter lowering at K = 2^16: O(N·K) compares (the combine
+    # flow takes the sort route there now; see combine_route_sweep)
     n2, k2 = 1 << 22, 1 << 16
     keys = torch.randint(0, k2, (n2,), dtype=torch.int32, device="cuda")
     vals = torch.randn((n2, 1), device="cuda")
@@ -532,6 +562,481 @@ def combine_kernel_rows(rng, launches) -> list[dict]:
         "library_ms": time_ms(lambda: torch.zeros(
             (k2, 1), device="cuda").index_add_(0, keys.long(), vals), 3)}
     return rows
+
+
+#: key spaces of the scatter lowering's route sweep, 2^22 pairs each
+ROUTE_SWEEP_KEYS = (1 << 6, 1 << 7, 1 << 8, 1 << 10, 1 << 11, 1 << 12,
+                    1 << 13, 1 << 14, 1 << 16)
+
+
+def combine_route_sweep(rng) -> dict:
+    """The combine flow's scatter lowering on f32 leaves: combine_scatter
+    (B7) against sort_segment_fold (B3/B4 + B5, from the identity table) at
+    2^22 pairs, D = 1, over :data:`ROUTE_SWEEP_KEYS`, add and max, with
+    sentinel and out-of-range keys; the tables must agree (max bit for
+    bit, sums within 1e-5 of each key's sum of |v|).  The crossover sets
+    ``collector.SCATTER_SORT_MIN_KEYS``."""
+    import torch
+    from repro_torch.kernels import ops
+
+    n, d = 1 << 22, 1
+    out = {"n": n, "d": d, "rows": []}
+    for k in ROUTE_SWEEP_KEYS:
+        keys, vals = combine_pairs(rng, n, d, k, specials=False)
+        row = {"k": k}
+        for op, ident in (("add", 0.0), ("max", float("-inf"))):
+            acc = torch.full((k, d), ident, device="cuda")
+            b7 = lambda: ops.combine_scatter(keys, vals, k, op)  # noqa: E731
+            srt = lambda: ops.sort_segment_fold(  # noqa: E731
+                keys, vals, acc, op)
+            got, want = srt(), b7()
+            if op == "max":
+                if not torch.equal(bits(got), bits(want)):
+                    raise AssertionError(f"route sweep K={k}: sort max != "
+                                         f"combine_scatter max")
+            else:
+                ok = (keys >= 0) & (keys < k)
+                tol = SUM_RTOL * torch.zeros(
+                    (k, d), dtype=torch.float64, device="cuda").index_add_(
+                    0, keys[ok].long(), vals[ok].abs().double()) + SUM_RTOL
+                if not bool(((got - want).abs() <= tol).all()):
+                    raise AssertionError(f"route sweep K={k}: sort add != "
+                                         f"combine_scatter add")
+            iters = 3 if k >= 1 << 14 else 10
+            row[f"{op}_combine_scatter_ms"] = time_ms(b7, iters)
+            row[f"{op}_sort_segment_fold_ms"] = time_ms(srt, 10)
+        out["rows"].append(row)
+    return out
+
+
+def scatter_routes(mr, items) -> dict:
+    """A combine run of the scatter lowering with every f32 leaf on
+    combine_scatter and then on the sort route (the key-count switch set
+    past K, then to 1): wall ms and the lowering each took; the tables must
+    agree (max/min bit for bit, sums within SUM_RTOL)."""
+    import torch
+    from repro_torch.core import collector as col
+
+    saved = col.SCATTER_SORT_MIN_KEYS
+    out, tabs = {"k": mr.app.key_space}, []
+    for label, min_keys in (("combine_scatter", mr.app.key_space + 1),
+                            ("sort_route", 1)):
+        col.SCATTER_SORT_MIN_KEYS = dict.fromkeys(saved, min_keys)
+        try:
+            tabs.append(mr.run(items).values)
+            out[f"{label}_ms"] = run_ms(mr, items)
+            out[f"{label}_lowering"] = mr.plan.lowering
+        finally:
+            col.SCATTER_SORT_MIN_KEYS = saved
+    if not (torch.equal(bits(tabs[0]), bits(tabs[1])) or torch.allclose(
+            tabs[0], tabs[1], rtol=SUM_RTOL, atol=SUM_RTOL)):
+        raise AssertionError("scatter routes: the two routes' tables differ")
+    mr.run(items)  # leave the plan's lowering line as routed
+    return out
+
+
+# -- decode attention and the serve path -------------------------------------
+
+#: (B, H, Hkv, D, S): the reference kernel test's shapes
+#: (tests/kernels/test_kernels.py:73-76), the bench shape
+#: (benchmarks/bench_integrations.py:67-73) and llama3-8b's decode shape
+#: (batch 4, a 2048-token prompt and 32 new tokens)
+FD_TEST_SHAPES = ((2, 8, 2, 64, 300), (1, 4, 4, 32, 128),
+                  (3, 16, 4, 128, 1000), (1, 8, 1, 64, 256))
+FD_BENCH_SHAPE = (1, 8, 2, 64, 8192)
+FD_LLAMA_SHAPE = (4, 32, 8, 128, 2080)
+#: flash_decode against its plain version on the card (rtol = atol), f32
+#: and bf16 alike: both read the same inputs, widen them to f32 and fold in
+#: f32, and differ only in the order of the sums (the reference kernel
+#: test's 2e-4 / 2e-2 hold the port against the JAX package on the CPU)
+FD_TOL = 1e-5
+#: the first tile of positions a planted fault leaves out
+FD_FAULT_TILE = 64
+
+
+def fd_faults():
+    """Planted faults of the decode attention, each a wrapper of the kernel
+    ``fd(q, k, v, kv_len, **kw)``: the newest position left out (kv_len =
+    pos), every query head on KV head 0, and the first 64-position tile left
+    out.  The phase-2 check and the serve gate must tell each from the
+    kernel."""
+    t = FD_FAULT_TILE
+
+    def first_kv_head(x):
+        return x[:, :, :1].expand_as(x).contiguous()
+
+    return {
+        "kv_len_minus_1": lambda fd, q, k, v, n, **kw: fd(q, k, v, n - 1,
+                                                         **kw),
+        "one_kv_head": lambda fd, q, k, v, n, **kw: fd(
+            q, first_kv_head(k), first_kv_head(v), n, **kw),
+        "first_tile_dropped": lambda fd, q, k, v, n, **kw: fd(
+            q, k[:, t:].contiguous(), v[:, t:].contiguous(),
+            (n - t).clamp(min=0), **kw),
+    }
+
+
+def decode_inputs(rng, b, h, hkv, d, s, dtype, kv_len):
+    """q, k, v on the card as the reference kernel test makes them (k scaled
+    by 0.3), in ``dtype``, and ``kv_len`` as int32."""
+    import torch
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, hkv, d)).astype(np.float32) * 0.3
+    v = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    return (*(torch.from_numpy(a).cuda().to(dt) for a in (q, k, v)),
+            torch.tensor(kv_len, dtype=torch.int32, device="cuda"))
+
+
+def fd_kv_lens(b: int, s: int) -> list[list[int]]:
+    """Ragged kv_len rows for a batch of ``b`` over ``s`` positions: 0
+    (zeros out), 1, S and two lengths that are no multiple of a tile,
+    rotated so that every length appears in some row of some run."""
+    lens = [0, 1, s, max(1, s - 37), max(1, s // 3 + 5)]
+    return [[lens[(i + off) % len(lens)] for i in range(b)]
+            for off in range(0, len(lens), b)]
+
+
+def check_flash_decode(rng) -> None:
+    """Phase 2, decode attention: flash_decode against its plain version on
+    the card, f32 and bf16, at the reference test's, the bench and the
+    llama3-8b decode shapes, with ragged ``kv_len`` (0, which gives zeros,
+    1, S and lengths that are no multiple of a tile), within FD_TOL, and two
+    runs bit for bit; each planted fault of :func:`fd_faults` at the llama
+    shape must miss FD_TOL."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_decode import flash_decode_plain
+
+    def agree(got, want):
+        err = (got - want).abs()
+        return bool((err <= FD_TOL + FD_TOL * want.abs()).all()), float(
+            err.max())
+
+    for shape in FD_TEST_SHAPES + (FD_BENCH_SHAPE, FD_LLAMA_SHAPE):
+        b, h, hkv, d, s = shape
+        runs = fd_kv_lens(b, s)
+        for kv_len in runs:
+            for dtype in ("f32", "bf16"):
+                q, k, v, kvl = decode_inputs(rng, *shape, dtype, kv_len)
+                got = ops.flash_decode(q, k, v, kvl)
+                again = ops.flash_decode(q, k, v, kvl)
+                if not torch.equal(bits(got), bits(again)):
+                    raise AssertionError(f"flash_decode {shape} {dtype}: two "
+                                         f"runs differ")
+                ok, err = agree(got, flash_decode_plain(q, k, v, kvl))
+                if not ok:
+                    raise AssertionError(
+                        f"flash_decode {shape} {dtype} != plain: max abs err "
+                        f"{err} (kv_len {kv_len})")
+                zero = [i for i, n in enumerate(kv_len) if n == 0]
+                if zero and bool(got[zero].abs().max() != 0):
+                    raise AssertionError("flash_decode: kv_len = 0 must give "
+                                         "0")
+        log(f"flash_decode == plain within {FD_TOL}: B,H,Hkv,D,S={shape} "
+            f"kv_len={runs} f32 and bf16")
+    for tile_s in (64, 128, 8192):  # other splits, the same function
+        q, k, v, kvl = decode_inputs(rng, *FD_BENCH_SHAPE, "f32", [5000])
+        ok, err = agree(ops.flash_decode(q, k, v, kvl, tile_s=tile_s),
+                        flash_decode_plain(q, k, v, kvl))
+        if not ok:
+            raise AssertionError(f"flash_decode tile_s={tile_s}: max abs err "
+                                 f"{err}")
+    log(f"flash_decode == plain within {FD_TOL} at tile_s 64, 128 and 8192")
+    b, _, _, _, s = FD_LLAMA_SHAPE
+    q, k, v, kvl = decode_inputs(rng, *FD_LLAMA_SHAPE, "bf16", [s - 32] * b)
+    want = flash_decode_plain(q, k, v, kvl)
+    seen = {}
+    for name, fault in fd_faults().items():
+        ok, seen[name] = agree(fault(ops.flash_decode, q, k, v, kvl), want)
+        if ok:
+            raise AssertionError(f"flash_decode check blind to the planted "
+                                 f"fault {name}: max abs err {seen[name]}")
+    log(f"flash_decode check catches each planted fault at the llama shape "
+        f"(bf16, kv_len {s - 32}): max abs err {seen}")
+
+
+#: the serve main path: llama3-8b at full width and depth, bf16; its
+#: numbers are those of the median of SERVE_TIMED_RUNS timed generations
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
+SERVE_TIMED_RUNS = 3
+#: the kernel decode against the plain one on the card, teacher-forced with
+#: the kernel run's tokens, per step: rms(Δ) <= SERVE_RMS_TOL rms(logits)
+#: and max|Δ| <= SERVE_MAX_TOL max|logits|.  The two differ only in where
+#: they round: the plain path rounds the attention weights to bf16 before
+#: the value product, flash_decode keeps them and its output in f32 (ROADMAP
+#: C.22), and each difference of one ulp passes through up to 32 layers and
+#: into the K/V the later steps read.  Readings on an NVIDIA H100 80GB HBM3
+#: at 700.00 W (rms, max): the sound kernel 0.0204, 0.0230; the planted
+#: faults of fd_faults() 0.0427, 0.0536 (the newest position left out),
+#: 0.236, 0.289 (the first tile) and 1.36, 1.58 (one KV head).  Each limit
+#: lies between the sound reading and the nearest fault's, 1.4-1.5x from
+#: the sound one, and the run fails unless every fault is caught.
+SERVE_RMS_TOL, SERVE_MAX_TOL = 2.0 ** -5, 2.0 ** -5
+
+
+def serve_setup():
+    """(model, params, prompts): llama3-8b with random bf16 weights from a
+    seeded generator on the card, and random prompts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_model
+
+    cfg = get_config("llama3-8b")
+    model = get_model(cfg)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    prompts = torch.randint(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), dtype=torch.int32,
+        device="cuda", generator=torch.Generator(device="cuda").manual_seed(1))
+    return model, params, prompts
+
+
+def teacher_forced(model, params, prompts, tokens, use_kernels):
+    """Per-step logits [B, n, V] of prefill and of decode steps fed
+    ``tokens[:, :n - 1]`` (n = tokens' length), as generate computes them."""
+    import torch
+    b, s = prompts.shape
+    n = tokens.shape[1]
+    with torch.inference_mode():
+        st = model.init_decode_state(b, s + n, device=prompts.device)
+        lg, st = model.prefill(params, {"tokens": prompts}, st)
+        out = [lg]
+        for i in range(n - 1):
+            lg, st = model.decode_step(params, st, tokens[:, i],
+                                       use_kernels=use_kernels)
+            out.append(lg)
+        return torch.stack(out, dim=1)
+
+
+def decode_gap(lk, lp) -> dict:
+    """The serve gate's readings of logits ``lk`` against the plain decode's
+    ``lp`` ([B, n, V]): per step rms(Δ)/rms(lp) and max|Δ|/max|lp|, each
+    at its worst step, and the share of greedy tokens that agree."""
+    diff = (lk - lp).float()
+    lpf = lp.float()
+    rms_rel = diff.pow(2).mean((0, 2)).sqrt() / lpf.pow(2).mean((0, 2)).sqrt()
+    max_rel = diff.abs().amax((0, 2)) / lpf.abs().amax((0, 2))
+    return {"rms_rel_max": float(rms_rel.max()),
+            "max_rel_max": float(max_rel.max()),
+            "greedy_agreement": float(
+                (lk.argmax(-1) == lp.argmax(-1)).float().mean())}
+
+
+def within_gate(gap: dict) -> bool:
+    return (gap["rms_rel_max"] <= SERVE_RMS_TOL
+            and gap["max_rel_max"] <= SERVE_MAX_TOL)
+
+
+def main_path_serve() -> dict:
+    """Phase 8: ``serving.serve_step.generate`` on llama3-8b at full width
+    and depth (bf16, random weights), batch 4, a 2048-token prompt, 32 new
+    greedy tokens.  flash_decode must launch 32 x 31 times and no other
+    kernel; a second run gives the same tokens; the teacher-forced logits
+    with the kernels equal generate's tokens under argmax and repeat bit for
+    bit; the plain decode on the card agrees within SERVE_*_TOL, and each
+    planted fault of :func:`fd_faults`, run through the same decode, falls
+    outside them."""
+    import functools
+    import statistics
+
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import param_count
+    from repro_torch.serving.serve_step import generate
+
+    model, params, prompts = serve_setup()
+    cfg = model.cfg
+    log(f"serve: {cfg.name} {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.hd}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}; "
+        f"{param_count(params)} parameters; batch {SERVE_BATCH}, prompt "
+        f"{SERVE_PROMPT}, {SERVE_NEW} new tokens")
+    ops.reset_launch_counts()
+    toks = generate(model, params, prompts, max_new=SERVE_NEW)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    want = {name: 0 for name in launches}
+    want["flash_decode"] = cfg.num_layers * (SERVE_NEW - 1)
+    if launches != want:
+        raise AssertionError(f"serve launches {launches}, want {want}")
+    if toks.shape != (SERVE_BATCH, SERVE_NEW) or int(toks.min()) < 0 or int(
+            toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"serve: bad tokens {toks.shape}")
+    timed = []  # the decode loop is host-bound: its time varies by run
+    for _ in range(SERVE_TIMED_RUNS):
+        stats = {}
+        again = generate(model, params, prompts, max_new=SERVE_NEW,
+                         stats=stats)
+        if not torch.equal(toks, again):
+            raise AssertionError("serve: a second run gave other tokens")
+        timed.append(stats)
+    timed.sort(key=lambda st: st["decode_ms"])
+    stats = timed[len(timed) // 2]
+    lk = teacher_forced(model, params, prompts, toks, True)
+    if not torch.equal(bits(lk), bits(teacher_forced(model, params, prompts,
+                                                     toks, True))):
+        raise AssertionError("serve: two kernel runs' logits differ")
+    if not bool(torch.isfinite(lk).all()):
+        raise AssertionError("serve: logits are not finite")
+    if not torch.equal(lk.argmax(-1).to(torch.int32), toks):
+        raise AssertionError("serve: teacher-forced logits != generate's "
+                             "tokens")
+    lp = teacher_forced(model, params, prompts, toks, False)
+    if not torch.equal(bits(lp[:, 0]), bits(lk[:, 0])):
+        raise AssertionError("serve: prefill logits differ (no kernel there)")
+    gap = decode_gap(lk, lp)
+    faults = {}
+    real = ops.flash_decode
+    for name, fault in fd_faults().items():
+        try:
+            ops.flash_decode = functools.partial(fault, real)
+            lf = teacher_forced(model, params, prompts, toks, True)
+        finally:
+            ops.flash_decode = real
+        faults[name] = {**decode_gap(lf, lp), "caught": not within_gate(
+            decode_gap(lf, lp))}
+        del lf
+    log(f"serve: flash_decode x{launches['flash_decode']}, tokens and logits "
+        f"repeat bit for bit; kernel vs plain decode {gap}; planted faults "
+        f"{faults}")
+    if not within_gate(gap):
+        raise AssertionError(f"serve: kernel vs plain decode logits {gap} "
+                             f"past rms {SERVE_RMS_TOL}, max {SERVE_MAX_TOL}")
+    blind = [name for name, f in faults.items() if not f["caught"]]
+    if blind:
+        raise AssertionError(f"serve gate blind to the planted faults "
+                             f"{blind}: {faults}")
+    steps = stats["decode_steps"]
+    out = {"prefill_ms": stats["prefill_ms"],
+           "decode_ms_per_token": stats["decode_ms"] / steps,
+           "decode_window_ms": stats["decode_ms"], "decode_steps": steps,
+           "tokens_per_s": SERVE_BATCH * steps * 1e3 / stats["decode_ms"],
+           "decode_step_ms_median": statistics.median(stats["decode_step_ms"]),
+           "decode_ms_per_token_runs": [st["decode_ms"] / steps
+                                        for st in timed],
+           "prefill_ms_runs": [st["prefill_ms"] for st in timed],
+           "decode_step_ms": stats["decode_step_ms"],
+           "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "new": SERVE_NEW,
+           "kernel_vs_plain": gap, "planted_faults": faults,
+           "gate": {"rms_rel": SERVE_RMS_TOL, "max_rel": SERVE_MAX_TOL},
+           "launches": launches["flash_decode"],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    # one decode step under the profiler: flash_decode against the matmuls
+    with torch.inference_mode():
+        st = model.init_decode_state(SERVE_BATCH, SERVE_PROMPT + SERVE_NEW,
+                                     device=prompts.device)
+        _, st = model.prefill(params, {"tokens": prompts}, st)
+        out["profile_decode_step"] = profile_fn(
+            lambda: model.decode_step(params, st, toks[:, 0]),
+            out["decode_ms_per_token"], top=10,
+            groups={"flash_decode": ("fold_splits", "merge_splits"),
+                    "matmul": ("gemm", "cutlass", "xmma", "nvjet")})
+    del params, st
+    torch.cuda.empty_cache()
+    return out
+
+
+def flash_decode_rows(rng, launches) -> dict:
+    """Phase 9, B8: the kernel, its plain version and SDPA (with GQA and
+    the kv_len mask, a yardstick the port never calls) at llama3-8b's
+    decode shape (bf16, every row at S = 2080) and, nested, at the bench
+    shape (f32, S = 8192)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_decode import flash_decode_plain
+
+    def row(shape, dtype):
+        b, h, hkv, d, s = shape
+        q, k, v, kvl = decode_inputs(rng, *shape, dtype, [s] * b)
+        qs = q[:, :, None, :]
+        ks, vs = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+        mask = (torch.arange(s, device="cuda")[None, :] < kvl[:, None])[
+            :, None, None, :]
+        kern = lambda: ops.flash_decode(q, k, v, kvl)  # noqa: E731
+        plain = lambda: flash_decode_plain(q, k, v, kvl)  # noqa: E731
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qs, ks, vs, attn_mask=mask, enable_gqa=True)
+        got = kern()
+        err = (got - plain()).abs().max().item()
+        lib_err = (lib()[:, :, 0].float() - got).abs().max().item()
+        item = k.element_size()
+        n_kv = int(kvl.clamp(max=s).sum())
+        nbytes = (2 * n_kv * hkv * d * item + q.numel() * item + b * 4
+                  + b * h * d * 4)
+        n_ops = 4 * n_kv * (h // hkv) * hkv * d  # q.k and p.v, 2 flops each
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n_ops / F32_OPS_PER_S * 1e3
+        ms = time_ms(kern, 200)
+        return {"max_abs_err": err, "ms": ms, "kernel_ms": ms,
+                "plain_ms": time_ms(plain, 50),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": time_ms(lib, 200),
+                "library_max_abs_err": lib_err,
+                "shape": {"b": b, "h": h, "hkv": hkv, "d": d, "s": s,
+                          "kv_len": s, "dtype": dtype}}
+
+    main = row(FD_LLAMA_SHAPE, "bf16")
+    return {"name": "flash_decode", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+            "replaces": "src/repro/kernels/flash_decode.py:72",
+            "launches": launches, **main,
+            "bench_shape": row(FD_BENCH_SHAPE, "f32")}
+
+
+#: the combine flow past the one-hot cutoff: KeyedSum at K = 2^16, 2^22 pairs
+COMBINE_LARGE_K, COMBINE_LARGE_ITEMS = 1 << 16, 1 << 19
+
+
+def main_path_combine_large_k():
+    """Phase 6c: ``MapReduce(KeyedSum(2^16), flow="combine")`` on 2^22 pairs
+    takes the scatter lowering, and its add leaf the sort route
+    (radix_partition + segment_reduce, never combine_scatter); counts exact,
+    sums against float64 numpy, two runs bit for bit."""
+    import warnings
+
+    import torch
+    from repro_torch import MapReduce, apps
+    from repro_torch.core import collector as col
+    from repro_torch.data import datasets
+    from repro_torch.kernels import ops
+
+    k = COMBINE_LARGE_K
+    mr = MapReduce(apps.KeyedSum(k), flow="combine")
+    keys, weights = datasets.keyed_sum_data(
+        np.random.default_rng(4), items=COMBINE_LARGE_ITEMS, key_space=k)
+    items = (torch.from_numpy(keys).cuda(), torch.from_numpy(weights).cuda())
+    with warnings.catch_warnings():  # the sum's scatter lowering past 2048
+        warnings.simplefilter("ignore", col.LoweringFallbackWarning)
+        ops.reset_launch_counts()
+        res = mr.run(items)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        again = mr.run(items)
+    if (launches["combine_scatter"] or not launches["segment_reduce"]
+            or not launches["radix_partition"] + launches[
+                "radix_partition_multi"]):
+        raise AssertionError(f"combine K={k}: launches {launches}")
+    if mr.plan.lowering != f"scatter (K={k}: add sort_segment_fold)":
+        raise AssertionError(f"combine K={k}: explain() names another "
+                             f"route:\n{mr.explain()}")
+    if not (torch.equal(bits(res.values), bits(again.values))
+            and torch.equal(res.counts, again.counts)):
+        raise AssertionError(f"combine K={k}: two runs differ")
+    flat = keys.reshape(-1)
+    if not np.array_equal(res.counts.cpu().numpy(),
+                          np.bincount(flat, minlength=k)):
+        raise AssertionError(f"combine K={k}: counts != np.bincount")
+    want = np.bincount(flat, weights=weights.reshape(-1).astype(np.float64),
+                       minlength=k)
+    got = res.values.cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=SUM_RTOL, atol=SUM_RTOL)
+    log(mr.explain())
+    log(f"main path combine: KeyedSum K={k} {flat.size} pairs, sort route, "
+        f"counts exact, sums max abs err {np.abs(got - want).max():.3g}, two "
+        f"runs bit for bit, launches {launches}")
+    return mr, items
 
 
 # -- the sort flow -----------------------------------------------------------
@@ -808,15 +1313,22 @@ def profile(mr, items, wall_ms: float, top: int = 8) -> dict:
     """Device time of one warm main-path run by kernel (torch.profiler),
     and its share of ``wall_ms``, the run's median wall time measured
     without the profiler (which slows the host side)."""
+    return profile_fn(lambda: mr.run(items), wall_ms, top)
+
+
+def profile_fn(fn, wall_ms: float, top: int = 8, groups=None) -> dict:
+    """:func:`profile` of one warm call of ``fn``; ``groups`` maps a label
+    to the words (lower case) of the kernel names whose device time it
+    sums."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
-    mr.run(items)
+    fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
-        mr.run(items)
+        fn()
         torch.cuda.synchronize()
     # device-side events only: an op's own entry repeats its kernels' time
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
@@ -828,7 +1340,11 @@ def profile(mr, items, wall_ms: float, top: int = 8) -> dict:
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "busy_share": device_ms / wall_ms,
             "top": [{"name": name[:80], "ms": ms, "calls": calls}
-                    for name, ms, calls in rows[:top]]}
+                    for name, ms, calls in rows[:top]],
+            **({"groups": {
+                g: sum(ms for name, ms, _ in rows
+                       if any(w in name.lower() for w in words))
+                for g, words in groups.items()}} if groups else {})}
 
 
 def run_ms(mr, items, reps: int = 3) -> float:
@@ -867,6 +1383,7 @@ def main() -> int:
     check_kernels(rng)
     check_sort_kernels(rng)
     check_combine_kernels(rng)
+    check_flash_decode(rng)
 
     pts, assign, clusters = datasets.kmeans_data(
         np.random.default_rng(1), points=N_POINTS)
@@ -877,9 +1394,11 @@ def main() -> int:
     sort_runs = {k: main_path_sort(k) for k in SORT_KEY_SPACES}
     phoenix_on_card("sort")
     combine_runs = main_path_combine(pts, assign, items)
+    mr_large, items_large = main_path_combine_large_k()
     phoenix_on_card("combine")
     mr_reduce = main_path_reduce(pts, assign, items)
     phoenix_on_card("reduce")
+    serve = main_path_serve()
 
     rows = kernel_rows(rng, launches_add, launches_dense)
     launches_sort = {name: sum(run[2][name] for run in sort_runs.values())
@@ -889,7 +1408,9 @@ def main() -> int:
     rows += combine_kernel_rows(rng, {
         "onehot_combine": combine_runs["kmeans"][1]["onehot_combine"],
         "combine_scatter":
-            combine_runs["bounding_box"][1]["combine_scatter"]})
+            combine_runs["kmeans_scatter"][1]["combine_scatter"]})
+    rows.append(flash_decode_rows(rng, serve["launches"]))
+    log(json.dumps({"combine_route_sweep": combine_route_sweep(rng)}))
     main_ms = {"kmeans_ms": run_ms(mr_add, items),
                "bounding_box_ms": run_ms(mr_dense, items),
                "points": N_POINTS, "card": card}
@@ -898,6 +1419,7 @@ def main() -> int:
     main_ms["sort_pairs"] = SORT_ITEMS * 8
     flows = {"kmeans_combine": combine_runs["kmeans"][0],
              "bounding_box_combine": combine_runs["bounding_box"][0],
+             "kmeans_scatter_combine": combine_runs["kmeans_scatter"][0],
              "kmeans_reduce": mr_reduce}
     for label, mr in flows.items():
         main_ms[f"{label}_ms"] = run_ms(mr, items)
@@ -906,7 +1428,14 @@ def main() -> int:
                                              / main_ms["kmeans_combine_ms"])
     main_ms["kmeans_reduce_over_stream"] = (main_ms["kmeans_reduce_ms"]
                                             / main_ms["kmeans_ms"])
+    main_ms[f"keyed_sum_combine_K{COMBINE_LARGE_K}_ms"] = run_ms(
+        mr_large, items_large)
+    for label in ("bounding_box", "kmeans_scatter"):
+        main_ms[f"{label}_combine_routes"] = scatter_routes(
+            combine_runs[label][0], items)
+    main_ms["combine_large_k_pairs"] = COMBINE_LARGE_ITEMS * 8
     log(json.dumps({"main_path": main_ms}))
+    log(json.dumps({"serve": {"card": card, **serve}}))
     for label, mr in (("kmeans", mr_add), ("bounding_box", mr_dense),
                       *flows.items()):
         log(json.dumps({"profile": label,

@@ -2,9 +2,12 @@
 hand-written CUDA kernels for one NVIDIA H100.
 
 The JAX package ``repro`` is the reference; this package imports none of it
-(and no JAX).  Ported so far: the main path — combiner derivation from a
-torch ``reduce``, the stream flow, and the ``onehot_fold`` /
-``chunk_monoid_fold`` kernels.  See ROADMAP.md for what is still to come.
+(and no JAX).  Ported so far: combiner derivation from a torch ``reduce``;
+the stream, sort, combine and reduce flows on one device; the dense
+transformer's serving path (llama3-8b: prefill and greedy decode, in
+``models``, ``serving`` and ``launch.serve``); and a hand-written kernel
+for each of the reference's eight Pallas kernels (``kernels``).  See
+ROADMAP.md for what is still to come.
 """
 
 from repro_torch.core import *  # noqa: F401,F403

@@ -1,0 +1,33 @@
+"""Published model configurations, as shapes (no weights).
+
+Counterpart of ``repro/configs/__init__.py``.  ``get_config(name)`` returns
+the exact published :class:`~repro_torch.models.common.ModelConfig`.  Only
+llama3-8b, the dense model of the serving slice, is ported; the other
+architectures of the reference, and its dry-run helpers (``ShapeSpec``,
+``input_specs``, ``state_specs``, built on ``jax.ShapeDtypeStruct``), wait
+for ROADMAP A14b.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.common import ModelConfig
+
+_MODULES = {
+    "llama3-8b": "llama3_8b",
+}
+
+#: the ROADMAP item that ports the other architectures
+OTHER_ARCHS_ITEM = "A14b (the other model families and configs)"
+
+ARCHS = tuple(_MODULES)
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in _MODULES:
+        raise KeyError(f"{name!r} is not ported to repro_torch; ported: "
+                       f"{', '.join(ARCHS)} (the others wait for ROADMAP "
+                       f"{OTHER_ARCHS_ITEM})")
+    return importlib.import_module(
+        f"repro_torch.configs.{_MODULES[name]}").CONFIG

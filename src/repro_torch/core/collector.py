@@ -686,28 +686,78 @@ def _premap_stream(spec: C.CombinerSpec, values):
             pytree.tree_structure(holder))
 
 
+#: key count, per monoid, from which the scatter lowering's f32 leaves take
+#: the sort route (``sort_segment_fold``: the radix partition and the
+#: segment reduce, O(N)) instead of the ``combine_scatter`` kernel, whose
+#: first pass compares every pair with every key of its block (O(N·K)).
+#: Measured on an NVIDIA H100 80GB HBM3 at 700.00 W by chip_smoke.py: the
+#: route sweep (2^22 pairs, D = 1) has the sort route at 0.37-0.45 ms at
+#: every K from 64 to 2^16; combine_scatter's add 0.29 ms at K = 64 and
+#: 0.33 at 128 but 0.46 at 256, its max 0.53 ms already at K = 64.  The
+#: BoundingBox combine run (max and min, D = 3, K = 100, 2^24 points) took
+#: 9.59 ms on combine_scatter and 5.15 ms on the sort route.  So max and
+#: min take the sort route at every K, add from 256 keys.
+SCATTER_SORT_MIN_KEYS = {"add": 256, "max": 1, "min": 1}
+
+
+def scatter_route(key_space: int, d: int, op: str, *, kernels: bool) -> str:
+    """What the scatter lowering runs for an f32 ``op`` leaf of ``d``
+    columns: ``"sort_segment_fold"`` from :data:`SCATTER_SORT_MIN_KEYS`
+    keys on (when the radix plan is feasible), else ``"combine_scatter"``;
+    the monoid's exact scatter without the kernels."""
+    if not kernels:
+        return "exact scatter"
+    if key_space >= SCATTER_SORT_MIN_KEYS[op]:
+        from repro_torch.kernels import ops
+
+        if ops.plan_radix_levels(key_space, d=max(d, 1)).feasible:
+            return "sort_segment_fold"
+    return "combine_scatter"
+
+
 def combine_scatter(spec: C.CombinerSpec, stream: PairStream, *,
-                    scatter_fn: Callable | None = None
+                    scatter_fn: Callable | None = None,
+                    sort_fold_fn: Callable | None = None,
+                    routes: list[str] | None = None
                     ) -> tuple[Any, torch.Tensor]:
     """Holder tables by ``identity.at[keys].<monoid>(channel)`` scatters.
 
-    ``scatter_fn(keys, mat, K, op)`` (the ``combine_scatter`` kernel) takes
-    f32 add/max/min leaves; the rest, and every leaf without it, take the
-    monoid's exact scatter.  Counts: ``bincount``."""
+    With the kernels, f32 add/max/min leaves take ``scatter_fn(keys, mat,
+    K, op)`` (the ``combine_scatter`` kernel) or, where
+    :func:`scatter_route` says so and ``sort_fold_fn`` is given,
+    ``sort_fold_fn(keys, mat, identity, op)`` (``ops.sort_segment_fold``
+    folded onto the identity table); both drop keys outside ``[0, K)``.
+    The other leaves, and every leaf without the kernels, take the monoid's
+    exact scatter.  Counts: ``bincount``.  ``routes``, when given,
+    receives ``"<monoid> <route>"`` for each leaf, in leaf order."""
     assert spec.monoids is not None
     K = stream.key_space
     n = stream.keys.shape[0]
     chans, treedef = _premap_stream(spec, stream.values)
     tables = []
     for mono, chan in zip(spec.monoids, chans):
+        route = "exact scatter"
         if (scatter_fn is not None and chan.dtype == torch.float32
                 and mono.name in ("add", "max", "min")):
-            tab = scatter_fn(stream.keys, _rows_f32(chan, n), K, mono.name)
-            tables.append(tab.reshape((K,) + tuple(chan.shape[1:])))
-            continue
-        init = mono.identity_like((K,) + tuple(chan.shape[1:]), chan.dtype,
-                                  device=chan.device)
-        tables.append(mono.scatter(init, stream.keys, chan))
+            mat = _rows_f32(chan, n)
+            shape = (K,) + tuple(chan.shape[1:])
+            route = "combine_scatter"
+            if (sort_fold_fn is not None and scatter_route(
+                    K, mat.shape[1], mono.name,
+                    kernels=True) == "sort_segment_fold"):
+                route = "sort_segment_fold"
+                ident = mono.identity_like((K, mat.shape[1]), torch.float32,
+                                           device=chan.device)
+                tab = sort_fold_fn(stream.keys, mat, ident, mono.name)
+            else:
+                tab = scatter_fn(stream.keys, mat, K, mono.name)
+            tables.append(tab.reshape(shape))
+        else:
+            init = mono.identity_like((K,) + tuple(chan.shape[1:]),
+                                      chan.dtype, device=chan.device)
+            tables.append(mono.scatter(init, stream.keys, chan))
+        if routes is not None:
+            routes.append(f"{mono.name} {route}")
     counts = _counts(stream.keys, stream.valid, K)
     return pytree.tree_unflatten(tables, treedef), counts
 
@@ -816,12 +866,17 @@ def choose_combine_impl(spec: C.CombinerSpec, key_space: int, n_pairs: int,
 def combine_flow(spec: C.CombinerSpec, stream: PairStream, *,
                  impl: str = "auto", onehot_fn: Callable | None = None,
                  scatter_fn: Callable | None = None,
-                 on_fallback: Callable | None = None) -> Grouped:
+                 sort_fold_fn: Callable | None = None,
+                 on_fallback: Callable | None = None,
+                 on_lowering: Callable | None = None) -> Grouped:
     """The combining collector over a whole pair buffer, with the lowering
     ``impl`` (``"auto"``: :func:`choose_combine_impl`): ``onehot``,
     ``scatter``, ``first`` or ``segment``.  A sum-lowerable spec that
     degrades to ``scatter`` reports it to ``on_fallback`` (else a
-    :class:`LoweringFallbackWarning`)."""
+    :class:`LoweringFallbackWarning`).  The scatter lowering's kernels are
+    ``scatter_fn`` and ``sort_fold_fn`` (:func:`combine_scatter`).
+    ``on_lowering``, when given, receives the lowering this run took and,
+    for ``scatter``, each leaf's route."""
     K = stream.key_space
     if impl == "auto":
         impl, reason = choose_combine_impl(
@@ -831,21 +886,31 @@ def combine_flow(spec: C.CombinerSpec, stream: PairStream, *,
                 f"combine flow: {reason}; degrading to the exact scatter "
                 f"fallback. The chunked stream flow keeps large pair "
                 f"streams on the one-hot fold.", on_fallback)
+    taken = impl
     if impl == "scatter":
         if spec.strategy == C.STRATEGY_SIZE:
             tables, counts = (), _counts(stream.keys, stream.valid, K)
+            taken = "scatter (counts only)"
         else:
+            routes: list[str] = []
             tables, counts = combine_scatter(spec, stream,
-                                             scatter_fn=scatter_fn)
+                                             scatter_fn=scatter_fn,
+                                             sort_fold_fn=sort_fold_fn,
+                                             routes=routes)
+            taken = f"scatter (K={K}: {', '.join(routes)})"
     elif impl == "onehot":
         if not spec.sum_lowerable:
             raise ValueError(f"combine impl 'onehot' needs a sum-lowerable "
                              f"combiner, got {spec.describe}")
         tables, counts = combine_onehot(spec, stream, onehot_fn=onehot_fn)
+        taken = ("onehot (onehot_combine)" if onehot_fn is not None
+                 else "onehot (plain contraction)")
     elif impl == "first":
         tables, counts = combine_first(spec, stream)
     elif impl == "segment":
         tables, counts = combine_segment(spec, stream)
     else:
         raise ValueError(f"unknown combine impl {impl!r}")
+    if on_lowering is not None:
+        on_lowering(taken)
     return finalize_tables(spec, tables, counts, K)

@@ -284,6 +284,17 @@ def _plan_fallback_cb(plan) -> Callable | None:
     return cb
 
 
+def _plan_lowering_cb(plan) -> Callable | None:
+    """Record the lowering a combine run took on ``plan.lowering``."""
+    if plan is None:
+        return None
+
+    def cb(taken: str) -> None:
+        plan.lowering = taken
+
+    return cb
+
+
 def run_local(app, plan, items, *, device, combine_impl: str = "auto",
               use_kernels: bool = False, n_valid: int | None = None):
     """The combine or reduce flow over ``items``: one map phase over every
@@ -303,7 +314,9 @@ def run_local(app, plan, items, *, device, combine_impl: str = "auto",
             plan.spec, stream, impl=combine_impl,
             onehot_fn=_onehot_kernel(use_kernels),
             scatter_fn=_scatter_kernel(use_kernels),
-            on_fallback=_plan_fallback_cb(plan))
+            sort_fold_fn=_sort_fold_kernel(use_kernels, None, None),
+            on_fallback=_plan_fallback_cb(plan),
+            on_lowering=_plan_lowering_cb(plan))
     elif plan.flow == "reduce":
         grouped = col.reduce_flow(
             app.reduce, stream, max_values_per_key=app.max_values_per_key,

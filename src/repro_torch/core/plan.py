@@ -32,6 +32,9 @@ class ExecutionPlan:
     #: the StreamTiling / SortTiling of the flow (set by the API layer)
     tiling: object | None = None
     diagnostics: tuple[str, ...] = ()
+    #: the lowering and kernels the combine flow's last run took (set by
+    #: the collector at run time; empty before the first run)
+    lowering: str = ""
 
     @property
     def optimized(self) -> bool:
@@ -59,6 +62,8 @@ class ExecutionPlan:
         elif self.flow in ("combine", "reduce"):
             lines.append("tiling: none (one map over every item, then one "
                          "pass over the whole pair buffer)")
+        if self.lowering:
+            lines.append(f"lowering: {self.lowering}")
         for diag in self.diagnostics:
             lines.append(f"diagnostic: {diag}")
         return "\n".join(lines)

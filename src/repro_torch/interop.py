@@ -21,6 +21,11 @@ it continues exactly as the reference's next fold would.
 combiner (torch sums integers into int64, the reference into int32).  The
 combine and reduce flows keep no state between runs, so there is nothing
 of theirs to carry.
+
+For the models, :func:`params_from_repro` turns the reference's parameter
+pytree (numpy leaves, layers stacked ``[L, ...]``) into the port's, key for
+key, and :func:`decode_state_from_repro` a reference decode state (its KV
+cache and ``pos``), so that both packages compute the same thing.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.core.collector import CarriedTables
+from repro_torch.device import resolve_device
 
 
 def _split_fused(comb: CarriedTables, acc: np.ndarray):
@@ -84,3 +90,39 @@ def state_to_repro(comb: CarriedTables, state, *, fused: bool):
         return np.concatenate(cols + [counts.astype(np.float32)[:, None]],
                               axis=1)
     return pytree.tree_unflatten(leaves, comb._holder_treedef), counts
+
+
+def _tensor_from_numpy(x, device) -> torch.Tensor:
+    """A numpy array (bfloat16 ones included, which numpy knows only by
+    name) as a tensor of the same dtype on ``device``."""
+    x = np.array(x)  # a writable copy: caches are updated in place
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(x.view(np.int16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(x).to(device)
+
+
+def params_from_repro(cfg, params_np, *, device=None):
+    """The port's model parameters from the reference's pytree of numpy
+    leaves (``jax.tree.map(np.asarray, params)``) for config ``cfg``: the
+    same nested dicts and the same stacked ``[L, ...]`` layer leaves, in the
+    reference's dtypes, on ``device`` (``None``: the card)."""
+    dev = resolve_device(device)
+    out = pytree.tree_map(lambda x: _tensor_from_numpy(x, dev),
+                          dict(params_np))
+    if set(out) != {"embed", "layers", "ln_f", "head"}:
+        raise ValueError(f"not a dense transformer's parameters: "
+                         f"{sorted(out)}")
+    if out["layers"]["attn"]["wq"].shape[0] != cfg.num_layers:
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers expected, "
+                         f"got {out['layers']['attn']['wq'].shape[0]}")
+    return out
+
+
+def decode_state_from_repro(state_np, *, device=None):
+    """The port's decode state from a reference one given as numpy (its
+    ``cache`` leaves ``[L, B, S, Kv, D]``, and ``pos``)."""
+    dev = resolve_device(device)
+    return {"cache": {name: _tensor_from_numpy(x, dev)
+                      for name, x in state_np["cache"].items()},
+            "pos": int(np.asarray(state_np["pos"]))}

@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 #: one shared library per source; each maps to its launch function's name.
 KERNELS = ("onehot_fold", "chunk_monoid_fold", "radix_partition",
            "radix_partition_multi", "segment_reduce", "onehot_combine",
-           "combine_scatter")
+           "combine_scatter", "flash_decode")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -43,6 +43,8 @@ _ARGTYPES = {
     "segment_reduce": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "onehot_combine": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "combine_scatter": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "flash_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                     _I, _I, _P],
 }
 #: argument types of ``<name>_scratch_bytes``, for the kernels whose scratch
 #: the launch function sizes itself (it returns -1 for a shape it refuses).

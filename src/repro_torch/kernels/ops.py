@@ -17,6 +17,7 @@ import torch
 from repro_torch import numerics
 from repro_torch.kernels import _build
 from repro_torch.kernels import combine_scatter as _cs
+from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import onehot_combine as _oc
 from repro_torch.kernels import radix_partition as _rp
 from repro_torch.kernels import segment_reduce as _sr
@@ -547,3 +548,63 @@ def combine_scatter(keys, values, key_space, op="add", *, block_k=None):
     return _cs.combine_scatter_cuda(keys, values, key_space, op,
                                     block_k=block_k, tile_n=tile_n,
                                     seg_len=seg_len, n_seg=n_seg)
+
+
+# ---------------------------------------------------------------------------
+# Decode attention
+# ---------------------------------------------------------------------------
+
+
+def flash_decode(q, k, v, kv_len, *, tile_s=512):
+    """Single-token GQA decode attention -> [B, H, D] f32.
+
+    q [B, H, D], k and v [B, S, Hkv, D] (f32 or bf16, one dtype), kv_len
+    [B] int32 valid lengths; head ``h`` attends KV head ``h // (H // Hkv)``
+    over the positions below ``kv_len[b]``, with scale ``D^-0.5``.  A row
+    with ``kv_len = 0`` gives zeros.  ``tile_s`` caps the positions one
+    block of the kernel folds (the reference's KV tile); the plain version
+    is unfused."""
+    if q.ndim != 3 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_decode: q must be [B, H, D] and k, v "
+                         f"[B, S, Hkv, D], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, D = q.shape
+    _, S, Hkv, Dk = k.shape
+    if k.shape[0] != B or Dk != D:
+        raise ValueError(f"flash_decode: k {tuple(k.shape)} does not match "
+                         f"q {tuple(q.shape)}")
+    if H % Hkv:
+        raise ValueError("H must be a multiple of Hkv (GQA)")
+    if tuple(kv_len.shape) != (B,):
+        raise ValueError(f"flash_decode: kv_len must be [{B}], got "
+                         f"{tuple(kv_len.shape)}")
+    if tile_s < 1:
+        raise ValueError(f"tile_s must be positive, got {tile_s}")
+    devices = {q.device, k.device, v.device, kv_len.device}
+    if len(devices) != 1:
+        raise ValueError(f"flash_decode: inputs lie on different devices "
+                         f"{sorted(map(str, devices))}")
+    if q.device.type == "cpu":
+        return _fd.flash_decode_plain(q, k, v, kv_len)
+    if q.dtype not in (torch.float32, torch.bfloat16) or not (
+            q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"flash_decode: q, k and v must share one dtype, "
+                        f"float32 or bfloat16, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if kv_len.dtype != torch.int32:
+        raise TypeError(f"flash_decode: kv_len must be int32, got "
+                        f"{kv_len.dtype}")
+    for t, what in ((q, "q"), (k, "k"), (v, "v"), (kv_len, "kv_len")):
+        if not t.is_contiguous():
+            raise ValueError(f"flash_decode: {what} must be contiguous")
+    G = H // Hkv
+    if (D > _fd.MAX_HEAD_DIM or G > _fd.MAX_GROUP
+            or G * D > _fd.MAX_GROUP_ELEMS):
+        raise ValueError(f"flash_decode: D={D}, G={G} passes the kernel's "
+                         f"limits (D <= {_fd.MAX_HEAD_DIM}, G <= "
+                         f"{_fd.MAX_GROUP}, G*D <= {_fd.MAX_GROUP_ELEMS})")
+    if B > 65535 or Hkv > 65535 or k.numel() >= 2**62:
+        raise ValueError("flash_decode: a grid CUDA cannot launch")
+    chunk, n_split = _fd.split_plan(B, Hkv, S, tile_s)
+    return _fd.flash_decode_cuda(q, k, v, kv_len, chunk=chunk,
+                                 n_split=n_split)

@@ -1,0 +1,75 @@
+"""Model registry: family -> implementation module, plus a uniform facade.
+
+Counterpart of ``repro/models/registry.py``.  Only the dense family is
+ported; the others raise ``NotImplementedError`` naming ROADMAP A14b.
+The reference's ``abstract_params`` (a ``jax.eval_shape`` dry run) has no
+counterpart here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.models import transformer
+from repro_torch.models.common import ModelConfig
+
+_FAMILY_MODULES = {"dense": transformer}
+
+#: the reference's other families, which wait for ROADMAP A14b
+_NOT_PORTED = ("moe", "vlm", "ssm", "hybrid", "audio")
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    """Uniform facade over the family modules."""
+
+    cfg: ModelConfig
+    module: Any
+
+    def init_params(self, rng: torch.Generator):
+        return self.module.init_params(self.cfg, rng)
+
+    def forward(self, params, batch):
+        return self.module.forward(self.cfg, params, batch)
+
+    def logits_of_hidden(self, params, hidden):
+        return self.module.logits_of_hidden(self.cfg, params, hidden)
+
+    def unembed_matrix(self, params):
+        return self.module.unembed_matrix(self.cfg, params)
+
+    def init_decode_state(self, batch: int, max_len: int, *, kv_dtype=None,
+                          device=None):
+        return self.module.init_decode_state(self.cfg, batch, max_len,
+                                             kv_dtype=kv_dtype, device=device)
+
+    def decode_step(self, params, state, tokens, *, use_kernels=None):
+        return self.module.decode_step(self.cfg, params, state, tokens,
+                                       use_kernels=use_kernels)
+
+    def prefill(self, params, batch, state):
+        return self.module.prefill(self.cfg, params, batch, state)
+
+    @property
+    def logit_softcap(self):
+        return self.cfg.logit_softcap
+
+
+def get_model(cfg: ModelConfig) -> Model:
+    if cfg.family in _NOT_PORTED or (cfg.family == "dense"
+                                     and cfg.num_experts):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family is not ported to "
+            f"repro_torch yet (ROADMAP {transformer.OTHER_FAMILIES_ITEM})")
+    if cfg.family not in _FAMILY_MODULES:
+        raise KeyError(f"unknown family {cfg.family}")
+    return Model(cfg, _FAMILY_MODULES[cfg.family])
+
+
+def param_count(params) -> int:
+    from torch.utils import _pytree as pytree
+
+    return sum(t.numel() for t in pytree.tree_leaves(params))

@@ -1,0 +1,237 @@
+"""Decoder-only transformer LM: the dense family.
+
+Counterpart of ``repro/models/transformer.py`` for ``family == "dense"``
+(llama3, qwen, gemma2-style options: QKV bias, softcaps, local/global
+windows, post-norms).  The MoE and VLM branches raise
+``NotImplementedError`` naming ROADMAP A14b.
+
+Parameters are the reference's pytree, key for key, as dicts of tensors:
+``{"embed": {"table"}, "layers": {...}, "ln_f": {"scale"}, "head": {"w"}}``,
+with every layer leaf stacked ``[L, ...]``.  The reference scans the
+stacked layers with ``lax.scan``; here the layers are a Python loop over
+views ``leaf[i]``.
+
+Serving differs on purpose in one place (ROADMAP C.21): the reference's
+``decode_step`` attends with ``deferred_write=True`` and writes all layers'
+new K/V as one token column after the scan, so that ``lax.scan`` does not
+double-buffer the cache through its xs/ys.  A Python loop has no such
+cost, so :func:`decode_step` writes each layer's new K/V into the cache in
+place at ``pos`` and then attends with valid length ``pos + 1``: the same
+function, and the one the ``flash_decode`` kernel computes.  The decode
+state's cache is updated in place, so a state passed to
+:func:`decode_step` or :func:`prefill` must not be used again; ``pos`` is a
+Python int.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import attention as attn
+from repro_torch.models.common import ModelConfig
+from repro_torch.models.layers import (apply_rope, embed, init_embed,
+                                       init_rmsnorm, init_swiglu,
+                                       init_unembed, rmsnorm, rope_table,
+                                       swiglu)
+
+#: the ROADMAP item that ports the other families' branches
+OTHER_FAMILIES_ITEM = "A14b (MoE, VLM and the other model families)"
+
+
+def _dense_only(cfg: ModelConfig) -> None:
+    if cfg.family != "dense" or cfg.num_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family is not ported to "
+            f"repro_torch yet (ROADMAP {OTHER_FAMILIES_ITEM})")
+
+
+def _layer_windows(cfg: ModelConfig):
+    """Per-layer sliding window sizes (0 = global). gemma2 alternates."""
+    if cfg.sliding_window and cfg.local_global_alternate:
+        return [cfg.sliding_window if i % 2 == 0 else 0
+                for i in range(cfg.num_layers)]
+    if cfg.sliding_window:
+        return [cfg.sliding_window] * cfg.num_layers
+    return [0] * cfg.num_layers
+
+
+def init_layer(rng: torch.Generator, cfg: ModelConfig):
+    _dense_only(cfg)
+    dev = rng.device
+    p = {
+        "ln_attn": init_rmsnorm(cfg.d_model, dev),
+        "attn": attn.init_attn(rng, cfg),
+        "ln_ffn": init_rmsnorm(cfg.d_model, dev),
+        "ffn": init_swiglu(rng, cfg.d_model, cfg.d_ff, cfg.dtype),
+    }
+    if cfg.post_norms:
+        p["ln_post_attn"] = init_rmsnorm(cfg.d_model, dev)
+        p["ln_post_ffn"] = init_rmsnorm(cfg.d_model, dev)
+    return p
+
+
+def _stack_layers(rng: torch.Generator, cfg: ModelConfig):
+    """Every layer's parameters stacked ``[L, ...]``, one layer drawn at a
+    time into its slice (so only one layer's draw is live at once)."""
+    first = init_layer(rng, cfg)
+    stacked = {}
+    for name, sub in first.items():
+        stacked[name] = {}
+        for leaf, t in sub.items():
+            out = torch.empty((cfg.num_layers,) + tuple(t.shape),
+                              dtype=t.dtype, device=t.device)
+            out[0] = t
+            stacked[name][leaf] = out
+    del first
+    for i in range(1, cfg.num_layers):
+        layer = init_layer(rng, cfg)
+        for name, sub in layer.items():
+            for leaf, t in sub.items():
+                stacked[name][leaf][i] = t
+    return stacked
+
+
+def init_params(cfg: ModelConfig, rng: torch.Generator):
+    """Random parameters drawn from ``rng``, on its device."""
+    _dense_only(cfg)
+    return {
+        "embed": init_embed(rng, cfg.vocab_size, cfg.d_model, cfg.dtype),
+        "layers": _stack_layers(rng, cfg),  # stacked [L, ...]
+        "ln_f": init_rmsnorm(cfg.d_model, rng.device),
+        "head": init_unembed(rng, cfg.vocab_size, cfg.d_model, cfg.dtype,
+                             tie=cfg.tie_embeddings),
+    }
+
+
+def layer_params(params, i: int):
+    """Layer ``i``'s parameters: views into the stacked leaves."""
+    return {name: {leaf: t[i] for leaf, t in sub.items()}
+            for name, sub in params["layers"].items()}
+
+
+def _embed_in(cfg: ModelConfig, params, tokens):
+    x = embed(params["embed"], tokens)
+    if cfg.name.startswith("gemma"):
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return x
+
+
+def _ffn(cfg: ModelConfig, p, x):
+    """The block's second half: ``x + ffn(norm(x))`` (post-norm aside)."""
+    h = rmsnorm(p["ln_ffn"], x, cfg.norm_eps)
+    f = swiglu(p["ffn"], h, cfg.act)
+    if cfg.post_norms:
+        f = rmsnorm(p["ln_post_ffn"], f, cfg.norm_eps)
+    return x + f
+
+
+def forward(cfg: ModelConfig, params, batch):
+    """The training forward of the dense family. batch: {"tokens": [B,S]}.
+
+    Returns (hidden [B,S,E], aux dict), as the reference (its ``moe_mode``
+    and ``remat`` options belong to the MoE family and to training, which
+    wait for ROADMAP A14b)."""
+    _dense_only(cfg)
+    x = _embed_in(cfg, params, batch["tokens"])
+    for i, window in enumerate(_layer_windows(cfg)):
+        p = layer_params(params, i)
+        h = rmsnorm(p["ln_attn"], x, cfg.norm_eps)
+        a = attn.attn_train(cfg, p["attn"], h, window=window)
+        if cfg.post_norms:
+            a = rmsnorm(p["ln_post_attn"], a, cfg.norm_eps)
+        x = _ffn(cfg, p, x + a)
+    x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
+    return x, {"load_balance_loss": 0.0}
+
+
+def unembed_matrix(cfg: ModelConfig, params):
+    """[V, E] output projection (tied or untied)."""
+    return (params["embed"]["table"] if cfg.tie_embeddings
+            else params["head"]["w"])
+
+
+def logits_of_hidden(cfg: ModelConfig, params, hidden):
+    w = unembed_matrix(cfg, params)
+    logits = (hidden @ w.T).to(torch.float32)
+    if cfg.logit_softcap:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
+                      kv_dtype=None, device=None):
+    return {
+        "cache": attn.init_kv_cache(cfg, batch, max_len, kv_dtype=kv_dtype,
+                                    device=device),
+        "pos": 0,
+    }
+
+
+def decode_step(cfg: ModelConfig, params, state, tokens, *,
+                use_kernels: bool | None = None):
+    """tokens [B] -> (logits [B,V], new state). One generated token.
+
+    Each layer writes the token's K/V into the cache at ``pos`` (in place)
+    and attends over positions ``<= pos``; under ``use_kernels`` (``None``:
+    on when the tokens lie on a CUDA device) that attention is the
+    ``flash_decode`` kernel."""
+    _dense_only(cfg)
+    if use_kernels is None:
+        use_kernels = tokens.device.type == "cuda"
+    pos = int(state["pos"])
+    cache = state["cache"]
+    x = _embed_in(cfg, params, tokens[:, None])
+    for i, window in enumerate(_layer_windows(cfg)):
+        p = layer_params(params, i)
+        layer_cache = {name: t[i] for name, t in cache.items()}
+        h = rmsnorm(p["ln_attn"], x, cfg.norm_eps)
+        a, _ = attn.attn_decode(cfg, p["attn"], h, layer_cache, pos,
+                                window=window, use_kernels=use_kernels)
+        if cfg.post_norms:
+            a = rmsnorm(p["ln_post_attn"], a, cfg.norm_eps)
+        x = _ffn(cfg, p, x + a)
+    x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
+    logits = logits_of_hidden(cfg, params, x[:, 0])
+    return logits, {"cache": cache, "pos": pos + 1}
+
+
+def prefill(cfg: ModelConfig, params, batch, state):
+    """Teacher-forced prefill: run the train forward AND fill the KV cache.
+
+    Returns (last-position logits [B,V], state).  Each layer's prompt K/V
+    (rotated K) are written into the state's cache at positions ``[0, S)``,
+    in place."""
+    _dense_only(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = _embed_in(cfg, params, tokens)
+    cache = state["cache"]
+    quant = cache["k"].dtype == torch.int8
+    cos, sin = rope_table(torch.arange(S, device=tokens.device), cfg.hd,
+                          cfg.rope_theta)
+    for i, window in enumerate(_layer_windows(cfg)):
+        p = layer_params(params, i)
+        h = rmsnorm(p["ln_attn"], x, cfg.norm_eps)
+        k, v = attn._project_kv(cfg, p["attn"], h)
+        k_r = apply_rope(k, cos, sin)
+        if quant:
+            kq, ks = attn._quantize(k_r)
+            vq, vs = attn._quantize(v)
+            for name, new in (("k", kq), ("v", vq), ("k_scale", ks),
+                              ("v_scale", vs)):
+                cache[name][i, :, :S] = new
+        else:
+            cache["k"][i, :, :S] = k_r.to(cache["k"].dtype)
+            cache["v"][i, :, :S] = v.to(cache["v"].dtype)
+        a = attn.attn_train(cfg, p["attn"], h, window=window)
+        if cfg.post_norms:
+            a = rmsnorm(p["ln_post_attn"], a, cfg.norm_eps)
+        x = _ffn(cfg, p, x + a)
+    x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
+    logits = logits_of_hidden(cfg, params, x[:, -1])
+    return logits, {"cache": cache, "pos": S}

@@ -298,3 +298,148 @@ def test_forced_optimized_flows_need_a_combiner():
     for flow in ("combine", "stream", "sort"):
         with pytest.raises(ValueError, match="derivation failed"):
             T.MapReduce(app, flow=flow, device="cpu")
+
+
+# -- the scatter lowering's route past SCATTER_SORT_MIN_KEYS (ROADMAP C.17)
+
+
+def _route_pairs(seed, n, k, d):
+    """Keys in [0, K) with the sentinel K, keys past it and negative keys
+    mixed in; f32 values with signed zeros and NaN."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, k, size=n).astype(np.int32)
+    bad = rng.random(n) < 0.15
+    keys[bad] = rng.choice(np.array([k, k + 1, k + 1000, -1, -9], np.int32),
+                           size=int(bad.sum()))
+    vals = rng.standard_normal((n, d)).astype(np.float32)
+    flat = vals.reshape(-1)
+    pick = rng.random(flat.size)
+    flat[pick < 0.1] = 0.0
+    flat[(pick >= 0.1) & (pick < 0.2)] = -0.0
+    flat[(pick >= 0.2) & (pick < 0.21)] = np.nan
+    return torch.from_numpy(keys), torch.from_numpy(vals)
+
+
+@pytest.mark.parametrize("op", ["add", "max", "min"])
+@pytest.mark.parametrize("k,d", [(256, 1), (5000, 3), (1 << 16, 2)])
+def test_sort_route_drops_keys_as_combine_scatter(op, k, d):
+    """sort_segment_fold from the identity table gives combine_scatter's
+    table: sentinel, past-K and negative keys dropped, max/min bit for bit
+    (NaN and signed zeros included), sums within 1e-5."""
+    keys, vals = _route_pairs(k + d, 3000, k, d)
+    want = tops.combine_scatter(keys, vals, k, op)
+    ident = {"add": 0.0, "max": float("-inf"), "min": float("inf")}[op]
+    got = tops.sort_segment_fold(keys, vals, torch.full((k, d), ident), op)
+    if op == "add":
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **SUM_TOL)
+    else:
+        np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                      want.numpy().view(np.uint32))
+
+
+def _bbox_app(k, torch_side=True):
+    if torch_side:
+        return T.make_app(lambda x, emit: emit(x[0].to(torch.int32), x[1:]),
+                          lambda key, v, c: torch.cat([v.amax(0),
+                                                       v.amin(0)]),
+                          key_space=k,
+                          value_spec=TC.ValueSpec((2,), torch.float32),
+                          emit_capacity=1)
+    return J.make_app(lambda x, emit: emit(x[0].astype(jnp.int32), x[1:]),
+                      lambda key, v, c: jnp.concatenate([jnp.max(v, 0),
+                                                         jnp.min(v, 0)]),
+                      key_space=k,
+                      value_aval=jax.ShapeDtypeStruct((2,), jnp.float32),
+                      emit_capacity=1)
+
+
+@pytest.mark.parametrize("app_name,k", [("sum", 4096), ("bbox", 100),
+                                        ("bbox", 255), ("bbox", 256),
+                                        ("bbox", 3000), ("sum", 100),
+                                        ("sum", 255), ("sum", 256)])
+def test_scatter_lowering_routes_by_key_count(monkeypatch, app_name, k):
+    """With the kernels, each f32 leaf of the scatter lowering (forced for
+    the sums) takes combine_scatter below its monoid's
+    SCATTER_SORT_MIN_KEYS and sort_segment_fold from it on; after the run
+    explain() names the route each leaf took; the tables equal the run
+    without kernels and the reference's."""
+    seen = []
+    for name in ("combine_scatter", "sort_segment_fold"):
+        real = getattr(tops, name)
+        monkeypatch.setattr(tops, name, lambda *a, _r=real, _n=name, **kw:
+                            seen.append(_n) or _r(*a, **kw))
+    rng = np.random.default_rng(k)
+    n = 3000
+    if app_name == "sum":
+        tapp, japp = _sum_app(k), _sum_app(k, False)
+        items = rng.integers(0, k, size=n).astype(np.int32)
+    else:
+        tapp, japp = _bbox_app(k), _bbox_app(k, False)
+        items = np.concatenate([rng.integers(0, k, size=(n, 1)),
+                                rng.standard_normal((n, 2))],
+                               axis=1).astype(np.float32)
+    leaves = ["add"] if app_name == "sum" else ["max", "min"]
+    routes = ["sort_segment_fold" if k >= TCOL.SCATTER_SORT_MIN_KEYS[op]
+              else "combine_scatter" for op in leaves]
+    mr = T.MapReduce(tapp, flow="combine", device="cpu", use_kernels=True,
+                     combine_impl="scatter")
+    assert "lowering:" not in mr.explain()  # the collector decides, per run
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", TCOL.LoweringFallbackWarning)
+        warnings.simplefilter("ignore", JCOL.LoweringFallbackWarning)
+        got = mr.run(torch.from_numpy(items))
+        plain = T.MapReduce(tapp, flow="combine", device="cpu",
+                            use_kernels=False).run(torch.from_numpy(items))
+        jres = J.MapReduce(japp, flow="combine", cache=False).run(
+            jnp.asarray(items))
+    assert seen == routes
+    assert (f"lowering: scatter (K={k}: "
+            + ", ".join(f"{op} {r}" for op, r in zip(leaves, routes)) + ")"
+            in mr.explain())
+    np.testing.assert_array_equal(got.counts.numpy(), plain.counts.numpy())
+    np.testing.assert_array_equal(got.counts.numpy(), np.asarray(jres.counts))
+    for other in (plain.values.numpy(), np.asarray(jres.values)):
+        if app_name == "sum":
+            np.testing.assert_allclose(got.values.numpy(), other, **SUM_TOL)
+        else:
+            np.testing.assert_array_equal(got.values.numpy(), other)
+
+
+@pytest.mark.parametrize("use_kernels,n,opts,want", [
+    (False, 100, {}, "onehot (plain contraction)"),  # few pairs: one-hot
+    (False, 3000, {}, "scatter (K=4096: add exact scatter)"),
+    (True, 100, {}, "scatter (K=4096: add sort_segment_fold)"),
+    (True, 3000, {"use_kernels": False},
+     "scatter (K=4096: add exact scatter)"),
+    (True, 3000, {"combine_impl": "onehot"}, "onehot (onehot_combine)"),
+])
+def test_explain_names_the_lowering_the_run_took(use_kernels, n, opts, want):
+    """The ``lowering:`` line is the collector's record of the last run:
+    small runs sent to the one-hot contraction, run-time options and the
+    constructor's use_kernels all show in it."""
+    k = 4096
+    mr = T.MapReduce(_sum_app(k), flow="combine", device="cpu",
+                     use_kernels=use_kernels)
+    items = (np.arange(n) % k).astype(np.int32)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", TCOL.LoweringFallbackWarning)
+        res = mr.run(items, options=T.ExecutionOptions(**opts))
+    assert f"lowering: {want}" in mr.explain().splitlines()
+    np.testing.assert_allclose(res.values.numpy(),
+                               np.bincount(items, minlength=k), **SUM_TOL)
+
+
+def test_scatter_route_without_kernels_or_a_feasible_plan(monkeypatch):
+    assert TCOL.scatter_route(1 << 20, 1, "add",
+                              kernels=False) == "exact scatter"
+    add_min = TCOL.SCATTER_SORT_MIN_KEYS["add"]
+    assert TCOL.scatter_route(add_min - 1, 1, "add",
+                              kernels=True) == "combine_scatter"
+    assert TCOL.scatter_route(add_min, 1, "add",
+                              kernels=True) == "sort_segment_fold"
+    for op in ("max", "min"):  # the sort route at every key count
+        assert TCOL.scatter_route(1, 3, op, kernels=True) == \
+            "sort_segment_fold"
+    monkeypatch.setattr(tops, "MAX_RADIX_LEVELS", 1)  # no feasible plan
+    assert TCOL.scatter_route(1 << 20, 1, "add",
+                              kernels=True) == "combine_scatter"

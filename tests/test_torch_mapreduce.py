@@ -203,3 +203,23 @@ def test_manual_combiner_and_explain():
     res = mr.run(_wc_items())
     np.testing.assert_array_equal(res.values.numpy(), res.counts.numpy())
     assert res.to_dict()[10] == res.counts[10].item()
+
+
+def test_core_exports_the_reference_names_it_defines():
+    """Every name of ``repro.core.__all__`` that the port's core defines is
+    exported by ``repro_torch.core`` as well."""
+    import importlib
+    import pkgutil
+
+    import repro_torch.core as TCORE
+
+    mods = [importlib.import_module(m.name) for m in pkgutil.iter_modules(
+        TCORE.__path__, "repro_torch.core.")]
+    defined = [name for name in J.__all__
+               if any(hasattr(m, name) for m in mods)]
+    assert {"FLOWS", "StreamTiling", "autotune_stream",
+            "autotune_sort"} <= set(defined)
+    missing = sorted(set(defined) - set(TCORE.__all__))
+    assert not missing, missing
+    for name in TCORE.__all__:
+        assert getattr(T, name) is getattr(TCORE, name)
