@@ -7,7 +7,8 @@ Phases (each raises on failure, and the script then exits non-zero):
 
 1. print the card's name and power limit; build the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` (into ``build/repro_torch/``), one
-   nvcc per source, all at once;
+   nvcc per source, all at once, and print ptxas's registers, shared
+   memory and spills of segment_reduce's and flash_decode's kernels;
 2. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at ragged ones: max/min bit for bit (NaN and
    signed zeros included), sums within 1e-5 of each key's sum of absolute
@@ -67,7 +68,10 @@ Phases (each raises on failure, and the script then exits non-zero):
    the matmuls);
 9. time each kernel, its plain version and one PyTorch library call at the
    main path's shapes (CUDA events; flash_decode at llama3-8b's decode
-   shape and the bench shape, against SDPA), the scatter lowering's route
+   shape and the bench shape, against SDPA; segment_reduce and flash_decode
+   also replayed from a CUDA graph, without the host's per-call work, and
+   segment_reduce's max at the BoundingBox combine shape against
+   scatter_reduce_), the scatter lowering's route
    sweep (combine_scatter against sort_segment_fold over K), the
    BoundingBox and KMeans scatter-lowering runs on each route, each
    main-path run after warm-up, the ratio of the reduce flow's time to the
@@ -127,6 +131,32 @@ def time_ms(fn, iters: int) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Mean milliseconds of ``fn()`` replayed from a CUDA graph of ``iters``
+    calls: the device's time without the host's per-call work, which sets
+    the pace of back-to-back eager calls of a small kernel."""
+    import torch
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
@@ -929,7 +959,7 @@ def main_path_serve() -> dict:
         out["profile_decode_step"] = profile_fn(
             lambda: model.decode_step(params, st, toks[:, 0]),
             out["decode_ms_per_token"], top=10,
-            groups={"flash_decode": ("fold_splits", "merge_splits"),
+            groups={"flash_decode": ("fold_chunks",),
                     "matmul": ("gemm", "cutlass", "xmma", "nvjet")})
     del params, st
     torch.cuda.empty_cache()
@@ -973,6 +1003,8 @@ def flash_decode_rows(rng, launches) -> dict:
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": time_ms(lib, 200),
+                "graph_ms": graph_ms(kern, 200),
+                "library_graph_ms": graph_ms(lib, 200),
                 "library_max_abs_err": lib_err,
                 "shape": {"b": b, "h": h, "hkv": hkv, "d": d, "s": s,
                           "kv_len": s, "dtype": dtype}}
@@ -1295,6 +1327,7 @@ def sort_kernel_rows(rng, launches) -> list[dict]:
     np_ = pk.shape[0]
     nbytes = np_ * (4 + 4 * d) + 2 * k * d * 4
     ms = time_ms(kern, 20)
+    bbox = segment_reduce_bbox_row()
     rows.append({
         "name": "segment_reduce", "route": "cuda",
         "source": src + "segment_reduce.cu",
@@ -1303,10 +1336,47 @@ def sort_kernel_rows(rng, launches) -> list[dict]:
         "ms": ms, "kernel_ms": ms, "plain_ms": time_ms(plain, 5),
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": time_ms(lib, 20),
+        "graph_ms": graph_ms(kern, 20), "library_graph_ms": graph_ms(lib, 20),
         "shape": {"slots": np_, "d": d, "k": k, "block_k": bs, "tile": pa,
                   "op": "add", "with_acc": True},
+        "bounding_box_max": bbox,
     })
     return rows
+
+
+def segment_reduce_bbox_row() -> dict:
+    """B5 at the BoundingBox combine shape: max over 2^24 pairs of D = 3 at
+    K = 100 (the sort route's one-bucket layout), beside scatter_reduce_'s
+    amax (which drops JAX's signed-zero rule) as its yardstick."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.segment_reduce import segment_reduce_plain
+
+    n, d, k, pa = N_POINTS, 3, 100, 256
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    keys = torch.randint(0, k, (n,), dtype=torch.int32, device="cuda",
+                         generator=gen)
+    vals = torch.randn((n, d), device="cuda", generator=gen)
+    pk, pv, _ = ops.radix_partition(keys, vals, k, bucket_size=k,
+                                    pad_align=pa)
+    kern = lambda: ops.segment_reduce(pk, pv, k, "max", tile_n=pa,  # noqa
+                                      block_k=k)
+    got = kern()
+    if not torch.equal(bits(got), bits(segment_reduce_plain(pk, pv, k,
+                                                            "max"))):
+        raise AssertionError("segment_reduce max (BoundingBox shape) != "
+                             "plain bitwise")
+    idx = pk.long().clamp(max=k)[:, None].expand(-1, d)
+    lib = lambda: torch.full((k + 1, d), float("-inf"),  # noqa: E731
+                             device="cuda").scatter_reduce_(
+        0, idx, pv, "amax")[:k]
+    np_ = pk.shape[0]
+    return {"ms": time_ms(kern, 10), "library_ms": time_ms(lib, 10),
+            "graph_ms": graph_ms(kern, 10),
+            "bound_ms": (np_ * (4 + 4 * d) + k * d * 4) / HBM_BYTES_PER_S
+            * 1e3, "bound_by": "bytes",
+            "shape": {"slots": np_, "d": d, "k": k, "block_k": k,
+                      "tile": pa, "op": "max", "with_acc": False}}
 
 
 def profile(mr, items, wall_ms: float, top: int = 8) -> dict:
@@ -1378,6 +1448,11 @@ def main() -> int:
     _build.build()
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc, "
         f"{len(_build.KERNELS)} kernels, into {_build.build_dir()})")
+    for name in ("segment_reduce", "flash_decode"):
+        log(f"build: {name}: " + "; ".join(
+            f"{r['function']} {r['registers']} registers, {r['smem_bytes']} "
+            f"B static smem, {r['spill_bytes']} B spilled"
+            for r in _build.ptxas_report(name)))
 
     rng = np.random.default_rng(0)
     check_kernels(rng)

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -27,7 +28,7 @@ KERNELS = ("onehot_fold", "chunk_monoid_fold", "radix_partition",
            "combine_scatter", "flash_decode")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,8 +44,8 @@ _ARGTYPES = {
     "segment_reduce": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "onehot_combine": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "combine_scatter": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "flash_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                     _I, _I, _P],
+    "flash_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                     _I, _I, _I, _I, _P],
 }
 #: argument types of ``<name>_scratch_bytes``, for the kernels whose scratch
 #: the launch function sizes itself (it returns -1 for a shape it refuses).
@@ -55,6 +56,10 @@ _SCRATCH_ARGTYPES = {
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
+
+#: nvcc's output of each library built by this process (ptxas's report of
+#: every kernel's registers, shared memory and spills)
+_nvcc_out: dict[str, str] = {}
 
 #: launches of each kernel since the last :func:`reset_launch_counts`; a
 #: binding adds one right after its kernel was launched, and nowhere else.
@@ -129,9 +134,35 @@ def build(names=KERNELS) -> float:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, final)
+            _nvcc_out[name] = out.decode(errors="replace")
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
     return time.perf_counter() - t0
+
+
+def ptxas_report(name: str) -> list[dict]:
+    """Registers, shared memory (static, bytes) and spill bytes of each
+    kernel of library ``name``, as ptxas reported them when this process
+    built it (empty if the library was already built)."""
+    rows, fn, spill = [], None, 0
+    for line in _nvcc_out.get(name, "").splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            spill = int(m.group(1)) + int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append({"function": fn, "registers": int(m.group(1)),
+                         "smem_bytes": int(smem.group(1)) if smem else 0,
+                         "spill_bytes": spill})
+            fn = None
+    return rows
 
 
 def library(name: str) -> ctypes.CDLL:

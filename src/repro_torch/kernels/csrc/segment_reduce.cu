@@ -8,34 +8,55 @@
 // layout, in which every tile of `tile` pairs has its keys in one aligned
 // block of block_k keys, and the tiles' blocks do not decrease (a key-sorted
 // stream has the same property).  The TPU kernel kept one [block_k, D] block
-// in VMEM and visited the tiles in order; blocks on Hopper run in parallel, so
-//   1 tile_blocks     the block of each tile (its first key in [0, K));
-//   2 plan_segments   one block: runs of tiles of one key block, cut into
-//                     segments of at most `window` tiles, and each key block's
-//                     first and last segment;
-//   3 reduce          one thread block per segment (and column tile) folds the
-//                     segment into a [block_k, cols] table in shared memory.
-//                     Warp w owns the keys with local id % 32 == w.  The
-//                     segment is staged up to 1024 pairs at a time, and each
-//                     stage is bucketed stably by owner (a [owner, warp]
-//                     count matrix, one block scan, a scatter of the pairs'
-//                     indices).  Each warp then walks its own list 32 entries
-//                     at a time: lanes holding the same key find each other
-//                     with __match_any_sync and the lowest one folds their
-//                     values in lane order.  So each key's pairs are folded
-//                     in layout order, with no atomics at all;
-//   4 merge           one thread per (key, column) folds its block's segment
-//                     tables in segment order, then onto acc.
+// in VMEM and visited the tiles in order; blocks on Hopper run in parallel.
+//
+// Bound on this card: bytes.  N*(4 + 4D) read, K*D*4 written (and K*D*4 of
+// acc read): 54 MB, 16 us at 3.35 TB/s for the sort path's 2^22 slots, D = 2,
+// K = 2^18.  What holds it back is latency, not bytes: a pair must reach
+// the one warp that owns its key, in order, with no atomics, and every
+// stage of that costs barriers and shuffles.  The first design (one
+// 1024-thread block per SM, synchronous stage loads, six barriers and a
+// block scan a stage, a one-block serial planner) ran at 17x the bound.
+// This one:
+//   1 tile_blocks  one warp per tile: its key block, from its first key (a
+//                  tile whose first key lies outside [0, K), as the layout's
+//                  trailing pad, is read by the whole warp at once).
+//   2 plan         one block; each warp sweeps a contiguous range of tiles
+//                  32 at a time (coalesced, loads batched) with warp scans;
+//                  a block-level pass gives each range the block before it.
+//                  The segments: runs of tiles of one key block cut into
+//                  windows of `window` tiles, and each key block's first and
+//                  last segment.  The window makes the segments one wave of
+//                  the blocks that fit on the card (occupancy x SMs).
+//   3 reduce       one block per segment (and column tile) folds it into a
+//                  [block_k, cols] table in shared memory.  The segment
+//                  streams through a ring of three stages filled with 4-byte
+//                  cp.async, two stages ahead.  A block of kBucketWarps warps
+//                  buckets each stage of up to 1024 pairs by owner (warp w
+//                  owns the keys with local id % 8 == w): counts per (owner,
+//                  32-pair window) from ballots on the owner's bits, each
+//                  warp scans its owner's row, and the pairs' indices are
+//                  scattered stably; three barriers a stage.  Each warp then
+//                  walks its own list 32 entries at a time: every lane claims
+//                  its key's byte, and where no claim was lost each lane
+//                  folds its own pair, else lanes with the same key find
+//                  each other with one ballot per key bit and the lowest
+//                  folds their values in lane order.  A small table (many
+//                  blocks fit on an SM) takes blocks of one warp that read
+//                  every pair themselves.  So each key's pairs fold in
+//                  layout order inside a segment, with no atomics.  A key
+//                  block that lies in one segment is written straight to
+//                  out, folded with acc: no partial table.
+//   4 merge        the key blocks of several segments: a group of up to 32
+//                  threads per (key, column) folds the segments' partial
+//                  tables, each thread a contiguous run of them in order, and
+//                  a fixed shuffle tree joins the runs left to right, then
+//                  onto acc.
 // The order of every float operation is fixed by the input alone: two runs
 // give the same bits.  Max and min follow JAX's NaN and signed-zero rules
 // (combine<> in keyed_fold.cuh); a key absent from the stream gets the
 // identity (then acc's value, when acc is given).
-//
-// Bound on this card: bytes: N*(4 + 4D) read, K*D*4 written (and K*D*4 of acc
-// read).  The segment tables add segments x block_k x D x 4 bytes of writes
-// and reads.
 
-#include "block_scan.cuh"
 #include "keyed_fold.cuh"
 
 namespace segred {
@@ -43,22 +64,35 @@ namespace segred {
 using keyed_fold::combine;
 using keyed_fold::identity;
 
-constexpr int kThreads = 1024;  // reduce block: 32 warps
-constexpr int kWarps = kThreads / 32;  // == 32: the [owner, warp] matrix has
-                                       // one entry per thread
-constexpr int kTargetSegments = 264;  // two per SM of the 132
+constexpr int kPlanThreads = 1024;
+constexpr int kPlanBatch = 4;  // steps of 32 tiles a plan warp loads at once
+constexpr int kTileThreads = 256;
+constexpr int kMergeThreads = 256;
 constexpr int kTableFloats = 32768;  // 128 KB of table per block
 constexpr int kMaxCols = 64;
-constexpr int kMaxStage = 1024;  // pairs staged in shared memory at once
-constexpr int kSmemBytes = 232448;  // what one block may use on an H100
+constexpr int kRing = 3;  // stages in shared memory, two in flight
+constexpr int kMaxStage = 1024;  // pairs per stage (bucketed warps)
+constexpr int kBallotStage = 256;  // pairs per stage (one warp)
+constexpr int kSmemBytes = 232448 - 256;  // dynamic shared memory a block
+                                          // may use on an H100 (the rest
+                                          // for its static shared memory)
+constexpr int kSmPerSm = 233472;  // shared memory of one SM
+constexpr int kSmReserve = 1024;  // reserved by the runtime per block
+constexpr int kBucketWarps = 8;  // warps of a block that buckets
+constexpr int kBucketBlocks = 2;  // such blocks an SM should hold
+constexpr int kBallotFit = 8;  // blocks per SM at which one warp a block
+                               // reads every pair itself
 
 struct Plan {
   long long n;
   int d, k, block_k, tile;
   int n_tiles, nblk, window, max_seg;
-  int cols, col_tiles, stage;
+  int cols, col_tiles, stage, warps, merge_log2;
+  int kbits;  // bits of a local key: block_k <= 2^kbits
   size_t smem;
 };
+
+inline int resident_blocks(int warps, size_t smem);
 
 inline bool make_plan(long long n, int d, int k, int block_k, int tile,
                       Plan* p) {
@@ -70,18 +104,52 @@ inline bool make_plan(long long n, int d, int k, int block_k, int tile,
   p->tile = tile;
   p->n_tiles = (int)((n + tile - 1) / tile);
   p->nblk = (k + block_k - 1) / block_k;
-  p->window = (p->n_tiles + kTargetSegments - 1) / kTargetSegments;
-  p->max_seg = (p->n_tiles + p->window - 1) / p->window + p->nblk;
+  p->kbits = 0;
+  while ((1LL << p->kbits) < block_k) ++p->kbits;
   p->cols = min(d, min(kMaxCols, kTableFloats / block_k));
   if (p->cols < 1) return false;
   p->col_tiles = (d + p->cols - 1) / p->cols;
   const long long table = (long long)block_k * p->cols * 4;
-  const long long fixed = (kWarps * kWarps + kWarps + 1) * 4;
-  // per staged pair: its local key, its list entry and its values
-  const long long stage = (kSmemBytes - table - fixed) / ((2 + p->cols) * 4);
-  p->stage = (int)min((long long)kMaxStage, stage) & ~31;
-  if (p->stage < 32) return false;
-  p->smem = (size_t)table + fixed + (size_t)p->stage * (2 + p->cols) * 4;
+  const long long per_pair = (long long)kRing * (1 + p->cols) * 4;
+  // a small table: blocks of one warp, which folds every pair itself (no
+  // bucketing), many blocks per SM
+  p->stage = kBallotStage;
+  p->smem = (size_t)(table + kBallotStage * per_pair);
+  if (kSmPerSm / (int)(p->smem + kSmReserve) >= kBallotFit) {
+    p->warps = 1;
+  } else {
+    // else blocks of kBucketWarps warps, which bucket each stage by owner;
+    // the list and the [owner, window] counts take 4 bytes a pair and 4
+    // bytes an (owner, window) beside the ring
+    const long long per_bucketed = per_pair + 4 + 4;
+    const long long fixed = 32 * 4 + (block_k + 15) / 16 * 16;  // + tags
+    // as many pairs a stage as leave room for kBucketBlocks blocks an SM
+    const long long room = min((long long)kSmemBytes,
+                               (long long)kSmPerSm / kBucketBlocks -
+                                   kSmReserve);
+    p->stage = (int)min((long long)kMaxStage,
+                        (room - table - fixed) / per_bucketed) & ~31;
+    if (p->stage < 32)
+      p->stage = (int)min((long long)kMaxStage,
+                          (kSmemBytes - table - fixed) / per_bucketed) & ~31;
+    if (p->stage < 32) return false;
+    p->smem = (size_t)(table + fixed + p->stage * per_bucketed);
+    p->warps = kBucketWarps;
+  }
+  const int best = p->warps;
+  // one wave: as many segments (x column tiles) as blocks fit on the card;
+  // each key block adds at most one cut
+  const int resident = max(1, resident_blocks(best, p->smem) / p->col_tiles);
+  const int target = max(resident - p->nblk, (resident + 1) / 2);
+  p->window = (p->n_tiles + target - 1) / target;
+  p->max_seg = (p->n_tiles + p->window - 1) / p->window +
+               min(p->nblk, p->n_tiles);
+  // threads per (key, column) in the merge: a quarter of the segments a key
+  // block has on average, a power of two up to a warp
+  const int per_blk = max(1, p->max_seg / min(p->nblk, p->n_tiles));
+  p->merge_log2 = 0;
+  while (p->merge_log2 < 5 && (2 << p->merge_log2) * 4 <= per_blk)
+    ++p->merge_log2;
   return true;
 }
 
@@ -114,177 +182,453 @@ inline size_t carve(const Plan& p, char* base, Scratch* s) {
   return off;
 }
 
-__global__ void tile_blocks(const int* __restrict__ keys, Plan p,
-                            int* __restrict__ tile_blk) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= p.n_tiles) return;
+// The key block of tile t, whose first key lies outside [0, K): that of its
+// first key in [0, K), -1 if none.  The whole warp reads the tile, 8 keys a
+// lane at once (t is the same in every lane; such tiles are rare: the
+// layout's pad, a stream's ends).
+__device__ __forceinline__ int resolve_tile(const int* __restrict__ keys,
+                                            const Plan& p, int t) {
+  const int lane = threadIdx.x & 31;
   const long long lo = (long long)t * p.tile;
   const long long hi = min(p.n, lo + p.tile);
-  int b = -1;
-  for (long long i = lo; i < hi; ++i) {
-    const int key = keys[i];
-    if (key >= 0 && key < p.k) {
-      b = key / p.block_k;
-      break;
+  for (long long i0 = lo; i0 < hi; i0 += 256) {
+    int key[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const long long i = i0 + 32 * j + lane;
+      key[j] = i < hi ? keys[i] : -1;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const unsigned ok = __ballot_sync(0xffffffffu,
+                                        key[j] >= 0 && key[j] < p.k);
+      if (ok)
+        return __shfl_sync(0xffffffffu, key[j], __ffs(ok) - 1) / p.block_k;
     }
   }
-  tile_blk[t] = b;
+  return -1;
 }
 
-// One block of kThreads.  A tile without a key in [0, K) joins the segment
-// before it (it adds nothing); a segment starts where the running block
-// changes or a window of tiles begins.
-__global__ void plan_segments(Plan p, const int* __restrict__ tile_blk,
-                              int* __restrict__ seg_tile,
-                              int* __restrict__ seg_blk,
-                              int* __restrict__ n_seg,
-                              int* __restrict__ blk_first,
-                              int* __restrict__ blk_last) {
-  __shared__ int s_warp[32];
-  __shared__ int s_eff[kThreads];
-  __shared__ int s_prev, s_count;
-  for (int b = threadIdx.x; b < p.nblk; b += blockDim.x)
+// The key block of every tile: that of its first key in [0, K), -1 if none.
+// One warp per tile, so that the rare tiles whose first key lies outside
+// [0, K) (the layout's trailing pad, a stream's ends) are read in parallel.
+__global__ void __launch_bounds__(kTileThreads)
+    tile_blocks(const int* __restrict__ keys, Plan p,
+                int* __restrict__ tile_blk) {
+  const int t = blockIdx.x * (kTileThreads / 32) + (threadIdx.x >> 5);
+  if (t >= p.n_tiles) return;  // whole warps
+  const int first = keys[(long long)t * p.tile];
+  const int b = first >= 0 && first < p.k ? first / p.block_k
+                                          : resolve_tile(keys, p, t);
+  if ((threadIdx.x & 31) == 0) tile_blk[t] = b;
+}
+
+// One sweep of a warp over tiles [lo, hi), 32 a step, kPlanBatch steps of
+// loads at once.  The running block eff(t) = max(carry, blocks up to t) (a
+// tile without a key in [0, K) joins the segment before it); a tile heads
+// a segment where eff >= 0 and a window of tiles begins or eff changes.
+// f(t, eff, head_mask, step) is called for every step.
+template <typename F>
+__device__ __forceinline__ int sweep(const int* __restrict__ tile_blk, int lo,
+                                     int hi, int carry, F f) {
+  const int lane = threadIdx.x & 31;
+  for (int b0 = lo; b0 < hi; b0 += 32 * kPlanBatch) {
+    int v[kPlanBatch];
+#pragma unroll
+    for (int j = 0; j < kPlanBatch; ++j) {
+      const int t = b0 + 32 * j + lane;
+      v[j] = t < hi ? tile_blk[t] : -1;
+    }
+#pragma unroll
+    for (int j = 0; j < kPlanBatch; ++j) {
+      const int t = b0 + 32 * j + lane;
+      int e = v[j];
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1)
+        e = max(e, __shfl_up_sync(0xffffffffu, e, off));  // lanes < off keep
+      e = max(e, carry);
+      int prev = __shfl_up_sync(0xffffffffu, e, 1);
+      if (lane == 0) prev = carry;
+      f(t, t < hi, e, prev);
+      carry = __shfl_sync(0xffffffffu, e, 31);
+    }
+  }
+  return carry;
+}
+
+// One block of kPlanThreads: the segments, from the tiles' blocks.  Warp w
+// takes a contiguous range of tiles; a first sweep finds its largest block
+// and its heads as if nothing came before, a block scan gives each range
+// the block before it and corrects the first heads, a second writes them.
+__global__ void __launch_bounds__(kPlanThreads)
+    plan_segments(Plan p, const int* __restrict__ tile_blk,
+                  int* __restrict__ seg_tile, int* __restrict__ seg_blk,
+                  int* __restrict__ n_seg, int* __restrict__ blk_first,
+                  int* __restrict__ blk_last) {
+  constexpr int kWarps = kPlanThreads / 32;
+  __shared__ int s_max[kWarps], s_heads[kWarps];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int b = tid; b < p.nblk; b += kPlanThreads)
     blk_first[b] = blk_last[b] = -1;
-  if (threadIdx.x == 0) {
-    s_prev = -1;
-    s_count = 0;
-  }
+  const int per = (p.n_tiles + kWarps - 1) / kWarps;
+  const int lo = min(p.n_tiles, warp * per), hi = min(p.n_tiles, lo + per);
+  // sweep 1, from carry -1: heads, the window starts before the first tile
+  // with a block (heads too if a block came before), and that tile (a head
+  // here; there, unless its block is the one before and no window starts)
+  int heads = 0, lead = 0, fv_t = -1, fv_b = -1;
+  const int mx = sweep(tile_blk, lo, hi, -1, [&](int t, bool in, int e,
+                                                   int prev) {
+    const bool head = in && e >= 0 && (t % p.window == 0 || e != prev);
+    heads += __popc(__ballot_sync(0xffffffffu, head));
+    lead += __popc(__ballot_sync(0xffffffffu,
+                                 in && e < 0 && t % p.window == 0));
+    const unsigned firsts = __ballot_sync(0xffffffffu, in && e >= 0 && prev < 0);
+    if (firsts && fv_t < 0) {
+      fv_t = __shfl_sync(0xffffffffu, t, __ffs(firsts) - 1);
+      fv_b = __shfl_sync(0xffffffffu, e, __ffs(firsts) - 1);
+    }
+  });
+  if (lane == 0) s_max[warp] = mx;
   __syncthreads();
-  for (int base = 0; base < p.n_tiles; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    const int v = i < p.n_tiles ? tile_blk[i] : -1;
-    const int prev_chunk = s_prev, count = s_count;
-    const int eff = max(prev_chunk, scan::block_scan<true>(v, s_warp));
-    s_eff[threadIdx.x] = eff;
-    __syncthreads();
-    const int prev = threadIdx.x == 0 ? prev_chunk : s_eff[threadIdx.x - 1];
-    const int head = i < p.n_tiles && eff >= 0 &&
-                     (i % p.window == 0 || eff != prev);
-    const int pos = scan::block_scan<false>(head, s_warp);
-    if (head) {
-      seg_tile[count + pos - 1] = i;
-      seg_blk[count + pos - 1] = eff;
-    }
-    __syncthreads();
-    if (threadIdx.x == blockDim.x - 1) {
-      s_count = count + pos;
-      s_prev = eff;
-    }
-    __syncthreads();
+  int carry = -1;  // the running block before this range
+  for (int w = 0; w < warp; ++w) carry = max(carry, s_max[w]);
+  if (carry >= 0) heads += lead;
+  if (fv_t >= 0 && fv_t % p.window != 0 && fv_b == carry) --heads;
+  if (lane == 0) s_heads[warp] = heads;
+  __syncthreads();
+  int pos = 0, total = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    const int h = s_heads[w];
+    pos += w < warp ? h : 0;
+    total += h;
   }
-  const int total = s_count;
-  if (threadIdx.x == 0) {
+  // sweep 2, from the true carry: write the heads
+  sweep(tile_blk, lo, hi, carry, [&](int t, bool in, int e, int prev) {
+    const bool head = in && e >= 0 && (t % p.window == 0 || e != prev);
+    const unsigned hm = __ballot_sync(0xffffffffu, head);
+    if (head) {
+      const int at = pos + __popc(hm & ((1u << lane) - 1u));
+      seg_tile[at] = t;
+      seg_blk[at] = e;
+    }
+    pos += __popc(hm);
+  });
+  if (tid == 0) {
     *n_seg = total;
     seg_tile[total] = p.n_tiles;
   }
   __syncthreads();
-  for (int s = threadIdx.x; s < total; s += blockDim.x) {
+  for (int s = tid; s < total; s += kPlanThreads) {
     const int b = seg_blk[s];
     if (s == 0 || seg_blk[s - 1] != b) blk_first[b] = s;
     if (s == total - 1 || seg_blk[s + 1] != b) blk_last[b] = s;
   }
 }
 
-template <int OP>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// The lanes whose value v equals this lane's, among the lanes where ok
+// holds, from the bits lo .. lo + nb - 1 of v (the others agree): one
+// ballot a bit, where __match_any_sync would serialize on distinct values.
+__device__ __forceinline__ unsigned match_bits(int v, bool ok, int lo,
+                                               int nb) {
+  unsigned peers = __ballot_sync(0xffffffffu, ok);
+  for (int bit = lo; bit < lo + nb; ++bit) {
+    const bool set = (v >> bit) & 1;
+    const unsigned b = __ballot_sync(0xffffffffu, set);
+    peers &= set ? b : ~b;
+  }
+  return peers;
+}
+
+// Lanes holding pairs of the same local key lk (>= 0) fold them into the
+// table, the lowest lane in lane order; a lane's pair is sv[src(lane)].
+template <int OP, typename Src>
+__device__ __forceinline__ void fold_lanes(float* table, int lk, unsigned same,
+                                           const float* sv, int nc, Src src) {
+  const int lane = threadIdx.x & 31;
+  if (lk >= 0 && __ffs(same) - 1 == lane) {
+    float* row = table + lk * nc;
+    for (int c = 0; c < nc; ++c) {
+      float r = row[c];
+      for (unsigned rest = same; rest != 0; rest &= rest - 1)
+        r = combine<OP>(r, sv[src(__ffs(rest) - 1) * nc + c]);
+      row[c] = r;
+    }
+  }
+}
+
+template <int OP, int W>
+__global__ void __launch_bounds__(W * 32, 16 / W)
     reduce_segments(const int* __restrict__ keys,
-                    const float* __restrict__ vals, Plan p,
-                    const int* __restrict__ seg_tile,
+                    const float* __restrict__ vals,
+                    const float* __restrict__ acc, float* __restrict__ out,
+                    Plan p, const int* __restrict__ seg_tile,
                     const int* __restrict__ seg_blk,
                     const int* __restrict__ n_seg,
+                    const int* __restrict__ blk_first,
+                    const int* __restrict__ blk_last,
                     float* __restrict__ partial) {
+  constexpr int kThreads = W * 32;
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int s_warp[32];
   const int s = blockIdx.x;
   if (s >= *n_seg) return;
   const int col0 = blockIdx.y * p.cols;
   const int nc = min(p.cols, p.d - col0);
+  const int S = p.stage;
   float* table = reinterpret_cast<float*>(smem);  // [block_k][nc]
-  int* s_local = reinterpret_cast<int*>(table + (size_t)p.block_k * p.cols);
-  int* s_list = s_local + p.stage;  // stage indices, grouped by owner
-  int* s_pos = s_list + p.stage;  // [owner][warp] counts, then offsets
-  int* s_start = s_pos + kWarps * kWarps;  // each owner's list, and the end
-  float* s_vals = reinterpret_cast<float*>(s_start + kWarps + 1);
-  const int key0 = seg_blk[s] * p.block_k;
+  int* s_keys = reinterpret_cast<int*>(table + (size_t)p.block_k * p.cols);
+  float* s_vals = reinterpret_cast<float*>(s_keys + kRing * S);  // [S][nc]
+  // bucketed warps: the stage's indices grouped by owner, and the [owner,
+  // window] counts, then their exclusive scan
+  constexpr int kBucket = W > 1;
+  const int NW = S / 32;  // windows of a stage
+  const int RS = NW + 1;  // a row of counts, padded against bank conflicts
+  int* s_list = reinterpret_cast<int*>(s_vals + (size_t)kRing * S * p.cols);
+  int* s_cnt = s_list + S;
+  // a byte per local key: the lane that last claimed it (owner warps only)
+  unsigned char* s_tag = reinterpret_cast<unsigned char*>(s_cnt + S + 32);
+  __shared__ int s_tot[W];
+  constexpr int kOwnBits = W == 1 ? 0 : W == 2 ? 1 : W == 4 ? 2 : W == 8 ? 3
+                           : W == 16 ? 4 : 5;
+  static_assert(W == 1 || kMaxStage / 32 <= 32, "a row of counts is a warp");
+  const int key_bits = max(0, p.kbits - kOwnBits);  // beside the owner's
+  const int blk = seg_blk[s];
+  const int key0 = blk * p.block_k;
   const long long lo = (long long)seg_tile[s] * p.tile;
   const long long hi = min(p.n, (long long)seg_tile[s + 1] * p.tile);
-  for (int i = threadIdx.x; i < p.block_k * nc; i += blockDim.x)
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  for (int i = tid; i < p.block_k * nc; i += kThreads)
     table[i] = identity<OP>();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const unsigned lower = (1u << lane) - 1u;
 
-  for (long long c0 = lo; c0 < hi; c0 += p.stage) {
-    const int m = (int)min((long long)p.stage, hi - c0);
-    __syncthreads();  // the table is initialized / the last stage is read
-    if (threadIdx.x < m) {  // stage <= kThreads: one pair per thread
-      const int key = keys[c0 + threadIdx.x];
-      const int lk = key - key0;
-      s_local[threadIdx.x] =
-          key >= 0 && key < p.k && lk >= 0 && lk < p.block_k ? lk : -1;
-    }
-    for (int i = threadIdx.x; i < m * nc; i += blockDim.x) {
-      const int row = i / nc;
-      const int c = i - row * nc;
-      s_vals[i] = vals[(c0 + row) * p.d + col0 + c];
-    }
-    s_pos[threadIdx.x] = 0;
-    __syncthreads();
-    // bucket the stage by owning warp, stably
-    const int lk = threadIdx.x < m ? s_local[threadIdx.x] : -1;
-    const int owner = lk >= 0 ? lk % kWarps : -1 - lane;
-    const unsigned peers = __match_any_sync(0xffffffffu, owner);
-    const int rank = __popc(peers & lower);
-    if (lk >= 0 && rank == 0) s_pos[owner * kWarps + warp] = __popc(peers);
-    __syncthreads();
-    const int count = s_pos[threadIdx.x];
-    const int incl = scan::block_scan<false>(count, s_warp);
-    s_pos[threadIdx.x] = incl - count;
-    if (lane == 0) s_start[warp] = incl - count;  // thread = owner * 32
-    if (threadIdx.x == blockDim.x - 1) s_start[kWarps] = incl;
-    __syncthreads();
-    if (lk >= 0) s_list[s_pos[owner * kWarps + warp] + rank] = threadIdx.x;
-    __syncthreads();
-    // warp `warp` folds its own keys' pairs, in stage order
-    const int end = s_start[warp + 1];
-    for (int j0 = s_start[warp]; j0 < end; j0 += 32) {
-      const int src = j0 + lane < end ? s_list[j0 + lane] : -1;
-      const int key = src >= 0 ? s_local[src] : -1 - lane;
-      const unsigned same = __match_any_sync(0xffffffffu, key);
-      if (src >= 0 && __ffs(same) - 1 == lane) {
-        float* row = table + key * nc;
-        for (unsigned rest = same; rest != 0; rest &= rest - 1) {
-          const float* v = s_vals + s_list[j0 + __ffs(rest) - 1] * nc;
-          for (int c = 0; c < nc; ++c) row[c] = combine<OP>(row[c], v[c]);
+  auto fetch = [&](int st) {
+    const long long c0 = lo + (long long)st * S;
+    if (c0 < hi) {
+      const int m = (int)min((long long)S, hi - c0);
+      const int buf = st % kRing;
+      int* sk = s_keys + buf * S;
+      float* sv = s_vals + (size_t)buf * S * p.cols;
+      for (int i = tid; i < m; i += kThreads) cp_async4(sk + i, keys + c0 + i);
+      if (nc == p.d) {
+        const float* src = vals + c0 * p.d;
+        for (int i = tid; i < m * nc; i += kThreads) cp_async4(sv + i, src + i);
+      } else {
+        for (int i = tid; i < m * nc; i += kThreads) {
+          const int row = i / nc;
+          cp_async4(sv + i, vals + (c0 + row) * p.d + col0 + (i - row * nc));
         }
       }
     }
+    cp_async_commit();  // an empty group keeps the count uniform
+  };
+
+  fetch(0);
+  fetch(1);
+  cp_async_wait_one();  // stage 0 has landed (1 may be in flight)
+  __syncthreads();  // ... for every thread, and the table is set
+  for (int st = 0; lo + (long long)st * S < hi; ++st) {
+    const long long c0 = lo + (long long)st * S;
+    const int m = (int)min((long long)S, hi - c0);
+    const int buf = st % kRing;
+    const int* sk = s_keys + buf * S;
+    const float* sv = s_vals + (size_t)buf * S * p.cols;
+    if (!kBucket) {  // every warp reads every window, folds its own keys
+      fetch(st + 2);  // into the buffer of stage st - 1
+      for (int j0 = 0; j0 < m; j0 += 32) {
+        const int j = j0 + lane;
+        const int key = j < m ? sk[j] : -1;
+        const int lk = key - key0;
+        const bool mine = j < m && key >= 0 && key < p.k &&
+                          (unsigned)lk < (unsigned)p.block_k &&
+                          (W == 1 || (lk & (W - 1)) == warp);
+        if (!__any_sync(0xffffffffu, mine)) continue;
+        const unsigned same = match_bits(lk, mine, kOwnBits, key_bits);
+        fold_lanes<OP>(table, mine ? lk : -1, same, sv, nc,
+                       [&](int l) { return j0 + l; });
+      }
+      cp_async_wait_one();  // stage st + 1 has landed
+      __syncthreads();
+      continue;
+    }
+    // bucketed: warp w counts windows w, w + W, ... by owner, stably
+    constexpr int kWin = kBucket ? kMaxStage / 32 / W : 1;
+    int own[kWin], rank[kWin];
+#pragma unroll
+    for (int i = 0; i < kWin; ++i) {
+      const int jw = warp + i * W;
+      own[i] = -1;
+      rank[i] = 0;
+      if (jw < NW) {
+        const int j = jw * 32 + lane;
+        const int key = j < m ? sk[j] : -1;
+        const int lk = key - key0;
+        const bool ok = j < m && key >= 0 && key < p.k &&
+                        (unsigned)lk < (unsigned)p.block_k;
+        const int o = lk & (W - 1);
+        const unsigned peers = match_bits(o, ok, 0, kOwnBits);
+        rank[i] = __popc(peers & ((1u << lane) - 1u));
+        if (lane < W) s_cnt[lane * RS + jw] = 0;
+        __syncwarp();
+        if (ok && rank[i] == 0) s_cnt[o * RS + jw] = __popc(peers);
+        own[i] = ok ? o : -1;
+      }
+    }
+    __syncthreads();  // counts written; every warp is past stage st - 1
+    fetch(st + 2);  // into the buffer of stage st - 1
+    {  // warp w: exclusive scan of owner w's row of counts
+      const int c = lane < NW ? s_cnt[warp * RS + lane] : 0;
+      int incl = c;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += y;
+      }
+      if (lane < NW) s_cnt[warp * RS + lane] = incl - c;
+      if (lane == 31) s_tot[warp] = incl;
+    }
+    __syncthreads();
+    // lane o holds owner o's start: the exclusive scan of the row totals
+    const int tot = lane < W ? s_tot[lane] : 0;
+    int first = tot;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, first, off);
+      if (lane >= off) first += y;
+    }
+    first -= tot;
+#pragma unroll
+    for (int i = 0; i < kWin; ++i) {
+      const int base = __shfl_sync(0xffffffffu, first, max(own[i], 0));
+      if (own[i] >= 0)
+        s_list[base + s_cnt[own[i] * RS + warp + i * W] + rank[i]] =
+            (warp + i * W) * 32 + lane;
+    }
+    cp_async_wait_one();  // stage st + 1 has landed
+    __syncthreads();
+    // warp w folds its own list, in stage order
+    const int begin = __shfl_sync(0xffffffffu, first, warp);
+    const int end = begin + __shfl_sync(0xffffffffu, tot, warp);
+    for (int e0 = begin; e0 < end; e0 += 32) {
+      const int src = e0 + lane < end ? s_list[e0 + lane] : -1;
+      const int lk = src >= 0 ? sk[src] - key0 : -1;
+      // keys seldom repeat within 32 entries: each lane claims its key's
+      // byte, and only if a claim was lost do lanes match keys bit by bit
+      if (lk >= 0) s_tag[lk] = (unsigned char)lane;
+      __syncwarp();
+      const bool lost = lk >= 0 && s_tag[lk] != lane;
+      if (!__any_sync(0xffffffffu, lost)) {
+        if (lk >= 0) {
+          float* row = table + lk * nc;
+          for (int c = 0; c < nc; ++c)
+            row[c] = combine<OP>(row[c], sv[src * nc + c]);
+        }
+      } else {
+        const unsigned same = match_bits(lk, src >= 0, kOwnBits, key_bits);
+        const int* lst = s_list + e0;
+        fold_lanes<OP>(table, lk, same, sv, nc,
+                       [&](int l) { return lst[l]; });
+      }
+      __syncwarp();  // the claims are read before the next entries'
+    }
   }
   __syncthreads();
-  float* out = partial + (size_t)s * p.block_k * p.d + col0;
-  for (int i = threadIdx.x; i < p.block_k * nc; i += blockDim.x) {
+  const int kb = min(p.block_k, p.k - key0);  // keys of this block below K
+  if (blk_first[blk] == blk_last[blk]) {  // the block's only segment
+    for (int i = tid; i < kb * nc; i += kThreads) {
+      const int local = i / nc;
+      const size_t e = (size_t)(key0 + local) * p.d + col0 + (i - local * nc);
+      out[e] = acc != nullptr ? combine<OP>(acc[e], table[i]) : table[i];
+    }
+    return;
+  }
+  float* dst = partial + (size_t)s * p.block_k * p.d + col0;
+  for (int i = tid; i < kb * nc; i += kThreads) {
     const int local = i / nc;
-    out[(size_t)local * p.d + (i - local * nc)] = table[i];
+    dst[(size_t)local * p.d + (i - local * nc)] = table[i];
   }
 }
 
+// Every (key, column) of a key block of several segments, or of none.  A
+// group of 2^merge_log2 threads folds the segments in order, each thread a
+// contiguous run; a shuffle tree joins the runs left to right.
 template <int OP>
-__global__ void merge_segments(Plan p, const float* __restrict__ partial,
-                               const int* __restrict__ blk_first,
-                               const int* __restrict__ blk_last,
-                               const float* __restrict__ acc,
-                               float* __restrict__ out) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= (long long)p.k * p.d) return;
-  const int key = (int)(e / p.d);
-  const int c = (int)(e - (long long)key * p.d);
-  const int b = key / p.block_k;
-  const int local = key - b * p.block_k;
+__global__ void __launch_bounds__(kMergeThreads)
+    merge_segments(Plan p, const float* __restrict__ partial,
+                   const int* __restrict__ blk_first,
+                   const int* __restrict__ blk_last,
+                   const float* __restrict__ acc, float* __restrict__ out) {
+  const long long gid = (long long)blockIdx.x * kMergeThreads + threadIdx.x;
+  const int group = 1 << p.merge_log2;
+  const long long e = gid >> p.merge_log2;
+  const int g = (int)(gid & (group - 1));
+  const bool in = e < (long long)p.k * p.d;
+  int first = -1, last = -1, key = 0, c = 0;
+  if (in) {
+    key = (int)(e / p.d);
+    c = (int)(e - (long long)key * p.d);
+    first = blk_first[key / p.block_k];
+    last = blk_last[key / p.block_k];
+  }
+  const bool skip = !in || (first >= 0 && first == last);  // reduce wrote it
   float r = identity<OP>();
-  const int last = blk_last[b];
-  for (int s = blk_first[b]; s >= 0 && s <= last; ++s)
-    r = combine<OP>(r, partial[((size_t)s * p.block_k + local) * p.d + c]);
-  if (acc != nullptr) r = combine<OP>(acc[e], r);
-  out[e] = r;
+  if (!skip && first >= 0) {
+    const int ns = last - first + 1;
+    const int run = (ns + group - 1) / group;
+    const int s0 = first + g * run, s1 = min(last + 1, s0 + run);
+    const int local = key % p.block_k;
+    for (int s = s0; s < s1; ++s)
+      r = combine<OP>(r, partial[((size_t)s * p.block_k + local) * p.d + c]);
+  }
+  for (int off = 1; off < group; off <<= 1) {
+    const float o = __shfl_down_sync(0xffffffffu, r, off);
+    if ((g & (2 * off - 1)) == 0) r = combine<OP>(r, o);
+  }
+  if (g == 0 && !skip) out[e] = acc != nullptr ? combine<OP>(acc[e], r) : r;
+}
+
+template <int OP, int W>
+cudaError_t prepare() {  // once per kernel: allow the large shared memory
+  static cudaError_t done = cudaFuncSetAttribute(
+      reduce_segments<OP, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  return done;
+}
+
+template <int W>
+int occupancy(size_t smem) {
+  if (prepare<keyed_fold::kAdd, W>() != cudaSuccess) return 0;
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, reduce_segments<keyed_fold::kAdd, W>, W * 32, smem) !=
+      cudaSuccess)
+    return 0;
+  return blocks;
+}
+
+inline int resident_blocks(int warps, size_t smem) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      sms = 132;
+  }
+  const int per_sm = warps == 1 ? occupancy<1>(smem)
+                                 : occupancy<kBucketWarps>(smem);
+  return max(1, per_sm) * sms;
 }
 
 #define SEGRED_CHECK()                     \
@@ -293,30 +637,43 @@ __global__ void merge_segments(Plan p, const float* __restrict__ partial,
     if (e_ != cudaSuccess) return e_;      \
   } while (0)
 
+template <int OP, int W>
+cudaError_t launch_reduce(const Plan& p, const int* keys, const float* vals,
+                          const float* acc, float* out, const Scratch& s,
+                          cudaStream_t stream) {
+  const cudaError_t err = prepare<OP, W>();
+  if (err != cudaSuccess) return err;
+  reduce_segments<OP, W><<<dim3(p.max_seg, p.col_tiles), W * 32, p.smem,
+                           stream>>>(keys, vals, acc, out, p, s.seg_tile,
+                                     s.seg_blk, s.n_seg, s.blk_first,
+                                     s.blk_last, s.partial);
+  return cudaGetLastError();
+}
+
 template <int OP>
 cudaError_t run(const Plan& p, const int* keys, const float* vals,
                 const float* acc, float* out, void* scratch,
                 cudaStream_t stream) {
   Scratch s;
   carve(p, (char*)scratch, &s);
-  tile_blocks<<<(p.n_tiles + 255) / 256, 256, 0, stream>>>(keys, p,
-                                                           s.tile_blk);
+  tile_blocks<<<(p.n_tiles + kTileThreads / 32 - 1) / (kTileThreads / 32),
+                kTileThreads, 0, stream>>>(keys, p, s.tile_blk);
   SEGRED_CHECK();
-  plan_segments<<<1, kThreads, 0, stream>>>(p, s.tile_blk, s.seg_tile,
-                                            s.seg_blk, s.n_seg, s.blk_first,
-                                            s.blk_last);
+  plan_segments<<<1, kPlanThreads, 0, stream>>>(p, s.tile_blk, s.seg_tile,
+                                                s.seg_blk, s.n_seg,
+                                                s.blk_first, s.blk_last);
   SEGRED_CHECK();
-  cudaFuncSetAttribute(reduce_segments<OP>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)p.smem);
-  SEGRED_CHECK();
-  reduce_segments<OP><<<dim3(p.max_seg, p.col_tiles), kThreads, p.smem,
-                        stream>>>(keys, vals, p, s.seg_tile, s.seg_blk,
-                                  s.n_seg, s.partial);
-  SEGRED_CHECK();
-  const long long kd = (long long)p.k * p.d;
-  merge_segments<OP><<<(unsigned)((kd + 255) / 256), 256, 0, stream>>>(
-      p, s.partial, s.blk_first, s.blk_last, acc, out);
+  const cudaError_t err =
+      p.warps == 1
+          ? launch_reduce<OP, 1>(p, keys, vals, acc, out, s, stream)
+          : launch_reduce<OP, kBucketWarps>(p, keys, vals, acc, out, s,
+                                            stream);
+  if (err != cudaSuccess) return err;
+  const long long threads = ((long long)p.k * p.d) << p.merge_log2;
+  merge_segments<OP><<<(unsigned)((threads + kMergeThreads - 1) /
+                                  kMergeThreads),
+                       kMergeThreads, 0, stream>>>(p, s.partial, s.blk_first,
+                                                   s.blk_last, acc, out);
   SEGRED_CHECK();
   return cudaSuccess;
 }

@@ -4,12 +4,13 @@ Counterpart of ``repro/kernels/flash_decode.py``: softmax attention of one
 new token over a KV cache is a reduction that admits an associative
 combiner over KV tiles, with holder ``(m, l, acc)`` (running max, rescaled
 normalizer, rescaled value sum).  The kernel (``csrc/flash_decode.cu``)
-folds the tiles of one S range per block into the holder of the G query
-heads that share a KV head, and merges the ranges' holders in a second
-pass, in a fixed order, with the combiner's own merge: no float atomics,
-so two runs give the same bits.  Splitting S across blocks is what fills
-the card: B·Hkv holders alone are 2 blocks at the bench shape and 32 at
-llama3-8b's decode shape, for 132 SMs.
+splits S into chunks, one block per (chunk, KV head, batch row): each block
+stages its chunk's K and V rows in shared memory with asynchronous copies
+and folds them into the holder of the G query heads that share the KV
+head; the last block of each (row, KV head) to finish, found with an
+integer ticket, merges the chunks' holders in split order with the
+combiner's own merge.  No float atomics, so two runs give the same bits.
+:func:`split_plan` sizes the chunk from the blocks that fit on an SM.
 
 Its bound is bytes: the K and V rows below each row's ``kv_len``.
 
@@ -23,6 +24,8 @@ is used for CPU tensors and as the kernel's oracle.  Call both through
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import _build
@@ -30,16 +33,47 @@ from repro_torch.kernels import _build
 #: the TPU kernel's mask value (finite, so an all-masked tile stays finite)
 NEG_INF = -1e30
 
-#: limits of csrc/flash_decode.cu: D per lane slots, heads per KV head, and
-#: (head, column) accumulators per block
+#: limits of csrc/flash_decode.cu: the head dim, heads per KV head, and
+#: (head, column) pairs per block
 MAX_HEAD_DIM = 256
 MAX_GROUP = 64
 MAX_GROUP_ELEMS = 2048
 
-#: blocks the kernel aims to launch (two per SM), and the fewest positions
-#: a block folds (one tile of csrc/flash_decode.cu kTile)
-TARGET_BLOCKS = 2 * 132
+#: the card the plan sizes for (H100 SXM): SMs, shared memory per SM and
+#: per block, the runtime's reserve per block, resident blocks and threads
+SMS = 132
+SMEM_PER_SM = 233472
+SMEM_PER_BLOCK = 232448 - 64  # dynamic: the rest for static shared memory
+SMEM_RESERVE = 1024
+MAX_BLOCKS_PER_SM = 32
+MAX_THREADS_PER_SM = 2048
+
+#: csrc/flash_decode.cu: threads per block, the pad after each staged row,
+#: the most positions a block folds at once (a tile), and the heads of a
+#: block (4 where G <= 4, else 8; more heads take more blocks)
+THREADS = 256
+ROW_PAD = 16
 TILE = 64
+STAGES = 2
+#: registers a thread may take (csrc/flash_decode.cu kMaxRegs), and the most
+#: splits of one (row, KV head): the last block to finish merges them all
+MAX_REGS = 128
+MAX_SPLITS = 64
+
+
+def heads_per_block(G: int) -> int:
+    return 4 if G <= 4 else 8
+
+
+def smem_bytes(GB: int, D: int, itemsize: int, tile: int) -> int:
+    """Shared memory of one block (csrc/flash_decode.cu ``layout``): the
+    scaled q of its GB heads, one tile's logits, two tiles' maxima, then a
+    ring of :data:`STAGES` tiles of K and V rows (or the p.V and l partial
+    sums, the larger)."""
+    row = D * itemsize + ROW_PAD
+    groups = THREADS // (D * itemsize // 16)
+    ring = max(STAGES * 2 * tile * row, groups * GB * D * 4)
+    return -(-(GB * D * 4 + GB * tile * 4 + 5 * GB * 4) // 16) * 16 + ring
 
 
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -62,38 +96,78 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (acc / torch.clamp(l, min=1e-30)).reshape(B, H, D)
 
 
-def split_plan(B: int, Hkv: int, S: int, tile_s: int) -> tuple[int, int]:
-    """(positions per block, blocks along S): enough blocks to fill the
-    card, each a whole number of tiles and at most ``tile_s`` positions
-    (rounded up to a tile).  It depends on the shapes alone, never on
-    ``kv_len``, so no value is read back from the card."""
-    n_split = max(1, -(-TARGET_BLOCKS // (B * Hkv)))
-    n_split = min(n_split, -(-S // TILE))
-    chunk = -(-S // n_split)
-    chunk = min(chunk, max(tile_s, 1))
-    chunk = -(-chunk // TILE) * TILE
-    return chunk, -(-S // chunk)
+@functools.lru_cache(maxsize=256)
+def split_plan(B: int, H: int, Hkv: int, S: int, D: int, itemsize: int,
+               tile_s: int) -> tuple[int, int, int]:
+    """(tile, positions per block, blocks along S).  The tile is the most
+    positions, up to :data:`TILE`, whose ring of staged K/V tiles lets as
+    many blocks share an SM as its registers and threads allow; S is split into as many
+    chunks of whole tiles as fill the blocks that fit on the card at once
+    (one wave), at most :data:`MAX_SPLITS`, each at most ``tile_s``
+    positions (rounded up to a tile).  It depends on the shapes alone, never on
+    ``kv_len``, so no value is read back."""
+    G = H // Hkv
+    gb = heads_per_block(G)
+
+    fit = min(MAX_BLOCKS_PER_SM, MAX_THREADS_PER_SM // THREADS,
+              65536 // (MAX_REGS * THREADS))
+
+    def per_sm(tile):
+        smem = smem_bytes(gb, D, itemsize, tile)
+        if smem > SMEM_PER_BLOCK:
+            return 0
+        return min(SMEM_PER_SM // (smem + SMEM_RESERVE), fit)
+
+    tile = TILE
+    while tile > 8 and per_sm(tile) < fit:
+        tile //= 2
+    if per_sm(tile) < 1:
+        raise ValueError(f"flash_decode: no tile fits the shared memory of a "
+                         f"block at D={D}")
+    groups = B * Hkv * -(-G // gb)
+    n_tiles = -(-S // tile)
+    n_split = max(1, min(n_tiles, per_sm(tile) * SMS // groups, MAX_SPLITS))
+    chunk = -(-n_tiles // n_split) * tile
+    chunk = min(chunk, max(-(-tile_s // tile) * tile, tile))
+    return tile, chunk, -(-S // chunk)
+
+
+#: per (device, stream): the kernel's merge tickets, one int32 per (row, KV
+#: head), zero between calls (the merging block resets its own)
+_tickets: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def merge_tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index if device.index is not None else 0, stream)
+    t = _tickets.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        _tickets[key] = t
+    return t
 
 
 def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      kv_len: torch.Tensor, *, chunk: int, n_split: int
-                      ) -> torch.Tensor:
+                      kv_len: torch.Tensor, *, tile: int, chunk: int,
+                      n_split: int) -> torch.Tensor:
     """Launch the kernel; the wrapper in ``ops`` has checked the inputs."""
     lib = _build.library("flash_decode")
     B, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     dev = q.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
     out = torch.empty((B, H, D), dtype=torch.float32, device=dev)
-    part_m = torch.empty((B, H, n_split), dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((B, H, n_split, D), dtype=torch.float32,
-                           device=dev)
+    # the chunks' holders: acc [B, H, n_split, D], then m and l [B, H, n_split]
+    part = torch.empty(B * H * n_split * (D + 2), dtype=torch.float32,
+                       device=dev)
+    acc_ptr = part.data_ptr()
+    m_ptr = acc_ptr + 4 * B * H * n_split * D
+    l_ptr = m_ptr + 4 * B * H * n_split
+    G = H // Hkv
+    tickets = merge_tickets(dev, stream, B * Hkv * -(-G // heads_per_block(G)))
     err = lib.flash_decode_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-        out.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-        part_acc.data_ptr(), B, S, H, Hkv, D, chunk, n_split,
-        int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), m_ptr, l_ptr, acc_ptr, tickets.data_ptr(), B, S, H,
+        Hkv, D, tile, chunk, n_split, int(q.dtype == torch.bfloat16), stream)
     _build.check("flash_decode", lib, err)
     _build.count_launch("flash_decode")
     return out

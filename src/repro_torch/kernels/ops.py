@@ -598,13 +598,17 @@ def flash_decode(q, k, v, kv_len, *, tile_s=512):
         if not t.is_contiguous():
             raise ValueError(f"flash_decode: {what} must be contiguous")
     G = H // Hkv
+    item = q.element_size()
     if (D > _fd.MAX_HEAD_DIM or G > _fd.MAX_GROUP
-            or G * D > _fd.MAX_GROUP_ELEMS):
+            or G * D > _fd.MAX_GROUP_ELEMS or (D * item) % 16):
         raise ValueError(f"flash_decode: D={D}, G={G} passes the kernel's "
                          f"limits (D <= {_fd.MAX_HEAD_DIM}, G <= "
-                         f"{_fd.MAX_GROUP}, G*D <= {_fd.MAX_GROUP_ELEMS})")
+                         f"{_fd.MAX_GROUP}, G*D <= {_fd.MAX_GROUP_ELEMS}, "
+                         f"rows of whole 16-byte vectors)")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_decode: q, k and v must be 16-byte aligned")
     if B > 65535 or Hkv > 65535 or k.numel() >= 2**62:
         raise ValueError("flash_decode: a grid CUDA cannot launch")
-    chunk, n_split = _fd.split_plan(B, Hkv, S, tile_s)
-    return _fd.flash_decode_cuda(q, k, v, kv_len, chunk=chunk,
+    tile, chunk, n_split = _fd.split_plan(B, H, Hkv, S, D, item, tile_s)
+    return _fd.flash_decode_cuda(q, k, v, kv_len, tile=tile, chunk=chunk,
                                  n_split=n_split)

@@ -262,6 +262,8 @@ def attn_decode(
     (:func:`takes_flash_decode`)."""
     B = x.shape[0]
     q = _project_q(cfg, p, x)  # [B,1,H,D]
+    kernel = use_kernels and takes_flash_decode(
+        cfg, window=window, cross_kv=cross_kv, deferred_write=deferred_write)
 
     if cross_kv is None:
         k_new, v_new = _project_kv(cfg, p, x)
@@ -274,17 +276,16 @@ def attn_decode(
             layer_cache = cache_update(layer_cache, k_new, v_new, pos)
         k, v = cache_kv(layer_cache, x.dtype)
         T = k.shape[1]
-        j = torch.arange(T, device=x.device)
-        valid = j <= pos if not deferred_write else j < pos
-        valid = _window_mask(valid, pos, j, window, T)
+        if not kernel:  # the kernel masks by kv_len itself
+            j = torch.arange(T, device=x.device)
+            valid = j <= pos if not deferred_write else j < pos
+            valid = _window_mask(valid, pos, j, window, T)
     else:
         k, v = cross_kv
         T = k.shape[1]
         valid = torch.ones((T,), dtype=torch.bool, device=x.device)
 
-    if use_kernels and takes_flash_decode(cfg, window=window,
-                                          cross_kv=cross_kv,
-                                          deferred_write=deferred_write):
+    if kernel:
         from repro_torch.kernels import ops
 
         kv_len = torch.full((B,), pos + 1, dtype=torch.int32,

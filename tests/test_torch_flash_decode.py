@@ -93,56 +93,98 @@ def test_flash_decode_matches_monoid():
                                atol=1e-5)
 
 
-def test_split_merge_in_fixed_order_is_the_same_function():
-    """The kernel's design on the CPU: per-split holders merged in split
-    order with the combiner's merge (csrc/flash_decode.cu pass 2) equal the
-    plain version, for the splits ``split_plan`` picks."""
-    b, h, hkv, d, s = 2, 8, 2, 32, 1000
-    q, k, v, _ = _inputs(3, b, h, hkv, d, s)
-    kvl = np.array([777, 5], np.int32)
+def _kernel_order(q, k, v, kvl, tile, chunk, n_split):
+    """csrc/flash_decode.cu's order of operations in float64: each chunk
+    folds its tiles of ``tile`` positions into its holder online (m' = max(m,
+    tile max), alpha = e^(m - m'), l = l alpha + sum p, acc = acc alpha +
+    p.V), a chunk past kv_len keeps the empty holder, and the holders merge
+    in split order: m* = max_s m_s, l = sum_s l_s e^(m_s - m*), acc
+    likewise."""
+    b, h, d = q.shape
+    g = h // k.shape[2]
     tq, tk, tv = (torch.from_numpy(a).double() for a in (q, k, v))
-    chunk, n_split = tfd.split_plan(b, hkv, s, 512)
-    assert chunk % tfd.TILE == 0 and chunk * n_split >= s > chunk * (
-        n_split - 1)
-    g = h // hkv
     out = torch.empty((b, h, d), dtype=torch.float64)
     for i in range(b):
-        m = torch.full((h,), tfd.NEG_INF, dtype=torch.float64)
+        ms, ls, accs = [], [], []
+        for sp in range(n_split):
+            m = torch.full((h,), tfd.NEG_INF, dtype=torch.float64)
+            l = torch.zeros((h,), dtype=torch.float64)
+            acc = torch.zeros((h, d), dtype=torch.float64)
+            hi = min((sp + 1) * chunk, int(kvl[i]))
+            for lo in range(sp * chunk, hi, tile):
+                t1 = min(lo + tile, hi)
+                kk = tk[i, lo:t1].repeat_interleave(g, dim=1)
+                vv = tv[i, lo:t1].repeat_interleave(g, dim=1)
+                lg = torch.einsum("hd,thd->ht", tq[i] * d ** -0.5, kk)
+                m_new = torch.maximum(m, lg.amax(1))
+                alpha = torch.exp(m - m_new)
+                p = torch.exp(lg - m_new[:, None])
+                l = l * alpha + p.sum(1)
+                acc = acc * alpha[:, None] + torch.einsum("ht,thd->hd", p, vv)
+                m = m_new
+            ms.append(m)
+            ls.append(l)
+            accs.append(acc)
+        mstar = torch.stack(ms).amax(0)
         l = torch.zeros((h,), dtype=torch.float64)
         acc = torch.zeros((h, d), dtype=torch.float64)
-        for sp in range(n_split):
-            lo, hi = sp * chunk, min((sp + 1) * chunk, int(kvl[i]))
-            if lo >= hi:
-                continue  # an empty holder merges as the identity
-            kk = tk[i, lo:hi].repeat_interleave(g, dim=1)
-            vv = tv[i, lo:hi].repeat_interleave(g, dim=1)
-            lg = torch.einsum("hd,thd->ht", tq[i] * d ** -0.5, kk)
-            ms = lg.amax(1)
-            p = torch.exp(lg - ms[:, None])
-            mn = torch.maximum(m, ms)
-            a1, a2 = torch.exp(m - mn), torch.exp(ms - mn)
-            l = l * a1 + p.sum(1) * a2
-            acc = acc * a1[:, None] + torch.einsum("ht,thd->hd", p, vv) \
-                * a2[:, None]
-            m = mn
+        for m, ls_, a in zip(ms, ls, accs):
+            w = torch.exp(m - mstar)
+            l = l + ls_ * w
+            acc = acc + a * w[:, None]
         out[i] = acc / l.clamp(min=1e-30)[:, None]
+    return out.numpy()
+
+
+@pytest.mark.parametrize("b,h,hkv,d,s,kv", [
+    (2, 8, 2, 32, 1000, (777, 5)), (1, 8, 2, 64, 300, (300,)),
+    (2, 16, 4, 64, 520, (0, 519)), (1, 4, 1, 32, 96, (33,))])
+def test_split_merge_in_fixed_order_is_the_same_function(b, h, hkv, d, s, kv):
+    """The kernel's design on the CPU: per-chunk holders merged in split
+    order (csrc/flash_decode.cu) equal the plain version and the Pallas
+    kernel, for the chunks ``split_plan`` picks."""
+    q, k, v, _ = _inputs(3, b, h, hkv, d, s)
+    kvl = np.array(kv, np.int32)
+    tile, chunk, n_split = tfd.split_plan(b, h, hkv, s, d, 4, 512)
+    assert chunk % tile == 0 and chunk * n_split >= s > chunk * (n_split - 1)
+    want = _kernel_order(q, k, v, kvl, tile, chunk, n_split)
+    # the same function at other splits and tiles
+    for tile_, chunk_ in ((16, 48), (32, 32), (64, 256)):
+        np.testing.assert_allclose(
+            _kernel_order(q, k, v, kvl, tile_, chunk_, -(-s // chunk_)), want,
+            rtol=1e-12, atol=1e-12)
     got = ops.flash_decode(*(torch.from_numpy(a) for a in (q, k, v)),
                            torch.from_numpy(kvl))
-    np.testing.assert_allclose(got.numpy(), out.numpy(), rtol=1e-5,
-                               atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    pallas = np.asarray(jops.flash_decode(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(kvl),
+        tile_s=128, interpret=True))
+    np.testing.assert_allclose(want, pallas, rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.parametrize("b,h,hkv,d,s,tile_s", [
-    (1, 8, 2, 64, 8192, 512), (4, 32, 8, 128, 2080, 512),
-    (3, 16, 4, 128, 1000, 128), (1, 4, 4, 32, 1, 512),
-    (64, 8, 8, 64, 100, 512)])
-def test_split_plan_covers_s_and_fills_the_card(b, h, hkv, d, s, tile_s):
-    chunk, n_split = tfd.split_plan(b, hkv, s, tile_s)
-    assert chunk % tfd.TILE == 0 and chunk <= max(
-        -(-tile_s // tfd.TILE) * tfd.TILE, tfd.TILE)
+@pytest.mark.parametrize("b,h,hkv,d,s,item,tile_s", [
+    (1, 8, 2, 64, 8192, 4, 512), (4, 32, 8, 128, 2080, 2, 512),
+    (3, 16, 4, 128, 1000, 4, 128), (1, 4, 4, 32, 1, 4, 512),
+    (64, 8, 8, 64, 100, 4, 512)])
+def test_split_plan_covers_s_and_fills_the_card(b, h, hkv, d, s, item,
+                                                tile_s):
+    tile, chunk, n_split = tfd.split_plan(b, h, hkv, s, d, item, tile_s)
+    assert chunk % tile == 0 and tile <= tfd.TILE
+    assert chunk <= max(-(-tile_s // tile) * tile, tile)
     assert chunk * n_split >= s > chunk * (n_split - 1)
-    blocks = b * hkv * n_split
-    assert blocks >= min(tfd.TARGET_BLOCKS, b * hkv * -(-s // tfd.TILE))
+    g = h // hkv
+    gb = tfd.heads_per_block(g)
+    smem = tfd.smem_bytes(gb, d, item, tile)
+    assert smem <= tfd.SMEM_PER_BLOCK
+    resident = tfd.SMS * min(tfd.SMEM_PER_SM // (smem + tfd.SMEM_RESERVE),
+                             tfd.MAX_BLOCKS_PER_SM,
+                             tfd.MAX_THREADS_PER_SM // tfd.THREADS)
+    groups = b * hkv * -(-g // gb)
+    blocks = groups * n_split
+    # one wave where the chunk cap allows it, and at least half the card
+    assert blocks <= max(resident, groups) or chunk == max(
+        -(-tile_s // tile) * tile, tile)
+    assert blocks >= min(resident, groups * -(-s // tile)) / 2
 
 
 def test_kv_len_zero_gives_zeros_as_the_pallas_kernel():
@@ -183,8 +225,8 @@ def test_cuda_tensors_reach_the_kernel_only(monkeypatch):
     def plain(*a, **kw):
         raise AssertionError("the plain version ran on a device tensor")
 
-    def kernel(q, k, v, kv_len, *, chunk, n_split):
-        calls.append((q.dtype, chunk, n_split))
+    def kernel(q, k, v, kv_len, *, tile, chunk, n_split):
+        calls.append((q.dtype, tile, chunk, n_split))
         return torch.empty(q.shape, dtype=torch.float32, device="meta")
 
     monkeypatch.setattr(tfd, "flash_decode_plain", plain)
@@ -193,7 +235,7 @@ def test_cuda_tensors_reach_the_kernel_only(monkeypatch):
     k = torch.empty((4, 2080, 8, 128), dtype=torch.bfloat16, device="meta")
     kvl = torch.empty((4,), dtype=torch.int32, device="meta")
     assert ops.flash_decode(q, k, k, kvl).shape == (4, 32, 128)
-    assert calls == [(torch.bfloat16, 256, 9)]
+    assert calls == [(torch.bfloat16, 64, 320, 7)]
     with pytest.raises(TypeError, match="int32"):
         ops.flash_decode(q, k, k, kvl.to(torch.int64))
     with pytest.raises(TypeError, match="one dtype"):

@@ -235,3 +235,95 @@ def test_infeasible_plan_raises_instead_of_falling_back(monkeypatch):
     keys = torch.zeros(8, dtype=torch.int32)
     with pytest.raises(ValueError, match="radix levels"):
         ops.sort_segment_fold(keys, torch.ones(8, 1), torch.zeros(4096, 1))
+
+
+def _kernel_order(keys, vals, k, op, block_k, tile, window, group):
+    """csrc/segment_reduce.cu's plan and order of operations on the CPU:
+    segments are runs of tiles of one key block cut into windows of
+    ``window`` tiles (a tile without a key in [0, K) joins the segment
+    before it); each segment folds its pairs into its own table in layout
+    order; a key block of one segment is that table, else ``group`` threads
+    fold contiguous runs of its segments in order and a tree joins the runs
+    left to right.  Sums in float64, max/min with JAX's rules."""
+    from repro_torch import numerics
+    if op == "add":
+        comb, ident = (lambda a, b: a + b), 0.0
+    else:
+        f = numerics.maximum if op == "max" else numerics.minimum
+        comb = lambda a, b: f(a, b)  # noqa: E731
+        ident = float("-inf") if op == "max" else float("inf")
+    dt = torch.float64 if op == "add" else torch.float32
+    tk = torch.from_numpy(keys)
+    tv = torch.from_numpy(vals).to(dt)
+    n, d = vals.shape
+    n_tiles = -(-n // tile)
+    segs, prev = [], -1  # (first tile, block)
+    for t in range(n_tiles):
+        tile_keys = keys[t * tile:(t + 1) * tile]
+        ok = tile_keys[(tile_keys >= 0) & (tile_keys < k)]
+        eff = max(prev, int(ok[0]) // block_k if ok.size else -1)
+        if eff >= 0 and (t % window == 0 or eff != prev):
+            segs.append((t, eff))
+        prev = eff
+    tables = []
+    for i, (t, b) in enumerate(segs):
+        end = segs[i + 1][0] if i + 1 < len(segs) else n_tiles
+        table = torch.full((block_k, d), ident, dtype=dt)
+        for j in range(t * tile, min(n, end * tile)):
+            lk = int(tk[j]) - b * block_k
+            if 0 <= tk[j] < k and 0 <= lk < block_k:
+                table[lk] = comb(table[lk], tv[j])
+        tables.append(table)
+    out = torch.full((-(-k // block_k) * block_k, d), ident, dtype=dt)
+    for b in sorted({b for _, b in segs}):
+        mine = [tables[i] for i, (_, sb) in enumerate(segs) if sb == b]
+        if len(mine) == 1:
+            r = mine[0]
+        else:
+            run = -(-len(mine) // group)
+            parts = []
+            for g in range(group):
+                acc = torch.full((block_k, d), ident, dtype=dt)
+                for tab in mine[g * run:(g + 1) * run]:
+                    acc = comb(acc, tab)
+                parts.append(acc)
+            off = 1
+            while off < group:
+                for g in range(0, group, 2 * off):
+                    parts[g] = comb(parts[g], parts[g + off])
+                off *= 2
+            r = parts[0]
+        out[b * block_k:(b + 1) * block_k] = r
+    return out[:k].to(torch.float32).numpy()
+
+
+@pytest.mark.parametrize("op", ["add", "max", "min"])
+@pytest.mark.parametrize("layout,window,group", [
+    ("radix", 1, 1), ("radix", 3, 4), ("sorted", 2, 2), ("sorted", 5, 8)])
+def test_segment_plan_and_merge_order_is_the_same_function(op, layout,
+                                                           window, group):
+    """The kernel's segment plan and fold order on the CPU equal the plain
+    version and the Pallas kernel: every pair folded once, key blocks split
+    over several segments merged in order."""
+    rng = np.random.default_rng(window * 10 + group)
+    n, d, k, bs, pa = 400, 2, 200, 32, 16
+    keys = rng.integers(0, k + 3, size=n).astype(np.int32)
+    vals = _values(rng, (n, d), op != "add")
+    if layout == "radix":
+        pk, pv, _ = ops.radix_partition(torch.from_numpy(keys),
+                                        torch.from_numpy(vals), k,
+                                        bucket_size=bs, pad_align=pa)
+        keys, vals = pk.numpy(), pv.numpy()
+    else:
+        order = np.argsort(keys, kind="stable")
+        keys, vals = keys[order], vals[order]
+        bs = ops.tile_block_k(torch.from_numpy(keys), k, pa)
+    got = _kernel_order(keys, vals, k, op, bs, pa, window, group)
+    _assert_reduced(got, _port(keys, vals, k, op, tile_n=pa, block_k=bs),
+                    keys, vals, k, op)
+    # the Pallas kernel takes the radix layout's block; on a sorted stream
+    # it derives its own
+    kw = {"block_k": bs} if layout == "radix" else {}
+    pallas = jops.segment_reduce(jnp.asarray(keys), jnp.asarray(vals), k, op,
+                                 tile_n=pa, interpret=True, **kw)
+    _assert_reduced(got, pallas, keys, vals, k, op)
