@@ -8,11 +8,15 @@ Phases (each raises on failure, and the script then exits non-zero):
 1. print the card's name and power limit; build the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` (into ``build/repro_torch/``), one
    nvcc per source, all at once, and print ptxas's registers, shared
-   memory and spills of segment_reduce's and flash_decode's kernels;
+   memory and spills of the keyed fold's (chunk_monoid_fold's),
+   segment_reduce's and flash_decode's kernels;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at ragged ones: max/min bit for bit (NaN and
-   signed zeros included), sums within 1e-5 of each key's sum of absolute
-   values, and two runs of each kernel bit for bit.  The sort flow's
+   main path's shapes and at ragged ones: max/min bit for bit (signed
+   zeros and NaNs of random payloads included, several a key, one or two a
+   key, and in the carried table), sums within 1e-5 of each key's sum of
+   absolute values, and two runs of each kernel bit for bit.  The keyed
+   folds also with one key holding almost every pair, every key out of
+   range, K one past a table (two key tiles) and D = 128.  The sort flow's
    kernels too: the radix partitions' layouts bit for bit (keys, starts,
    values at real slots), the hierarchy's leaf layout equal to the
    one-level partition's, and segment_reduce on those layouts, with
@@ -68,8 +72,9 @@ Phases (each raises on failure, and the script then exits non-zero):
    the matmuls);
 9. time each kernel, its plain version and one PyTorch library call at the
    main path's shapes (CUDA events; flash_decode at llama3-8b's decode
-   shape and the bench shape, against SDPA; segment_reduce and flash_decode
-   also replayed from a CUDA graph, without the host's per-call work, and
+   shape and the bench shape, against SDPA; every kernel but the radix
+   partitions also replayed from a CUDA graph, without the host's per-call
+   work, and
    segment_reduce's max at the BoundingBox combine shape against
    scatter_reduce_), the scatter lowering's route
    sweep (combine_scatter against sort_segment_fold over K), the
@@ -162,22 +167,56 @@ def graph_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def fold_inputs(rng, n, d, k, *, specials: bool, bad_keys: bool):
-    import torch
+def nan_payloads(rng, size: int):
+    """Quiet NaNs of random sign and payload: never the canonical one, so
+    a kernel that makes a NaN anew, or keeps another NaN of its key than
+    the plain version keeps, shows."""
+    bits = (np.uint32(0x7FC00000)
+            | rng.integers(1, 1 << 22, size=size, dtype=np.uint32)
+            | (rng.integers(0, 2, size=size, dtype=np.uint32)
+               << np.uint32(31)))
+    return bits.astype(np.uint32).view(np.float32)
+
+
+def plant_specials(rng, arr, nan_share: float = 0.001) -> None:
+    """In place: a tenth of the entries +0, a tenth -0, and ``nan_share``
+    of them NaNs of random payloads (several on a key at the main path's
+    sizes; one or two on many keys at a ``nan_share`` of 0.3)."""
+    flat = arr.reshape(-1)
+    p = rng.random(flat.size)
+    flat[p < 0.1] = 0.0
+    flat[(p >= 0.1) & (p < 0.2)] = -0.0
+    nan = (p >= 0.2) & (p < 0.2 + nan_share)
+    flat[nan] = nan_payloads(rng, int(nan.sum()))
+
+
+#: the keys of a keyed-fold case: uniform, one key holding almost every
+#: pair, or every key outside [0, K)
+KEY_MIXES = ("uniform", "one_hot_key", "all_out")
+
+
+def fold_keys(rng, n, k, mix: str = "uniform", bad_keys: bool = True):
+    """[n] int32 keys in [0, K), with sentinel (K) and out-of-range keys
+    mixed in (``bad_keys``), by :data:`KEY_MIXES`."""
     keys = rng.integers(0, k, size=n).astype(np.int32)
-    if bad_keys:  # sentinel k and out-of-range keys never land
-        bad = rng.random(n) < 0.1
+    if mix == "one_hot_key":  # key K // 2 holds all but about 1/1000
+        keys[rng.random(n) >= 1e-3] = k // 2
+    bad = rng.random(n) < (1.0 if mix == "all_out" else 0.1)
+    if bad_keys or mix == "all_out":
         keys[bad] = rng.choice(np.array([k, k + 3, -1, -7], np.int32),
                                size=int(bad.sum()))
+    return keys
+
+
+def fold_inputs(rng, n, d, k, *, specials: bool, bad_keys: bool,
+                mix: str = "uniform", nan_share: float = 0.001):
+    import torch
+    keys = fold_keys(rng, n, k, mix, bad_keys)
     vals = rng.standard_normal((n, d)).astype(np.float32)
     acc = rng.standard_normal((k, d)).astype(np.float32)
     if specials:
         for arr in (vals, acc):
-            flat = arr.reshape(-1)
-            p = rng.random(flat.size)
-            flat[p < 0.1] = 0.0
-            flat[(p >= 0.1) & (p < 0.2)] = -0.0
-            flat[(p >= 0.2) & (p < 0.201)] = np.nan
+            plant_specials(rng, arr, nan_share)
     return tuple(torch.from_numpy(a).cuda() for a in (keys, vals, acc))
 
 
@@ -189,14 +228,23 @@ def check_kernels(rng) -> None:
     from repro_torch.kernels.onehot_combine import onehot_fold_plain
     from repro_torch.kernels.segment_reduce import chunk_monoid_fold_plain
 
-    cases = [  # (n, d, k, block_k, label)
+    cases = [  # (n, d, k, block_k, label[, mix, nan_share])
         (CUDA_CHUNK_PAIRS, 4, 100, None, "main path (KMeans fused [K, 3+1])"),
         (CUDA_CHUNK_PAIRS, 3, 100, None, "main path (bounding-box leaf)"),
         (1_000_003, 9, 300, None, "ragged"),
         (5_001, 13, 1000, 96, "block_k not dividing K"),
         (777, 1, 1, None, "one key"),
         (3, 2, 50, 7, "fewer pairs than a tile"),
-    ]
+        (CUDA_CHUNK_PAIRS, 3, 100, None, "one key holds almost every pair",
+         "one_hot_key"),
+        (100_003, 3, 100, None, "every key out of range", "all_out"),
+        (100_003, 1, ops.FOLD_TABLE_FLOATS + 1, None,
+         "K one past a table (two key tiles)"),
+        (200_003, 128, 100, None, "D = 128 (two column tiles)"),
+        (1_000_003, 3, 1000, None, "K = 1000, one-warp blocks"),
+    ] + [(n, 3, k, None, f"NaN payloads: one and two a key, K = {k}",
+          "uniform", 0.3) for n, k in ((501, 100), (5_001, 1000),
+                                       (5_001, 2000))]
 
     def twice(fn, what):
         a, b = fn(), fn()
@@ -204,13 +252,17 @@ def check_kernels(rng) -> None:
             raise AssertionError(f"{what}: two runs differ")
         return a
 
-    for n, d, k, block_k, label in cases:
+    for n, d, k, block_k, label, *how in cases:
+        mix = how[0] if how else "uniform"
+        nan_share = how[1] if len(how) > 1 else 0.001
+        # the plain contraction's one-hot: at most FOLD_PLAIN_KEY_BLOCK keys
+        plain_block = block_k or min(k, ops.FOLD_PLAIN_KEY_BLOCK)
         keys, vals, acc = fold_inputs(rng, n, d, k, specials=False,
-                                      bad_keys=True)
-        plain = onehot_fold_plain(keys, vals, acc, block_k=block_k)
+                                      bad_keys=True, mix=mix)
+        plain = onehot_fold_plain(keys, vals, acc, block_k=plain_block)
         # an f32 sum in another order: within SUM_RTOL of sum |terms|
-        tol = SUM_RTOL * onehot_fold_plain(keys, vals.abs(), acc.abs()) \
-            + SUM_RTOL
+        tol = SUM_RTOL * onehot_fold_plain(keys, vals.abs(), acc.abs(),
+                                           block_k=plain_block) + SUM_RTOL
         for name, fn in (
                 ("onehot_fold", lambda: ops.onehot_fold(
                     keys, vals, acc, block_k=block_k)),
@@ -222,7 +274,8 @@ def check_kernels(rng) -> None:
                                      f"abs err {err.max().item()}")
         for op in ("max", "min"):
             keys, vals, acc = fold_inputs(rng, n, d, k, specials=True,
-                                          bad_keys=True)
+                                          bad_keys=True, mix=mix,
+                                          nan_share=nan_share)
             got = twice(lambda: ops.chunk_monoid_fold(
                 keys, vals, acc, op, block_k=block_k),
                 f"chunk_monoid_fold {op} ({label})")
@@ -233,7 +286,7 @@ def check_kernels(rng) -> None:
                     f"chunk_monoid_fold {op} != plain bitwise ({label}): "
                     f"{diff} elements differ")
         log(f"kernels == plain: {label} n={n} d={d} k={k} "
-            f"block_k={block_k}")
+            f"block_k={block_k} plan={ops.fold_plan(n, k, d, block_k)}")
 
 
 def kmeans_centroids(pts, assign):
@@ -377,6 +430,8 @@ def kernel_rows(rng, launches_add, launches_dense) -> list[dict]:
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": time_ms(lib, 20),
+            "graph_ms": graph_ms(kern, 20), "library_graph_ms": graph_ms(
+                lib, 20),
             "shape": {"n": n, "d": d, "k": k, "op": op},
         })
     return rows
@@ -385,21 +440,16 @@ def kernel_rows(rng, launches_add, launches_dense) -> list[dict]:
 # -- the combine and reduce flows ---------------------------------------------
 
 
-def combine_pairs(rng, n, d, k, *, specials: bool, dtype=np.float32):
-    """Keys in [0, K) with sentinel (K) and out-of-range keys mixed in;
-    values (NaN and signed zeros with ``specials``) of ``dtype``."""
+def combine_pairs(rng, n, d, k, *, specials: bool, dtype=np.float32,
+                  mix: str = "uniform", nan_share: float = 0.001):
+    """Keys in [0, K) with sentinel (K) and out-of-range keys mixed in (by
+    :data:`KEY_MIXES`); values (NaN payloads and signed zeros with
+    ``specials``) of ``dtype``."""
     import torch
-    keys = rng.integers(0, k, size=n).astype(np.int32)
-    bad = rng.random(n) < 0.1
-    keys[bad] = rng.choice(np.array([k, k + 3, -1, -7], np.int32),
-                           size=int(bad.sum()))
+    keys = fold_keys(rng, n, k, mix)
     vals = rng.standard_normal((n, d)).astype(np.float32)
     if specials:
-        flat = vals.reshape(-1)
-        p = rng.random(flat.size)
-        flat[p < 0.1] = 0.0
-        flat[(p >= 0.1) & (p < 0.2)] = -0.0
-        flat[(p >= 0.2) & (p < 0.201)] = np.nan
+        plant_specials(rng, vals, nan_share)
     vals = torch.from_numpy(vals).cuda()
     if dtype != np.float32:
         vals = vals.to(torch.bfloat16)
@@ -430,12 +480,21 @@ def check_combine_kernels(rng) -> None:
         (3, 128, 100, "fewer pairs than a tile"),
         (100_003, 1, 1 << 16, "K = 2^16 (the additive fallback)"),
         (20_001, 128, 1 << 16, "K = 2^16, D = 128"),
-    ]
-    for n, d, k, label in cases:
-        plain_block = ops.auto_key_block(k) if k > 2048 else None
+        (1_000_003, 3, 100, "one key holds almost every pair",
+         "one_hot_key"),
+        (100_003, 3, 100, "every key out of range", "all_out"),
+        (100_003, 1, ops.FOLD_TABLE_FLOATS + 1,
+         "K one past a table (two key tiles)"),
+        (1_000_003, 3, 1000, "K = 1000, one-warp blocks"),
+    ] + [(n, 3, k, f"NaN payloads: one and two a key, K = {k}", "uniform",
+          0.3) for n, k in ((501, 100), (5_001, 1000), (5_001, 2000))]
+    for n, d, k, label, *how in cases:
+        mix = how[0] if how else "uniform"
+        nan_share = how[1] if len(how) > 1 else 0.001
+        plain_block = min(k, ops.FOLD_PLAIN_KEY_BLOCK)
         for dtype in (np.float32, "bf16") if d == 3 else (np.float32,):
             keys, vals = combine_pairs(rng, n, d, k, specials=False,
-                                       dtype=dtype)
+                                       dtype=dtype, mix=mix)
             v32 = vals.float()
             plain = onehot_combine_plain(keys, v32, k, block_k=plain_block)
             tol = SUM_RTOL * onehot_combine_plain(
@@ -451,7 +510,8 @@ def check_combine_kernels(rng) -> None:
                         f"{name} add != plain ({label}, {dtype}): max abs "
                         f"err {err.max().item()}")
         for op in ("max", "min"):
-            keys, vals = combine_pairs(rng, n, d, k, specials=True)
+            keys, vals = combine_pairs(rng, n, d, k, specials=True, mix=mix,
+                                       nan_share=nan_share)
             got = twice(lambda: ops.combine_scatter(keys, vals, k, op),
                         f"combine_scatter {op} ({label})")
             want = combine_scatter_plain(keys, vals, k, op)
@@ -461,7 +521,7 @@ def check_combine_kernels(rng) -> None:
                     f"combine_scatter {op} != plain bitwise ({label}): "
                     f"{diff} elements differ")
         log(f"onehot_combine, combine_scatter == plain: {label} n={n} d={d} "
-            f"k={k}")
+            f"k={k} plan={ops.fold_plan(n, k, d)}")
 
 
 def main_path_combine(pts, assign, items):
@@ -578,16 +638,18 @@ def combine_kernel_rows(rng, launches) -> list[dict]:
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": time_ms(lib, 10),
+            "graph_ms": graph_ms(kern, 10), "library_graph_ms": graph_ms(
+                lib, 10),
             "shape": {"n": n, "d": d, "k": k, "op": op},
         })
-    # B7 on the scatter lowering at K = 2^16: O(N·K) compares (the combine
-    # flow takes the sort route there now; see combine_route_sweep)
+    # B7 on the scatter lowering at K = 2^16, two key tiles (the combine
+    # flow takes the sort route there; see combine_route_sweep)
     n2, k2 = 1 << 22, 1 << 16
     keys = torch.randint(0, k2, (n2,), dtype=torch.int32, device="cuda")
     vals = torch.randn((n2, 1), device="cuda")
     rows[-1]["k65536_add"] = {
         "n": n2, "d": 1, "k": k2,
-        "ms": time_ms(lambda: ops.combine_scatter(keys, vals, k2, "add"), 3),
+        "ms": time_ms(lambda: ops.combine_scatter(keys, vals, k2, "add"), 10),
         "bound_ms": (n2 * 8 + k2 * 4) / HBM_BYTES_PER_S * 1e3,
         "library_ms": time_ms(lambda: torch.zeros(
             (k2, 1), device="cuda").index_add_(0, keys.long(), vals), 3)}
@@ -1085,11 +1147,7 @@ def sort_pairs(rng, n, d, k, *, specials: bool):
                            size=int(bad.sum()))
     vals = rng.standard_normal((n, d)).astype(np.float32)
     if specials:
-        flat = vals.reshape(-1)
-        p = rng.random(flat.size)
-        flat[p < 0.1] = 0.0
-        flat[(p >= 0.1) & (p < 0.2)] = -0.0
-        flat[(p >= 0.2) & (p < 0.201)] = np.nan
+        plant_specials(rng, vals)
     return torch.from_numpy(keys).cuda(), torch.from_numpy(vals).cuda()
 
 
@@ -1130,14 +1188,13 @@ def check_sort_kernels(rng) -> None:
     def check_reduce(pk, pv, k, bs, pa, label):
         for op in ("add", "max", "min"):
             specials = op != "add"
-            if specials:  # the same layout, values with NaN and zeros
-                pv = pv.clone()
-                flat = pv.view(-1)
-                p = torch.rand(flat.numel(), device=flat.device)
-                flat[p < 0.1] = 0.0
-                flat[(p >= 0.1) & (p < 0.2)] = -0.0
-                flat[(p >= 0.2) & (p < 0.201)] = float("nan")
             acc = torch.randn((k, pv.shape[1]), device=pv.device)
+            if specials:  # the same layout; NaN payloads and signed zeros
+                pv, acc = pv.cpu().numpy(), acc.cpu().numpy()  # in values
+                for arr in (pv, acc):  # and in acc
+                    plant_specials(rng, arr)
+                pv, acc = torch.from_numpy(pv).cuda(), \
+                    torch.from_numpy(acc).cuda()
             got = twice(lambda: ops.segment_reduce(pk, pv, k, op, tile_n=pa,
                                                    block_k=bs),
                         f"segment_reduce {op} ({label})")
@@ -1448,7 +1505,7 @@ def main() -> int:
     _build.build()
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc, "
         f"{len(_build.KERNELS)} kernels, into {_build.build_dir()})")
-    for name in ("segment_reduce", "flash_decode"):
+    for name in ("chunk_monoid_fold", "segment_reduce", "flash_decode"):
         log(f"build: {name}: " + "; ".join(
             f"{r['function']} {r['registers']} registers, {r['smem_bytes']} "
             f"B static smem, {r['spill_bytes']} B spilled"

@@ -30,10 +30,8 @@ def combine_scatter_plain(keys: torch.Tensor, values: torch.Tensor,
 
 
 def combine_scatter_cuda(keys: torch.Tensor, values: torch.Tensor,
-                         key_space: int, op: str, *, block_k: int,
-                         tile_n: int, seg_len: int, n_seg: int
-                         ) -> torch.Tensor:
-    """Launch the kernel; the wrapper in ``ops`` has checked the inputs."""
+                         key_space: int, op: str, plan) -> torch.Tensor:
+    """Launch the kernel with ``plan`` (an ``ops.FoldPlan``); the wrapper
+    in ``ops`` has checked the inputs."""
     return keyed_table_cuda("combine_scatter", keys, values, key_space,
-                            OPS[op], block_k=block_k, tile_n=tile_n,
-                            seg_len=seg_len, n_seg=n_seg)
+                            OPS[op], plan=plan)

@@ -4,31 +4,38 @@
 // Replaces the Pallas kernel
 // src/repro/kernels/segment_reduce.py::chunk_monoid_fold (_chunk_fold_kernel),
 // which masked each pair tile against a key block's iota and reduced the
-// [Tn, Kb, D] masked expansion in VMEM.  Here each thread folds only the pairs
-// of its own key, so no expansion exists; the two passes, the bound and the
-// JAX rules for max/min are described in keyed_fold.cuh.
+// [Tn, Kb, D] masked expansion in VMEM: O(N * Kb) work per key block.  Here a
+// block folds each pair into its key's row of a shared-memory table once,
+// in index order, and a second pass joins the segments in order; the design
+// and the bound are in keyed_fold.cuh.  Max and min keep JAX's rules for
+// signed zeros and NaN payloads (combine<> in fold_table.cuh), so they are
+// bit for bit the plain version's.
+// On an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py): max over 2^22
+// pairs, D = 3, K = 100, onto acc, takes 0.092 ms replayed from a CUDA
+// graph (byte bound 0.020 ms).
 
 #include "keyed_fold.cuh"
 
 extern "C" int chunk_monoid_fold_launch(const int* keys, const float* vals,
                                         const float* acc, float* out,
                                         float* partial, int n, int d, int k,
-                                        int op, int block_k, int tile_n,
-                                        int seg_len, int n_seg, void* stream) {
+                                        int op, int block_k, int cols,
+                                        int stage, int warps, int seg_len,
+                                        int n_seg, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   switch (op) {
     case keyed_fold::kAdd:
       return (int)keyed_fold::launch<keyed_fold::kAdd>(
-          keys, vals, acc, out, partial, n, d, k, block_k, tile_n, seg_len,
-          n_seg, s);
+          keys, vals, acc, out, partial, n, d, k, block_k, cols, stage, warps,
+          seg_len, n_seg, s);
     case keyed_fold::kMax:
       return (int)keyed_fold::launch<keyed_fold::kMax>(
-          keys, vals, acc, out, partial, n, d, k, block_k, tile_n, seg_len,
-          n_seg, s);
+          keys, vals, acc, out, partial, n, d, k, block_k, cols, stage, warps,
+          seg_len, n_seg, s);
     case keyed_fold::kMin:
       return (int)keyed_fold::launch<keyed_fold::kMin>(
-          keys, vals, acc, out, partial, n, d, k, block_k, tile_n, seg_len,
-          n_seg, s);
+          keys, vals, acc, out, partial, n, d, k, block_k, cols, stage, warps,
+          seg_len, n_seg, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -4,152 +4,194 @@
 // combine_scatter.cu (add/max/min), which build the table from the identity.
 //
 // What it computes: out[k, :] = acc[k, :] (op) fold_op{ vals[i, :] : keys[i] == k },
-// with keys outside [0, K) (the sentinel K included) dropped.  Rows of keys
-// absent from the chunk fold only the identity, so they pass through.  With
-// acc == nullptr no table is read: out[k, :] is the fold alone, and the
-// identity for an absent key.
+// with keys outside [0, K) (the sentinel K and negative keys included)
+// dropped, the pairs folded in index order.  Rows of keys absent from the
+// chunk fold only the identity, so they pass through.  With acc == nullptr
+// no table is read: out[k, :] is the fold alone, and the identity for an
+// absent key.
 //
 // Design.  The Pallas kernels ran their grid in order on one TPU core and kept
-// the [Kb, D] table block resident in VMEM across the pair tiles.  Blocks on
-// Hopper run in parallel and in no order, and a float sum must not depend on
-// that order, so there are no float atomics here:
-//   pass 1  grid (segment, key block, column tile).  A block stages its
-//           segment's keys and values in shared memory, tile by tile.  Thread t
-//           owns one key of the block and up to kMaxCols columns, which it
-//           carries in registers, and folds the matching pairs of its segment
-//           in index order.  It writes partial[segment, key, cols].
-//   pass 2  one warp per (key, column): lane l folds segments l, l+32, ... in
-//           order, a fixed shuffle tree joins the lanes, and the result is
-//           combined onto acc (when there is one).  The order of every
-//           addition is fixed by the shapes alone, so two runs give the same
-//           bits.
+// the [Kb, D] table block resident in VMEM across the pair tiles, touching
+// the whole block for every pair tile (a one-hot product or a masked
+// expansion).  Blocks on Hopper run in parallel and in no order, a float sum
+// must not depend on that order, and O(N * K) work is issue-bound here, so
+// there are no float atomics and the work per pair does not depend on K:
+//   pass 1  grid (segment, key tile, column tile).  A block folds its
+//           segment's pairs whose keys lie in its key tile into a [block_k,
+//           cols] table in shared memory, in index order (fold_range in
+//           fold_table.cuh: a cp.async ring, one warp matching keys by
+//           ballots for a small table, eight warps that bucket pairs by
+//           owner for a large one).  It writes partial[segment, key, cols],
+//           or, when there is one segment, out itself (folded onto acc).
+//   pass 2  (several segments) a group of up to 32 threads per (key,
+//           column) folds the segments' partials, each thread a contiguous
+//           run of them in order; a fixed shuffle tree joins the runs left
+//           to right, and the result is folded onto acc (when there is
+//           one).
+// The order of every float operation is fixed by the input and the shapes,
+// so two runs give the same bits, and max/min give the plain version's
+// bits, NaN payloads included (the fold is in index order).
 //
-// Bound on this card: bytes.  The function must read N*(4 + 4D) bytes of pairs
-// and K*D*4 of acc (none without acc) and write K*D*4; at 3.35 TB/s that is
-// the floor.  The design
-// reads each pair once from device memory (the staging loads are coalesced),
-// but every thread of a key block scans every staged key, so the work is
-// O(N * K) compares: the kernel is bound by instruction throughput, not
-// bytes (at K = 100 it runs at about 15x the byte bound).
-// Matching JAX: max keeps +0 over -0 and min keeps -0 over +0 in either
-// operand order, and NaN propagates (fmaxf/fminf would drop it).
+// The sizes come from the caller's plan (ops.fold_plan in Python): block_k
+// keys and cols columns a table (at most kTableFloats floats), W = 1 or 8
+// warps a block, `stage` pairs a ring stage, segments of seg_len pairs.
+// A table that holds all of K x D reads each pair once; past that every key
+// tile reads the whole chunk again.
+//
+// Bound on this card: bytes.  The function must read N*(4 + 4D) bytes of
+// pairs and K*D*4 of acc (none without acc) and write K*D*4; at 3.35 TB/s
+// that is the floor.  What holds the fold back is issue: at K = 100 a
+// window of 32 pairs costs one ballot a key bit to find the lanes that
+// share a key, and the first of them folds the others' values in lane
+// order, about a hundred instructions a window at sixteen one-warp blocks
+// an SM.  On an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py, CUDA
+// graph): B2's max over 2^22 pairs, D = 3, takes 0.092 ms (bound 0.020),
+// B6's 2^24 pairs 0.218 ms (bound 0.080).
 
 #pragma once
 
 #include <cuda_runtime.h>
-#include <math.h>
+
+#include "fold_table.cuh"
 
 namespace keyed_fold {
 
-constexpr int kMaxCols = 8;  // columns one thread carries in registers
-constexpr int kMergeWarps = 8;
+using fold_table::combine;
+using fold_table::identity;
+using fold_table::kAdd;
+using fold_table::kMax;
+using fold_table::kMin;
 
-enum Op { kAdd = 0, kMax = 1, kMin = 2 };
+constexpr int kMergeThreads = 256;
+constexpr int kMergeRun = 8;  // segments one merge thread folds, at most
 
-template <int OP>
-__device__ __forceinline__ float identity() {
-  if (OP == kAdd) return 0.0f;
-  if (OP == kMax) return -INFINITY;
-  return INFINITY;
-}
-
-template <int OP>
-__device__ __forceinline__ float combine(float a, float b) {
-  if (OP == kAdd) return a + b;
-  if (isnan(a)) return a;
-  if (isnan(b)) return b;
-  if (a == b) {  // equal values; for +0 and -0 pick the sign JAX picks
-    if (OP == kMax) return signbit(a) ? b : a;
-    return signbit(a) ? a : b;
-  }
-  if (OP == kMax) return a > b ? a : b;
-  return a < b ? a : b;
-}
-
-// Pass 1.  Dynamic shared memory: tile_n keys, then tile_n * min(d, kMaxCols)
-// values.  blockDim.x == block_k.
-template <int OP>
-__global__ void fold_segments(const int* __restrict__ keys,
-                              const float* __restrict__ vals,
-                              float* __restrict__ partial, int n, int d, int k,
-                              int block_k, int tile_n, int seg_len) {
+template <int OP, int W>
+__global__ void __launch_bounds__(W * 32, 16 / W)
+    fold_segments(const int* __restrict__ keys, const float* __restrict__ vals,
+                  const float* __restrict__ acc, float* __restrict__ out,
+                  float* __restrict__ partial, long long n, fold_table::Geom g,
+                  int seg_len, int n_seg) {
   extern __shared__ __align__(16) unsigned char smem[];
-  int* s_keys = reinterpret_cast<int*>(smem);
-  float* s_vals = reinterpret_cast<float*>(s_keys + tile_n);
-  const int stride = d < kMaxCols ? d : kMaxCols;
-
-  const int seg = blockIdx.x;
-  const int key = blockIdx.y * block_k + threadIdx.x;
-  const int col0 = blockIdx.z * kMaxCols;
-  const int ncols = min(kMaxCols, d - col0);
-  const long long begin = (long long)seg * seg_len;
-  const long long end = min((long long)n, begin + seg_len);
-
-  float r[kMaxCols];
-#pragma unroll
-  for (int j = 0; j < kMaxCols; ++j) r[j] = identity<OP>();
-
-  for (long long t0 = begin; t0 < end; t0 += tile_n) {
-    const int m = (int)min((long long)tile_n, end - t0);
-    __syncthreads();  // the previous tile is no longer read
-    for (int i = threadIdx.x; i < m; i += blockDim.x) s_keys[i] = keys[t0 + i];
-    for (int i = threadIdx.x; i < m * ncols; i += blockDim.x) {
-      const int row = i / ncols;
-      const int c = i - row * ncols;
-      s_vals[row * stride + c] = vals[(t0 + row) * d + col0 + c];
-    }
-    __syncthreads();
-    for (int i = 0; i < m; ++i) {
-      if (s_keys[i] == key) {  // threads of keys >= k never write back
-        const float* v = s_vals + i * stride;
-#pragma unroll
-        for (int j = 0; j < kMaxCols; ++j)
-          if (j < ncols) r[j] = combine<OP>(r[j], v[j]);
-      }
-    }
-  }
-  if (key < k) {
-    float* out = partial + ((long long)seg * k + key) * d + col0;
-#pragma unroll
-    for (int j = 0; j < kMaxCols; ++j)
-      if (j < ncols) out[j] = r[j];
+  const int key0 = blockIdx.y * g.block_k;
+  const int col0 = blockIdx.z * g.cols;
+  const int nc = min(g.cols, g.d - col0);
+  const long long lo = (long long)blockIdx.x * seg_len;
+  const long long hi = min(n, lo + seg_len);
+  fold_table::fold_range<OP, W>(keys, vals, g, key0, col0, nc, lo, hi, smem);
+  const float* table = reinterpret_cast<const float*>(smem);
+  const int kb = min(g.block_k, g.k - key0);  // keys of this tile below K
+  const long long row0 = n_seg == 1 ? 0 : (long long)blockIdx.x * g.k;
+  float* dst = n_seg == 1 ? out : partial;
+  for (int i = threadIdx.x; i < kb * nc; i += W * 32) {
+    const int local = i / nc;
+    const long long e = (long long)(key0 + local) * g.d + col0 +
+                        (i - local * nc);
+    const float r = table[i];
+    dst[row0 * g.d + e] =
+        n_seg == 1 && acc != nullptr ? combine<OP>(acc[e], r) : r;
   }
 }
 
-// Pass 2.  One warp per element of the [K, D] table; kMergeWarps per block.
+// Every element of the [K, D] table: a group of 2^group_log2 threads (at
+// most a block) folds the segments in order, each thread a contiguous run;
+// a shuffle tree joins the runs of a warp left to right, the group's first
+// thread joins its warps in order, then the result goes onto acc.
 template <int OP>
-__global__ void merge_segments(const float* __restrict__ acc,
-                               const float* __restrict__ partial,
-                               float* __restrict__ out, int kd, int n_seg) {
-  const int lane = threadIdx.x & 31;
-  const int e = blockIdx.x * kMergeWarps + (threadIdx.x >> 5);
-  if (e >= kd) return;  // whole warps exit together
+__global__ void __launch_bounds__(kMergeThreads)
+    merge_segments(const float* __restrict__ acc,
+                   const float* __restrict__ partial, float* __restrict__ out,
+                   long long kd, int n_seg, int group_log2) {
+  __shared__ float s_warp[kMergeThreads / 32];
+  const long long gid = (long long)blockIdx.x * kMergeThreads + threadIdx.x;
+  const int group = 1 << group_log2;
+  const long long e = gid >> group_log2;
+  const int g = (int)(gid & (group - 1));
   float r = identity<OP>();
-  for (int s = lane; s < n_seg; s += 32)
-    r = combine<OP>(r, partial[(long long)s * kd + e]);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    r = combine<OP>(r, __shfl_down_sync(0xffffffffu, r, off));
-  if (lane == 0) out[e] = acc != nullptr ? combine<OP>(acc[e], r) : r;
+  if (e < kd) {
+    const int run = (n_seg + group - 1) / group;
+    const int s0 = g * run, s1 = min(n_seg, s0 + run);
+#pragma unroll 4
+    for (int s = s0; s < s1; ++s) r = combine<OP>(r, partial[s * kd + e]);
+  }
+  for (int off = 1; off < min(group, 32); off <<= 1) {
+    const float o = __shfl_down_sync(0xffffffffu, r, off);
+    if ((g & (2 * off - 1)) == 0) r = combine<OP>(r, o);
+  }
+  if (group > 32) {  // the same in every thread of the block
+    const int warp = threadIdx.x >> 5;
+    if ((threadIdx.x & 31) == 0) s_warp[warp] = r;
+    __syncthreads();
+    if (g == 0)
+      for (int w = 1; w < group / 32; ++w) r = combine<OP>(r, s_warp[warp + w]);
+  }
+  if (g == 0 && e < kd) out[e] = acc != nullptr ? combine<OP>(acc[e], r) : r;
 }
 
+// Past 48 KB of dynamic shared memory a kernel must be allowed it first.
+// Asked on every such launch: a function-local static here would be one
+// object shared by every library built from this header (the linker
+// unifies such objects across shared libraries), and would let one
+// library's kernel go without the attribute.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+// One fold: pass 1, and pass 2 when there are several segments.  Returns
+// cudaErrorInvalidValue for a plan the kernels cannot run.
 template <int OP>
 inline cudaError_t launch(const int* keys, const float* vals, const float* acc,
                           float* out, float* partial, int n, int d, int k,
-                          int block_k, int tile_n, int seg_len, int n_seg,
-                          cudaStream_t stream) {
-  const int stride = d < kMaxCols ? d : kMaxCols;
-  const size_t smem = (size_t)tile_n * (sizeof(int) + sizeof(float) * stride);
-  const dim3 grid1(n_seg, (k + block_k - 1) / block_k,
-                   (d + kMaxCols - 1) / kMaxCols);
-  fold_segments<OP><<<grid1, block_k, smem, stream>>>(
-      keys, vals, partial, n, d, k, block_k, tile_n, seg_len);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int kd = k * d;
-  const int grid2 = (kd + kMergeWarps - 1) / kMergeWarps;
-  merge_segments<OP><<<grid2, kMergeWarps * 32, 0, stream>>>(acc, partial, out,
-                                                            kd, n_seg);
+                          int block_k, int cols, int stage, int warps,
+                          int seg_len, int n_seg, cudaStream_t stream) {
+  const bool bucket = warps == fold_table::kBucketWarps;
+  if (n <= 0 || d <= 0 || k <= 0 || block_k <= 0 || block_k > k ||
+      cols <= 0 || cols > d || cols > fold_table::kMaxCols ||
+      (long long)block_k * cols > fold_table::kTableFloats ||
+      (warps != 1 && !bucket) || stage < 32 || stage % 32 != 0 ||
+      stage > (bucket ? fold_table::kMaxStage : fold_table::kBallotStage) ||
+      seg_len <= 0 || n_seg <= 0 || (long long)seg_len * n_seg < n ||
+      (long long)seg_len * (n_seg - 1) >= n || (n_seg > 1 && !partial))
+    return cudaErrorInvalidValue;
+  const size_t smem = fold_table::smem_bytes(block_k, cols, stage, warps);
+  const int key_tiles = (k + block_k - 1) / block_k;
+  const int col_tiles = (d + cols - 1) / cols;
+  if (smem > (size_t)fold_table::kSmemBytes || key_tiles > 65535 ||
+      col_tiles > 65535)
+    return cudaErrorInvalidValue;
+  const fold_table::Geom g{d, k, block_k, cols, stage,
+                           fold_table::key_bits(block_k)};
+  const dim3 grid(n_seg, key_tiles, col_tiles);
+  cudaError_t err;
+  if (bucket) {
+    constexpr int W = fold_table::kBucketWarps;
+    err = allow_smem(fold_segments<OP, W>, smem);
+    if (err != cudaSuccess) return err;
+    fold_segments<OP, W><<<grid, W * 32, smem, stream>>>(
+        keys, vals, acc, out, partial, n, g, seg_len, n_seg);
+  } else {
+    err = allow_smem(fold_segments<OP, 1>, smem);
+    if (err != cudaSuccess) return err;
+    fold_segments<OP, 1><<<grid, 32, smem, stream>>>(
+        keys, vals, acc, out, partial, n, g, seg_len, n_seg);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_seg == 1) return err;
+  // threads per element: runs of at most kMergeRun segments, a power of
+  // two up to a block
+  int group_log2 = 0;
+  while ((1 << group_log2) < kMergeThreads &&
+         (long long)kMergeRun << group_log2 < n_seg)
+    ++group_log2;
+  const long long kd = (long long)k * d;
+  const long long threads = kd << group_log2;
+  merge_segments<OP><<<(unsigned)((threads + kMergeThreads - 1) /
+                                  kMergeThreads),
+                       kMergeThreads, 0, stream>>>(acc, partial, out, kd,
+                                                   n_seg, group_log2);
   return cudaGetLastError();
 }
 

@@ -3,31 +3,27 @@
 //
 // Replaces the Pallas kernel src/repro/kernels/onehot_combine.py::onehot_combine
 // (_kernel), which kept the whole [K, Td] table resident in VMEM across a
-// sequential grid over pair tiles and fed [Tn, K] one-hot tiles to the MXU.
-// Hopper runs blocks in parallel and in no order, so the sum is the additive
-// case of the deterministic two-pass keyed fold in keyed_fold.cuh, started from
-// zero (no acc is read): no float atomics, the same bits on every run.
-//
-// Bound: bytes, N*(4 + 4D) read and K*D*4 written, at 3.35 TB/s.  The kernel
-// does not reach it: every thread of a key block compares every staged key
-// with its own, O(N * K) compares, as the TPU's one-hot contraction does
-// O(N * K) multiply-adds.  Its time therefore grows linearly with K at a
-// fixed N; the combine flow takes it only up to 2048 keys (the reference's
-// cutoff, collector.ONEHOT_MAX_KEYS), and past that the f32 leaves go through
-// combine_scatter.cu, which has the same cost.  On an NVIDIA H100 80GB HBM3
-// at 700 W (chip_smoke.py): 2^24 pairs, D = 3, K = 100 take 1.35 ms (byte
-// bound 0.080 ms); PERF.md has combine_scatter's time at K = 2^16.
-// Integer channels come here in f32 and are exact up to 2^24 per key.
+// sequential grid over pair tiles and fed [Tn, K] one-hot tiles to the MXU:
+// O(N * K) multiply-adds.  Hopper runs blocks in parallel and in no order,
+// so the sum is the additive case of the deterministic two-pass keyed fold
+// in keyed_fold.cuh, started from zero (no acc is read): O(N) work, no float
+// atomics, the same bits on every run.  The combine flow takes it up to
+// 2048 keys (the reference's cutoff, collector.ONEHOT_MAX_KEYS).  Integer
+// channels come here in f32 and are exact up to 2^24 per key.
+// On an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py): 2^24 pairs,
+// D = 3, K = 100 take 0.218 ms replayed from a CUDA graph (byte bound
+// 0.080 ms).
 
 #include "keyed_fold.cuh"
 
 extern "C" int onehot_combine_launch(const int* keys, const float* vals,
                                      float* out, float* partial, int n, int d,
-                                     int k, int block_k, int tile_n,
-                                     int seg_len, int n_seg, void* stream) {
+                                     int k, int block_k, int cols, int stage,
+                                     int warps, int seg_len, int n_seg,
+                                     void* stream) {
   return (int)keyed_fold::launch<keyed_fold::kAdd>(
-      keys, vals, nullptr, out, partial, n, d, k, block_k, tile_n, seg_len,
-      n_seg, (cudaStream_t)stream);
+      keys, vals, nullptr, out, partial, n, d, k, block_k, cols, stage, warps,
+      seg_len, n_seg, (cudaStream_t)stream);
 }
 
 extern "C" const char* onehot_combine_error_string(int err) {

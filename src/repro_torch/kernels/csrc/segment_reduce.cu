@@ -29,7 +29,8 @@
 //                  last segment.  The window makes the segments one wave of
 //                  the blocks that fit on the card (occupancy x SMs).
 //   3 reduce       one block per segment (and column tile) folds it into a
-//                  [block_k, cols] table in shared memory.  The segment
+//                  [block_k, cols] table in shared memory (fold_range, in
+//                  fold_table.cuh, which keyed_fold.cuh shares).  The segment
 //                  streams through a ring of three stages filled with 4-byte
 //                  cp.async, two stages ahead.  A block of kBucketWarps warps
 //                  buckets each stage of up to 1024 pairs by owner (warp w
@@ -54,31 +55,29 @@
 //                  onto acc.
 // The order of every float operation is fixed by the input alone: two runs
 // give the same bits.  Max and min follow JAX's NaN and signed-zero rules
-// (combine<> in keyed_fold.cuh); a key absent from the stream gets the
+// (combine<> in fold_table.cuh); a key absent from the stream gets the
 // identity (then acc's value, when acc is given).
 
-#include "keyed_fold.cuh"
+#include "fold_table.cuh"
 
 namespace segred {
 
-using keyed_fold::combine;
-using keyed_fold::identity;
+using fold_table::combine;
+using fold_table::identity;
+using fold_table::kBallotStage;
+using fold_table::kBucketWarps;
+using fold_table::kMaxCols;
+using fold_table::kMaxStage;
+using fold_table::kRing;
+using fold_table::kSmemBytes;
+using fold_table::kTableFloats;
 
 constexpr int kPlanThreads = 1024;
 constexpr int kPlanBatch = 4;  // steps of 32 tiles a plan warp loads at once
 constexpr int kTileThreads = 256;
 constexpr int kMergeThreads = 256;
-constexpr int kTableFloats = 32768;  // 128 KB of table per block
-constexpr int kMaxCols = 64;
-constexpr int kRing = 3;  // stages in shared memory, two in flight
-constexpr int kMaxStage = 1024;  // pairs per stage (bucketed warps)
-constexpr int kBallotStage = 256;  // pairs per stage (one warp)
-constexpr int kSmemBytes = 232448 - 256;  // dynamic shared memory a block
-                                          // may use on an H100 (the rest
-                                          // for its static shared memory)
 constexpr int kSmPerSm = 233472;  // shared memory of one SM
 constexpr int kSmReserve = 1024;  // reserved by the runtime per block
-constexpr int kBucketWarps = 8;  // warps of a block that buckets
 constexpr int kBucketBlocks = 2;  // such blocks an SM should hold
 constexpr int kBallotFit = 8;  // blocks per SM at which one warp a block
                                // reads every pair itself
@@ -104,8 +103,7 @@ inline bool make_plan(long long n, int d, int k, int block_k, int tile,
   p->tile = tile;
   p->n_tiles = (int)((n + tile - 1) / tile);
   p->nblk = (k + block_k - 1) / block_k;
-  p->kbits = 0;
-  while ((1LL << p->kbits) < block_k) ++p->kbits;
+  p->kbits = fold_table::key_bits(block_k);
   p->cols = min(d, min(kMaxCols, kTableFloats / block_k));
   if (p->cols < 1) return false;
   p->col_tiles = (d + p->cols - 1) / p->cols;
@@ -114,7 +112,7 @@ inline bool make_plan(long long n, int d, int k, int block_k, int tile,
   // a small table: blocks of one warp, which folds every pair itself (no
   // bucketing), many blocks per SM
   p->stage = kBallotStage;
-  p->smem = (size_t)(table + kBallotStage * per_pair);
+  p->smem = fold_table::smem_bytes(block_k, p->cols, kBallotStage, 1);
   if (kSmPerSm / (int)(p->smem + kSmReserve) >= kBallotFit) {
     p->warps = 1;
   } else {
@@ -133,7 +131,8 @@ inline bool make_plan(long long n, int d, int k, int block_k, int tile,
       p->stage = (int)min((long long)kMaxStage,
                           (kSmemBytes - table - fixed) / per_bucketed) & ~31;
     if (p->stage < 32) return false;
-    p->smem = (size_t)(table + fixed + p->stage * per_bucketed);
+    p->smem = fold_table::smem_bytes(block_k, p->cols, p->stage,
+                                     kBucketWarps);
     p->warps = kBucketWarps;
   }
   const int best = p->warps;
@@ -325,51 +324,6 @@ __global__ void __launch_bounds__(kPlanThreads)
   }
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-// The lanes whose value v equals this lane's, among the lanes where ok
-// holds, from the bits lo .. lo + nb - 1 of v (the others agree): one
-// ballot a bit, where __match_any_sync would serialize on distinct values.
-__device__ __forceinline__ unsigned match_bits(int v, bool ok, int lo,
-                                               int nb) {
-  unsigned peers = __ballot_sync(0xffffffffu, ok);
-  for (int bit = lo; bit < lo + nb; ++bit) {
-    const bool set = (v >> bit) & 1;
-    const unsigned b = __ballot_sync(0xffffffffu, set);
-    peers &= set ? b : ~b;
-  }
-  return peers;
-}
-
-// Lanes holding pairs of the same local key lk (>= 0) fold them into the
-// table, the lowest lane in lane order; a lane's pair is sv[src(lane)].
-template <int OP, typename Src>
-__device__ __forceinline__ void fold_lanes(float* table, int lk, unsigned same,
-                                           const float* sv, int nc, Src src) {
-  const int lane = threadIdx.x & 31;
-  if (lk >= 0 && __ffs(same) - 1 == lane) {
-    float* row = table + lk * nc;
-    for (int c = 0; c < nc; ++c) {
-      float r = row[c];
-      for (unsigned rest = same; rest != 0; rest &= rest - 1)
-        r = combine<OP>(r, sv[src(__ffs(rest) - 1) * nc + c]);
-      row[c] = r;
-    }
-  }
-}
-
 template <int OP, int W>
 __global__ void __launch_bounds__(W * 32, 16 / W)
     reduce_segments(const int* __restrict__ keys,
@@ -387,163 +341,14 @@ __global__ void __launch_bounds__(W * 32, 16 / W)
   if (s >= *n_seg) return;
   const int col0 = blockIdx.y * p.cols;
   const int nc = min(p.cols, p.d - col0);
-  const int S = p.stage;
-  float* table = reinterpret_cast<float*>(smem);  // [block_k][nc]
-  int* s_keys = reinterpret_cast<int*>(table + (size_t)p.block_k * p.cols);
-  float* s_vals = reinterpret_cast<float*>(s_keys + kRing * S);  // [S][nc]
-  // bucketed warps: the stage's indices grouped by owner, and the [owner,
-  // window] counts, then their exclusive scan
-  constexpr int kBucket = W > 1;
-  const int NW = S / 32;  // windows of a stage
-  const int RS = NW + 1;  // a row of counts, padded against bank conflicts
-  int* s_list = reinterpret_cast<int*>(s_vals + (size_t)kRing * S * p.cols);
-  int* s_cnt = s_list + S;
-  // a byte per local key: the lane that last claimed it (owner warps only)
-  unsigned char* s_tag = reinterpret_cast<unsigned char*>(s_cnt + S + 32);
-  __shared__ int s_tot[W];
-  constexpr int kOwnBits = W == 1 ? 0 : W == 2 ? 1 : W == 4 ? 2 : W == 8 ? 3
-                           : W == 16 ? 4 : 5;
-  static_assert(W == 1 || kMaxStage / 32 <= 32, "a row of counts is a warp");
-  const int key_bits = max(0, p.kbits - kOwnBits);  // beside the owner's
   const int blk = seg_blk[s];
   const int key0 = blk * p.block_k;
   const long long lo = (long long)seg_tile[s] * p.tile;
   const long long hi = min(p.n, (long long)seg_tile[s + 1] * p.tile);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  for (int i = tid; i < p.block_k * nc; i += kThreads)
-    table[i] = identity<OP>();
-
-  auto fetch = [&](int st) {
-    const long long c0 = lo + (long long)st * S;
-    if (c0 < hi) {
-      const int m = (int)min((long long)S, hi - c0);
-      const int buf = st % kRing;
-      int* sk = s_keys + buf * S;
-      float* sv = s_vals + (size_t)buf * S * p.cols;
-      for (int i = tid; i < m; i += kThreads) cp_async4(sk + i, keys + c0 + i);
-      if (nc == p.d) {
-        const float* src = vals + c0 * p.d;
-        for (int i = tid; i < m * nc; i += kThreads) cp_async4(sv + i, src + i);
-      } else {
-        for (int i = tid; i < m * nc; i += kThreads) {
-          const int row = i / nc;
-          cp_async4(sv + i, vals + (c0 + row) * p.d + col0 + (i - row * nc));
-        }
-      }
-    }
-    cp_async_commit();  // an empty group keeps the count uniform
-  };
-
-  fetch(0);
-  fetch(1);
-  cp_async_wait_one();  // stage 0 has landed (1 may be in flight)
-  __syncthreads();  // ... for every thread, and the table is set
-  for (int st = 0; lo + (long long)st * S < hi; ++st) {
-    const long long c0 = lo + (long long)st * S;
-    const int m = (int)min((long long)S, hi - c0);
-    const int buf = st % kRing;
-    const int* sk = s_keys + buf * S;
-    const float* sv = s_vals + (size_t)buf * S * p.cols;
-    if (!kBucket) {  // every warp reads every window, folds its own keys
-      fetch(st + 2);  // into the buffer of stage st - 1
-      for (int j0 = 0; j0 < m; j0 += 32) {
-        const int j = j0 + lane;
-        const int key = j < m ? sk[j] : -1;
-        const int lk = key - key0;
-        const bool mine = j < m && key >= 0 && key < p.k &&
-                          (unsigned)lk < (unsigned)p.block_k &&
-                          (W == 1 || (lk & (W - 1)) == warp);
-        if (!__any_sync(0xffffffffu, mine)) continue;
-        const unsigned same = match_bits(lk, mine, kOwnBits, key_bits);
-        fold_lanes<OP>(table, mine ? lk : -1, same, sv, nc,
-                       [&](int l) { return j0 + l; });
-      }
-      cp_async_wait_one();  // stage st + 1 has landed
-      __syncthreads();
-      continue;
-    }
-    // bucketed: warp w counts windows w, w + W, ... by owner, stably
-    constexpr int kWin = kBucket ? kMaxStage / 32 / W : 1;
-    int own[kWin], rank[kWin];
-#pragma unroll
-    for (int i = 0; i < kWin; ++i) {
-      const int jw = warp + i * W;
-      own[i] = -1;
-      rank[i] = 0;
-      if (jw < NW) {
-        const int j = jw * 32 + lane;
-        const int key = j < m ? sk[j] : -1;
-        const int lk = key - key0;
-        const bool ok = j < m && key >= 0 && key < p.k &&
-                        (unsigned)lk < (unsigned)p.block_k;
-        const int o = lk & (W - 1);
-        const unsigned peers = match_bits(o, ok, 0, kOwnBits);
-        rank[i] = __popc(peers & ((1u << lane) - 1u));
-        if (lane < W) s_cnt[lane * RS + jw] = 0;
-        __syncwarp();
-        if (ok && rank[i] == 0) s_cnt[o * RS + jw] = __popc(peers);
-        own[i] = ok ? o : -1;
-      }
-    }
-    __syncthreads();  // counts written; every warp is past stage st - 1
-    fetch(st + 2);  // into the buffer of stage st - 1
-    {  // warp w: exclusive scan of owner w's row of counts
-      const int c = lane < NW ? s_cnt[warp * RS + lane] : 0;
-      int incl = c;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, incl, off);
-        if (lane >= off) incl += y;
-      }
-      if (lane < NW) s_cnt[warp * RS + lane] = incl - c;
-      if (lane == 31) s_tot[warp] = incl;
-    }
-    __syncthreads();
-    // lane o holds owner o's start: the exclusive scan of the row totals
-    const int tot = lane < W ? s_tot[lane] : 0;
-    int first = tot;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, first, off);
-      if (lane >= off) first += y;
-    }
-    first -= tot;
-#pragma unroll
-    for (int i = 0; i < kWin; ++i) {
-      const int base = __shfl_sync(0xffffffffu, first, max(own[i], 0));
-      if (own[i] >= 0)
-        s_list[base + s_cnt[own[i] * RS + warp + i * W] + rank[i]] =
-            (warp + i * W) * 32 + lane;
-    }
-    cp_async_wait_one();  // stage st + 1 has landed
-    __syncthreads();
-    // warp w folds its own list, in stage order
-    const int begin = __shfl_sync(0xffffffffu, first, warp);
-    const int end = begin + __shfl_sync(0xffffffffu, tot, warp);
-    for (int e0 = begin; e0 < end; e0 += 32) {
-      const int src = e0 + lane < end ? s_list[e0 + lane] : -1;
-      const int lk = src >= 0 ? sk[src] - key0 : -1;
-      // keys seldom repeat within 32 entries: each lane claims its key's
-      // byte, and only if a claim was lost do lanes match keys bit by bit
-      if (lk >= 0) s_tag[lk] = (unsigned char)lane;
-      __syncwarp();
-      const bool lost = lk >= 0 && s_tag[lk] != lane;
-      if (!__any_sync(0xffffffffu, lost)) {
-        if (lk >= 0) {
-          float* row = table + lk * nc;
-          for (int c = 0; c < nc; ++c)
-            row[c] = combine<OP>(row[c], sv[src * nc + c]);
-        }
-      } else {
-        const unsigned same = match_bits(lk, src >= 0, kOwnBits, key_bits);
-        const int* lst = s_list + e0;
-        fold_lanes<OP>(table, lk, same, sv, nc,
-                       [&](int l) { return lst[l]; });
-      }
-      __syncwarp();  // the claims are read before the next entries'
-    }
-  }
-  __syncthreads();
+  const fold_table::Geom g{p.d, p.k, p.block_k, p.cols, p.stage, p.kbits};
+  fold_table::fold_range<OP, W>(keys, vals, g, key0, col0, nc, lo, hi, smem);
+  const float* table = reinterpret_cast<const float*>(smem);
+  const int tid = threadIdx.x;
   const int kb = min(p.block_k, p.k - key0);  // keys of this block below K
   if (blk_first[blk] == blk_last[blk]) {  // the block's only segment
     for (int i = tid; i < kb * nc; i += kThreads) {
@@ -608,10 +413,10 @@ cudaError_t prepare() {  // once per kernel: allow the large shared memory
 
 template <int W>
 int occupancy(size_t smem) {
-  if (prepare<keyed_fold::kAdd, W>() != cudaSuccess) return 0;
+  if (prepare<fold_table::kAdd, W>() != cudaSuccess) return 0;
   int blocks = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, reduce_segments<keyed_fold::kAdd, W>, W * 32, smem) !=
+          &blocks, reduce_segments<fold_table::kAdd, W>, W * 32, smem) !=
       cudaSuccess)
     return 0;
   return blocks;
@@ -697,14 +502,14 @@ extern "C" int segment_reduce_launch(const int* keys, const float* vals,
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (op) {
-    case keyed_fold::kAdd:
-      return (int)segred::run<keyed_fold::kAdd>(p, keys, vals, acc, out,
+    case fold_table::kAdd:
+      return (int)segred::run<fold_table::kAdd>(p, keys, vals, acc, out,
                                                 scratch, s);
-    case keyed_fold::kMax:
-      return (int)segred::run<keyed_fold::kMax>(p, keys, vals, acc, out,
+    case fold_table::kMax:
+      return (int)segred::run<fold_table::kMax>(p, keys, vals, acc, out,
                                                 scratch, s);
-    case keyed_fold::kMin:
-      return (int)segred::run<keyed_fold::kMin>(p, keys, vals, acc, out,
+    case fold_table::kMin:
+      return (int)segred::run<fold_table::kMin>(p, keys, vals, acc, out,
                                                 scratch, s);
     default:
       return (int)cudaErrorInvalidValue;

@@ -43,22 +43,30 @@ def onehot_fold_plain(keys: torch.Tensor, values: torch.Tensor,
 
 
 def onehot_fold_cuda(keys: torch.Tensor, values: torch.Tensor,
-                     acc: torch.Tensor, *, block_k: int, tile_n: int,
-                     seg_len: int, n_seg: int) -> torch.Tensor:
-    """Launch the kernel; the wrapper in ``ops`` has checked the inputs."""
+                     acc: torch.Tensor, plan) -> torch.Tensor:
+    """Launch the kernel with ``plan`` (an ``ops.FoldPlan``); the wrapper
+    in ``ops`` has checked the inputs."""
     lib = _build.library("onehot_fold")
     n, d = values.shape
     k_space = acc.shape[0]
     out = torch.empty_like(acc)
-    partial = torch.empty((n_seg, k_space, d), dtype=torch.float32,
-                          device=acc.device)
+    partial = fold_partials(plan, k_space, d, acc.device)
     err = lib.onehot_fold_launch(
         keys.data_ptr(), values.data_ptr(), acc.data_ptr(), out.data_ptr(),
-        partial.data_ptr(), n, d, k_space, block_k, tile_n, seg_len, n_seg,
+        None if partial is None else partial.data_ptr(), n, d, k_space, *plan.launch_args(),
         torch.cuda.current_stream(acc.device).cuda_stream)
     _build.check("onehot_fold", lib, err)
     _build.count_launch("onehot_fold")
     return out
+
+
+def fold_partials(plan, key_space: int, d: int, device):
+    """A ``[n_seg, K, D]`` f32 partials buffer for a plan of several
+    segments, else None (one segment writes its table straight out)."""
+    if plan.n_seg == 1:
+        return None
+    return torch.empty((plan.n_seg, key_space, d), dtype=torch.float32,
+                       device=device)
 
 
 def onehot_combine_plain(keys: torch.Tensor, values: torch.Tensor,
@@ -72,30 +80,29 @@ def onehot_combine_plain(keys: torch.Tensor, values: torch.Tensor,
 
 
 def keyed_table_cuda(name: str, keys: torch.Tensor, values: torch.Tensor,
-                     key_space: int, *extra: int, block_k: int, tile_n: int,
-                     seg_len: int, n_seg: int) -> torch.Tensor:
+                     key_space: int, *extra: int, plan) -> torch.Tensor:
     """Launch kernel ``name`` over the two-pass keyed fold that builds a
-    fresh ``[K, D]`` f32 table (``onehot_combine``, ``combine_scatter``);
-    ``extra`` are the launch arguments between ``K`` and the tiling."""
+    fresh ``[K, D]`` f32 table (``onehot_combine``, ``combine_scatter``)
+    with ``plan``; ``extra`` are the launch arguments between ``K`` and the
+    plan's."""
     lib = _build.library(name)
     n, d = values.shape
     out = torch.empty((key_space, d), dtype=torch.float32,
                       device=values.device)
-    partial = torch.empty((n_seg, key_space, d), dtype=torch.float32,
-                          device=values.device)
+    partial = fold_partials(plan, key_space, d, values.device)
     err = getattr(lib, f"{name}_launch")(
         keys.data_ptr(), values.data_ptr(), out.data_ptr(),
-        partial.data_ptr(), n, d, key_space, *extra, block_k, tile_n,
-        seg_len, n_seg, torch.cuda.current_stream(values.device).cuda_stream)
+        None if partial is None else partial.data_ptr(), n, d, key_space, *extra,
+        *plan.launch_args(),
+        torch.cuda.current_stream(values.device).cuda_stream)
     _build.check(name, lib, err)
     _build.count_launch(name)
     return out
 
 
 def onehot_combine_cuda(keys: torch.Tensor, values: torch.Tensor,
-                        key_space: int, *, block_k: int, tile_n: int,
-                        seg_len: int, n_seg: int) -> torch.Tensor:
-    """Launch the kernel; the wrapper in ``ops`` has checked the inputs."""
+                        key_space: int, plan) -> torch.Tensor:
+    """Launch the kernel with ``plan``; the wrapper in ``ops`` has checked
+    the inputs."""
     return keyed_table_cuda("onehot_combine", keys, values, key_space,
-                            block_k=block_k, tile_n=tile_n, seg_len=seg_len,
-                            n_seg=n_seg)
+                            plan=plan)

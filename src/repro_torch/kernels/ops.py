@@ -22,19 +22,41 @@ from repro_torch.kernels import onehot_combine as _oc
 from repro_torch.kernels import radix_partition as _rp
 from repro_torch.kernels import segment_reduce as _sr
 
-#: shared memory one block may use on an H100 (227 KB of the SM's 256 KB).
-#: The fold kernels stage pairs in a slice of it, sized so that eight blocks
-#: fit on one SM together.
+#: shared memory one block may use on an H100 (227 KB of the SM's 256 KB),
+#: the shared memory of one SM, and what the runtime keeps per block
 SMEM_PER_BLOCK = 232448
-FOLD_BLOCKS_PER_SM = 8
-#: columns one fold thread carries in registers (csrc/keyed_fold.cuh kMaxCols)
-FOLD_MAX_COLS = 8
-#: keys (threads) per block of the fold kernels
-FOLD_MAX_BLOCK_KEYS = 256
-#: blocks the fold kernels aim to launch: several per SM of the 132
-FOLD_TARGET_BLOCKS = 132 * 8
+SMEM_PER_SM = 233472
+SMEM_BLOCK_RESERVE = 1024
+#: streaming multiprocessors of an H100 SXM
+SM_COUNT = 132
+
+#: The fold kernels' plan (csrc/fold_table.cuh and keyed_fold.cuh hold the
+#: same numbers): a block folds its segment's pairs into a [block_k, cols]
+#: f32 table of at most FOLD_TABLE_FLOATS floats and FOLD_MAX_COLS columns,
+#: streaming them through FOLD_RING stages.  Two block shapes:
+#:   one warp     when FOLD_BALLOT_FIT such blocks fit on an SM beside their
+#:                tables (their launch bounds ask for FOLD_BALLOT_BLOCKS);
+#:                stages of FOLD_BALLOT_STAGE pairs;
+#:   eight warps  (FOLD_BUCKET_WARPS) that bucket each stage by owner,
+#:                FOLD_BUCKET_BLOCKS an SM (one past that); stages of up to
+#:                FOLD_MAX_STAGE pairs.
+#: The dynamic shared memory of a block stays 256 bytes below
+#: SMEM_PER_BLOCK, for its static shared memory.
+FOLD_TABLE_FLOATS = 32768
+FOLD_MAX_COLS = 64
+FOLD_RING = 3
+FOLD_BALLOT_STAGE = 256
+FOLD_MAX_STAGE = 1024
+FOLD_BUCKET_WARPS = 8
+FOLD_SMEM = SMEM_PER_BLOCK - 256
+FOLD_BALLOT_FIT = 8
+FOLD_BALLOT_BLOCKS = 16
+FOLD_BUCKET_BLOCKS = 2
 #: largest segment-partials buffer [S, K, D] f32 the fold kernels allocate
 FOLD_PARTIAL_ELEMS = 1 << 26
+#: keys of one block of the plain versions' one-hot contraction at most
+#: (CPU tensors): the [N, block] one-hot stays small
+FOLD_PLAIN_KEY_BLOCK = 256
 
 launch_counts = _build.launch_counts
 reset_launch_counts = _build.reset_launch_counts
@@ -44,31 +66,103 @@ def _pow2_floor(x: int) -> int:
     return 1 << (max(int(x), 1).bit_length() - 1)
 
 
-def auto_key_block(key_space: int) -> int:
-    """Keys per block of the fold kernels: one thread per key, a whole
-    number of warps, at most :data:`FOLD_MAX_BLOCK_KEYS`."""
-    return min(-(-key_space // 32) * 32, FOLD_MAX_BLOCK_KEYS)
+def _fold_cols(key_space: int, d: int) -> int:
+    """Columns of a fold table: all D when the [K, D] table fits, else as
+    many as leave the whole key space in one table, at least one (a key
+    tile reads the whole chunk, so fewer key tiles beat wider ones)."""
+    return max(1, min(d, FOLD_MAX_COLS, FOLD_TABLE_FLOATS // key_space))
 
 
-def fold_tile_n(d: int) -> int:
-    """Pairs a fold block stages in shared memory per step: its slice of
-    :data:`SMEM_PER_BLOCK` over the bytes of one staged pair."""
-    per_pair = 4 + 4 * min(d, FOLD_MAX_COLS)
-    return _pow2_floor(SMEM_PER_BLOCK // FOLD_BLOCKS_PER_SM // per_pair)
+def auto_key_block(key_space: int, d: int = 1) -> int:
+    """Keys of one fold table (a key tile) at D columns: the whole key
+    space when its table fits :data:`FOLD_TABLE_FLOATS`."""
+    return min(key_space, FOLD_TABLE_FLOATS // _fold_cols(key_space, d))
 
 
-def fold_segments(n: int, key_space: int, d: int, block_k: int
-                  ) -> tuple[int, int]:
-    """(segment length, segment count) of the fold kernels' pair axis:
-    enough segments to fill the card, no segment shorter than one staged
-    tile, and a partials buffer within :data:`FOLD_PARTIAL_ELEMS`."""
-    other = -(-key_space // block_k) * -(-d // FOLD_MAX_COLS)
-    n_seg = -(-FOLD_TARGET_BLOCKS // other)
-    n_seg = min(n_seg, -(-n // fold_tile_n(d)),
-                max(1, FOLD_PARTIAL_ELEMS // (key_space * d)))
-    n_seg = max(n_seg, 1)
+def fold_smem_bytes(block_k: int, cols: int, stage: int, warps: int) -> int:
+    """Dynamic shared memory of a fold block (csrc/fold_table.cuh
+    smem_bytes): the table, the ring of keys and values and, for eight
+    warps, the stage's owner list, its counts and a claim byte a key."""
+    table = block_k * cols * 4
+    ring = FOLD_RING * stage * (1 + cols) * 4
+    if warps == 1:
+        return table + ring
+    return table + ring + stage * 4 + (stage + 32) * 4 + -(-block_k // 16) * 16
+
+
+@dataclasses.dataclass(frozen=True)
+class FoldPlan:
+    """Launch sizes of the keyed-fold kernels (B1, B2, B6, B7): a grid of
+    ``n_seg`` segments of ``seg_len`` pairs × key tiles of ``block_k`` keys
+    × column tiles of ``cols`` columns, blocks of ``warps`` warps with
+    ``smem`` bytes of dynamic shared memory streaming ``stage`` pairs a
+    ring stage.  Several segments fold into a partials buffer ``[n_seg, K,
+    D]`` that a second pass joins."""
+
+    block_k: int
+    cols: int
+    warps: int
+    stage: int
+    smem: int
+    seg_len: int
+    n_seg: int
+    key_tiles: int
+    col_tiles: int
+
+    def launch_args(self) -> tuple[int, ...]:
+        """The kernels' launch arguments after K (and op)."""
+        return (self.block_k, self.cols, self.stage, self.warps,
+                self.seg_len, self.n_seg)
+
+
+def fold_plan(n: int, key_space: int, d: int,
+              block_k: int | None = None) -> FoldPlan:
+    """Plan one keyed fold of ``n`` pairs into a ``[K, D]`` table.
+
+    The table takes :func:`auto_key_block` keys (at most ``block_k``) and
+    :func:`_fold_cols` columns.  A table small enough that
+    :data:`FOLD_BALLOT_FIT` one-warp blocks fit on an SM takes one-warp
+    blocks; else blocks of eight warps whose stage leaves room for
+    :data:`FOLD_BUCKET_BLOCKS` blocks an SM (one, for a table past that).
+    The pairs split into one wave of blocks over the card, no segment
+    shorter than a stage, and a partials buffer within
+    :data:`FOLD_PARTIAL_ELEMS`."""
+    if n < 1 or key_space < 1 or d < 1:
+        raise ValueError(f"fold_plan: n={n}, key_space={key_space} and "
+                         f"d={d} must be positive")
+    cols = _fold_cols(key_space, d)
+    blk = auto_key_block(key_space, d)
+    if block_k is not None:
+        blk = max(1, min(blk, int(block_k)))
+    table = blk * cols * 4
+
+    def fit(smem):  # blocks an SM holds beside their shared memory
+        return SMEM_PER_SM // (smem + SMEM_BLOCK_RESERVE)
+
+    warps, stage = 1, FOLD_BALLOT_STAGE
+    smem = fold_smem_bytes(blk, cols, stage, warps)
+    per_sm = min(fit(smem), FOLD_BALLOT_BLOCKS)
+    if per_sm < FOLD_BALLOT_FIT:
+        warps = FOLD_BUCKET_WARPS
+        per_pair = FOLD_RING * (1 + cols) * 4 + 8
+        fixed = fold_smem_bytes(blk, cols, 0, warps) - table
+        room = min(FOLD_SMEM,
+                   SMEM_PER_SM // FOLD_BUCKET_BLOCKS - SMEM_BLOCK_RESERVE)
+        stage = min(FOLD_MAX_STAGE, (room - table - fixed) // per_pair) & ~31
+        if stage < 32:
+            stage = min(FOLD_MAX_STAGE,
+                        (FOLD_SMEM - table - fixed) // per_pair) & ~31
+        smem = fold_smem_bytes(blk, cols, stage, warps)
+        per_sm = min(FOLD_BUCKET_BLOCKS, fit(smem))
+    key_tiles = -(-key_space // blk)
+    col_tiles = -(-d // cols)
+    n_seg = -(-per_sm * SM_COUNT // (key_tiles * col_tiles))
+    n_seg = max(1, min(n_seg, -(-n // stage),
+                       FOLD_PARTIAL_ELEMS // (key_space * d)))
     seg_len = -(-n // n_seg)
-    return seg_len, -(-n // seg_len)
+    return FoldPlan(block_k=blk, cols=cols, warps=warps, stage=stage,
+                    smem=smem, seg_len=seg_len, n_seg=-(-n // seg_len),
+                    key_tiles=key_tiles, col_tiles=col_tiles)
 
 
 def _check(name, keys, values, acc):
@@ -86,7 +180,7 @@ def _check(name, keys, values, acc):
                          f"devices {sorted(map(str, devices))}")
 
 
-def _check_cuda(name, keys, values, acc, block_k):
+def _check_cuda(name, keys, values, acc):
     if keys.dtype != torch.int32:
         raise TypeError(f"{name}: keys must be int32, got {keys.dtype}")
     if values.dtype != torch.float32 or acc.dtype != torch.float32:
@@ -95,26 +189,33 @@ def _check_cuda(name, keys, values, acc, block_k):
     for t, what in ((keys, "keys"), (values, "values"), (acc, "acc")):
         if not t.is_contiguous():
             raise ValueError(f"{name}: {what} must be contiguous")
-    _check_fold_launch(name, values.shape[0], acc.numel(), acc.shape[0],
-                       block_k)
 
 
-def _check_fold_launch(name, n, table_elems, key_space, block_k):
-    """The fold kernels' launch limits: int32 sizes, and a grid of key
-    blocks CUDA can launch."""
-    if n >= 2**31 or table_elems >= 2**31:
+def _fold_launch(name, n, key_space, d, block_k) -> FoldPlan:
+    """The fold kernels' plan, within their launch limits: int32 sizes,
+    and a grid CUDA can launch."""
+    if n >= 2**31 or key_space * d >= 2**31:
         raise ValueError(f"{name}: sizes past 2^31 elements are not taken")
-    if not 1 <= block_k <= 1024 or -(-key_space // block_k) > 65535:
-        raise ValueError(f"{name}: block_k={block_k} keys per block is not "
-                         f"a launchable block for K={key_space}")
+    plan = fold_plan(n, key_space, d, block_k)
+    if plan.key_tiles > 65535 or plan.col_tiles > 65535:
+        raise ValueError(f"{name}: {plan.key_tiles} key tiles x "
+                         f"{plan.col_tiles} column tiles is not a grid "
+                         f"CUDA can launch; raise block_k")
+    return plan
 
 
 def _block(block_k, key_space):
     if block_k is None:
-        return auto_key_block(key_space)
+        return None
     if block_k < 1:
         raise ValueError(f"block_k must be positive, got {block_k}")
     return min(int(block_k), key_space)
+
+
+def _plain_block(block_k, key_space):
+    """The plain one-hot contraction's key block: ``block_k`` or the key
+    space, at most :data:`FOLD_PLAIN_KEY_BLOCK`."""
+    return min(block_k or key_space, FOLD_PLAIN_KEY_BLOCK)
 
 
 def onehot_fold(keys, values, acc, key_space=None, *, block_k=None):
@@ -122,9 +223,10 @@ def onehot_fold(keys, values, acc, key_space=None, *, block_k=None):
 
     [N] int32 keys, [N, D] f32 values, [K, D] f32 acc -> [K, D] f32.  Keys
     outside ``[0, K)`` (the sentinel ``K`` among them) never land.
-    ``block_k`` is the number of keys one block of the kernel owns (CPU: the
-    key block of the plain contraction); ``None`` sizes it.  Signature
-    matches the stream collector's ``fold_fn(keys, mat, acc)``."""
+    ``block_k`` caps the keys of one table of the kernel, a key tile (CPU:
+    the key block of the plain contraction, at most
+    :data:`FOLD_PLAIN_KEY_BLOCK`); ``None`` sizes it (:func:`fold_plan`).
+    Signature matches the stream collector's ``fold_fn(keys, mat, acc)``."""
     _check("onehot_fold", keys, values, acc)
     if key_space is None:
         key_space = acc.shape[0]
@@ -136,12 +238,11 @@ def onehot_fold(keys, values, acc, key_space=None, *, block_k=None):
         return acc.to(torch.float32)
     block_k = _block(block_k, key_space)
     if keys.device.type == "cpu":
-        return _oc.onehot_fold_plain(keys, values, acc, block_k=block_k)
-    _check_cuda("onehot_fold", keys, values, acc, block_k)
-    seg_len, n_seg = fold_segments(n, key_space, d, block_k)
-    return _oc.onehot_fold_cuda(keys, values, acc, block_k=block_k,
-                                tile_n=fold_tile_n(d), seg_len=seg_len,
-                                n_seg=n_seg)
+        return _oc.onehot_fold_plain(keys, values, acc,
+                                     block_k=_plain_block(block_k, key_space))
+    _check_cuda("onehot_fold", keys, values, acc)
+    return _oc.onehot_fold_cuda(keys, values, acc, _fold_launch(
+        "onehot_fold", n, key_space, d, block_k))
 
 
 def chunk_monoid_fold(keys, values, acc, op="add", *, block_k=None):
@@ -159,13 +260,11 @@ def chunk_monoid_fold(keys, values, acc, op="add", *, block_k=None):
         return acc.to(torch.float32)
     block_k = _block(block_k, key_space)
     if keys.device.type == "cpu":
-        return _sr.chunk_monoid_fold_plain(keys, values, acc, op,
-                                           block_k=block_k)
-    _check_cuda("chunk_monoid_fold", keys, values, acc, block_k)
-    seg_len, n_seg = fold_segments(n, key_space, d, block_k)
-    return _sr.chunk_monoid_fold_cuda(keys, values, acc, op, block_k=block_k,
-                                      tile_n=fold_tile_n(d), seg_len=seg_len,
-                                      n_seg=n_seg)
+        return _sr.chunk_monoid_fold_plain(
+            keys, values, acc, op, block_k=_plain_block(block_k, key_space))
+    _check_cuda("chunk_monoid_fold", keys, values, acc)
+    return _sr.chunk_monoid_fold_cuda(keys, values, acc, op, _fold_launch(
+        "chunk_monoid_fold", n, key_space, d, block_k))
 
 
 # ---------------------------------------------------------------------------
@@ -484,8 +583,8 @@ def sort_segment_fold(keys, values, acc, op="add", *, bucket_size=None,
 
 def _combine_inputs(name, keys, values, key_space, block_k):
     """Checks shared by onehot_combine and combine_scatter; the values
-    cast to f32 (bf16 values are taken, as in the reference) and the keys
-    per block."""
+    cast to f32 (bf16 values are taken, as in the reference) and the cap
+    on a key tile."""
     _check_pairs(name, keys, values)
     if key_space < 1:
         raise ValueError(f"{name}: key_space must be positive, got "
@@ -493,13 +592,11 @@ def _combine_inputs(name, keys, values, key_space, block_k):
     return values.to(torch.float32), _block(block_k, key_space)
 
 
-def _combine_cuda(name, keys, values, key_space, block_k):
-    """The CUDA path's checks and the fold kernels' tiling:
-    ``(tile_n, seg_len, n_seg)``."""
+def _combine_cuda(name, keys, values, key_space, block_k) -> FoldPlan:
+    """The CUDA path's checks and the fold kernels' plan."""
     _check_cuda_pairs(name, keys, values)
     n, d = values.shape
-    _check_fold_launch(name, n, key_space * d, key_space, block_k)
-    return (fold_tile_n(d),) + fold_segments(n, key_space, d, block_k)
+    return _fold_launch(name, n, key_space, d, block_k)
 
 
 def onehot_combine(keys, values, key_space, *, block_k=None):
@@ -515,13 +612,10 @@ def onehot_combine(keys, values, key_space, *, block_k=None):
         return torch.zeros((key_space, d), dtype=torch.float32,
                            device=values.device)
     if keys.device.type == "cpu":
-        return _oc.onehot_combine_plain(keys, values, key_space,
-                                        block_k=block_k)
-    tile_n, seg_len, n_seg = _combine_cuda("onehot_combine", keys, values,
-                                           key_space, block_k)
-    return _oc.onehot_combine_cuda(keys, values, key_space, block_k=block_k,
-                                   tile_n=tile_n, seg_len=seg_len,
-                                   n_seg=n_seg)
+        return _oc.onehot_combine_plain(
+            keys, values, key_space, block_k=_plain_block(block_k, key_space))
+    return _oc.onehot_combine_cuda(keys, values, key_space, _combine_cuda(
+        "onehot_combine", keys, values, key_space, block_k))
 
 
 def combine_scatter(keys, values, key_space, op="add", *, block_k=None):
@@ -543,11 +637,9 @@ def combine_scatter(keys, values, key_space, op="add", *, block_k=None):
                           device=values.device)
     if keys.device.type == "cpu":
         return _cs.combine_scatter_plain(keys, values, key_space, op)
-    tile_n, seg_len, n_seg = _combine_cuda("combine_scatter", keys, values,
-                                           key_space, block_k)
     return _cs.combine_scatter_cuda(keys, values, key_space, op,
-                                    block_k=block_k, tile_n=tile_n,
-                                    seg_len=seg_len, n_seg=n_seg)
+                                    _combine_cuda("combine_scatter", keys,
+                                                  values, key_space, block_k))
 
 
 # ---------------------------------------------------------------------------

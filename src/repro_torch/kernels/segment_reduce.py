@@ -3,7 +3,7 @@
 Counterpart of ``repro/kernels/segment_reduce.py``.
 
 * ``chunk_monoid_fold`` folds an unsorted chunk into the carried table
-  (``csrc/chunk_monoid_fold.cu``, two deterministic passes).
+  (``csrc/chunk_monoid_fold.cu``, two deterministic passes, O(N) work).
 * ``segment_reduce`` reduces a stream grouped into aligned key blocks — the
   radix partition's layout, or a key-sorted stream — to a ``[K, D]`` table
   (``csrc/segment_reduce.cu``, no atomics), optionally folded onto a
@@ -22,9 +22,10 @@ import torch
 
 from repro_torch import numerics
 from repro_torch.kernels import _build
-from repro_torch.kernels.onehot_combine import onehot_fold_plain
+from repro_torch.kernels.onehot_combine import (fold_partials,
+                                                onehot_fold_plain)
 
-#: op codes of csrc/keyed_fold.cuh
+#: op codes of csrc/fold_table.cuh
 OPS = {"add": 0, "max": 1, "min": 2}
 
 
@@ -43,20 +44,19 @@ def chunk_monoid_fold_plain(keys: torch.Tensor, values: torch.Tensor,
 
 
 def chunk_monoid_fold_cuda(keys: torch.Tensor, values: torch.Tensor,
-                           acc: torch.Tensor, op: str, *, block_k: int,
-                           tile_n: int, seg_len: int, n_seg: int
-                           ) -> torch.Tensor:
-    """Launch the kernel; the wrapper in ``ops`` has checked the inputs."""
+                           acc: torch.Tensor, op: str, plan) -> torch.Tensor:
+    """Launch the kernel with ``plan`` (an ``ops.FoldPlan``); the wrapper
+    in ``ops`` has checked the inputs."""
     lib = _build.library("chunk_monoid_fold")
     n, d = values.shape
     k_space = acc.shape[0]
     out = torch.empty_like(acc)
-    partial = torch.empty((n_seg, k_space, d), dtype=torch.float32,
-                          device=acc.device)
+    partial = fold_partials(plan, k_space, d, acc.device)
     err = lib.chunk_monoid_fold_launch(
         keys.data_ptr(), values.data_ptr(), acc.data_ptr(), out.data_ptr(),
-        partial.data_ptr(), n, d, k_space, OPS[op], block_k, tile_n, seg_len,
-        n_seg, torch.cuda.current_stream(acc.device).cuda_stream)
+        None if partial is None else partial.data_ptr(), n, d, k_space,
+        OPS[op], *plan.launch_args(),
+        torch.cuda.current_stream(acc.device).cuda_stream)
     _build.check("chunk_monoid_fold", lib, err)
     _build.count_launch("chunk_monoid_fold")
     return out

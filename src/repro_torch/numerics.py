@@ -6,13 +6,21 @@ signed zeros in either order; ``jnp.minimum``/``jnp.min`` return ``-0``.
 zero comes first, so the port applies the rule itself wherever a max or min
 monoid folds values.  Integer and bool tensors have no signed zero or NaN
 and take the plain operators.
+
+A NaN keeps its bits (sign and payload), as in the JAX package on the CPU.
+Between two NaNs, ``maximum(a, b)`` keeps ``a`` when ``a`` is negative and
+``b`` otherwise; ``minimum(a, b)`` keeps ``a`` when ``a`` is positive and
+``b`` otherwise.  A fold applies that rule in index order, so a max keeps
+the first negative NaN it meets, else the last NaN, and a min the first
+positive NaN, else the last: every reduction of the JAX package (``.at[]``
+scatters, ``jnp.max``, the Pallas kernels in interpret mode) gives that
+NaN, whatever its tiling.  The rule is associative, so a fold may split the
+pairs into ranges as long as it joins them in order.
 """
 
 from __future__ import annotations
 
 import torch
-
-_NAN = float("nan")
 
 
 def _signed_zero(prefer_negative: bool, like: torch.Tensor) -> torch.Tensor:
@@ -28,8 +36,9 @@ def maximum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return torch.maximum(a, b)
     # select, never compute: a NaN operand comes out with its own bits
     # (torch.maximum may return another NaN pattern)
-    out = torch.where(a > b, a, b)
-    out = torch.where(torch.isnan(a), a, out)
+    out = torch.where(a > b, a, b)  # b when either is NaN
+    a_nan = torch.isnan(a) & (~torch.isnan(b) | torch.signbit(a))
+    out = torch.where(a_nan, a, out)
     both_zero = (a == 0) & (b == 0)
     return torch.where(both_zero, torch.where(torch.signbit(a), b, a), out)
 
@@ -40,49 +49,73 @@ def minimum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return torch.logical_and(a, b)
     if not a.is_floating_point():
         return torch.minimum(a, b)
-    out = torch.where(a < b, a, b)
-    out = torch.where(torch.isnan(a), a, out)
+    out = torch.where(a < b, a, b)  # b when either is NaN
+    a_nan = torch.isnan(a) & (~torch.isnan(b) | ~torch.signbit(a))
+    out = torch.where(a_nan, a, out)
     both_zero = (a == 0) & (b == 0)
     return torch.where(both_zero, torch.where(torch.signbit(a), a, b), out)
 
 
-def _fix_extremum(r: torch.Tensor, has_nan: torch.Tensor,
+def _nan_index(nan: torch.Tensor, sticky: torch.Tensor, pos: torch.Tensor,
+               n: int, reduce) -> torch.Tensor:
+    """Index of the NaN a fold in index order keeps (-1 where none): the
+    first ``sticky`` one, else the last.  ``pos`` holds each element's
+    index, below ``n``; ``reduce(values, how, fill)`` folds along the pair
+    axis."""
+    first = reduce(torch.where(sticky, pos, n), "amin", n)
+    last = reduce(torch.where(nan, pos, -1), "amax", -1)
+    return torch.where(first < n, first, last)
+
+
+def _fix_extremum(r: torch.Tensor, pick: torch.Tensor, picked: torch.Tensor,
                   has_preferred_zero: torch.Tensor,
                   prefer_negative: bool) -> torch.Tensor:
     """Apply the rule to a reduced tensor: a zero result takes the preferred
-    sign when any reduced element had it, and NaN wins over everything."""
+    sign when any reduced element had it, and where ``pick >= 0`` the NaN
+    of that index (``picked``) wins over everything."""
     zero = torch.where(has_preferred_zero,
                        _signed_zero(prefer_negative, r),
                        _signed_zero(not prefer_negative, r))
     r = torch.where(r == 0, zero, r)
-    return torch.where(has_nan, torch.tensor(_NAN, dtype=r.dtype,
-                                             device=r.device), r)
+    return torch.where(pick >= 0, picked, r)
 
 
 def _preferred_zero(x: torch.Tensor, prefer_negative: bool) -> torch.Tensor:
     return (x == 0) & (torch.signbit(x) == prefer_negative)
 
 
+def _extremum(x: torch.Tensor, dim, is_max: bool) -> torch.Tensor:
+    r = torch.amax(x, dim=dim) if is_max else torch.amin(x, dim=dim)
+    if not x.is_floating_point():
+        return r
+    dims = sorted(d % x.ndim for d in ((dim,) if isinstance(dim, int)
+                                       else dim)) or list(range(x.ndim))
+    rest = x.ndim - len(dims)
+    # the reduced axes last, in order, flattened: the fold's index order
+    flat = x.movedim(dims, list(range(rest, x.ndim))).reshape(
+        r.shape + (-1,))
+    nan = torch.isnan(flat)
+    pos = torch.arange(flat.shape[-1], device=x.device)
+    pick = _nan_index(nan, nan & (torch.signbit(flat) == is_max), pos,
+                      flat.shape[-1], lambda v, how, fill: getattr(v, how)(-1))
+    picked = torch.gather(flat, -1, pick.clamp(min=0)[..., None])[..., 0]
+    return _fix_extremum(r, pick, picked,
+                         _preferred_zero(flat, not is_max).any(-1),
+                         not is_max)
+
+
 def amax(x: torch.Tensor, dim) -> torch.Tensor:
     """``jnp.max(x, axis=dim)``."""
     if x.dtype == torch.bool:
         return _any(x, dim)
-    r = torch.amax(x, dim=dim)
-    if not x.is_floating_point():
-        return r
-    return _fix_extremum(r, _any(torch.isnan(x), dim),
-                         _any(_preferred_zero(x, False), dim), False)
+    return _extremum(x, dim, True)
 
 
 def amin(x: torch.Tensor, dim) -> torch.Tensor:
     """``jnp.min(x, axis=dim)``."""
     if x.dtype == torch.bool:
         return _all(x, dim)
-    r = torch.amin(x, dim=dim)
-    if not x.is_floating_point():
-        return r
-    return _fix_extremum(r, _any(torch.isnan(x), dim),
-                         _any(_preferred_zero(x, True), dim), True)
+    return _extremum(x, dim, False)
 
 
 def _any(x: torch.Tensor, dim) -> torch.Tensor:
@@ -99,7 +132,7 @@ def scatter_extremum(table: torch.Tensor, keys: torch.Tensor,
                      values: torch.Tensor, op: str) -> torch.Tensor:
     """``table.at[keys].max(values, mode="drop")`` (``op="max"``) or
     ``.min`` as JAX computes it: keys outside ``[0, K)`` are dropped, and
-    the result is exact and independent of the order of the pairs."""
+    the pairs fold in index order (which decides only between NaNs)."""
     k_space = table.shape[0]
     valid = (keys >= 0) & (keys < k_space)
     k = keys[valid].long()
@@ -116,12 +149,24 @@ def scatter_extremum(table: torch.Tensor, keys: torch.Tensor,
         else torch.iinfo(table.dtype).max)
     chunk = torch.full_like(table, ident).scatter_reduce(
         0, idx, v, "amax" if op == "max" else "amin", include_self=True)
-    if table.is_floating_point():
+    if table.is_floating_point() and v.shape[0]:
         def hits(mask):
             return torch.zeros(table.shape, dtype=torch.int32,
                                device=table.device).index_add_(
                 0, k, mask.to(torch.int32)) > 0
-        chunk = _fix_extremum(chunk, hits(torch.isnan(v)),
+
+        def by_key(vals, how, fill):
+            return torch.full(table.shape, fill, dtype=torch.int64,
+                              device=table.device).scatter_reduce(
+                0, idx, vals, how, include_self=True)
+
+        nan = torch.isnan(v)
+        pos = torch.arange(v.shape[0], device=v.device).view(
+            (-1,) + (1,) * (v.ndim - 1)).expand_as(v)
+        pick = _nan_index(nan, nan & (torch.signbit(v) == (op == "max")),
+                          pos, v.shape[0], by_key)
+        picked = torch.gather(v, 0, pick.clamp(min=0))
+        chunk = _fix_extremum(chunk, pick, picked,
                               hits(_preferred_zero(v, op == "min")),
                               op == "min")
     return (maximum if op == "max" else minimum)(table, chunk)

@@ -155,15 +155,12 @@ def test_wrappers_on_a_card_tensor_reach_the_kernels_only(monkeypatch):
     def plain(*a, **k):
         raise AssertionError("a plain version ran on a card tensor")
 
-    def onehot(keys, values, key_space, *, block_k, tile_n, seg_len, n_seg):
-        calls.append(("onehot_combine", values.dtype, block_k, tile_n,
-                      seg_len * n_seg >= keys.shape[0]))
+    def onehot(keys, values, key_space, plan):
+        calls.append(("onehot_combine", values.dtype, plan))
         return torch.empty((key_space, values.shape[1]), device="meta")
 
-    def scatter(keys, values, key_space, op, *, block_k, tile_n, seg_len,
-                n_seg):
-        calls.append(("combine_scatter", op, block_k, tile_n,
-                      seg_len * n_seg >= keys.shape[0]))
+    def scatter(keys, values, key_space, op, plan):
+        calls.append(("combine_scatter", op, plan))
         return torch.empty((key_space, values.shape[1]), device="meta")
 
     monkeypatch.setattr(toc, "onehot_combine_plain", plain)
@@ -176,8 +173,11 @@ def test_wrappers_on_a_card_tensor_reach_the_kernels_only(monkeypatch):
     assert ops.onehot_combine(keys, vals, 100).shape == (100, 3)
     assert ops.combine_scatter(keys, vals, k, "max").shape == (k, 3)
     assert calls == [
-        ("onehot_combine", torch.float32, 128, ops.fold_tile_n(3), True),
-        ("combine_scatter", "max", ops.FOLD_MAX_BLOCK_KEYS,
-         ops.fold_tile_n(3), True)]
+        ("onehot_combine", torch.float32, ops.fold_plan(10_000, 100, 3)),
+        ("combine_scatter", "max", ops.fold_plan(10_000, k, 3))]
+    # one table of all 100 x 3; at 2^16 keys one column a table, two key
+    # tiles a column
+    assert (calls[0][2].key_tiles, calls[0][2].col_tiles) == (1, 1)
+    assert (calls[1][2].key_tiles, calls[1][2].col_tiles) == (2, 3)
     with pytest.raises(TypeError):  # the kernels take int32 keys only
         ops.onehot_combine(keys.to(torch.int64), vals, 100)

@@ -170,16 +170,50 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert set(counts.values()) == {0}, counts
 
 
+def _check_fold_plan(plan, n, k, d):
+    """A plan the kernels can launch: its tables fit the shared memory and
+    cover K x D, its segments cover the pairs, its partials fit."""
+    assert plan.warps in (1, ops.FOLD_BUCKET_WARPS)
+    assert plan.stage % 32 == 0 and 32 <= plan.stage <= (
+        ops.FOLD_BALLOT_STAGE if plan.warps == 1 else ops.FOLD_MAX_STAGE)
+    assert plan.smem == ops.fold_smem_bytes(plan.block_k, plan.cols,
+                                            plan.stage, plan.warps)
+    assert plan.smem <= ops.FOLD_SMEM < ops.SMEM_PER_BLOCK
+    assert 1 <= plan.block_k <= k and 1 <= plan.cols <= min(
+        d, ops.FOLD_MAX_COLS)
+    assert plan.block_k * plan.cols <= ops.FOLD_TABLE_FLOATS
+    assert plan.key_tiles * plan.block_k >= k > (plan.key_tiles - 1) * \
+        plan.block_k
+    assert plan.col_tiles * plan.cols >= d > (plan.col_tiles - 1) * plan.cols
+    assert plan.seg_len * plan.n_seg >= n > plan.seg_len * (plan.n_seg - 1)
+    assert plan.n_seg == 1 or plan.n_seg * k * d <= ops.FOLD_PARTIAL_ELEMS
+
+
 @pytest.mark.parametrize("n,k,d", [(1, 1, 1), (100, 100, 4), (1 << 22, 100, 4),
                                    (1 << 20, 5000, 97), (3000, 300, 3)])
 def test_launch_plan_fits_the_card(n, k, d):
-    """Segments cover the pairs, tiles fit the shared-memory slice, and a
-    block is a whole number of warps of at most FOLD_MAX_BLOCK_KEYS keys."""
-    blk = ops.auto_key_block(k)
-    assert blk % 32 == 0 and blk <= ops.FOLD_MAX_BLOCK_KEYS
-    seg_len, n_seg = ops.fold_segments(n, k, d, blk)
-    assert seg_len * n_seg >= n > seg_len * (n_seg - 1)
-    assert n_seg * k * d <= max(ops.FOLD_PARTIAL_ELEMS, k * d)
-    tile = ops.fold_tile_n(d)
-    staged = tile * (4 + 4 * min(d, ops.FOLD_MAX_COLS))
-    assert staged * ops.FOLD_BLOCKS_PER_SM <= ops.SMEM_PER_BLOCK
+    """The fold kernels' plan at the stream flow's shapes: it fits, covers
+    the table and the pairs, and a table of all K x D reads the pairs once
+    with enough segments to fill the card."""
+    plan = ops.fold_plan(n, k, d)
+    _check_fold_plan(plan, n, k, d)
+    if k * d <= ops.FOLD_TABLE_FLOATS:
+        assert (plan.key_tiles, plan.col_tiles) == (1, 1)
+    if n >= 1 << 22:
+        assert plan.n_seg >= ops.SM_COUNT
+
+
+@pytest.mark.parametrize("d", [1, 3, 4, 128])
+@pytest.mark.parametrize("k", [1, 100, 2048, 2049, 1 << 16])
+@pytest.mark.parametrize("n", [1, 5_001, 1 << 22, 1 << 24])
+def test_fold_plan_covers_the_table_and_fits(n, k, d):
+    """The plan over (n, K, D): shared memory within a block's share,
+    key tiles x column tiles covering K x D, segments covering N, partials
+    within FOLD_PARTIAL_ELEMS; a cap on the key tile is kept."""
+    plan = ops.fold_plan(n, k, d)
+    _check_fold_plan(plan, n, k, d)
+    # the fewest tiles: a key tile takes every key its table holds
+    assert plan.block_k == min(k, ops.FOLD_TABLE_FLOATS // plan.cols)
+    capped = ops.fold_plan(n, k, d, block_k=7)
+    _check_fold_plan(capped, n, k, d)
+    assert capped.block_k == min(7, k)
