@@ -8,8 +8,8 @@ Phases (each raises on failure, and the script then exits non-zero):
 1. print the card's name and power limit; build the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` (into ``build/repro_torch/``), one
    nvcc per source, all at once, and print ptxas's registers, shared
-   memory and spills of the keyed fold's (chunk_monoid_fold's),
-   segment_reduce's and flash_decode's kernels;
+   memory and spills of the keyed fold's (chunk_monoid_fold's), the radix
+   partition's, segment_reduce's and flash_decode's kernels;
 2. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at ragged ones: max/min bit for bit (signed
    zeros and NaNs of random payloads included, several a key, one or two a
@@ -18,10 +18,15 @@ Phases (each raises on failure, and the script then exits non-zero):
    folds also with one key holding almost every pair, every key out of
    range, K one past a table (two key tiles) and D = 128.  The sort flow's
    kernels too: the radix partitions' layouts bit for bit (keys, starts,
-   values at real slots), the hierarchy's leaf layout equal to the
-   one-level partition's, and segment_reduce on those layouts, with
-   ragged sizes, a key space that is no multiple of the bucket, sentinel
-   and out-of-range keys, and pad_align 8, 16 and 256.  The combine
+   values at real slots), two runs bit for bit, the hierarchy's leaf
+   layout equal to the one-level partition's, and segment_reduce on those
+   layouts, with ragged sizes, a key space that is no multiple of the
+   bucket, sentinel and out-of-range keys, pad_align 8, 16 and 256, one
+   bucket holding half the pairs, every key invalid, D = 8, D = 300 (the
+   values left in device memory), key and value views that are not 8-byte
+   aligned (D = 2, 3), 1024 buckets (two passes), a hierarchy with a
+   level of 512 buckets (fan-outs (2, 512)) and 2048 leaves (K = 2^25,
+   two passes).  The combine
    flow's kernels too, by the same rules: K = 1 to 2^16, D = 1 to 128,
    bf16 values, sentinel and out-of-range keys, NaN and signed zeros.
    And flash_decode, f32 and bf16, at the reference kernel test's shapes,
@@ -71,12 +76,13 @@ Phases (each raises on failure, and the script then exits non-zero):
    (CUDA events), and a profile of one decode step (flash_decode against
    the matmuls);
 9. time each kernel, its plain version and one PyTorch library call at the
-   main path's shapes (CUDA events; flash_decode at llama3-8b's decode
-   shape and the bench shape, against SDPA; every kernel but the radix
-   partitions also replayed from a CUDA graph, without the host's per-call
-   work, and
+   main path's shapes (CUDA events, and replayed from a CUDA graph, without
+   the host's per-call work; the device operations of a call; flash_decode
+   at llama3-8b's decode shape and the bench shape, against SDPA;
    segment_reduce's max at the BoundingBox combine shape against
-   scatter_reduce_), the scatter lowering's route
+   scatter_reduce_; the radix partitions also at the combine flow's
+   sort-route shapes and at 2048 leaves), B4's pass sweep (one pass
+   against two; the splits of 2048 leaves), the scatter lowering's route
    sweep (combine_scatter against sort_segment_fold over K), the
    BoundingBox and KMeans scatter-lowering runs on each route, each
    main-path run after warm-up, the ratio of the reduce flow's time to the
@@ -432,6 +438,7 @@ def kernel_rows(rng, launches_add, launches_dense) -> list[dict]:
             "library_ms": time_ms(lib, 20),
             "graph_ms": graph_ms(kern, 20), "library_graph_ms": graph_ms(
                 lib, 20),
+            "device_ops": device_ops(kern),
             "shape": {"n": n, "d": d, "k": k, "op": op},
         })
     return rows
@@ -640,6 +647,7 @@ def combine_kernel_rows(rng, launches) -> list[dict]:
             "library_ms": time_ms(lib, 10),
             "graph_ms": graph_ms(kern, 10), "library_graph_ms": graph_ms(
                 lib, 10),
+            "device_ops": device_ops(kern),
             "shape": {"n": n, "d": d, "k": k, "op": op},
         })
     # B7 on the scatter lowering at K = 2^16, two key tiles (the combine
@@ -1067,6 +1075,7 @@ def flash_decode_rows(rng, launches) -> dict:
                 "library_ms": time_ms(lib, 200),
                 "graph_ms": graph_ms(kern, 200),
                 "library_graph_ms": graph_ms(lib, 200),
+                "device_ops": device_ops(kern),
                 "library_max_abs_err": lib_err,
                 "shape": {"b": b, "h": h, "hkv": hkv, "d": d, "s": s,
                           "kv_len": s, "dtype": dtype}}
@@ -1173,7 +1182,7 @@ def check_sort_kernels(rng) -> None:
     from repro_torch.core.autotune import CUDA_CHUNK_PAIRS
     from repro_torch.kernels import ops
     from repro_torch.kernels.radix_partition import (
-        radix_partition_multi_plain, radix_partition_plain)
+        partition_plan, radix_partition_multi_plain, radix_partition_plain)
     from repro_torch.kernels.segment_reduce import segment_reduce_plain
 
     def twice(fn, what):
@@ -1220,16 +1229,55 @@ def check_sort_kernels(rng) -> None:
                     raise AssertionError(
                         f"segment_reduce {op} != plain bitwise ({label})")
 
-    one_level = [  # (n, d, k, bucket_size, pad_align, label)
+    def layout_keys(keys, k, bs, mix):
+        """Keys of a case mix: as drawn, half of them in one bucket, or
+        every one invalid (negative or past the last bucket)."""
+        if mix == "half_one_bucket":
+            half = torch.rand(keys.shape, device=keys.device) < 0.5
+            keys = torch.where(half, min(5 * bs + 7, k - 1), keys)
+        elif mix == "all_invalid":
+            nb = -(-k // bs)
+            keys = torch.where(keys % 2 == 0, -1 - keys.abs() % 7,
+                               nb * bs + keys.abs() % 5)
+        return keys.to(torch.int32).contiguous()
+
+    def unaligned(keys, vals):
+        """The same pairs as contiguous views one element into larger
+        buffers: neither pointer is 8-byte aligned."""
+        n, d = vals.shape
+        kb = torch.empty(n + 1, dtype=keys.dtype, device=keys.device)
+        vb = torch.empty(n * d + 1, dtype=vals.dtype, device=vals.device)
+        k1, v1 = kb[1:], vb[1:].view(n, d)
+        k1.copy_(keys)
+        v1.copy_(vals)
+        assert v1.data_ptr() % 8 and k1.data_ptr() % 8
+        return k1, v1
+
+    one_level = [  # (n, d, k, bucket_size, pad_align, label[, mix])
         (CUDA_CHUNK_PAIRS, 2, 1 << 18, 8192, 256,
          "main path (KeyedSum K=2^18 [K, 1+1])"),
         (1_000_003, 3, 100_000, 4096, 16, "ragged, K % bucket != 0"),
         (5_001, 1, 1000, 64, 16, "small buckets"),
         (777, 2, 300, 300, 16, "one bucket"),
         (3, 2, 50, 16, 256, "fewer pairs than a tile"),
+        (1_000_003, 2, 1 << 18, 8192, 256, "one bucket holds half the pairs",
+         "half_one_bucket"),
+        (100_003, 2, 1 << 18, 8192, 256, "every key invalid", "all_invalid"),
+        (300_007, 8, 100_000, 4096, 256, "D = 8"),
+        (100_003, 300, 10_000, 64, 16, "D = 300, values not staged"),
+        (1_000_003, 3, 100_000, 4096, 16,
+         "keys and values not 8-byte aligned (views at offset 1)",
+         "unaligned"),
+        (1_000_003, 2, 100_000, 4096, 256,
+         "D = 2, not 8-byte aligned (views at offset 1)", "unaligned"),
+        (1_000_003, 1, 1 << 16, 64, 8, "1024 buckets (two passes), pad 8"),
     ]
-    for n, d, k, bs, pa, label in one_level:
+    for n, d, k, bs, pa, label, *how in one_level:
+        mix = how[0] if how else "uniform"
         keys, vals = sort_pairs(rng, n, d, k, specials=False)
+        keys = layout_keys(keys, k, bs, mix)
+        if mix == "unaligned":
+            keys, vals = unaligned(keys, vals)
         got = twice(lambda: ops.radix_partition(keys, vals, k,
                                                 bucket_size=bs, pad_align=pa),
                     f"radix_partition ({label})")
@@ -1247,6 +1295,10 @@ def check_sort_kernels(rng) -> None:
         (500_000, 2, 1000, 16, (4, 4, 4), 16, "three levels"),
         (333_333, 1, 2000, 64, (8, 4), 256, "uneven fan-outs"),
         (1, 1, 13, 4, (2, 2), 8, "one pair, pad 8 (the reference's C.1)"),
+        (CUDA_CHUNK_PAIRS, 2, 1 << 25, 16384, (16, 16, 8), 256,
+         "2048 leaves (two passes)"),
+        (1_000_003, 2, 1 << 16, 64, (2, 512), 16,
+         "a level of 512 buckets (two passes of 32)"),
     ]
     for n, d, k, bs, fan, pa, label in multi:
         keys, vals = sort_pairs(rng, n, d, k, specials=False)
@@ -1256,12 +1308,16 @@ def check_sort_kernels(rng) -> None:
         same_layout(got, radix_partition_multi_plain(
             keys, vals, k, bucket_size=bs, fanouts=fan, pad_align=pa), k,
             f"radix_partition_multi ({label})")
-        same_layout(got, ops.radix_partition(keys, vals, k, bucket_size=bs,
-                                             pad_align=pa), k,
-                    f"radix_partition_multi vs one level ({label})")
-        check_reduce(got[0], got[1], k, bs, pa, label)
+        one = ops.radix_partition(keys, vals, k, bucket_size=bs,
+                                  pad_align=pa)
+        same_layout(got, one, k, f"radix_partition_multi vs one level "
+                                 f"({label})")
+        if k <= 1 << 20:
+            check_reduce(got[0], got[1], k, bs, pa, label)
+        plan = partition_plan(n, d, k, bs, pa)
         log(f"radix_partition_multi == plain == one level: {label} n={n} "
-            f"d={d} k={k} bucket={bs} fanouts={fan} pad={pa}")
+            f"d={d} k={k} bucket={bs} fanouts={fan} pad={pa} passes="
+            f"{[(p.range_, p.digits) for p in plan.passes]}")
 
     keys, vals = sort_pairs(rng, 100_000, 2, 5000, specials=False)
     skeys, order = torch.sort(keys)
@@ -1319,55 +1375,102 @@ def main_path_sort(key_space: int):
     return mr, items, launches
 
 
+def device_ops(fn) -> int:
+    """Device operations (kernels, copies, memsets) one call of ``fn``
+    issues, counted by torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
+def partition_timing(n, d, k, bs, fan, pa, iters: int = 20,
+                     seed: int = 6) -> dict:
+    """B3 (no ``fan``) or B4 at one shape: kernel, plain and library times
+    (eager and from a CUDA graph), its bound, passes and device operations
+    a call; the layout must equal the plain version's bit for bit."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.radix_partition import (
+        partition_plan, radix_partition_multi_plain, radix_partition_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    keys = torch.randint(0, k, (n,), dtype=torch.int32, device="cuda",
+                         generator=gen)
+    vals = torch.rand((n, d), device="cuda", generator=gen)
+    kern = lambda: ops.radix_partition(  # noqa: E731
+        keys, vals, k, bucket_size=bs, fanouts=fan, pad_align=pa)
+    if len(fan) > 1:
+        plain = lambda: radix_partition_multi_plain(  # noqa: E731
+            keys, vals, k, bucket_size=bs, fanouts=fan, pad_align=pa)
+    else:
+        plain = lambda: radix_partition_plain(  # noqa: E731
+            keys, vals, k, bucket_size=bs, pad_align=pa)
+
+    def lib():  # the library's stable sort by bucket, and the gathers
+        order = torch.argsort(keys // bs, stable=True)
+        return keys[order], vals[order]
+
+    got, want = kern(), plain()
+    same_layout(got, want, k, f"radix_partition k={k} fanouts={fan}")
+    real = want[0] < k
+    err = (got[1][real] - want[1][real]).abs().max().item()
+    np_ = got[0].shape[0]
+    nbytes = n * (4 + 4 * d) + np_ * (4 + 4 * d) + got[2].numel() * 4
+    plan = partition_plan(n, d, k, bs, pa)
+    ms = time_ms(kern, iters)
+    return {"max_abs_err": err, "ms": ms, "kernel_ms": ms,
+            "graph_ms": graph_ms(kern, iters),
+            "plain_ms": time_ms(plain, 3),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": time_ms(lib, iters),
+            "library_graph_ms": graph_ms(lib, iters),
+            "device_ops": device_ops(kern),
+            "passes": [{"range": p.range_, "digits": p.digits,
+                        "tile": p.tile, "grid": p.grid, "smem": p.smem,
+                        "staged": p.staged} for p in plan.passes],
+            "shape": {"n": n, "d": d, "k": k, "bucket_size": bs,
+                      "fanouts": list(fan), "pad_align": pa, "slots": np_}}
+
+
 def sort_kernel_rows(rng, launches) -> list[dict]:
-    """Phase 8, sort flow: B3, B4 and B5 at the main paths' shapes."""
+    """Phase 8, sort flow: B3, B4 and B5 at the main paths' shapes; B3 also
+    at the combine flow's sort-route shapes (BoundingBox: 2^24 pairs of
+    D = 3 in one bucket, and at D = 1; KeyedSum K = 2^16: 2^22 pairs of
+    D = 1 in 32 buckets), B4 also at K = 2^25 (2048 leaves, two passes)."""
     import torch
     from repro_torch.core.autotune import CUDA_CHUNK_PAIRS
     from repro_torch.kernels import ops
-    from repro_torch.kernels.radix_partition import (
-        radix_partition_multi_plain, radix_partition_plain)
     from repro_torch.kernels.segment_reduce import segment_reduce_plain
 
     n, d, pa = CUDA_CHUNK_PAIRS, 2, 256
-    rows = []
     src = "src/repro_torch/kernels/csrc/"
-    for name, k, bs, fan in (("radix_partition", 1 << 18, 8192, ()),
-                             ("radix_partition_multi", 1 << 20, 16384,
-                              (8, 8))):
-        keys = torch.randint(0, k, (n,), dtype=torch.int32, device="cuda")
-        vals = torch.rand((n, d), device="cuda")
-        kern = lambda: ops.radix_partition(  # noqa: E731
-            keys, vals, k, bucket_size=bs, fanouts=fan, pad_align=pa)
-        if fan:
-            plain = lambda: radix_partition_multi_plain(  # noqa: E731
-                keys, vals, k, bucket_size=bs, fanouts=fan, pad_align=pa)
-        else:
-            plain = lambda: radix_partition_plain(  # noqa: E731
-                keys, vals, k, bucket_size=bs, pad_align=pa)
-
-        def lib():
-            order = torch.argsort(keys // bs, stable=True)
-            return keys[order], vals[order]
-
-        got, want = kern(), plain()
-        same_layout(got, want, k, name)
-        real = want[0] < k
-        err = (got[1][real] - want[1][real]).abs().max().item()
-        np_ = got[0].shape[0]
-        nbytes = n * (4 + 4 * d) + np_ * (4 + 4 * d) + got[2].numel() * 4
-        ms = time_ms(kern, 20)
-        rows.append({
-            "name": name, "route": "cuda", "source": src + name + ".cu",
-            "replaces": ("src/repro/kernels/radix_partition.py:189"
-                         if not fan else
-                         "src/repro/kernels/radix_partition.py:268"),
-            "launches": launches[name], "max_abs_err": err,
-            "ms": ms, "kernel_ms": ms, "plain_ms": time_ms(plain, 5),
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": time_ms(lib, 20),
-            "shape": {"n": n, "d": d, "k": k, "bucket_size": bs,
-                      "fanouts": list(fan), "pad_align": pa, "slots": np_},
-        })
+    b3 = {"name": "radix_partition", "route": "cuda",
+          "source": src + "radix_partition.cu",
+          "replaces": "src/repro/kernels/radix_partition.py:189",
+          "launches": launches["radix_partition"],
+          **partition_timing(n, d, 1 << 18, 8192, (), pa)}
+    b3["bounding_box_combine"] = partition_timing(N_POINTS, 3, 100, 100, (),
+                                                  pa, iters=10)
+    b3["bounding_box_combine_d1"] = partition_timing(N_POINTS, 1, 100, 100,
+                                                     (), pa, iters=10)
+    b3["keyed_sum_combine_k65536"] = partition_timing(
+        1 << 22, 1, 1 << 16, 2048, (), pa)
+    b4 = {"name": "radix_partition_multi", "route": "cuda",
+          "source": src + "radix_partition.cu",
+          "replaces": "src/repro/kernels/radix_partition.py:268",
+          "launches": launches["radix_partition_multi"],
+          **partition_timing(n, d, 1 << 20, 16384, (8, 8), pa)}
+    b4["k33554432"] = partition_timing(n, d, 1 << 25, 16384, (16, 16, 8), pa)
+    rows = [b3, b4]
     k, bs = 1 << 18, 8192
     keys = torch.randint(0, k, (n,), dtype=torch.int32, device="cuda")
     vals = torch.rand((n, d), device="cuda")
@@ -1394,11 +1497,57 @@ def sort_kernel_rows(rng, launches) -> list[dict]:
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": time_ms(lib, 20),
         "graph_ms": graph_ms(kern, 20), "library_graph_ms": graph_ms(lib, 20),
+        "device_ops": device_ops(kern),
         "shape": {"slots": np_, "d": d, "k": k, "block_k": bs, "tile": pa,
                   "op": "add", "with_acc": True},
         "bounding_box_max": bbox,
     })
     return rows
+
+
+#: leaves of the pass sweep, 2^22 pairs of D = 2 at 16384-key leaves, and
+#: the fan-outs of the passes it times for each: one pass where the kernel
+#: takes it, two, and at 2048 leaves (two passes at any limit) the plan's
+#: even split beside uneven ones
+PASS_SWEEP = {64: ((64,), (8, 8)), 256: ((256,), (16, 16)),
+              1024: ((32, 32), (8, 128)),
+              2048: ((64, 32), (32, 64), (16, 128), (8, 256))}
+
+
+def radix_pass_sweep() -> dict:
+    """B4 over :data:`PASS_SWEEP`: each chain of passes' time from a CUDA
+    graph; every chain's layout must equal the first's bit for bit."""
+    import torch
+    from repro_torch.kernels.radix_partition import (
+        Pass, plan_passes, radix_partition_cuda)
+
+    n, d, bs, pa = 1 << 22, 2, 16384, 256
+    out = {"n": n, "d": d, "bucket_size": bs, "rows": []}
+    for leaves, chains in PASS_SWEEP.items():
+        k = bs * leaves
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        keys = torch.randint(0, k, (n,), dtype=torch.int32, device="cuda",
+                             generator=gen)
+        vals = torch.rand((n, d), device="cuda", generator=gen)
+        row, first = {"leaves": leaves, "k": k}, None
+        for fan in chains:
+            ranges = [bs]
+            for f in reversed(fan[1:]):
+                ranges.insert(0, ranges[0] * f)
+            plan = plan_passes(n, d, k, [Pass(r, f) for r, f in
+                                         zip(ranges, fan)], pa)
+            fn = lambda: radix_partition_cuda(  # noqa: E731
+                keys, vals, k, plan, pad_align=pa, multi=True)
+            got = fn()
+            if first is None:
+                first = got
+            else:
+                same_layout(got, first, k, f"pass sweep {leaves} {fan}")
+            label = "x".join(map(str, fan))
+            row[f"{label}_graph_ms"] = graph_ms(fn, 20)
+            row[f"{label}_tiles"] = [p.tile for p in plan.passes]
+        out["rows"].append(row)
+    return out
 
 
 def segment_reduce_bbox_row() -> dict:
@@ -1504,8 +1653,9 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build()
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc, "
-        f"{len(_build.KERNELS)} kernels, into {_build.build_dir()})")
-    for name in ("chunk_monoid_fold", "segment_reduce", "flash_decode"):
+        f"{len(_build.LIBRARIES)} libraries, into {_build.build_dir()})")
+    for name in ("chunk_monoid_fold", "radix_partition", "segment_reduce",
+                 "flash_decode"):
         log(f"build: {name}: " + "; ".join(
             f"{r['function']} {r['registers']} registers, {r['smem_bytes']} "
             f"B static smem, {r['spill_bytes']} B spilled"
@@ -1543,6 +1693,8 @@ def main() -> int:
             combine_runs["kmeans_scatter"][1]["combine_scatter"]})
     rows.append(flash_decode_rows(rng, serve["launches"]))
     log(json.dumps({"combine_route_sweep": combine_route_sweep(rng)}))
+    log(json.dumps({"radix_pass_sweep": {"card": card,
+                                         **radix_pass_sweep()}}))
     main_ms = {"kmeans_ms": run_ms(mr_add, items),
                "bounding_box_ms": run_ms(mr_dense, items),
                "points": N_POINTS, "card": card}

@@ -58,6 +58,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "device_prims.cuh"
+
 namespace flash_decode {
 
 constexpr int kThreads = 256;
@@ -122,11 +124,7 @@ __device__ __forceinline__ float unordered(int i) {
   return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
+using prims::cp_async16;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -204,7 +202,7 @@ fold_chunks(const T* __restrict__ q, const T* __restrict__ k,
           cp_async16(sv + t * L.row + c * 16, vb + off);
         }
       }
-      asm volatile("cp.async.commit_group;\n" ::);
+      prims::cp_async_commit();
     };
     for (int i = 0; i < kStages - 1; ++i) fetch(i);
     const T* qb = q + hb * D;
@@ -236,7 +234,7 @@ fold_chunks(const T* __restrict__ q, const T* __restrict__ k,
       const unsigned char* sv = sk + tile * L.row;
       int* tmax = s_tmax + (i & 1) * GB;
       // tile i has landed (the kStages - 2 after it may be in flight)
-      asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
+      prims::cp_async_wait<kStages - 2>();
       __syncthreads();  // ... for every thread; tile i - 1 is read
       fetch(i + kStages - 1);  // into the stage of tile i - 1
       if (tid < GB) s_tmax[((i + 1) & 1) * GB + tid] = ordered(kNegInf);

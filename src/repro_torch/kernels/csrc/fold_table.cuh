@@ -35,6 +35,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "device_prims.cuh"
+
 namespace fold_table {
 
 enum Op { kAdd = 0, kMax = 1, kMin = 2 };
@@ -94,33 +96,10 @@ inline size_t smem_bytes(int block_k, int cols, int stage, int warps) {
          (size_t)(block_k + 15) / 16 * 16;
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-// The lanes whose value v equals this lane's, among the lanes where ok
-// holds, from the bits lo .. lo + nb - 1 of v (the others agree): one
-// ballot a bit, where __match_any_sync would serialize on distinct values.
-__device__ __forceinline__ unsigned match_bits(int v, bool ok, int lo,
-                                               int nb) {
-  unsigned peers = __ballot_sync(0xffffffffu, ok);
-  for (int bit = lo; bit < lo + nb; ++bit) {
-    const bool set = (v >> bit) & 1;
-    const unsigned b = __ballot_sync(0xffffffffu, set);
-    peers &= set ? b : ~b;
-  }
-  return peers;
-}
+using prims::cp_async4;
+using prims::cp_async_commit;
+using prims::cp_async_wait;
+using prims::match_bits;
 
 // Lanes holding pairs of the same local key lk (>= 0) fold them into the
 // table, the lowest lane in lane order; a lane's pair is sv[src(lane)].
@@ -208,7 +187,7 @@ __device__ __forceinline__ void fold_range(const int* __restrict__ keys,
 
   fetch(0);
   fetch(1);
-  cp_async_wait_one();  // stage 0 has landed (1 may be in flight)
+  cp_async_wait<1>();  // stage 0 has landed (1 may be in flight)
   __syncthreads();  // ... for every thread, and the table is set
   for (int st = 0; lo + (long long)st * S < hi; ++st) {
     const long long c0 = lo + (long long)st * S;
@@ -230,7 +209,7 @@ __device__ __forceinline__ void fold_range(const int* __restrict__ keys,
         fold_lanes<OP>(table, mine ? lk : -1, same, sv, nc,
                        [&](int l) { return j0 + l; });
       }
-      cp_async_wait_one();  // stage st + 1 has landed
+      cp_async_wait<1>();  // stage st + 1 has landed
       __syncthreads();
       continue;
     }
@@ -287,7 +266,7 @@ __device__ __forceinline__ void fold_range(const int* __restrict__ keys,
         s_list[base + s_cnt[own[i] * RS + warp + i * W] + rank[i]] =
             (warp + i * W) * 32 + lane;
     }
-    cp_async_wait_one();  // stage st + 1 has landed
+    cp_async_wait<1>();  // stage st + 1 has landed
     __syncthreads();
     // warp w folds its own list, in stage order
     const int begin = __shfl_sync(0xffffffffu, first, warp);

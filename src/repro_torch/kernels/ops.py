@@ -277,9 +277,11 @@ def chunk_monoid_fold(keys, values, acc, op="add", *, block_k=None):
 #: reference's VMEM budget rule.
 SEGMENT_TABLE_BYTES = 128 * 1024
 
-#: buckets one level of the partition kernels splits into (the scatter's
-#: per-warp cursors live in shared memory; csrc/radix_level.cuh kMaxFanout)
-KERNEL_MAX_LEVEL_BUCKETS = 1024
+#: buckets one pass of the partition kernel splits a parent into at most
+#: (csrc/radix_level.cuh kMaxBuckets; radix_partition.MAX_PASS_BUCKETS):
+#: a partition, of one level or a hierarchy, whose leaves pass it runs as
+#: several passes
+KERNEL_MAX_LEVEL_BUCKETS = _rp.MAX_PASS_BUCKETS
 
 #: the kernels index slots with int32: a partition's output, and a table's
 #: elements, stay below 2^31
@@ -427,7 +429,10 @@ def radix_partition(keys, values, key_space, *, bucket_size=None,
 
     ``fanouts`` with two or more entries runs the hierarchy
     (``radix_partition_multi``, same layout); ``None`` or one entry the
-    one-level partition.  Any ``pad_align`` works with either."""
+    one-level partition.  Any ``pad_align`` works with either.  On the
+    card both launch the plan's passes (``radix_partition.partition_plan``:
+    the fewest passes of at most :data:`KERNEL_MAX_LEVEL_BUCKETS` buckets
+    that reach the leaves)."""
     _check_pairs("radix_partition", keys, values)
     n, d = values.shape
     if bucket_size is None:
@@ -455,24 +460,16 @@ def radix_partition(keys, values, key_space, *, bucket_size=None,
     if np_ * max(d, 1) > MAX_INDEX or key_space >= MAX_INDEX:
         raise ValueError(f"radix_partition: {np_} slots x {d} columns pass "
                          f"the int32 index limit; shrink the chunk")
-    if len(fanouts) > 1:
-        top = -(-key_space // (bucket_size * math.prod(fanouts[1:])))
-        widest = max(top, *fanouts[1:])
-    else:
-        widest = nb
-    if widest > KERNEL_MAX_LEVEL_BUCKETS:
-        raise ValueError(f"radix_partition: a level of {widest} buckets "
-                         f"passes the kernels' {KERNEL_MAX_LEVEL_BUCKETS}; "
-                         f"grow bucket_size or split the level (fanouts)")
     if n == 0:  # empty chunk: the all-pad layout
         return (torch.full((np_,), key_space, dtype=torch.int32,
                            device=keys.device),
                 torch.zeros((np_, d), dtype=torch.float32,
                             device=keys.device),
                 torch.zeros((nb,), dtype=torch.int32, device=keys.device))
-    return _rp.radix_partition_cuda(keys, values, key_space,
-                                    bucket_size=bucket_size, fanouts=fanouts,
-                                    pad_align=pad_align)
+    plan = _rp.partition_plan(n, d, key_space, bucket_size, pad_align)
+    return _rp.radix_partition_cuda(keys, values, key_space, plan,
+                                    pad_align=pad_align,
+                                    multi=len(fanouts) > 1)
 
 
 def tile_block_k(keys: torch.Tensor, key_space: int, tile_n: int) -> int:

@@ -196,14 +196,14 @@ def test_wrappers_on_a_card_tensor_reach_the_kernels_only(monkeypatch):
     def plain(*a, **k):
         raise AssertionError("a plain version ran on a card tensor")
 
-    def partition(keys, values, key_space, *, bucket_size, fanouts,
-                  pad_align):
-        calls.append(("partition", bucket_size, fanouts, pad_align))
-        np_ = rp.partition_slots(keys.shape[0], -(-key_space // bucket_size),
-                                 pad_align)
+    def partition(keys, values, key_space, plan, *, pad_align, multi):
+        calls.append(("partition", plan.passes[-1].range_,
+                      tuple((p.range_, p.digits) for p in plan.passes),
+                      pad_align, multi))
+        np_ = plan.slots
         return (torch.empty(np_, dtype=torch.int32, device="meta"),
                 torch.empty((np_, values.shape[1]), device="meta"),
-                torch.empty(-(-key_space // bucket_size), dtype=torch.int32,
+                torch.empty(plan.passes[-1].buckets, dtype=torch.int32,
                             device="meta"))
 
     def reduce(keys, values, key_space, op, *, block_k, tile, acc=None):
@@ -221,7 +221,9 @@ def test_wrappers_on_a_card_tensor_reach_the_kernels_only(monkeypatch):
     acc = torch.empty((k, 2), device="meta")
     out = ops.sort_segment_fold(keys, vals, acc, "max")
     assert out.shape == (k, 2)
-    assert calls == [("partition", 16384, (8, 8), 256),
+    # the plan's two levels (8, 8) reach the hierarchy's kernel as one
+    # pass of 64 buckets
+    assert calls == [("partition", 16384, ((16384, 64),), 256, True),
                      ("segment_reduce", "max", 16384, 256, True)]
     with pytest.raises(TypeError):  # the kernels take f32 values only
         ops.sort_segment_fold(keys, vals.to(torch.float64),
