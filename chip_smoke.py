@@ -9,14 +9,20 @@ Phases (each raises on failure, and the script then exits non-zero):
    ``src/repro_torch/kernels/csrc`` (into ``build/repro_torch/``), one
    nvcc per source, all at once, and print ptxas's registers, shared
    memory and spills of the keyed fold's (chunk_monoid_fold's), the radix
-   partition's, segment_reduce's and flash_decode's kernels;
+   partition's, segment_reduce's and flash_decode's kernels, and of the
+   lane-table fold (onehot_fold's);
 2. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at ragged ones: max/min bit for bit (signed
    zeros and NaNs of random payloads included, several a key, one or two a
    key, and in the carried table), sums within 1e-5 of each key's sum of
    absolute values, and two runs of each kernel bit for bit.  The keyed
    folds also with one key holding almost every pair, every key out of
-   range, K one past a table (two key tiles) and D = 128.  The sort flow's
+   range, K one past a table (two key tiles) and D = 128.  The sums of B1,
+   B2, B6 and B7 also on the lane-table plan's cases, each plan's shape
+   checked: the main shapes, one key holding almost every pair (and half
+   of them), every key out of range, n below 32 and no multiple of a
+   stage, D = 1, 3, 4, 5 and 128 (column tiles), K = 1 and K at the
+   crossover and one past it (the index-order pass).  The sort flow's
    kernels too: the radix partitions' layouts bit for bit (keys, starts,
    values at real slots), two runs bit for bit, the hierarchy's leaf
    layout equal to the one-level partition's, and segment_reduce on those
@@ -37,8 +43,9 @@ Phases (each raises on failure, and the script then exits non-zero):
 3. main path, additive: ``MapReduce(KMeans()).run`` on 2^24 points of the
    Phoenix kmeans shape (3 dimensions, 100 means); the plan must be the
    stream flow with a derived monoid, ``onehot_fold`` must have launched,
-   the counts must equal ``np.bincount`` and the centroids a float64 numpy
-   reference (rtol = atol = 1e-5);
+   each launch with the lane-table plan, the counts must equal
+   ``np.bincount`` and the centroids a float64 numpy reference (rtol =
+   atol = 1e-5);
 4. main path, dense: the bounding-box (max/min) app on the same points;
    ``chunk_monoid_fold`` must have launched and the boxes must equal
    numpy's per-key max/min bit for bit; then the seven Phoenix apps, on
@@ -55,7 +62,8 @@ Phases (each raises on failure, and the script then exits non-zero):
    ``onehot_combine`` for the values and the counts), the bounding-box
    app (the scatter lowering; its max and min leaves take the sort route,
    radix_partition + segment_reduce) and KMeans with
-   ``combine_impl="scatter"`` (``combine_scatter`` for the sum), counts
+   ``combine_impl="scatter"`` (``combine_scatter`` for the sum; the sums
+   of both KMeans runs on the lane-table plan), counts
    exact, centroids against float64 numpy and boxes bit for bit; then
    ``KeyedSum(2^16)`` on 2^22 pairs, past the one-hot cutoff: the scatter
    lowering's sort route (radix_partition + segment_reduce, never
@@ -81,9 +89,13 @@ Phases (each raises on failure, and the script then exits non-zero):
    at llama3-8b's decode shape and the bench shape, against SDPA;
    segment_reduce's max at the BoundingBox combine shape against
    scatter_reduce_; the radix partitions also at the combine flow's
-   sort-route shapes and at 2048 leaves), B4's pass sweep (one pass
-   against two; the splits of 2048 leaves), the scatter lowering's route
-   sweep (combine_scatter against sort_segment_fold over K), the
+   sort-route shapes and at 2048 leaves; the keyed folds' rows name their
+   plan's shape and give a time with one key holding half the pairs),
+   B4's pass sweep (one pass against two; the splits of 2048 leaves), the
+   keyed-fold sweep (the lane-table pass against the index-order pass
+   over K and D, behind the plan's crossover), the scatter lowering's
+   route sweep (combine_scatter against sort_segment_fold over K, at D = 1
+   and 3, uniform keys and one key holding half the pairs), the
    BoundingBox and KMeans scatter-lowering runs on each route, each
    main-path run after warm-up, the ratio of the reduce flow's time to the
    combine and stream flows' (the paper's speedup), and profile one run of
@@ -96,6 +108,7 @@ before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -197,8 +210,8 @@ def plant_specials(rng, arr, nan_share: float = 0.001) -> None:
 
 
 #: the keys of a keyed-fold case: uniform, one key holding almost every
-#: pair, or every key outside [0, K)
-KEY_MIXES = ("uniform", "one_hot_key", "all_out")
+#: pair, one key holding half the pairs, or every key outside [0, K)
+KEY_MIXES = ("uniform", "one_hot_key", "half_hot_key", "all_out")
 
 
 def fold_keys(rng, n, k, mix: str = "uniform", bad_keys: bool = True):
@@ -207,6 +220,8 @@ def fold_keys(rng, n, k, mix: str = "uniform", bad_keys: bool = True):
     keys = rng.integers(0, k, size=n).astype(np.int32)
     if mix == "one_hot_key":  # key K // 2 holds all but about 1/1000
         keys[rng.random(n) >= 1e-3] = k // 2
+    if mix == "half_hot_key":  # key K // 2 holds about half the pairs
+        keys[rng.random(n) < 0.5] = k // 2
     bad = rng.random(n) < (1.0 if mix == "all_out" else 0.1)
     if bad_keys or mix == "all_out":
         keys[bad] = rng.choice(np.array([k, k + 3, -1, -7], np.int32),
@@ -292,7 +307,125 @@ def check_kernels(rng) -> None:
                     f"chunk_monoid_fold {op} != plain bitwise ({label}): "
                     f"{diff} elements differ")
         log(f"kernels == plain: {label} n={n} d={d} k={k} "
-            f"block_k={block_k} plan={ops.fold_plan(n, k, d, block_k)}")
+            f"block_k={block_k} "
+            f"plan={ops.fold_plan(n, k, d, 'add', block_k)}")
+
+
+def lane_crossover(d: int) -> int:
+    """The most keys whose sum of D columns takes the lane-table plan."""
+    from repro_torch.kernels import ops
+    return max(k for k in range(1, ops.FOLD_LANE_MAX_KEYS + 1)
+               if ops.fold_plan(1 << 22, k, d, "add").shape == "lane")
+
+
+def check_lane_folds(rng) -> None:
+    """Phase 2, the lane-table shape of a sum: B1 and B2's add (onto acc),
+    B6 and B7's add (from zero) against their plain versions within
+    SUM_RTOL of each key's sum of |terms|, two runs bit for bit; each case
+    takes the plan shape it names (lane tables up to the crossover, the
+    index-order pass one key past it)."""
+    import torch
+    from repro_torch.core.autotune import CUDA_CHUNK_PAIRS
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.onehot_combine import onehot_fold_plain
+
+    cases = [  # (n, d, k, label[, mix]); N a multiple of no stage
+        (CUDA_CHUNK_PAIRS, 4, 100, "B1 main shape (KMeans [K, 3+1])"),
+        (N_POINTS, 3, 100, "B6/B7 main shape (KMeans values)"),
+        (N_POINTS, 1, 100, "B6 main shape (KMeans counts)"),
+        (CUDA_CHUNK_PAIRS, 4, 100, "one key holds almost every pair",
+         "one_hot_key"),
+        (N_POINTS, 3, 100, "one key holds half the pairs", "half_hot_key"),
+        (100_003, 3, 100, "every key out of range", "all_out"),
+        (17, 3, 100, "n < 32"),
+        (31, 4, 100, "n < 32"),
+        (1_000_003, 4, 100, "n not a multiple of a stage"),
+        (300_007, 1, 100, "D = 1"),
+        (300_007, 5, 100, "D = 5 (column tiles)"),
+        (200_003, 128, 100, "D = 128 (column tiles)"),
+        (100_003, 3, 1, "K = 1"),
+        (100_003, 4, 1, "K = 1"),
+    ]
+    for d in (1, 3, 4):
+        top = lane_crossover(d)
+        cases += [(1_000_003, d, top, f"K = {top}, the crossover at D = {d}"),
+                  (1_000_003, d, top + 1, f"K = {top + 1}, one past it")]
+
+    def twice(fn, what):
+        a, b = fn(), fn()
+        if not torch.equal(bits(a), bits(b)):
+            raise AssertionError(f"{what}: two runs differ")
+        return a
+
+    for n, d, k, label, *how in cases:
+        mix = how[0] if how else "uniform"
+        plan = ops.fold_plan(n, k, d, "add")
+        want = "lane" if "one past" not in label else ops.table_plan(
+            n, k, d).shape
+        if plan.shape != want:
+            raise AssertionError(f"lane folds ({label}): plan {plan}")
+        plain_block = min(k, ops.FOLD_PLAIN_KEY_BLOCK)
+        keys, vals, acc = fold_inputs(rng, n, d, k, specials=False,
+                                      bad_keys=True, mix=mix)
+        zero = torch.zeros_like(acc)
+        for start, fns in (
+                (acc, (("onehot_fold", lambda: ops.onehot_fold(
+                    keys, vals, acc)),
+                       ("chunk_monoid_fold", lambda: ops.chunk_monoid_fold(
+                           keys, vals, acc, "add")))),
+                (zero, (("onehot_combine", lambda: ops.onehot_combine(
+                    keys, vals, k)),
+                        ("combine_scatter", lambda: ops.combine_scatter(
+                            keys, vals, k, "add"))))):
+            plain = onehot_fold_plain(keys, vals, start, block_k=plain_block)
+            tol = SUM_RTOL * onehot_fold_plain(
+                keys, vals.abs(), start.abs(), block_k=plain_block) + SUM_RTOL
+            for name, fn in fns:
+                err = (twice(fn, f"{name} add ({label})") - plain).abs()
+                if not bool((err <= tol).all()):
+                    raise AssertionError(f"{name} add != plain ({label}): "
+                                         f"max abs err {err.max().item()}")
+        del plain, tol, keys, vals, acc, zero
+        log(f"lane folds == plain: {label} n={n} d={d} k={k} plan={plan}")
+
+
+@contextlib.contextmanager
+def fold_shapes():
+    """The plan shape of each keyed-fold launch (B1, B2, B6, B7) made in
+    the block, by kernel: each binding is wrapped for the block, and
+    records its plan before it launches."""
+    from repro_torch.kernels import combine_scatter as cs
+    from repro_torch.kernels import onehot_combine as oc
+    from repro_torch.kernels import segment_reduce as sr
+
+    seen: dict[str, list[str]] = {}
+    bindings = ((oc, "onehot_fold"), (sr, "chunk_monoid_fold"),
+                (oc, "onehot_combine"), (cs, "combine_scatter"))
+    saved = [getattr(mod, f"{name}_cuda") for mod, name in bindings]
+
+    def wrap(fn, name):
+        def call(*args):  # the plan is the bindings' last argument
+            seen.setdefault(name, []).append(args[-1].shape)
+            return fn(*args)
+        return call
+
+    for (mod, name), fn in zip(bindings, saved):
+        setattr(mod, f"{name}_cuda", wrap(fn, name))
+    try:
+        yield seen
+    finally:
+        for (mod, name), fn in zip(bindings, saved):
+            setattr(mod, f"{name}_cuda", fn)
+
+
+def lane_launches(seen, launches, names) -> None:
+    """Every launch of the kernels ``names`` (by the counts) took the
+    lane-table plan."""
+    for name in names:
+        if seen.get(name, []) != ["lane"] * launches[name]:
+            raise AssertionError(f"{name}: {launches[name]} launches, plan "
+                                 f"shapes {seen.get(name)}; lane tables "
+                                 f"expected")
 
 
 def kmeans_centroids(pts, assign):
@@ -324,12 +457,14 @@ def main_path_additive(pts, assign):
             "stream", "monoid", "additive") or not mr.use_kernels:
         raise AssertionError(f"unexpected plan:\n{mr.explain()}")
     items = (torch.from_numpy(assign).cuda(), torch.from_numpy(pts).cuda())
-    ops.reset_launch_counts()
-    res = mr.run(items)
-    torch.cuda.synchronize()
-    launches = ops.launch_counts()
+    with fold_shapes() as seen:
+        ops.reset_launch_counts()
+        res = mr.run(items)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
     if launches["onehot_fold"] <= 0:
         raise AssertionError(f"onehot_fold never launched: {launches}")
+    lane_launches(seen, launches, ("onehot_fold",))
     log(mr.explain())
     want_counts, want = kmeans_centroids(pts, assign)
     counts = res.counts.cpu().numpy()
@@ -339,7 +474,7 @@ def main_path_additive(pts, assign):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     log(f"main path additive: KMeans {len(assign)} points, counts exact "
         f"(max {want_counts.max()} per key), centroids max abs err "
-        f"{np.abs(got - want).max():.3g}, launches {launches}")
+        f"{np.abs(got - want).max():.3g}, launches {launches}, plans {seen}")
     return mr, items, launches
 
 
@@ -406,19 +541,27 @@ def kernel_rows(rng, launches_add, launches_dense) -> list[dict]:
                                       bad_keys=False)
         keys64 = keys.long()
         if name == "onehot_fold":
-            kern = lambda: ops.onehot_fold(keys, vals, acc)  # noqa: E731
+            kern = lambda ks=keys: ops.onehot_fold(  # noqa: E731
+                ks, vals, acc)
             plain = lambda: onehot_fold_plain(keys, vals, acc)  # noqa: E731
             lib = lambda: acc.index_add(0, keys64, vals)  # noqa: E731
             launches = launches_add[name]
         else:
             idx = keys64[:, None].expand(n, d).contiguous()
-            kern = lambda: ops.chunk_monoid_fold(  # noqa: E731
-                keys, vals, acc, op)
+            kern = lambda ks=keys: ops.chunk_monoid_fold(  # noqa: E731
+                ks, vals, acc, op)
             plain = lambda: chunk_monoid_fold_plain(  # noqa: E731
                 keys, vals, acc, op)
             lib = lambda: acc.scatter_reduce(  # noqa: E731
                 0, idx, vals, "amax", include_self=True)
             launches = launches_dense[name]
+        # the graphs first, each beside the same call with one key holding
+        # half the pairs: a plain version's large product just before slows
+        # the card's next tens of microseconds
+        hot = torch.from_numpy(fold_keys(rng, n, k, "half_hot_key",
+                                         bad_keys=False)).cuda()
+        kern_graph_ms = graph_ms(kern, 20)
+        hot_ms = graph_ms(lambda: kern(hot), 20)
         err = (kern() - plain()).abs().max().item()
         nbytes = n * (4 + 4 * d) + 2 * k * d * 4
         n_ops = n * d  # one add (or compare) per value
@@ -436,9 +579,10 @@ def kernel_rows(rng, launches_add, launches_dense) -> list[dict]:
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": time_ms(lib, 20),
-            "graph_ms": graph_ms(kern, 20), "library_graph_ms": graph_ms(
-                lib, 20),
+            "graph_ms": kern_graph_ms, "library_graph_ms": graph_ms(lib, 20),
             "device_ops": device_ops(kern),
+            "plan": ops.fold_plan(n, k, d, op).shape,
+            "hot_half_graph_ms": hot_ms,
             "shape": {"n": n, "d": d, "k": k, "op": op},
         })
     return rows
@@ -528,7 +672,7 @@ def check_combine_kernels(rng) -> None:
                     f"combine_scatter {op} != plain bitwise ({label}): "
                     f"{diff} elements differ")
         log(f"onehot_combine, combine_scatter == plain: {label} n={n} d={d} "
-            f"k={k} plan={ops.fold_plan(n, k, d)}")
+            f"k={k} plan={ops.fold_plan(n, k, d, 'add')}")
 
 
 def main_path_combine(pts, assign, items):
@@ -557,13 +701,16 @@ def main_path_combine(pts, assign, items):
         if mr.plan.flow != "combine" or chosen != impl or not mr.use_kernels:
             raise AssertionError(f"unexpected plan ({chosen}):\n"
                                  f"{mr.explain()}")
-        ops.reset_launch_counts()
-        res = mr.run(items)
-        torch.cuda.synchronize()
-        launches = ops.launch_counts()
+        with fold_shapes() as seen:
+            ops.reset_launch_counts()
+            res = mr.run(items)
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
         if launches != {name: want.get(name, 0) for name in launches}:
             raise AssertionError(f"{label} combine: expected {want}, got "
                                  f"{launches}")
+        lane_launches(seen, launches, set(want) & {"onehot_combine",
+                                                   "combine_scatter"})
         counts = res.counts.cpu().numpy()
         if not np.array_equal(counts, np.bincount(assign, minlength=100)):
             raise AssertionError(f"{label} combine: counts != np.bincount")
@@ -576,7 +723,7 @@ def main_path_combine(pts, assign, items):
             raise AssertionError("combine: bounding boxes != numpy max/min")
         log(mr.explain())
         log(f"main path combine: {label} impl={impl}, counts exact, "
-            f"launches {launches}")
+            f"launches {launches}, plans {seen}")
         runs[label] = (mr, launches)
     return runs
 
@@ -617,6 +764,8 @@ def combine_kernel_rows(rng, launches) -> list[dict]:
     keys = torch.randint(0, k, (n,), dtype=torch.int32, device="cuda")
     vals = torch.randn((n, d), device="cuda")
     keys64 = keys.long()
+    hot = torch.from_numpy(fold_keys(rng, n, k, "half_hot_key",
+                                     bad_keys=False)).cuda()
     nbytes = n * (4 + 4 * d) + k * d * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = n * d / F32_OPS_PER_S * 1e3
@@ -624,17 +773,20 @@ def combine_kernel_rows(rng, launches) -> list[dict]:
     rows = []
     for name, op, kern, plain, lib, replaces in (
             ("onehot_combine", "add",
-             lambda: ops.onehot_combine(keys, vals, k),
+             lambda ks=keys: ops.onehot_combine(ks, vals, k),
              lambda: onehot_combine_plain(keys, vals, k),
              lambda: torch.zeros((k, d), device="cuda").index_add_(
                  0, keys64, vals),
              "src/repro/kernels/onehot_combine.py:123"),
             ("combine_scatter", "add",
-             lambda: ops.combine_scatter(keys, vals, k, "add"),
+             lambda ks=keys: ops.combine_scatter(ks, vals, k, "add"),
              lambda: combine_scatter_plain(keys, vals, k, "add"),
              lambda: torch.zeros((k, d), device="cuda").index_add_(
                  0, keys64, vals),
              "src/repro/kernels/combine_scatter.py:52")):
+        # the graphs first, as in kernel_rows
+        kern_graph_ms = graph_ms(kern, 10)
+        hot_ms = graph_ms(lambda: kern(hot), 10)  # one key: half the pairs
         err = (kern() - plain()).abs().max().item()
         ms = time_ms(kern, 10)
         rows.append({
@@ -645,9 +797,10 @@ def combine_kernel_rows(rng, launches) -> list[dict]:
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": time_ms(lib, 10),
-            "graph_ms": graph_ms(kern, 10), "library_graph_ms": graph_ms(
-                lib, 10),
+            "graph_ms": kern_graph_ms, "library_graph_ms": graph_ms(lib, 10),
             "device_ops": device_ops(kern),
+            "plan": ops.fold_plan(n, k, d, op).shape,
+            "hot_half_graph_ms": hot_ms,
             "shape": {"n": n, "d": d, "k": k, "op": op},
         })
     # B7 on the scatter lowering at K = 2^16, two key tiles (the combine
@@ -672,40 +825,92 @@ ROUTE_SWEEP_KEYS = (1 << 6, 1 << 7, 1 << 8, 1 << 10, 1 << 11, 1 << 12,
 def combine_route_sweep(rng) -> dict:
     """The combine flow's scatter lowering on f32 leaves: combine_scatter
     (B7) against sort_segment_fold (B3/B4 + B5, from the identity table) at
-    2^22 pairs, D = 1, over :data:`ROUTE_SWEEP_KEYS`, add and max, with
-    sentinel and out-of-range keys; the tables must agree (max bit for
-    bit, sums within 1e-5 of each key's sum of |v|).  The crossover sets
+    2^22 pairs, D = 1 and 3, uniform keys and one key holding half the
+    pairs, over :data:`ROUTE_SWEEP_KEYS`, add and max, with sentinel and
+    out-of-range keys; the tables must agree (max bit for bit, sums within
+    1e-5 of each key's sum of |v|).  The crossover sets
     ``collector.SCATTER_SORT_MIN_KEYS``."""
     import torch
     from repro_torch.kernels import ops
 
-    n, d = 1 << 22, 1
-    out = {"n": n, "d": d, "rows": []}
-    for k in ROUTE_SWEEP_KEYS:
-        keys, vals = combine_pairs(rng, n, d, k, specials=False)
-        row = {"k": k}
-        for op, ident in (("add", 0.0), ("max", float("-inf"))):
-            acc = torch.full((k, d), ident, device="cuda")
-            b7 = lambda: ops.combine_scatter(keys, vals, k, op)  # noqa: E731
-            srt = lambda: ops.sort_segment_fold(  # noqa: E731
-                keys, vals, acc, op)
-            got, want = srt(), b7()
-            if op == "max":
-                if not torch.equal(bits(got), bits(want)):
-                    raise AssertionError(f"route sweep K={k}: sort max != "
-                                         f"combine_scatter max")
-            else:
-                ok = (keys >= 0) & (keys < k)
-                tol = SUM_RTOL * torch.zeros(
-                    (k, d), dtype=torch.float64, device="cuda").index_add_(
-                    0, keys[ok].long(), vals[ok].abs().double()) + SUM_RTOL
-                if not bool(((got - want).abs() <= tol).all()):
-                    raise AssertionError(f"route sweep K={k}: sort add != "
-                                         f"combine_scatter add")
-            iters = 3 if k >= 1 << 14 else 10
-            row[f"{op}_combine_scatter_ms"] = time_ms(b7, iters)
-            row[f"{op}_sort_segment_fold_ms"] = time_ms(srt, 10)
-        out["rows"].append(row)
+    n = 1 << 22
+    out = {"n": n, "rows": []}
+    for d in (1, 3):
+        for mix in ("uniform", "half_hot_key"):
+            for k in ROUTE_SWEEP_KEYS:
+                keys, vals = combine_pairs(rng, n, d, k, specials=False,
+                                           mix=mix)
+                row = {"k": k, "d": d, "keys": mix}
+                for op, ident in (("add", 0.0), ("max", float("-inf"))):
+                    acc = torch.full((k, d), ident, device="cuda")
+                    b7 = lambda: ops.combine_scatter(  # noqa: E731
+                        keys, vals, k, op)
+                    srt = lambda: ops.sort_segment_fold(  # noqa: E731
+                        keys, vals, acc, op)
+                    got, want = srt(), b7()
+                    what = f"route sweep K={k} D={d} {mix}"
+                    if op == "max":
+                        if not torch.equal(bits(got), bits(want)):
+                            raise AssertionError(f"{what}: sort max != "
+                                                 f"combine_scatter max")
+                    else:
+                        ok = (keys >= 0) & (keys < k)
+                        tol = SUM_RTOL * torch.zeros(
+                            (k, d), dtype=torch.float64,
+                            device="cuda").index_add_(
+                            0, keys[ok].long(),
+                            vals[ok].abs().double()) + SUM_RTOL
+                        if not bool(((got - want).abs() <= tol).all()):
+                            raise AssertionError(f"{what}: sort add != "
+                                                 f"combine_scatter add")
+                    row[f"{op}_combine_scatter_ms"] = time_ms(b7, 10)
+                    row[f"{op}_sort_segment_fold_ms"] = time_ms(srt, 10)
+                row["add_plan"] = ops.fold_plan(n, k, d, "add").shape
+                out["rows"].append(row)
+    return out
+
+
+#: key spaces and widths of the keyed-fold sweep, 2^22 pairs each
+FOLD_SWEEP_KEYS = (16, 64, 100, 128, 256, 512, 1024)
+FOLD_SWEEP_COLS = (1, 3, 4)
+
+
+def keyed_fold_sweep(rng) -> dict:
+    """B1 onto acc over 2^22 pairs of uniform keys, at
+    :data:`FOLD_SWEEP_KEYS` x :data:`FOLD_SWEEP_COLS`: the lane-table pass
+    (``ops.lane_plan``, whatever warps an SM it leaves) against the
+    index-order pass (``ops.table_plan``), each from a CUDA graph, and the
+    shape ``ops.fold_plan`` takes; the two sums must agree within SUM_RTOL
+    of each key's sum of |terms|.  The measurement behind the plan's
+    crossover (``ops.FOLD_LANE_MAX_KEYS``)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.onehot_combine import onehot_fold_cuda
+
+    n = 1 << 22
+    out = {"n": n, "rows": []}
+    for d in FOLD_SWEEP_COLS:
+        for k in FOLD_SWEEP_KEYS:
+            keys, vals, acc = fold_inputs(rng, n, d, k, specials=False,
+                                          bad_keys=False)
+            lane, table = ops.lane_plan(n, k, d), ops.table_plan(n, k, d)
+            by_lane = lambda: onehot_fold_cuda(  # noqa: E731
+                keys, vals, acc, lane)
+            by_table = lambda: onehot_fold_cuda(  # noqa: E731
+                keys, vals, acc, table)
+            tol = SUM_RTOL * (torch.zeros(
+                (k, d), dtype=torch.float64, device="cuda").index_add_(
+                0, keys.long(), vals.abs().double()) + acc.abs()) + SUM_RTOL
+            if not bool(((by_lane() - by_table()).abs() <= tol).all()):
+                raise AssertionError(f"keyed fold sweep K={k} D={d}: the "
+                                     f"two passes' sums differ")
+            out["rows"].append({
+                "k": k, "d": d, "lane_graph_ms": graph_ms(by_lane, 20),
+                "table_graph_ms": graph_ms(by_table, 20),
+                "lane_cols": lane.cols,
+                "lane_warps_per_sm": lane.per_sm * lane.warps,
+                "table_shape": table.shape,
+                "plan": ops.fold_plan(n, k, d, "add").shape})
     return out
 
 
@@ -1660,11 +1865,19 @@ def main() -> int:
             f"{r['function']} {r['registers']} registers, {r['smem_bytes']} "
             f"B static smem, {r['spill_bytes']} B spilled"
             for r in _build.ptxas_report(name)))
+    lane = [r for r in _build.ptxas_report("onehot_fold")
+            if "lane_fold" in r["function"]]
+    if not lane:
+        raise AssertionError("build: no lane-table kernel in onehot_fold")
+    log("build: lane-table fold (onehot_fold): " + "; ".join(
+        f"{r['function']} {r['registers']} registers, {r['smem_bytes']} B "
+        f"static smem, {r['spill_bytes']} B spilled" for r in lane))
 
     rng = np.random.default_rng(0)
     check_kernels(rng)
     check_sort_kernels(rng)
     check_combine_kernels(rng)
+    check_lane_folds(rng)
     check_flash_decode(rng)
 
     pts, assign, clusters = datasets.kmeans_data(
@@ -1692,7 +1905,10 @@ def main() -> int:
         "combine_scatter":
             combine_runs["kmeans_scatter"][1]["combine_scatter"]})
     rows.append(flash_decode_rows(rng, serve["launches"]))
-    log(json.dumps({"combine_route_sweep": combine_route_sweep(rng)}))
+    log(json.dumps({"combine_route_sweep": {"card": card,
+                                            **combine_route_sweep(rng)}}))
+    log(json.dumps({"keyed_fold_sweep": {"card": card,
+                                         **keyed_fold_sweep(rng)}}))
     log(json.dumps({"radix_pass_sweep": {"card": card,
                                          **radix_pass_sweep()}}))
     main_ms = {"kmeans_ms": run_ms(mr_add, items),

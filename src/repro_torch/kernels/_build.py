@@ -41,15 +41,15 @@ _I = ctypes.c_int
 #: c_void_p so that ctypes passes them at full width.
 _ARGTYPES = {
     "onehot_fold": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                    _P],
+                    _I, _P],
     "chunk_monoid_fold": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _P],
+                          _I, _I, _I, _P],
     "radix_partition": [_P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P],
     "segment_reduce": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "onehot_combine": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                       _P],
+                       _I, _P],
     "combine_scatter": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _P],
+                        _I, _I, _P],
     "flash_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _I, _I, _I, _I, _P],
 }

@@ -10,32 +10,34 @@
 // and the bound are in keyed_fold.cuh.  Max and min keep JAX's rules for
 // signed zeros and NaN payloads (combine<> in fold_table.cuh), so they are
 // bit for bit the plain version's.
-// On an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py): max over 2^22
-// pairs, D = 3, K = 100, onto acc, takes 0.092 ms replayed from a CUDA
-// graph (byte bound 0.020 ms).
+// Sums over a small table take lane tables (lane_fold.cuh).
+// On an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py and
+// tools/ab_keyed_fold.py): max over 2^22 pairs, D = 3, K = 100, onto acc,
+// takes 0.092 ms replayed from a CUDA graph, add 0.030 ms on lane tables
+// (byte bound 0.020 ms).
 
 #include "keyed_fold.cuh"
 
 extern "C" int chunk_monoid_fold_launch(const int* keys, const float* vals,
                                         const float* acc, float* out,
                                         float* partial, int n, int d, int k,
-                                        int op, int block_k, int cols,
-                                        int stage, int warps, int seg_len,
-                                        int n_seg, void* stream) {
+                                        int op, int shape, int block_k,
+                                        int cols, int stage, int warps,
+                                        int seg_len, int n_seg, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   switch (op) {
     case keyed_fold::kAdd:
       return (int)keyed_fold::launch<keyed_fold::kAdd>(
-          keys, vals, acc, out, partial, n, d, k, block_k, cols, stage, warps,
-          seg_len, n_seg, s);
+          keys, vals, acc, out, partial, n, d, k, shape, block_k, cols,
+          stage, warps, seg_len, n_seg, s);
     case keyed_fold::kMax:
       return (int)keyed_fold::launch<keyed_fold::kMax>(
-          keys, vals, acc, out, partial, n, d, k, block_k, cols, stage, warps,
-          seg_len, n_seg, s);
+          keys, vals, acc, out, partial, n, d, k, shape, block_k, cols,
+          stage, warps, seg_len, n_seg, s);
     case keyed_fold::kMin:
       return (int)keyed_fold::launch<keyed_fold::kMin>(
-          keys, vals, acc, out, partial, n, d, k, block_k, cols, stage, warps,
-          seg_len, n_seg, s);
+          keys, vals, acc, out, partial, n, d, k, shape, block_k, cols,
+          stage, warps, seg_len, n_seg, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -5,7 +5,8 @@
 //
 // What it computes: out[k, :] = acc[k, :] (op) fold_op{ vals[i, :] : keys[i] == k },
 // with keys outside [0, K) (the sentinel K and negative keys included)
-// dropped, the pairs folded in index order.  Rows of keys absent from the
+// dropped; max and min fold the pairs in index order, sums in an order
+// fixed by the shapes.  Rows of keys absent from the
 // chunk fold only the identity, so they pass through.  With acc == nullptr
 // no table is read: out[k, :] is the fold alone, and the identity for an
 // absent key.
@@ -18,11 +19,16 @@
 // there are no float atomics and the work per pair does not depend on K:
 //   pass 1  grid (segment, key tile, column tile).  A block folds its
 //           segment's pairs whose keys lie in its key tile into a [block_k,
-//           cols] table in shared memory, in index order (fold_range in
-//           fold_table.cuh: a cp.async ring, one warp matching keys by
-//           ballots for a small table, eight warps that bucket pairs by
-//           owner for a large one).  It writes partial[segment, key, cols],
-//           or, when there is one segment, out itself (folded onto acc).
+//           cols] table in shared memory and writes partial[segment, key,
+//           cols], or, when there is one segment, out itself (folded onto
+//           acc).  Three block shapes, chosen by the caller's plan:
+//             ballot  one warp matching keys by ballots, for a small table
+//                     (fold_range in fold_table.cuh), in index order;
+//             bucket  eight warps that bucket pairs by owner, for a large
+//                     one (fold_range), in index order;
+//             lane    sums into a small table only: one warp a column, one
+//                     private copy of the column a lane, joined in a fixed
+//                     order at the end (lane_fold.cuh).
 //   pass 2  (several segments) a group of up to 32 threads per (key,
 //           column) folds the segments' partials, each thread a contiguous
 //           run of them in order; a fixed shuffle tree joins the runs left
@@ -30,29 +36,43 @@
 //           one).
 // The order of every float operation is fixed by the input and the shapes,
 // so two runs give the same bits, and max/min give the plain version's
-// bits, NaN payloads included (the fold is in index order).
+// bits, NaN payloads included (their fold is in index order; the lane
+// shape, which sums in lane order, refuses them).
 //
 // The sizes come from the caller's plan (ops.fold_plan in Python): block_k
-// keys and cols columns a table (at most kTableFloats floats), W = 1 or 8
-// warps a block, `stage` pairs a ring stage, segments of seg_len pairs.
-// A table that holds all of K x D reads each pair once; past that every key
-// tile reads the whole chunk again.
+// keys and cols columns a table (at most kTableFloats floats; the lane
+// shape holds 32 copies of it), W = 1 or 8 warps a block (the lane shape:
+// cols), `stage` pairs a ring stage, segments of seg_len pairs (the lane
+// shape: every n_seg-th run of seg_len = stage pairs).  A table that holds
+// all of K x D reads each pair once; past that every key tile reads the
+// whole chunk again.
 //
 // Bound on this card: bytes.  The function must read N*(4 + 4D) bytes of
 // pairs and K*D*4 of acc (none without acc) and write K*D*4; at 3.35 TB/s
-// that is the floor.  What holds the fold back is issue: at K = 100 a
-// window of 32 pairs costs one ballot a key bit to find the lanes that
-// share a key, and the first of them folds the others' values in lane
-// order, about a hundred instructions a window at sixteen one-warp blocks
-// an SM.  On an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py, CUDA
-// graph): B2's max over 2^22 pairs, D = 3, takes 0.092 ms (bound 0.020),
-// B6's 2^24 pairs 0.218 ms (bound 0.080).
+// that is the floor.  What holds the index-order fold back is issue: at
+// K = 100 a window of 32 pairs costs one ballot a key bit to find the
+// lanes that share a key, and the first of them folds the others' values
+// in lane order, about a hundred instructions a window at sixteen one-warp
+// blocks an SM; a key holding half the pairs triples that.  The lane shape
+// has no such chain; what holds it back is still issue, the copies and
+// the adds of 12 warps an SM at K = 100, which 16-byte copies and a fold
+// specialised to its width cut.  On an NVIDIA H100 80GB HBM3 at 700.00
+// W (chip_smoke.py and tools/ab_keyed_fold.py, CUDA graph, K = 100): B2's
+// max over 2^22 pairs, D = 3, takes 0.092 ms on the index-order pass
+// (bound 0.020); on lane tables B1's sum over 2^22 pairs, D = 4, onto acc
+// takes 0.036 ms (index order: 0.082; bound 0.025) and B7's over 2^24
+// pairs, D = 3, 0.095 ms (index order: 0.214; bound 0.080), the same with
+// half the pairs on one key.  The lane shape beats the index-order pass
+// at every sweep shape where a block of whole rows fits (K up to 1024 at
+// D = 1, 512 at D = 3, 256 at D = 4); column tiles of three warps an SM
+// lose (K = 512 at D = 4), so the plan takes them only from eight.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include "fold_table.cuh"
+#include "lane_fold.cuh"
 
 namespace keyed_fold {
 
@@ -61,6 +81,9 @@ using fold_table::identity;
 using fold_table::kAdd;
 using fold_table::kMax;
 using fold_table::kMin;
+
+// Block shapes of pass 1 (ops.FOLD_SHAPES in Python).
+enum Shape { kBallot = 0, kBucket = 1, kLane = 2 };
 
 constexpr int kMergeThreads = 256;
 constexpr int kMergeRun = 8;  // segments one merge thread folds, at most
@@ -140,23 +163,58 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
+// Pass 1 of the lane shape: fold_runs of the block's width.
+template <int OP, int C = 1>
+inline cudaError_t launch_lanes(const int* keys, const float* vals,
+                                const float* acc, float* out, float* partial,
+                                int n, int d, int k, int block_k, int cols,
+                                int n_seg, dim3 grid, size_t smem,
+                                cudaStream_t stream) {
+  if constexpr (C < lane_fold::kMaxWarps) {
+    if (cols != C)
+      return launch_lanes<OP, C + 1>(keys, vals, acc, out, partial, n, d, k,
+                                     block_k, cols, n_seg, grid, smem,
+                                     stream);
+  }
+  const cudaError_t err = allow_smem(lane_fold::fold_runs<OP, C>, smem);
+  if (err != cudaSuccess) return err;
+  lane_fold::fold_runs<OP, C><<<grid, C * 32, smem, stream>>>(
+      keys, vals, acc, out, partial, n, d, k, block_k, n_seg);
+  return cudaSuccess;
+}
+
 // One fold: pass 1, and pass 2 when there are several segments.  Returns
-// cudaErrorInvalidValue for a plan the kernels cannot run.
+// cudaErrorInvalidValue for a plan the kernels cannot run, a lane-table
+// plan for max or min among them.
 template <int OP>
 inline cudaError_t launch(const int* keys, const float* vals, const float* acc,
                           float* out, float* partial, int n, int d, int k,
-                          int block_k, int cols, int stage, int warps,
-                          int seg_len, int n_seg, cudaStream_t stream) {
-  const bool bucket = warps == fold_table::kBucketWarps;
+                          int shape, int block_k, int cols, int stage,
+                          int warps, int seg_len, int n_seg,
+                          cudaStream_t stream) {
+  const bool lane = shape == kLane, bucket = shape == kBucket;
   if (n <= 0 || d <= 0 || k <= 0 || block_k <= 0 || block_k > k ||
       cols <= 0 || cols > d || cols > fold_table::kMaxCols ||
       (long long)block_k * cols > fold_table::kTableFloats ||
-      (warps != 1 && !bucket) || stage < 32 || stage % 32 != 0 ||
-      stage > (bucket ? fold_table::kMaxStage : fold_table::kBallotStage) ||
-      seg_len <= 0 || n_seg <= 0 || (long long)seg_len * n_seg < n ||
-      (long long)seg_len * (n_seg - 1) >= n || (n_seg > 1 && !partial))
+      seg_len <= 0 || n_seg <= 0 || (n_seg > 1 && !partial))
     return cudaErrorInvalidValue;
-  const size_t smem = fold_table::smem_bytes(block_k, cols, stage, warps);
+  if (lane) {  // n_seg blocks, each every n_seg-th run of kStage pairs
+    if (OP != kAdd || warps != cols || cols > lane_fold::kMaxWarps ||
+        stage != lane_fold::kStage || seg_len != lane_fold::kStage ||
+        (long long)seg_len * (n_seg - 1) >= n)
+      return cudaErrorInvalidValue;
+  } else if ((shape != kBallot && !bucket) ||
+             warps != (bucket ? fold_table::kBucketWarps : 1) || stage < 32 ||
+             stage % 32 != 0 ||
+             stage > (bucket ? fold_table::kMaxStage
+                             : fold_table::kBallotStage) ||
+             (long long)seg_len * n_seg < n ||
+             (long long)seg_len * (n_seg - 1) >= n) {
+    return cudaErrorInvalidValue;
+  }
+  const size_t smem = lane ? lane_fold::smem_bytes(block_k, cols)
+                           : fold_table::smem_bytes(block_k, cols, stage,
+                                                    warps);
   const int key_tiles = (k + block_k - 1) / block_k;
   const int col_tiles = (d + cols - 1) / cols;
   if (smem > (size_t)fold_table::kSmemBytes || key_tiles > 65535 ||
@@ -165,8 +223,13 @@ inline cudaError_t launch(const int* keys, const float* vals, const float* acc,
   const fold_table::Geom g{d, k, block_k, cols, stage,
                            fold_table::key_bits(block_k)};
   const dim3 grid(n_seg, key_tiles, col_tiles);
-  cudaError_t err;
-  if (bucket) {
+  cudaError_t err = cudaSuccess;
+  if (lane) {
+    if constexpr (OP == kAdd) err = launch_lanes<OP>(keys, vals, acc, out,
+                                                     partial, n, d, k,
+                                                     block_k, cols, n_seg,
+                                                     grid, smem, stream);
+  } else if (bucket) {
     constexpr int W = fold_table::kBucketWarps;
     err = allow_smem(fold_segments<OP, W>, smem);
     if (err != cudaSuccess) return err;

@@ -8,22 +8,23 @@
 // so the sum is the additive case of the deterministic two-pass keyed fold
 // in keyed_fold.cuh, started from zero (no acc is read): O(N) work, no float
 // atomics, the same bits on every run.  The combine flow takes it up to
-// 2048 keys (the reference's cutoff, collector.ONEHOT_MAX_KEYS).  Integer
-// channels come here in f32 and are exact up to 2^24 per key.
-// On an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py): 2^24 pairs,
-// D = 3, K = 100 take 0.218 ms replayed from a CUDA graph (byte bound
-// 0.080 ms).
+// 2048 keys (the reference's cutoff, collector.ONEHOT_MAX_KEYS), on lane
+// tables (lane_fold.cuh) up to the plan's crossover.  Integer channels come
+// here in f32 and are exact up to 2^24 per key.
+// On an NVIDIA H100 80GB HBM3 at 700.00 W (tools/ab_keyed_fold.py, CUDA
+// graph): 2^24 pairs, K = 100 take 0.095 ms at D = 3 and 0.051 ms at D = 1
+// (the index-order pass: 0.215 and 0.198 ms; byte bounds 0.080 and 0.040).
 
 #include "keyed_fold.cuh"
 
 extern "C" int onehot_combine_launch(const int* keys, const float* vals,
                                      float* out, float* partial, int n, int d,
-                                     int k, int block_k, int cols, int stage,
-                                     int warps, int seg_len, int n_seg,
-                                     void* stream) {
+                                     int k, int shape, int block_k, int cols,
+                                     int stage, int warps, int seg_len,
+                                     int n_seg, void* stream) {
   return (int)keyed_fold::launch<keyed_fold::kAdd>(
-      keys, vals, nullptr, out, partial, n, d, k, block_k, cols, stage, warps,
-      seg_len, n_seg, (cudaStream_t)stream);
+      keys, vals, nullptr, out, partial, n, d, k, shape, block_k, cols, stage,
+      warps, seg_len, n_seg, (cudaStream_t)stream);
 }
 
 extern "C" const char* onehot_combine_error_string(int err) {

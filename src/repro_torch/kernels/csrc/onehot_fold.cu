@@ -4,23 +4,26 @@
 // (_fold_kernel), which built a [Tn, Kb] one-hot tile in VMEM and fed it to the
 // MXU.  Here the sum is the additive case of the deterministic two-pass keyed
 // fold in keyed_fold.cuh, which also states the bound and the design: O(N)
-// work, no float atomics, the same bits on every run.  The stream flow's
-// fused accumulator [K, sum(D) + 1] goes through this kernel; its last
-// column sums ones, so the per-key counts stay exact up to 2^24.
-// On an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py): 2^22 pairs,
-// D = 4, K = 100, onto acc, take 0.083 ms replayed from a CUDA graph
-// (byte bound 0.025 ms).
+// work, no float atomics, the same bits on every run; a small table
+// (the KMeans one among them) takes lane tables (lane_fold.cuh), where a
+// hot key costs nothing.  The stream flow's fused accumulator [K, sum(D) +
+// 1] goes through this kernel; its last column sums ones, so the per-key
+// counts stay exact up to 2^24.
+// On an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py and
+// tools/ab_keyed_fold.py): 2^22 pairs, D = 4, K = 100, onto acc, take
+// 0.036 ms replayed from a CUDA graph, also with half the pairs on one key
+// (the index-order pass: 0.082 and 0.190 ms; byte bound 0.025 ms).
 
 #include "keyed_fold.cuh"
 
 extern "C" int onehot_fold_launch(const int* keys, const float* vals,
                                   const float* acc, float* out, float* partial,
-                                  int n, int d, int k, int block_k, int cols,
-                                  int stage, int warps, int seg_len, int n_seg,
-                                  void* stream) {
+                                  int n, int d, int k, int shape, int block_k,
+                                  int cols, int stage, int warps, int seg_len,
+                                  int n_seg, void* stream) {
   return (int)keyed_fold::launch<keyed_fold::kAdd>(
-      keys, vals, acc, out, partial, n, d, k, block_k, cols, stage, warps,
-      seg_len, n_seg, (cudaStream_t)stream);
+      keys, vals, acc, out, partial, n, d, k, shape, block_k, cols, stage,
+      warps, seg_len, n_seg, (cudaStream_t)stream);
 }
 
 extern "C" const char* onehot_fold_error_string(int err) {

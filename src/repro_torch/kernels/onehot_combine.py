@@ -53,7 +53,8 @@ def onehot_fold_cuda(keys: torch.Tensor, values: torch.Tensor,
     partial = fold_partials(plan, k_space, d, acc.device)
     err = lib.onehot_fold_launch(
         keys.data_ptr(), values.data_ptr(), acc.data_ptr(), out.data_ptr(),
-        None if partial is None else partial.data_ptr(), n, d, k_space, *plan.launch_args(),
+        None if partial is None else partial.data_ptr(), n, d, k_space,
+        *plan.launch_args(),
         torch.cuda.current_stream(acc.device).cuda_stream)
     _build.check("onehot_fold", lib, err)
     _build.count_launch("onehot_fold")
@@ -92,7 +93,8 @@ def keyed_table_cuda(name: str, keys: torch.Tensor, values: torch.Tensor,
     partial = fold_partials(plan, key_space, d, values.device)
     err = getattr(lib, f"{name}_launch")(
         keys.data_ptr(), values.data_ptr(), out.data_ptr(),
-        None if partial is None else partial.data_ptr(), n, d, key_space, *extra,
+        None if partial is None else partial.data_ptr(), n, d, key_space,
+        *extra,
         *plan.launch_args(),
         torch.cuda.current_stream(values.device).cuda_stream)
     _build.check(name, lib, err)

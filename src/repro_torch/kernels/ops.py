@@ -30,18 +30,28 @@ SMEM_BLOCK_RESERVE = 1024
 #: streaming multiprocessors of an H100 SXM
 SM_COUNT = 132
 
-#: The fold kernels' plan (csrc/fold_table.cuh and keyed_fold.cuh hold the
-#: same numbers): a block folds its segment's pairs into a [block_k, cols]
-#: f32 table of at most FOLD_TABLE_FLOATS floats and FOLD_MAX_COLS columns,
-#: streaming them through FOLD_RING stages.  Two block shapes:
-#:   one warp     when FOLD_BALLOT_FIT such blocks fit on an SM beside their
-#:                tables (their launch bounds ask for FOLD_BALLOT_BLOCKS);
-#:                stages of FOLD_BALLOT_STAGE pairs;
-#:   eight warps  (FOLD_BUCKET_WARPS) that bucket each stage by owner,
-#:                FOLD_BUCKET_BLOCKS an SM (one past that); stages of up to
-#:                FOLD_MAX_STAGE pairs.
-#: The dynamic shared memory of a block stays 256 bytes below
-#: SMEM_PER_BLOCK, for its static shared memory.
+#: The fold kernels' plan (csrc/fold_table.cuh, lane_fold.cuh and
+#: keyed_fold.cuh hold the same numbers): a block folds its segment's pairs
+#: into a [block_k, cols] f32 table of at most FOLD_TABLE_FLOATS floats and
+#: FOLD_MAX_COLS columns, streaming them through FOLD_RING stages.  Three
+#: block shapes (FOLD_SHAPES; the kernels take the index):
+#:   ballot  one warp, when FOLD_BALLOT_FIT such blocks fit on an SM beside
+#:           their tables (their launch bounds ask for FOLD_BALLOT_BLOCKS);
+#:           stages of FOLD_BALLOT_STAGE pairs;
+#:   bucket  eight warps (FOLD_BUCKET_WARPS) that bucket each stage by
+#:           owner, FOLD_BUCKET_BLOCKS an SM (one past that); stages of up
+#:           to FOLD_MAX_STAGE pairs;
+#:   lane    sums only, up to FOLD_LANE_MAX_KEYS keys: one warp a column
+#:           (at most FOLD_LANE_MAX_WARPS a block), each lane with its own
+#:           copy of the column; whole rows wherever a block fits, column
+#:           tiles where they leave FOLD_LANE_MIN_WARPS warps an SM; runs
+#:           of FOLD_LANE_STAGE pairs; the launch bounds hold an SM to
+#:           FOLD_LANE_SM_WARPS warps (64 registers a thread).
+#: Ballot and bucket fold each key's pairs in index order, which max and
+#: min need; the lane shape sums in a fixed order of its own.  The dynamic
+#: shared memory of a block stays 256 bytes below SMEM_PER_BLOCK, for its
+#: static shared memory.
+FOLD_SHAPES = ("ballot", "bucket", "lane")
 FOLD_TABLE_FLOATS = 32768
 FOLD_MAX_COLS = 64
 FOLD_RING = 3
@@ -52,6 +62,11 @@ FOLD_SMEM = SMEM_PER_BLOCK - 256
 FOLD_BALLOT_FIT = 8
 FOLD_BALLOT_BLOCKS = 16
 FOLD_BUCKET_BLOCKS = 2
+FOLD_LANE_STAGE = 256
+FOLD_LANE_MAX_WARPS = 8
+FOLD_LANE_MIN_WARPS = 8
+FOLD_LANE_SM_WARPS = 32
+FOLD_LANE_MAX_KEYS = 1024
 #: largest segment-partials buffer [S, K, D] f32 the fold kernels allocate
 FOLD_PARTIAL_ELEMS = 1 << 26
 #: keys of one block of the plain versions' one-hot contraction at most
@@ -79,13 +94,17 @@ def auto_key_block(key_space: int, d: int = 1) -> int:
     return min(key_space, FOLD_TABLE_FLOATS // _fold_cols(key_space, d))
 
 
-def fold_smem_bytes(block_k: int, cols: int, stage: int, warps: int) -> int:
-    """Dynamic shared memory of a fold block (csrc/fold_table.cuh
-    smem_bytes): the table, the ring of keys and values and, for eight
-    warps, the stage's owner list, its counts and a claim byte a key."""
+def fold_smem_bytes(shape: str, block_k: int, cols: int, stage: int) -> int:
+    """Dynamic shared memory of a fold block of ``shape``: the table, the
+    ring of keys and values and, for the bucket shape, the stage's owner
+    list, its counts and a claim byte a key (csrc/fold_table.cuh
+    smem_bytes); for the lane shape 32 copies of the table and a ring
+    (csrc/lane_fold.cuh smem_bytes)."""
+    if shape == "lane":
+        return block_k * cols * 32 * 4 + FOLD_RING * stage * (1 + cols) * 4
     table = block_k * cols * 4
     ring = FOLD_RING * stage * (1 + cols) * 4
-    if warps == 1:
+    if shape == "ballot":
         return table + ring
     return table + ring + stage * 4 + (stage + 32) * 4 + -(-block_k // 16) * 16
 
@@ -93,17 +112,23 @@ def fold_smem_bytes(block_k: int, cols: int, stage: int, warps: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class FoldPlan:
     """Launch sizes of the keyed-fold kernels (B1, B2, B6, B7): a grid of
-    ``n_seg`` segments of ``seg_len`` pairs × key tiles of ``block_k`` keys
-    × column tiles of ``cols`` columns, blocks of ``warps`` warps with
-    ``smem`` bytes of dynamic shared memory streaming ``stage`` pairs a
-    ring stage.  Several segments fold into a partials buffer ``[n_seg, K,
-    D]`` that a second pass joins."""
+    ``n_seg`` segments × key tiles of ``block_k`` keys × column tiles of
+    ``cols`` columns, blocks of ``shape`` (one of :data:`FOLD_SHAPES`) of
+    ``warps`` warps with ``smem`` bytes of dynamic shared memory streaming
+    ``stage`` pairs a ring stage, ``per_sm`` blocks an SM.  A segment of
+    the ballot and bucket shapes is a run of ``seg_len`` pairs; one of the
+    lane shape is every ``n_seg``-th run of ``seg_len`` pairs (a stage),
+    so that the blocks running at one time read neighbouring runs.
+    Several segments fold into a partials buffer ``[n_seg, K, D]`` that a
+    second pass joins."""
 
+    shape: str
     block_k: int
     cols: int
     warps: int
     stage: int
     smem: int
+    per_sm: int
     seg_len: int
     n_seg: int
     key_tiles: int
@@ -111,58 +136,122 @@ class FoldPlan:
 
     def launch_args(self) -> tuple[int, ...]:
         """The kernels' launch arguments after K (and op)."""
-        return (self.block_k, self.cols, self.stage, self.warps,
-                self.seg_len, self.n_seg)
+        return (FOLD_SHAPES.index(self.shape), self.block_k, self.cols,
+                self.stage, self.warps, self.seg_len, self.n_seg)
 
 
-def fold_plan(n: int, key_space: int, d: int,
-              block_k: int | None = None) -> FoldPlan:
-    """Plan one keyed fold of ``n`` pairs into a ``[K, D]`` table.
+def _blocks_per_sm(smem: int) -> int:
+    """Blocks an SM holds beside their dynamic shared memory."""
+    return SMEM_PER_SM // (smem + SMEM_BLOCK_RESERVE)
 
-    The table takes :func:`auto_key_block` keys (at most ``block_k``) and
+
+def _segments(n, key_space, d, shape, blk, cols, warps, stage, smem,
+              per_sm) -> FoldPlan:
+    """The plan of one block shape: the pairs split into one wave of
+    blocks over the card, no segment shorter than a stage, and a partials
+    buffer within :data:`FOLD_PARTIAL_ELEMS`."""
+    key_tiles = -(-key_space // blk)
+    col_tiles = -(-d // cols)
+    n_seg = -(-per_sm * SM_COUNT // (key_tiles * col_tiles))
+    n_seg = max(1, min(n_seg, -(-n // stage),
+                       FOLD_PARTIAL_ELEMS // (key_space * d)))
+    seg_len = stage if shape == "lane" else -(-n // n_seg)
+    if shape != "lane":
+        n_seg = -(-n // seg_len)
+    return FoldPlan(shape=shape, block_k=blk, cols=cols, warps=warps,
+                    stage=stage, smem=smem, per_sm=per_sm, seg_len=seg_len,
+                    n_seg=n_seg, key_tiles=key_tiles,
+                    col_tiles=col_tiles)
+
+
+def table_plan(n: int, key_space: int, d: int,
+               block_k: int | None = None) -> FoldPlan:
+    """The index-order plan (ballot or bucket shape): the table takes
+    :func:`auto_key_block` keys (at most ``block_k``) and
     :func:`_fold_cols` columns.  A table small enough that
-    :data:`FOLD_BALLOT_FIT` one-warp blocks fit on an SM takes one-warp
-    blocks; else blocks of eight warps whose stage leaves room for
-    :data:`FOLD_BUCKET_BLOCKS` blocks an SM (one, for a table past that).
-    The pairs split into one wave of blocks over the card, no segment
-    shorter than a stage, and a partials buffer within
-    :data:`FOLD_PARTIAL_ELEMS`."""
-    if n < 1 or key_space < 1 or d < 1:
-        raise ValueError(f"fold_plan: n={n}, key_space={key_space} and "
-                         f"d={d} must be positive")
+    :data:`FOLD_BALLOT_FIT` one-warp blocks fit on an SM takes the ballot
+    shape; else the bucket shape, whose stage leaves room for
+    :data:`FOLD_BUCKET_BLOCKS` blocks an SM (one, for a table past that)."""
     cols = _fold_cols(key_space, d)
     blk = auto_key_block(key_space, d)
     if block_k is not None:
         blk = max(1, min(blk, int(block_k)))
     table = blk * cols * 4
-
-    def fit(smem):  # blocks an SM holds beside their shared memory
-        return SMEM_PER_SM // (smem + SMEM_BLOCK_RESERVE)
-
-    warps, stage = 1, FOLD_BALLOT_STAGE
-    smem = fold_smem_bytes(blk, cols, stage, warps)
-    per_sm = min(fit(smem), FOLD_BALLOT_BLOCKS)
+    shape, stage = "ballot", FOLD_BALLOT_STAGE
+    smem = fold_smem_bytes(shape, blk, cols, stage)
+    per_sm = min(_blocks_per_sm(smem), FOLD_BALLOT_BLOCKS)
     if per_sm < FOLD_BALLOT_FIT:
-        warps = FOLD_BUCKET_WARPS
+        shape = "bucket"
         per_pair = FOLD_RING * (1 + cols) * 4 + 8
-        fixed = fold_smem_bytes(blk, cols, 0, warps) - table
+        fixed = fold_smem_bytes(shape, blk, cols, 0) - table
         room = min(FOLD_SMEM,
                    SMEM_PER_SM // FOLD_BUCKET_BLOCKS - SMEM_BLOCK_RESERVE)
         stage = min(FOLD_MAX_STAGE, (room - table - fixed) // per_pair) & ~31
         if stage < 32:
             stage = min(FOLD_MAX_STAGE,
                         (FOLD_SMEM - table - fixed) // per_pair) & ~31
-        smem = fold_smem_bytes(blk, cols, stage, warps)
-        per_sm = min(FOLD_BUCKET_BLOCKS, fit(smem))
-    key_tiles = -(-key_space // blk)
-    col_tiles = -(-d // cols)
-    n_seg = -(-per_sm * SM_COUNT // (key_tiles * col_tiles))
-    n_seg = max(1, min(n_seg, -(-n // stage),
-                       FOLD_PARTIAL_ELEMS // (key_space * d)))
-    seg_len = -(-n // n_seg)
-    return FoldPlan(block_k=blk, cols=cols, warps=warps, stage=stage,
-                    smem=smem, seg_len=seg_len, n_seg=-(-n // seg_len),
-                    key_tiles=key_tiles, col_tiles=col_tiles)
+        smem = fold_smem_bytes(shape, blk, cols, stage)
+        per_sm = min(FOLD_BUCKET_BLOCKS, _blocks_per_sm(smem))
+    warps = FOLD_BUCKET_WARPS if shape == "bucket" else 1
+    return _segments(n, key_space, d, shape, blk, cols, warps, stage, smem,
+                     per_sm)
+
+
+def lane_plan(n: int, key_space: int, d: int,
+              block_k: int | None = None) -> FoldPlan | None:
+    """The lane-table plan of a sum, whatever its warps an SM (None when
+    not one block fits): key tiles of ``block_k`` keys (the whole key
+    space by default) and whole rows, one warp a column, where they fit
+    (D up to :data:`FOLD_LANE_MAX_WARPS`); else column tiles split evenly
+    over the columns, the tile that leaves the most warps on an SM (the
+    widest of equals)."""
+    blk = key_space if block_k is None else max(1, min(key_space,
+                                                         int(block_k)))
+
+    def fit(cols):  # (blocks an SM, smem) of a tile of ``cols`` columns
+        smem = fold_smem_bytes("lane", blk, cols, FOLD_LANE_STAGE)
+        per_sm = min(_blocks_per_sm(smem), FOLD_LANE_SM_WARPS // cols)
+        return (per_sm if smem <= FOLD_SMEM else 0), smem
+
+    best = None
+    if d <= FOLD_LANE_MAX_WARPS and fit(d)[0] >= 1:
+        best = (*fit(d), d)
+    else:
+        for most in range(min(d, FOLD_LANE_MAX_WARPS), 0, -1):
+            cols = -(-d // -(-d // most))  # column tiles of equal width
+            per_sm, smem = fit(cols)
+            if per_sm >= 1 and (best is None
+                                or per_sm * cols > best[0] * best[2]):
+                best = (per_sm, smem, cols)
+    if best is None:
+        return None
+    per_sm, smem, cols = best
+    return _segments(n, key_space, d, "lane", blk, cols, cols,
+                     FOLD_LANE_STAGE, smem, per_sm)
+
+
+def fold_plan(n: int, key_space: int, d: int, op: str,
+              block_k: int | None = None) -> FoldPlan:
+    """Plan one keyed fold of ``n`` pairs into a ``[K, D]`` table with
+    ``op`` (add, max or min).
+
+    A sum over at most :data:`FOLD_LANE_MAX_KEYS` keys takes
+    :func:`lane_plan` where its tile holds whole rows, or, with column
+    tiles, where it leaves :data:`FOLD_LANE_MIN_WARPS` warps on an SM;
+    everything else, max and min always, takes :func:`table_plan`.
+    ``block_k`` caps the keys of a key tile."""
+    if n < 1 or key_space < 1 or d < 1:
+        raise ValueError(f"fold_plan: n={n}, key_space={key_space} and "
+                         f"d={d} must be positive")
+    if op not in _sr.OPS:
+        raise ValueError(f"fold_plan: op must be one of {sorted(_sr.OPS)}, "
+                         f"got {op!r}")
+    if op == "add" and key_space <= FOLD_LANE_MAX_KEYS:
+        plan = lane_plan(n, key_space, d, block_k)
+        if plan is not None and (plan.col_tiles == 1 or plan.per_sm
+                                 * plan.warps >= FOLD_LANE_MIN_WARPS):
+            return plan
+    return table_plan(n, key_space, d, block_k)
 
 
 def _check(name, keys, values, acc):
@@ -191,12 +280,12 @@ def _check_cuda(name, keys, values, acc):
             raise ValueError(f"{name}: {what} must be contiguous")
 
 
-def _fold_launch(name, n, key_space, d, block_k) -> FoldPlan:
+def _fold_launch(name, n, key_space, d, op, block_k) -> FoldPlan:
     """The fold kernels' plan, within their launch limits: int32 sizes,
     and a grid CUDA can launch."""
     if n >= 2**31 or key_space * d >= 2**31:
         raise ValueError(f"{name}: sizes past 2^31 elements are not taken")
-    plan = fold_plan(n, key_space, d, block_k)
+    plan = fold_plan(n, key_space, d, op, block_k)
     if plan.key_tiles > 65535 or plan.col_tiles > 65535:
         raise ValueError(f"{name}: {plan.key_tiles} key tiles x "
                          f"{plan.col_tiles} column tiles is not a grid "
@@ -242,7 +331,7 @@ def onehot_fold(keys, values, acc, key_space=None, *, block_k=None):
                                      block_k=_plain_block(block_k, key_space))
     _check_cuda("onehot_fold", keys, values, acc)
     return _oc.onehot_fold_cuda(keys, values, acc, _fold_launch(
-        "onehot_fold", n, key_space, d, block_k))
+        "onehot_fold", n, key_space, d, "add", block_k))
 
 
 def chunk_monoid_fold(keys, values, acc, op="add", *, block_k=None):
@@ -264,7 +353,7 @@ def chunk_monoid_fold(keys, values, acc, op="add", *, block_k=None):
             keys, values, acc, op, block_k=_plain_block(block_k, key_space))
     _check_cuda("chunk_monoid_fold", keys, values, acc)
     return _sr.chunk_monoid_fold_cuda(keys, values, acc, op, _fold_launch(
-        "chunk_monoid_fold", n, key_space, d, block_k))
+        "chunk_monoid_fold", n, key_space, d, op, block_k))
 
 
 # ---------------------------------------------------------------------------
@@ -589,11 +678,11 @@ def _combine_inputs(name, keys, values, key_space, block_k):
     return values.to(torch.float32), _block(block_k, key_space)
 
 
-def _combine_cuda(name, keys, values, key_space, block_k) -> FoldPlan:
+def _combine_cuda(name, keys, values, key_space, op, block_k) -> FoldPlan:
     """The CUDA path's checks and the fold kernels' plan."""
     _check_cuda_pairs(name, keys, values)
     n, d = values.shape
-    return _fold_launch(name, n, key_space, d, block_k)
+    return _fold_launch(name, n, key_space, d, op, block_k)
 
 
 def onehot_combine(keys, values, key_space, *, block_k=None):
@@ -612,7 +701,7 @@ def onehot_combine(keys, values, key_space, *, block_k=None):
         return _oc.onehot_combine_plain(
             keys, values, key_space, block_k=_plain_block(block_k, key_space))
     return _oc.onehot_combine_cuda(keys, values, key_space, _combine_cuda(
-        "onehot_combine", keys, values, key_space, block_k))
+        "onehot_combine", keys, values, key_space, "add", block_k))
 
 
 def combine_scatter(keys, values, key_space, op="add", *, block_k=None):
@@ -636,7 +725,8 @@ def combine_scatter(keys, values, key_space, op="add", *, block_k=None):
         return _cs.combine_scatter_plain(keys, values, key_space, op)
     return _cs.combine_scatter_cuda(keys, values, key_space, op,
                                     _combine_cuda("combine_scatter", keys,
-                                                  values, key_space, block_k))
+                                                  values, key_space, op,
+                                                  block_k))
 
 
 # ---------------------------------------------------------------------------

@@ -173,11 +173,44 @@ def test_wrappers_on_a_card_tensor_reach_the_kernels_only(monkeypatch):
     assert ops.onehot_combine(keys, vals, 100).shape == (100, 3)
     assert ops.combine_scatter(keys, vals, k, "max").shape == (k, 3)
     assert calls == [
-        ("onehot_combine", torch.float32, ops.fold_plan(10_000, 100, 3)),
-        ("combine_scatter", "max", ops.fold_plan(10_000, k, 3))]
+        ("onehot_combine", torch.float32,
+         ops.fold_plan(10_000, 100, 3, "add")),
+        ("combine_scatter", "max", ops.fold_plan(10_000, k, 3, "max"))]
     # one table of all 100 x 3; at 2^16 keys one column a table, two key
     # tiles a column
     assert (calls[0][2].key_tiles, calls[0][2].col_tiles) == (1, 1)
     assert (calls[1][2].key_tiles, calls[1][2].col_tiles) == (2, 3)
     with pytest.raises(TypeError):  # the kernels take int32 keys only
         ops.onehot_combine(keys.to(torch.int64), vals, 100)
+
+
+@pytest.mark.parametrize("n,k,d", [(1 << 24, 100, 3), (1 << 24, 100, 1),
+                                   (5_001, 37, 9), (17, 1, 128)])
+def test_card_sums_take_lane_tables_and_max_min_do_not(monkeypatch, n, k, d):
+    """On a tensor off the CPU, onehot_combine and combine_scatter's add
+    launch with the lane-table plan at a small key space (the KMeans
+    combine's values and counts among them), combine_scatter's max and
+    min with the index-order plan.  Meta tensors stand in for CUDA
+    tensors and recorders for the bindings."""
+    calls = []
+
+    def onehot(keys, values, key_space, plan):
+        calls.append(("onehot_combine", plan))
+        return torch.empty((key_space, values.shape[1]), device="meta")
+
+    def scatter(keys, values, key_space, op, plan):
+        calls.append((op, plan))
+        return torch.empty((key_space, values.shape[1]), device="meta")
+
+    monkeypatch.setattr(toc, "onehot_combine_cuda", onehot)
+    monkeypatch.setattr(tcs, "combine_scatter_cuda", scatter)
+    keys = torch.empty(n, dtype=torch.int32, device="meta")
+    vals = torch.empty((n, d), device="meta")
+    ops.onehot_combine(keys, vals, k)
+    for op in ("add", "max", "min"):
+        ops.combine_scatter(keys, vals, k, op)
+    lane = ops.lane_plan(n, k, d)
+    assert lane.shape == "lane"
+    table = ops.table_plan(n, k, d)
+    assert calls == [("onehot_combine", lane), ("add", lane),
+                     ("max", table), ("min", table)]

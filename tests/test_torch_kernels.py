@@ -173,19 +173,34 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
 def _check_fold_plan(plan, n, k, d):
     """A plan the kernels can launch: its tables fit the shared memory and
     cover K x D, its segments cover the pairs, its partials fit."""
-    assert plan.warps in (1, ops.FOLD_BUCKET_WARPS)
-    assert plan.stage % 32 == 0 and 32 <= plan.stage <= (
-        ops.FOLD_BALLOT_STAGE if plan.warps == 1 else ops.FOLD_MAX_STAGE)
-    assert plan.smem == ops.fold_smem_bytes(plan.block_k, plan.cols,
-                                            plan.stage, plan.warps)
+    assert plan.shape in ops.FOLD_SHAPES
+    if plan.shape == "lane":  # one warp a column, 32 copies of the table
+        assert plan.warps == plan.cols <= ops.FOLD_LANE_MAX_WARPS
+        assert plan.stage == ops.FOLD_LANE_STAGE
+        assert plan.per_sm * plan.warps <= ops.FOLD_LANE_SM_WARPS
+        assert plan.smem >= plan.block_k * plan.cols * 32 * 4
+    else:
+        assert plan.warps == (1 if plan.shape == "ballot"
+                              else ops.FOLD_BUCKET_WARPS)
+        assert plan.stage % 32 == 0 and 32 <= plan.stage <= (
+            ops.FOLD_BALLOT_STAGE if plan.warps == 1 else ops.FOLD_MAX_STAGE)
+    assert plan.smem == ops.fold_smem_bytes(plan.shape, plan.block_k,
+                                            plan.cols, plan.stage)
     assert plan.smem <= ops.FOLD_SMEM < ops.SMEM_PER_BLOCK
+    assert plan.per_sm >= 1 and plan.per_sm * (
+        plan.smem + ops.SMEM_BLOCK_RESERVE) <= ops.SMEM_PER_SM
     assert 1 <= plan.block_k <= k and 1 <= plan.cols <= min(
         d, ops.FOLD_MAX_COLS)
     assert plan.block_k * plan.cols <= ops.FOLD_TABLE_FLOATS
     assert plan.key_tiles * plan.block_k >= k > (plan.key_tiles - 1) * \
         plan.block_k
     assert plan.col_tiles * plan.cols >= d > (plan.col_tiles - 1) * plan.cols
-    assert plan.seg_len * plan.n_seg >= n > plan.seg_len * (plan.n_seg - 1)
+    if plan.shape == "lane":  # every n_seg-th run of a stage's pairs
+        assert plan.seg_len == plan.stage
+        assert 1 <= plan.n_seg and plan.seg_len * (plan.n_seg - 1) < n
+    else:
+        assert plan.seg_len * plan.n_seg >= n > plan.seg_len * (
+            plan.n_seg - 1)
     assert plan.n_seg == 1 or plan.n_seg * k * d <= ops.FOLD_PARTIAL_ELEMS
 
 
@@ -195,10 +210,11 @@ def test_launch_plan_fits_the_card(n, k, d):
     """The fold kernels' plan at the stream flow's shapes: it fits, covers
     the table and the pairs, and a table of all K x D reads the pairs once
     with enough segments to fill the card."""
-    plan = ops.fold_plan(n, k, d)
+    plan = ops.fold_plan(n, k, d, "add")
     _check_fold_plan(plan, n, k, d)
-    if k * d <= ops.FOLD_TABLE_FLOATS:
-        assert (plan.key_tiles, plan.col_tiles) == (1, 1)
+    if k * d <= ops.FOLD_TABLE_FLOATS:  # the lane shape: a warp a column
+        assert plan.key_tiles == 1
+        assert plan.col_tiles == 1 or plan.shape == "lane"
     if n >= 1 << 22:
         assert plan.n_seg >= ops.SM_COUNT
 
@@ -210,10 +226,144 @@ def test_fold_plan_covers_the_table_and_fits(n, k, d):
     """The plan over (n, K, D): shared memory within a block's share,
     key tiles x column tiles covering K x D, segments covering N, partials
     within FOLD_PARTIAL_ELEMS; a cap on the key tile is kept."""
-    plan = ops.fold_plan(n, k, d)
+    plan = ops.fold_plan(n, k, d, "add")
     _check_fold_plan(plan, n, k, d)
     # the fewest tiles: a key tile takes every key its table holds
     assert plan.block_k == min(k, ops.FOLD_TABLE_FLOATS // plan.cols)
-    capped = ops.fold_plan(n, k, d, block_k=7)
+    capped = ops.fold_plan(n, k, d, "add", block_k=7)
     _check_fold_plan(capped, n, k, d)
     assert capped.block_k == min(7, k)
+
+
+# -- the lane-table shape of a sum (csrc/lane_fold.cuh) ----------------------
+
+#: today's index-order plans, (n, K, D) -> (shape, block_k, cols, warps,
+#: stage, smem, seg_len, n_seg, key_tiles, col_tiles); max and min keep them
+TABLE_PLANS = {
+    (1 << 22, 100, 3): ("ballot", 100, 3, 1, 256, 13488, 1986, 2112, 1, 1),
+    (1 << 22, 100, 4): ("ballot", 100, 4, 1, 256, 16960, 2648, 1584, 1, 1),
+    (1 << 24, 100, 3): ("ballot", 100, 3, 1, 256, 13488, 7944, 2112, 1, 1),
+    (5001, 1000, 13): ("bucket", 1000, 13, 8, 352, 115088, 334, 15, 1, 1),
+    (1 << 22, 1 << 16, 1): ("bucket", 32768, 1, 8, 1024, 196736, 63551, 66,
+                            2, 1),
+    (200003, 100, 128): ("bucket", 100, 64, 8, 96, 101488, 1516, 132, 1, 2),
+    (3, 50, 2): ("ballot", 50, 2, 1, 256, 9616, 3, 1, 1, 1),
+}
+
+
+def _fields(plan):
+    return (plan.shape, plan.block_k, plan.cols, plan.warps, plan.stage,
+            plan.smem, plan.seg_len, plan.n_seg, plan.key_tiles,
+            plan.col_tiles)
+
+
+@pytest.mark.parametrize("op", ["max", "min"])
+@pytest.mark.parametrize("shape", sorted(TABLE_PLANS))
+def test_max_min_keep_the_index_order_plan(shape, op):
+    """Max and min never take lane tables (their NaN rule needs index
+    order): their plan is the index-order one, unchanged."""
+    n, k, d = shape
+    plan = ops.fold_plan(n, k, d, op)
+    _check_fold_plan(plan, n, k, d)
+    assert plan == ops.table_plan(n, k, d)
+    assert _fields(plan) == TABLE_PLANS[shape]
+
+
+@pytest.mark.parametrize("n,k,d,cols,per_sm", [
+    (1 << 22, 100, 4, 4, 3),  # B1: KMeans' fused [100, 3+1] accumulator
+    (1 << 24, 100, 3, 3, 4),  # B6, B7: the KMeans combine's values
+    (1 << 24, 100, 1, 1, 11),  # B6: the KMeans combine's counts
+])
+def test_main_shapes_take_lane_tables(n, k, d, cols, per_sm):
+    """The sums of the main paths take lane tables: one warp a column, the
+    whole key space in one tile, at least FOLD_LANE_MIN_WARPS warps an SM
+    and one wave of segments."""
+    plan = ops.fold_plan(n, k, d, "add")
+    _check_fold_plan(plan, n, k, d)
+    assert plan.shape == "lane"
+    assert (plan.cols, plan.per_sm, plan.key_tiles) == (cols, per_sm, 1)
+    assert plan.per_sm * plan.warps >= ops.FOLD_LANE_MIN_WARPS
+    assert plan.n_seg == -(-plan.per_sm * ops.SM_COUNT // plan.col_tiles)
+    assert plan.smem == k * cols * 32 * 4 + ops.FOLD_RING * 256 * (
+        1 + cols) * 4
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 5, 8, 128])
+def test_lane_tables_up_to_the_crossover(d):
+    """A sum takes lane tables from K = 1 up to a crossover (at most
+    FOLD_LANE_MAX_KEYS): whole rows wherever a block fits, column tiles
+    where they leave FOLD_LANE_MIN_WARPS warps an SM; the index-order plan
+    past it."""
+    top_k = ops.FOLD_LANE_MAX_KEYS + 50
+    shapes = [ops.fold_plan(1 << 22, k, d, "add") for k in range(1, top_k)]
+    lane = [p.shape == "lane" for p in shapes]
+    top = lane.index(False)  # keys of the crossover
+    assert top > 100 and not any(lane[top:])
+    assert top <= ops.FOLD_LANE_MAX_KEYS
+    for k, plan in enumerate(shapes[:top], start=1):
+        _check_fold_plan(plan, 1 << 22, k, d)
+        assert plan.col_tiles == 1 or (
+            plan.per_sm * plan.warps >= ops.FOLD_LANE_MIN_WARPS)
+        assert plan.col_tiles == 1 or d > ops.FOLD_LANE_MAX_WARPS
+    past = ops.lane_plan(1 << 22, top + 1, d)
+    assert (top + 1 > ops.FOLD_LANE_MAX_KEYS or past is None
+            or (past.col_tiles > 1
+                and past.per_sm * past.warps < ops.FOLD_LANE_MIN_WARPS))
+
+
+@pytest.mark.parametrize("k", [16, 64, 100, 128, 256, 512, 1024])
+@pytest.mark.parametrize("d", [1, 3, 4])
+def test_lane_plan_runs_past_the_crossover(k, d):
+    """lane_plan (the sweep behind the crossover times it) plans any of
+    the sweep's shapes, with fewer warps an SM as K grows; a cap on the
+    key tile is kept."""
+    plan = ops.lane_plan(1 << 22, k, d)
+    _check_fold_plan(plan, 1 << 22, k, d)
+    assert plan.shape == "lane" and plan.key_tiles == 1
+    # whole rows, one warp a column, wherever a block of them fits
+    assert (plan.cols == d) == (k * d * 128 + 3 * 256 * (1 + d) * 4
+                                <= ops.FOLD_SMEM)
+    capped = ops.lane_plan(1 << 22, k, d, block_k=7)
+    _check_fold_plan(capped, 1 << 22, k, d)
+    assert capped.block_k == 7
+
+
+def test_fold_plan_checks_its_op():
+    with pytest.raises(ValueError):
+        ops.fold_plan(10, 10, 1, "mul")
+
+
+def test_card_tensors_pass_the_lane_plan_to_the_fold_kernels(monkeypatch):
+    """On a tensor off the CPU, onehot_fold and chunk_monoid_fold's add
+    launch with the lane-table plan, its max with the index-order plan;
+    no plain version runs.  Meta tensors stand in for CUDA tensors and
+    recorders for the bindings."""
+    from repro_torch.kernels import onehot_combine as toc
+    from repro_torch.kernels import segment_reduce as tsr
+    calls = []
+
+    def plain(*a, **k):
+        raise AssertionError("a plain version ran on a card tensor")
+
+    def fold(keys, values, acc, plan):
+        calls.append(("onehot_fold", plan))
+        return torch.empty_like(acc)
+
+    def monoid(keys, values, acc, op, plan):
+        calls.append((op, plan))
+        return torch.empty_like(acc)
+
+    monkeypatch.setattr(toc, "onehot_fold_plain", plain)
+    monkeypatch.setattr(tsr, "chunk_monoid_fold_plain", plain)
+    monkeypatch.setattr(toc, "onehot_fold_cuda", fold)
+    monkeypatch.setattr(tsr, "chunk_monoid_fold_cuda", monoid)
+    n, k, d = 1 << 22, 100, 4
+    keys = torch.empty(n, dtype=torch.int32, device="meta")
+    vals = torch.empty((n, d), device="meta")
+    acc = torch.empty((k, d), device="meta")
+    ops.onehot_fold(keys, vals, acc)
+    ops.chunk_monoid_fold(keys, vals, acc, "add")
+    ops.chunk_monoid_fold(keys, vals, acc, "max")
+    lane = ops.lane_plan(n, k, d)
+    assert calls == [("onehot_fold", lane), ("add", lane),
+                     ("max", ops.table_plan(n, k, d))]
