@@ -72,6 +72,19 @@ Phases (each raises on failure, and the script then exits non-zero):
 7. the reduce flow (the paper's baseline, no kernel): KMeans with its
    window as long as the largest count, counts exact and centroids against
    float64 numpy; then the Phoenix apps under ``flow="reduce"``;
+7c. the cost model behind ``n_pairs_hint``: (a) the stream and sort
+   flows of KeyedSum (f32 weights) at K = 2^10 to 2^20 and 2^22 / 2^24
+   pairs, KMeans at 2^24 points and two reduce-flow runs, each the median
+   wall of 3 and one profiled run; the ``cuda`` profile refit from them
+   (device time by kernel against ``cost_model.cuda_work``'s bytes, host
+   terms from the walls), printed beside the committed ``CUDA_COEFF``
+   (the ``cost_profile`` line); (b) with the committed coefficients, the
+   model's choice must be the measured winner at every shape it wins by
+   2x or more (the ``cost_gate`` line, with the measured and modelled
+   crossover K at each n); (c) ``MapReduce(KeyedSum(2^20),
+   n_pairs_hint=2^24)`` and ``MapReduce(KMeans(), n_pairs_hint=2^24)``:
+   the plan's profile is ``cuda``, the chosen flow's kernels launch and
+   the result equals the same flow forced, bit for bit;
 8. the serve main path: ``serving.serve_step.generate`` on llama3-8b at
    full width and depth (32 layers, bf16, random weights from a seeded
    generator), batch 4, a 2048-token prompt, 32 greedy tokens;
@@ -1842,6 +1855,253 @@ def run_ms(mr, items, reps: int = 3) -> float:
     return float(np.median(times))
 
 
+COST_KEYS = (1 << 10, 1 << 12, 1 << 14, 1 << 16, 1 << 17, 1 << 18, 1 << 20)
+COST_PAIRS = (1 << 22, 1 << 24)  # KeyedSum items of 8 pairs: 2^19, 2^21
+COST_GRID = tuple(1 << b for b in range(6, 25))  # the model's crossover
+#: the device time of each fitted term's kernels, by torch.profiler name
+COST_GROUPS = {"fold": ("lane_fold::", "keyed_fold::"),
+               "partition": ("radix::",), "segment": ("segred::",)}
+#: a measured winner by this factor or more must be the model's choice
+COST_GATE_MARGIN = 2.0
+
+
+def cost_run(mr, items, *, label, k, n, d, value_bytes, lmax) -> dict:
+    """One refit row: the run's median wall (:func:`run_ms`), its device
+    time by kernel group (torch.profiler) and the units the ``cuda``
+    profile prices for it (``cost_model.cuda_work``)."""
+    from repro_torch.core import cost_model as cm
+
+    wall = run_ms(mr, items)
+    prof = profile_fn(lambda: mr.run(items), wall, top=0,
+                      groups=COST_GROUPS)
+    fold_op = ("add" if mr.plan.spec is None or mr.plan.spec.sum_lowerable
+               else "max")
+    return {"app": label, "flow": mr.plan.flow, "K": k, "n": n,
+            "wall_ms": wall, "device_ms": prof["device_ms"],
+            "groups_ms": prof["groups"],
+            "work": cm.cuda_work(mr.plan.flow, n_pairs=n, key_space=k, d=d,
+                                 value_bytes=value_bytes,
+                                 max_values_per_key=lmax, fold_op=fold_op)}
+
+
+def fit_cost_profile(rows: list[dict]) -> dict:
+    """Refit ``CUDA_COEFF`` from the rows: each byte term's coefficient by
+    least squares through the origin of its kernels' device time (at the
+    HBM rate, in bytes) against its bytes; ``map`` from the device time no
+    group holds; ``reduce`` from the reduce rows' device time less their
+    map term; ``dispatch`` and ``chunk`` by least squares of the wall less
+    the device time against the chunks."""
+    from repro_torch.roofline import analysis as roofline
+
+    rate = roofline.H100_SXM_HBM_BYTES_PER_S
+
+    def ratio(pairs):
+        if not pairs:
+            raise AssertionError("cost profile: a term has no run to fit")
+        xs = np.array([x for x, _ in pairs], dtype=np.float64)
+        ys = np.array([y for _, y in pairs], dtype=np.float64)
+        return float((xs * ys).sum() / (xs * xs).sum())
+
+    def eq_bytes(ms):
+        return ms * 1e-3 * rate
+
+    fit = {}
+    for name, group in (("fold_lane", "fold"), ("fold_table", "fold"),
+                        ("partition", "partition"),
+                        ("segment", "segment")):
+        fit[name] = ratio([(r["work"][name], eq_bytes(r["groups_ms"][group]))
+                           for r in rows if name in r["work"]])
+    kernels = [r for r in rows if r["flow"] != "reduce"]
+    fit["map"] = ratio([(r["work"]["map"], eq_bytes(
+        r["device_ms"] - sum(r["groups_ms"].values()))) for r in kernels])
+    fit["reduce"] = ratio([(r["work"]["reduce"], eq_bytes(r["device_ms"])
+                            - fit["map"] * r["work"]["map"])
+                           for r in rows if r["flow"] == "reduce"])
+    host = np.array([(r["wall_ms"] - r["device_ms"]) * 1e-3 for r in rows])
+    chunks = np.array([r["work"]["chunk"] for r in rows])
+    (chunk, dispatch), *_ = np.linalg.lstsq(
+        np.stack([chunks, np.ones_like(chunks)], axis=1), host, rcond=None)
+    if chunk < 0 or dispatch < 0:  # one term alone where both cannot hold
+        chunk, dispatch = ((0.0, max(float(host.mean()), 0.0)) if chunk < 0
+                           else (max(ratio(list(zip(chunks, host))), 0.0),
+                                 0.0))
+    fit["dispatch"], fit["chunk"] = float(dispatch), float(chunk)
+    return fit
+
+
+def sort_from(ks, sort_wins) -> int | None:
+    """The smallest of the increasing key spaces ``ks`` from which the sort
+    flow wins at every larger one (None: it does not win at the last)."""
+    first = None
+    for k, wins in zip(ks, sort_wins):
+        first = (first or k) if wins else None
+    return first
+
+
+def cost_gate(rows: list[dict], plans: dict) -> dict:
+    """Phase 7c(b): with the committed coefficients, the cost model's
+    choice (``plan.flow_cost_report`` on the card's profile) against the
+    measured winner of the stream and sort walls at every swept shape; a
+    winner by ``COST_GATE_MARGIN`` or more must be the choice.  Also the
+    crossover at each n: the K from which the sort flow wins at every
+    larger K, by wall, by device time, by the model at the swept K and on
+    ``COST_GRID``."""
+    from repro_torch import apps
+    from repro_torch.core import plan as planner
+
+    runs = {}
+    for r in rows:
+        if r["flow"] in ("stream", "sort"):
+            runs.setdefault((r["app"], r["K"], r["n"]), {})[r["flow"]] = r
+    shapes, failed = [], []
+    for (label, k, n), run in sorted(runs.items()):
+        app, spec = plans[(label, k)]
+        report = planner.flow_cost_report(app, spec, n, device="cuda")
+        w = {f: r["wall_ms"] for f, r in run.items()}
+        winner = min(w, key=w.get)
+        margin = max(w.values()) / min(w.values())
+        gated = margin >= COST_GATE_MARGIN
+        ok = report.chosen == winner
+        shapes.append({
+            "app": label, "K": k, "n": n, "stream_ms": w["stream"],
+            "sort_ms": w["sort"],
+            "stream_device_ms": run["stream"]["device_ms"],
+            "sort_device_ms": run["sort"]["device_ms"], "winner": winner,
+            "margin": margin, "model": report.chosen,
+            "model_stream_ms": report.cost_of("stream").est_s * 1e3,
+            "model_sort_ms": report.cost_of("sort").est_s * 1e3,
+            "verdict": ("agree" if ok else "DISAGREE") if gated
+            else f"not gated ({'agree' if ok else 'close'})"})
+        if gated and not ok:
+            failed.append(shapes[-1])
+    crossover = {}
+    _, spec = plans[("keyed_sum", COST_KEYS[0])]
+    for n in COST_PAIRS:
+        swept = [s for s in shapes if s["app"] == "keyed_sum" and s["n"] == n]
+        ks = [s["K"] for s in swept]
+        crossover[str(n)] = {
+            "wall": sort_from(ks, [s["winner"] == "sort" for s in swept]),
+            "device": sort_from(ks, [s["sort_device_ms"] < s["stream_device_ms"]
+                                     for s in swept]),
+            "model_swept": sort_from(ks, [s["model"] == "sort"
+                                          for s in swept]),
+            "model_grid": sort_from(COST_GRID, [
+                planner.flow_cost_report(apps.KeyedSum(k), spec, n,
+                                         device="cuda").chosen == "sort"
+                for k in COST_GRID])}
+    return {"shapes": shapes, "crossover": crossover, "failed": failed}
+
+
+def cost_refit(card: str):
+    """Phase 7c(a): time the stream and sort flows of KeyedSum (f32
+    weights) at ``COST_KEYS`` x ``COST_PAIRS``, KMeans at 2^24 points and
+    two reduce-flow runs, and refit the ``cuda`` profile from them: the
+    ``cost_profile`` line gives ``CUDA_COEFF`` beside the refit.  Returns
+    the rows, the apps' derived specs, and the KMeans items."""
+    import torch
+    from repro_torch import MapReduce, apps
+    from repro_torch.core import cost_model as cm
+    from repro_torch.data import datasets
+
+    rows, plans = [], {}
+    for k in COST_KEYS:
+        full, _, _ = sort_items(k)
+        for n in COST_PAIRS:
+            items = tuple(t[:n // 8] for t in full)
+            for flow in ("stream", "sort"):
+                mr = MapReduce(apps.KeyedSum(k), flow=flow)
+                plans[("keyed_sum", k)] = (apps.KeyedSum(k), mr.plan.spec)
+                rows.append(cost_run(mr, items, label="keyed_sum", k=k, n=n,
+                                     d=1, value_bytes=4, lmax=64))
+        if k == 1 << 14:
+            mr = MapReduce(apps.KeyedSum(k), flow="reduce")
+            items = tuple(t[:COST_PAIRS[0] // 8] for t in full)
+            rows.append(cost_run(mr, items, label="keyed_sum", k=k,
+                                 n=COST_PAIRS[0], d=1, value_bytes=4,
+                                 lmax=64))
+        del full
+    pts, assign, _ = datasets.kmeans_data(np.random.default_rng(1),
+                                          points=N_POINTS)
+    kitems = (torch.from_numpy(assign).cuda(), torch.from_numpy(pts).cuda())
+    for flow in ("stream", "sort", "reduce"):
+        mr = MapReduce(apps.KMeans(), flow=flow)
+        if flow == "stream":
+            plans[("kmeans", 100)] = (apps.KMeans(), mr.plan.spec)
+        rows.append(cost_run(mr, kitems, label="kmeans", k=100, n=N_POINTS,
+                             d=3, value_bytes=12,
+                             lmax=apps.KMeans.max_values_per_key))
+    log(json.dumps({"cost_profile": {
+        "card": card, "committed": cm.CUDA_COEFF,
+        "refit": fit_cost_profile(rows),
+        "runs": [{key: r[key] for key in ("app", "flow", "K", "n", "wall_ms",
+                                          "device_ms", "groups_ms")}
+                 for r in rows]}}))
+    return rows, plans, kitems
+
+
+def main_path_hinted(kitems) -> dict:
+    """Phase 7c(c): ``MapReduce(KeyedSum(2^20), n_pairs_hint=2^24)`` and
+    ``MapReduce(KMeans(), n_pairs_hint=2^24)`` on the card: the plan's
+    profile is ``cuda``, the chosen flow's kernels launch (B3/B4 and B5
+    for the sort flow, B1 for the stream flow), and the result equals the
+    same flow forced, bit for bit."""
+    import torch
+    from repro_torch import MapReduce, apps
+    from repro_torch.kernels import ops
+
+    sitems, _, _ = sort_items(1 << 20)
+    hinted = {}
+    for label, app, items in (("keyed_sum_K1048576", apps.KeyedSum(1 << 20),
+                               sitems),
+                              ("kmeans", apps.KMeans(), kitems)):
+        mr = MapReduce(app, n_pairs_hint=SORT_ITEMS * 8)
+        if mr.plan.cost is None or mr.plan.cost.backend != "cuda":
+            raise AssertionError(f"{label}: the hint did not plan with the "
+                                 f"cuda profile:\n{mr.explain()}")
+        ops.reset_launch_counts()
+        res = mr.run(items)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        if mr.plan.flow == "sort":
+            ran = (launches["radix_partition"]
+                   + launches["radix_partition_multi"] > 0
+                   and launches["segment_reduce"] > 0)
+        else:
+            ran = launches["onehot_fold"] > 0
+        if not ran:
+            raise AssertionError(f"{label}: {mr.plan.flow} flow's kernels "
+                                 f"never launched: {launches}")
+        forced = MapReduce(app, flow=mr.plan.flow).run(items)
+        for got, want in ((res.counts, forced.counts),
+                          (res.values, forced.values)):
+            if not torch.equal(bits(got), bits(want)):
+                raise AssertionError(f"{label}: auto with the hint != "
+                                     f"flow={mr.plan.flow!r} forced")
+        log(mr.explain())
+        log(f"main path auto with n_pairs_hint: {label} -> {mr.plan.flow} "
+            f"(cuda profile), bit for bit with the forced flow, launches "
+            f"{launches}")
+        hinted[label] = {"flow": mr.plan.flow, "launches": launches,
+                         "wall_ms": run_ms(mr, items)}
+    return hinted
+
+
+def cost_model_on_card(card: str) -> dict:
+    """Phase 7c: refit the ``cuda`` profile (a), gate the committed one
+    (b: raises on a shape it ranks wrong by ``COST_GATE_MARGIN``), then
+    the auto-with-hint main paths (c)."""
+    rows, plans, kitems = cost_refit(card)
+    gate = cost_gate(rows, plans)
+    log(json.dumps({"cost_gate": {"card": card,
+                                  "margin": COST_GATE_MARGIN, **gate}}))
+    if gate["failed"]:
+        raise AssertionError(f"cost model: the committed CUDA_COEFF picks "
+                             f"the loser at {len(gate['failed'])} shape(s) "
+                             f"with a margin of {COST_GATE_MARGIN}x or more: "
+                             f"{gate['failed']}")
+    return main_path_hinted(kitems)
+
+
 def main() -> int:
     import torch
 
@@ -1893,6 +2153,7 @@ def main() -> int:
     phoenix_on_card("combine")
     mr_reduce = main_path_reduce(pts, assign, items)
     phoenix_on_card("reduce")
+    hinted = cost_model_on_card(card)
     serve = main_path_serve()
 
     rows = kernel_rows(rng, launches_add, launches_dense)
@@ -1934,6 +2195,8 @@ def main() -> int:
         main_ms[f"{label}_combine_routes"] = scatter_routes(
             combine_runs[label][0], items)
     main_ms["combine_large_k_pairs"] = COMBINE_LARGE_ITEMS * 8
+    for label, run in hinted.items():
+        main_ms[f"{label}_auto_hint_ms"] = run["wall_ms"]
     log(json.dumps({"main_path": main_ms}))
     log(json.dumps({"serve": {"card": card, **serve}}))
     for label, mr in (("kmeans", mr_add), ("bounding_box", mr_dense),

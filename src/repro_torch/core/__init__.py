@@ -10,15 +10,19 @@ from repro_torch.core.combiner import (CombinerSpec, Monoid, ValueSpec,
                                        count_spec, logsumexp_spec, max_spec,
                                        mean_spec, min_spec, monoid_spec,
                                        product_spec, sum_spec)
+from repro_torch.core.cost_model import (CostReport, FlowCost, choose_flow,
+                                         estimate_flow_cost)
 from repro_torch.core.engine import Emitter
 from repro_torch.core.optimizer import Derivation, derive_combiner
 from repro_torch.core.plan import FLOWS, ExecutionPlan, plan_execution
 
 __all__ = [
-    "FLOWS", "CombinerSpec", "Derivation", "Emitter", "ExecutionOptions",
-    "ExecutionPlan", "LoweringFallbackWarning", "MapReduce", "MapReduceApp",
+    "FLOWS", "CombinerSpec", "CostReport", "Derivation", "Emitter",
+    "ExecutionOptions", "ExecutionPlan", "FlowCost",
+    "LoweringFallbackWarning", "MapReduce", "MapReduceApp",
     "MapReduceResult", "Monoid", "StreamCombiner", "StreamTiling",
-    "ValueSpec", "autotune_sort", "autotune_stream", "count_spec",
-    "derive_combiner", "logsumexp_spec", "make_app", "max_spec", "mean_spec",
-    "min_spec", "monoid_spec", "plan_execution", "product_spec", "sum_spec",
+    "ValueSpec", "autotune_sort", "autotune_stream", "choose_flow",
+    "count_spec", "derive_combiner", "estimate_flow_cost", "logsumexp_spec",
+    "make_app", "max_spec", "mean_spec", "min_spec", "monoid_spec",
+    "plan_execution", "product_spec", "sum_spec",
 ]

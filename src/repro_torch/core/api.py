@@ -124,14 +124,17 @@ class MapReduce:
     """``MapReduce(app).run(items)`` — the framework entry point.
 
     flow: "auto" (the stream flow, or the reduce flow when no combiner
-    can be derived), "stream", "sort", "combine" or "reduce".
+    can be derived; with ``n_pairs_hint``, the emitted pairs a run is
+    expected to fold, the cheaper of the stream and sort flows by the cost
+    model in the device's profile: ``cuda`` on the card, ``cpu`` with
+    ``device="cpu"``), "stream", "sort", "combine" or "reduce".
     Construction plans: derives the combiner from ``app.reduce`` (or takes
     ``app.manual_combiner``) and tiles the stream or sort flow's fold;
     ``stream_chunk_pairs`` pins the chunk of either and
     ``stream_key_block`` the stream fold's key block.  The combine and
     reduce flows have no tiling; ``combine_impl`` picks the combine flow's
-    lowering.  ``n_pairs_hint`` (the reference's cost-model ranking) is
-    not ported and raises.
+    lowering.  ``explain()`` shows the cost model's ranking when a hint
+    enabled it.
     """
 
     def __init__(self, app: MapReduceApp, *, flow: str = "auto",
@@ -151,7 +154,8 @@ class MapReduce:
         self.combine_impl = combine_impl
         self.plan = plan_execution(app, flow=flow,
                                    trust_semantics=trust_semantics,
-                                   n_pairs_hint=n_pairs_hint)
+                                   n_pairs_hint=n_pairs_hint,
+                                   device=self.device)
         if self.plan.flow in ("combine", "reduce"):
             self.tiling = None
             if self.plan.flow == "combine":

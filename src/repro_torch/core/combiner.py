@@ -411,20 +411,25 @@ def validate_combiner(spec: CombinerSpec, reduce_fn: Callable,
     """Numeric probes that the combiner reproduces the user reduce, on
     random values made with numpy: fold equivalence, split-merge, and
     permutation invariance of the reduce (skipped for the first-element
-    idiom, whose contract is "any representative value")."""
+    idiom, whose contract is "any representative value").  The reduce runs
+    under ``numerics``' half-precision rule, as the combiner does."""
     rng = np.random.default_rng(seed)
     n = torch.tensor(n_values, dtype=torch.int32)
+
+    def reduce(vals):
+        with numerics.HalfAccumulation():
+            return reduce_fn(key_sample, vals, n)
+
     with torch.no_grad():
         for _ in range(trials):
             vals = rand_values(rng, value_spec, n_values)
-            want = reduce_fn(key_sample, vals, n)
+            want = reduce(vals)
             if not _close(finalize_fold(spec, vals, key_sample), want,
                           rtol, atol):
                 return False
             if spec.strategy != STRATEGY_FIRST:
                 perm = torch.from_numpy(rng.permutation(n_values))
-                if not _close(want, reduce_fn(key_sample, vals[perm], n),
-                              rtol, atol):
+                if not _close(want, reduce(vals[perm]), rtol, atol):
                     return False
             if spec.merge is not None:
                 k = n_values // 2

@@ -22,6 +22,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch import numerics
 from repro_torch.core import combiner as C
 from repro_torch.core import semantics as S
 
@@ -159,13 +160,14 @@ def _monoid_or_first(an: S.Analysis) -> tuple[C.CombinerSpec, str]:
 
 def _probe_reapply(reduce_fn, key_sample, value_spec: C.ValueSpec, *, rtol,
                    atol, trials: int = 3, seed: int = 1) -> bool:
-    """Check reduce(key, [reduce(A), reduce(B)], 2) == reduce(key, A++B)."""
+    """Check reduce(key, [reduce(A), reduce(B)], 2) == reduce(key, A++B),
+    under ``numerics``' half-precision rule."""
     rng = np.random.default_rng(seed)
 
     def count(n):
         return torch.tensor(n, dtype=torch.int32)
 
-    with torch.no_grad():
+    with torch.no_grad(), numerics.HalfAccumulation():
         for _ in range(trials):
             # an UNEQUAL split: equal halves would let mean-like reducers pass
             vals = C.rand_values(rng, value_spec, 8)

@@ -4,23 +4,25 @@ Counterpart of ``repro/core/plan.py``.  The port runs all four flows:
 ``flow="auto"`` picks the stream flow for a combinable reducer and the
 reduce flow (the paper's baseline) for one the optimizer cannot turn into
 a combiner; ``"stream"``, ``"sort"`` and ``"combine"`` force an optimized
-flow (an error without a combiner), ``"reduce"`` the baseline.  There is
-no cost model yet, so ``n_pairs_hint`` (with which the reference ranks
-stream against sort) raises: the reference's cost-model profiles were
-measured for a TPU and a CPU, not for this card.
+flow (an error without a combiner), ``"reduce"`` the baseline.  With a
+workload hint (``n_pairs_hint``) ``flow="auto"`` ranks the stream flow
+against the sort flow with the cost model (``core/cost_model.py``), in the
+profile of the run's device, and records the report on the plan.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
+import torch
+from torch.utils import _pytree as pytree
+
 from repro_torch.core import combiner as C
+from repro_torch.core import cost_model as cm
 from repro_torch.core.optimizer import KEY_SPEC, Derivation, derive_combiner
 
 FLOWS = ("auto", "stream", "sort", "combine", "reduce")
-
-#: the ROADMAP item that ports the cost model behind ``n_pairs_hint``
-COST_MODEL_ITEM = "A6 (cost model and flow=auto ranking)"
 
 
 @dataclasses.dataclass
@@ -31,6 +33,8 @@ class ExecutionPlan:
     reason: str = ""
     #: the StreamTiling / SortTiling of the flow (set by the API layer)
     tiling: object | None = None
+    #: the cost model's ranking when a workload hint enabled it
+    cost: cm.CostReport | None = None
     diagnostics: tuple[str, ...] = ()
     #: the lowering and kernels the combine flow's last run took (set by
     #: the collector at run time; empty before the first run)
@@ -43,7 +47,8 @@ class ExecutionPlan:
         return self.flow in ("stream", "sort", "combine")
 
     def explain(self) -> str:
-        """What the optimizer decided and why: flow, combiner, tiling."""
+        """What the optimizer decided and why: flow, combiner, the cost
+        model's ranking, tiling."""
         lines = [f"flow: {self.flow} ({self.reason})"]
         d = self.derivation
         if d is not None:
@@ -55,6 +60,8 @@ class ExecutionPlan:
             lines.append(f"optimizer: detect={d.detect_s * 1e6:.0f}us "
                          f"transform={d.transform_s * 1e3:.2f}ms "
                          f"validate={d.validate_s * 1e3:.2f}ms")
+        if self.cost is not None:
+            lines.append(self.cost.describe())
         if self.tiling is not None:
             lines.append(f"tiling: {self.tiling.describe()}")
             for note in self.tiling.notes:
@@ -69,20 +76,58 @@ class ExecutionPlan:
         return "\n".join(lines)
 
 
+def _cost_candidates(spec: C.CombinerSpec) -> tuple[str, ...]:
+    """Flows the cost model may choose for this combiner: the sort flow
+    needs scatter monoids (or the first/size idioms, whose run layout it
+    takes directly); coupled holders would fold one pair at a time there,
+    with no edge over the stream flow."""
+    if (spec.scatter_lowerable
+            or spec.strategy in (C.STRATEGY_FIRST, C.STRATEGY_SIZE)):
+        return ("stream", "sort")
+    return ("stream",)
+
+
+def _model_holder_bytes(spec: C.CombinerSpec, value_spec: C.ValueSpec) -> int:
+    """Holder bytes a key as the cost model prices them: an int64 leaf
+    counts 4 bytes, the reference's int32 table (torch sums int32 into
+    int64, C.5 in ROADMAP; the tables hold the same values)."""
+    return sum(l.numel() * (4 if l.dtype == torch.int64
+                            else l.element_size())
+               for l in pytree.tree_leaves(spec.init(value_spec)))
+
+
+def flow_cost_report(app, spec: C.CombinerSpec, n_pairs_hint: int, *,
+                     device, skew_factor: float = 1.0) -> cm.CostReport:
+    """Rank the eligible flows for ``app``/``spec`` at a workload size, in
+    the profile of ``device`` (``cost_model.default_backend``).
+
+    The planner calls this under ``flow="auto"``; ``chip_smoke.py`` uses it
+    directly to hold the model's verdict against measured winners."""
+    vs = app.value_spec
+    value_bytes = vs.dtype.itemsize * max(1, int(np.prod(vs.shape)))
+    d, _ = spec.holder_width(vs)
+    return cm.choose_flow(
+        n_pairs=n_pairs_hint, key_space=app.key_space, d=d,
+        value_bytes=value_bytes,
+        holder_bytes=_model_holder_bytes(spec, vs),
+        max_values_per_key=getattr(app, "max_values_per_key", None),
+        candidates=_cost_candidates(spec),
+        backend=cm.default_backend(device), skew_factor=skew_factor,
+        fold_op="add" if spec.sum_lowerable else "max")
+
+
 def plan_execution(app, *, flow: str = "auto",
                    trust_semantics: bool = False,
-                   n_pairs_hint: int | None = None) -> ExecutionPlan:
+                   n_pairs_hint: int | None = None,
+                   device="cuda") -> ExecutionPlan:
     """Pick the execution flow: derive (or take the manual) combiner and
     run the stream flow with it, the forced optimized flow, or the reduce
-    flow when forced or when no combiner can be derived."""
+    flow when forced or when no combiner can be derived.  Under
+    ``flow="auto"`` with ``n_pairs_hint`` the cost model ranks the stream
+    and sort flows in the profile of ``device`` and the cheapest wins; the
+    report lands on ``plan.cost``."""
     if flow not in FLOWS:
         raise ValueError(f"unknown flow {flow!r}")
-    if n_pairs_hint is not None:
-        raise NotImplementedError(
-            f"n_pairs_hint={n_pairs_hint}: the cost model that ranks the "
-            f"flows for a workload size is not ported to repro_torch yet "
-            f"(ROADMAP {COST_MODEL_ITEM}); pass flow='stream' or "
-            f"flow='sort'")
     if flow == "reduce":
         return ExecutionPlan("reduce", None, None, reason="forced by user")
     spec = getattr(app, "manual_combiner", None)
@@ -101,5 +146,13 @@ def plan_execution(app, *, flow: str = "auto",
             return ExecutionPlan("reduce", derived, None,
                                  reason=f"not combinable: {derived.failure}")
         reason = f"derived ({derived.strategy})"
-    return ExecutionPlan("stream" if flow == "auto" else flow, derived,
-                         derived.spec, reason=reason)
+    spec = derived.spec
+    if flow != "auto":
+        return ExecutionPlan(flow, derived, spec, reason=reason)
+    if n_pairs_hint is not None:
+        report = flow_cost_report(app, spec, n_pairs_hint, device=device)
+        return ExecutionPlan(
+            report.chosen, derived, spec, cost=report,
+            reason=f"{reason}; cost model [{report.backend}] at "
+                   f"N={n_pairs_hint}")
+    return ExecutionPlan("stream", derived, spec, reason=reason)

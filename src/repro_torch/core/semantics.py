@@ -32,6 +32,7 @@ import torch
 from torch.fx import Node
 from torch.fx.experimental.proxy_tensor import make_fx
 
+from repro_torch import numerics
 from repro_torch.core import combiner as C
 
 aten = torch.ops.aten
@@ -130,9 +131,18 @@ class Frontier:
     #: reduced dims other than the values axis, in batched-channel
     #: coordinates (dim 0 is the batch); reduced in the premap
     extra_dims: tuple[int, ...] = ()
-    #: dtype of the frontier's output: the channel is cast to it first
-    #: (torch sums integers into int64)
+    #: dtype the channel is cast to and the holder accumulates in: the
+    #: frontier's output dtype (torch sums integers into int64), except
+    #: that sums and products over half precision accumulate in f32
     dtype: torch.dtype | None = None
+
+
+def _holder_dtype(monoid: C.Monoid, dtype: torch.dtype) -> torch.dtype:
+    """A half-precision sum or product holds f32 (``numerics``'s rule);
+    ``finalize`` casts the holder back to the frontier's dtype."""
+    if monoid.name in ("add", "mul") and dtype in numerics.HALF_DTYPES:
+        return torch.float32
+    return dtype
 
 
 @dataclasses.dataclass
@@ -221,10 +231,11 @@ def analyze(reduce_fn: Callable, key_spec: C.ValueSpec,
                 raise ExtractionFailure(f"{op}: operand lost the values axis")
             dims, _ = _reduce_dims(node)
             if 0 in dims:
+                monoid = REDUCE_MONOIDS[op]
                 frontiers.append(Frontier(
-                    "monoid", node, monoid=REDUCE_MONOIDS[op],
+                    "monoid", node, monoid=monoid,
                     extra_dims=tuple(d for d in dims if d != 0),
-                    dtype=node.meta["val"].dtype))
+                    dtype=_holder_dtype(monoid, node.meta["val"].dtype)))
                 continue
             premap()  # positionwise reduction over value dims
             continue
@@ -339,7 +350,7 @@ def _constant(gm: torch.fx.GraphModule, node: Node, device):
 def _call(node: Node, args, kwargs, device):
     if "device" in kwargs:  # factory ops traced on the CPU
         kwargs = dict(kwargs, device=device)
-    return node.target(*args, **kwargs)
+    return numerics.call(node.target, args, kwargs)
 
 
 def build_premap(an: Analysis) -> Callable:
@@ -397,7 +408,8 @@ def build_finalize(an: Analysis) -> Callable:
     """finalize(key, holders, count) -> reducer output, for ONE key.
 
     Each frontier's output is replaced by its holder leaf (reshaped when
-    the trace kept size-1 dims); nodes that feed only the premap slice are
+    the trace kept size-1 dims, and cast back to the frontier's dtype when
+    it accumulated in f32); nodes that feed only the premap slice are
     skipped."""
     key_node, _, count_node = an.invars
     gm = an.gm
@@ -415,7 +427,7 @@ def build_finalize(an: Analysis) -> Callable:
             if tuple(leaf.shape) != want and leaf.numel() == int(
                     torch.Size(want).numel()):
                 leaf = leaf.reshape(want)
-            env[node] = leaf
+            env[node] = leaf.to(node.meta["val"].dtype)
 
         def read(x):
             if isinstance(x, Node):

@@ -16,11 +16,45 @@ positive NaN, else the last: every reduction of the JAX package (``.at[]``
 scatters, ``jnp.max``, the Pallas kernels in interpret mode) gives that
 NaN, whatever its tiling.  The rule is associative, so a fold may split the
 pairs into ranges as long as it joins them in order.
+
+Sums and products over bf16 or f16 accumulate in f32 and round once at the
+end, as the JAX package's jaxpr does (convert, ``reduce_sum`` or
+``reduce_prod``, convert back).  Torch's CPU kernel for a half-precision
+product rounds every step, so the port applies the rule itself:
+:func:`call` wherever the optimizer evaluates a traced op, and
+:class:`HalfAccumulation` around a user reducer run as the validation
+probes' oracle.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+aten = torch.ops.aten
+
+#: dtypes whose sums and products accumulate in f32
+HALF_DTYPES = (torch.bfloat16, torch.float16)
+#: the sum and product overloads the rule applies to
+ACCUMULATING_OPS = frozenset((aten.sum.default, aten.sum.dim_IntList,
+                              aten.prod.default, aten.prod.dim_int))
+
+
+def call(func, args, kwargs):
+    """``func(*args, **kwargs)``, with a sum or product over a half-precision
+    tensor (and no explicit ``dtype``) accumulated in f32 and cast back."""
+    if (func in ACCUMULATING_OPS and kwargs.get("dtype") is None
+            and isinstance(args[0], torch.Tensor)
+            and args[0].dtype in HALF_DTYPES):
+        return func(args[0].float(), *args[1:], **kwargs).to(args[0].dtype)
+    return func(*args, **kwargs)
+
+
+class HalfAccumulation(TorchDispatchMode):
+    """Within it every aten op runs through :func:`call`."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        return call(func, args, kwargs or {})
 
 
 def _signed_zero(prefer_negative: bool, like: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,129 @@
+"""First-order bytes models of the MapReduce flows.
+
+Counterpart of the flow models in ``repro/roofline/analysis.py``:
+:func:`mapreduce_flow_bytes`, :func:`mapreduce_flow_peak_bytes` and
+:func:`stream_working_set_bytes` are the reference's arithmetic, and with an
+explicit ``chunk_pairs`` they return its numbers exactly.  With
+``chunk_pairs=None`` they take the port's own chunk on the card
+(``core/autotune.CUDA_CHUNK_PAIRS``), not the reference engine's
+defaults.
+
+The HLO parser and the compiled-artifact roofline of the reference read
+XLA's output and have no counterpart here; the wire, pipeline and model
+FLOP models come with the modules that need them.
+"""
+
+from __future__ import annotations
+
+#: HBM bandwidth of an H100 SXM (80 GB HBM3), bytes per second: the memory
+#: rate the ``cuda`` cost profile states its byte terms against
+H100_SXM_HBM_BYTES_PER_S = 3.35e12
+
+
+def _default_chunk() -> int:
+    from repro_torch.core.autotune import CUDA_CHUNK_PAIRS
+
+    return CUDA_CHUNK_PAIRS
+
+
+def mapreduce_flow_bytes(
+    flow: str,
+    *,
+    n_pairs: int,
+    key_space: int,
+    value_bytes: int = 4,
+    holder_bytes: int | None = None,
+    chunk_pairs: int | None = None,
+    key_block: int | None = None,
+    max_values_per_key: int | None = None,
+    sort_levels: int = 1,
+) -> float:
+    """First-order device-memory bytes of the four flows (the paper's
+    Figs 8/9), each charged for what it materializes:
+
+    * reduce  — writes and re-reads the pair stream around a sort (about 3
+      passes of key + value), then gathers O(K·Lmax) padded windows.
+    * combine — writes and re-reads the pair stream once, plus one table.
+    * stream  — one pair chunk per step (written + read) and the carried
+      O(K) tables re-touched (read + write) once per chunk; a key-blocked
+      fold re-reads the chunk once per key block.
+    * sort    — each chunk's pairs in and out once, the carried tables
+      re-touched per chunk minus the first read, and one int32 key stream
+      re-read and re-written per extra hierarchy level.
+    """
+    if chunk_pairs is None:
+        chunk_pairs = _default_chunk()
+    K, N = key_space, n_pairs
+    pair = 4 + value_bytes  # int32 key + value
+    hold = (holder_bytes if holder_bytes is not None else value_bytes) + 4
+    table = K * hold  # holder tables + int32 counts
+    if flow == "reduce":
+        lmax = max_values_per_key or max(N // max(K, 1), 1)
+        return 3.0 * N * pair + 2.0 * K * lmax * value_bytes + table
+    if flow == "combine":
+        return 2.0 * N * pair + table
+    if flow == "stream":
+        n_chunks = max(1, -(-N // max(chunk_pairs, 1)))
+        chunk = min(N, chunk_pairs)
+        n_blocks = 1
+        if key_block is not None and 0 < key_block < K:
+            n_blocks = -(-K // key_block)
+        return (2.0 * n_chunks * chunk * pair * n_blocks
+                + 2.0 * n_chunks * table)
+    if flow == "sort":
+        n_chunks = max(1, -(-N // max(chunk_pairs, 1)))
+        return (2.0 * N * pair + (2.0 * n_chunks - 1.0) * table
+                + (max(sort_levels, 1) - 1) * 2.0 * N * 4.0)
+    raise ValueError(f"unknown flow {flow!r}")
+
+
+def mapreduce_flow_peak_bytes(
+    flow: str,
+    *,
+    n_pairs: int,
+    key_space: int,
+    value_bytes: int = 4,
+    holder_bytes: int | None = None,
+    chunk_pairs: int | None = None,
+    key_block: int | None = None,
+    max_values_per_key: int | None = None,
+) -> float:
+    """First-order peak residency: the stream and sort flows' peak is
+    O(K + chunk_pairs) and independent of N; the combine and reduce flows
+    grow with the whole pair stream."""
+    if chunk_pairs is None:
+        chunk_pairs = _default_chunk()
+    K, N = key_space, n_pairs
+    pair = 4 + value_bytes
+    hold = (holder_bytes if holder_bytes is not None else value_bytes) + 4
+    table = K * hold
+    if flow == "reduce":
+        lmax = max_values_per_key or max(N // max(K, 1), 1)
+        return 2.0 * N * pair + K * lmax * value_bytes  # stream + sorted copy
+    if flow == "combine":
+        return N * pair + table
+    if flow == "stream":
+        del key_block  # blocking bounds the fold's working set, not the peak
+        return min(N, chunk_pairs) * pair + table
+    if flow == "sort":
+        del key_block
+        # chunk buffer + its partitioned copy + the carried tables
+        return 2.0 * min(N, chunk_pairs) * pair + table
+    raise ValueError(f"unknown flow {flow!r}")
+
+
+def stream_working_set_bytes(
+    *,
+    chunk_pairs: int,
+    key_block: int,
+    d: int = 1,
+    tile_n: int = 512,
+    tile_d: int = 128,
+) -> float:
+    """Per-step residency of a key-blocked one-hot fold: the
+    ``[key_block, tile_d]`` table block, the ``[tile_n, key_block]`` one-hot
+    tile and the ``[tile_n, tile_d]`` value tile, all f32; ``d`` is the
+    flattened holder width (channels + the counts column)."""
+    tn = min(tile_n, max(chunk_pairs, 8))
+    td = min(tile_d, max(d, 1))
+    return 4.0 * (key_block * td + tn * key_block + tn * td)

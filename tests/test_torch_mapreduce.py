@@ -130,12 +130,22 @@ def test_flows_not_ported_name_their_roadmap_item(flow):
 
 
 def test_n_pairs_hint_names_the_cost_model_item():
-    """The sort flow is ported; ranking it against the stream flow for a
-    workload size (the reference's cost model) is not."""
-    tapp, _ = tapps.build("WC", np.random.default_rng(0), scale=SCALE,
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        T.MapReduce(tapp, n_pairs_hint=1 << 20, device="cpu")
+    """The cost model (ROADMAP A6) ranks the stream flow against the sort
+    flow for a workload size: on the CPU the plan, its reason and the cost
+    lines of ``explain()`` are the reference's, and the run gives the
+    reference's counts and word counts."""
+    tapp, titems = tapps.build("WC", np.random.default_rng(0), scale=SCALE,
+                               device="cpu")
+    japp, jitems = japps.build("WC", np.random.default_rng(0), scale=SCALE)
+    mr = T.MapReduce(tapp, n_pairs_hint=1 << 20, device="cpu")
+    jmr = J.MapReduce(japp, n_pairs_hint=1 << 20, cache=False)
+    assert mr.plan.cost is not None and mr.plan.cost.backend == "cpu"
+    assert (mr.plan.flow, mr.plan.reason) == (jmr.plan.flow, jmr.plan.reason)
+    assert mr.plan.cost.describe() == jmr.plan.cost.describe()
+    assert mr.plan.cost.describe() in mr.explain()
+    res, jres = mr.run(titems), jmr.run(jitems)
+    np.testing.assert_array_equal(res.counts.numpy(), np.asarray(jres.counts))
+    np.testing.assert_array_equal(res.values.numpy(), np.asarray(jres.values))
 
 
 def test_underivable_reducer_is_not_substituted():

@@ -187,3 +187,111 @@ def test_product_spec_and_validate_combiner():
         spec, lambda k, v, c: torch.cat([v.sum(0), v.amax(0)]), vs)
     assert not TC.validate_combiner(
         spec, lambda k, v, c: torch.cat([v.sum(0), v.amin(0)]), vs)
+
+
+# -- C.27: half-precision sums and products hold f32 ---------------------------
+
+#: value dtype: (torch, jax, unit roundoff of one rounding to it)
+HALF = {"bfloat16": (torch.bfloat16, jnp.bfloat16, 2.0**-8),
+        "float16": (torch.float16, jnp.float16, 2.0**-11)}
+HALF_REDUCERS = {
+    "sum": (lambda k, v, c: v.sum(0), lambda k, v, c: jnp.sum(v, axis=0)),
+    "prod": (lambda k, v, c: v.prod(0), lambda k, v, c: jnp.prod(v, axis=0)),
+    "max": (lambda k, v, c: v.amax(0), lambda k, v, c: jnp.max(v, axis=0)),
+    "min": (lambda k, v, c: v.amin(0), lambda k, v, c: jnp.min(v, axis=0)),
+}
+HALF_K = 8
+
+
+def _half_apps(dtype, op, shape):
+    import repro.core as J
+    import repro_torch as T
+
+    tdt, jdt, _ = HALF[dtype]
+    tfn, jfn = HALF_REDUCERS[op]
+    tapp = T.make_app(lambda item, emit: emit(item[0], item[1]), tfn,
+                      key_space=HALF_K, value_spec=TC.ValueSpec(shape, tdt),
+                      emit_capacity=1, max_values_per_key=64)
+    japp = J.make_app(lambda item, emit: emit(item[0], item[1]), jfn,
+                      key_space=HALF_K,
+                      value_aval=jax.ShapeDtypeStruct(shape, jdt),
+                      emit_capacity=1, max_values_per_key=64)
+    return tapp, japp
+
+
+@pytest.mark.parametrize("shape", [(), (3,)])
+@pytest.mark.parametrize("op", list(HALF_REDUCERS))
+@pytest.mark.parametrize("dtype", list(HALF))
+def test_half_precision_derives_like_the_reference(dtype, op, shape):
+    """C.27: a bf16/f16 sum or product derives a validated monoid with f32
+    holders, max and min hold the value dtype, and the plans (auto, and
+    auto with a workload hint) are the reference's."""
+    import repro.core as J
+    import repro_torch as T
+
+    tdt, jdt, _ = HALF[dtype]
+    tfn, jfn = HALF_REDUCERS[op]
+    jv, tv = jax.ShapeDtypeStruct(shape, jdt), TC.ValueSpec(shape, tdt)
+    jd = jderive(jfn, jax.ShapeDtypeStruct((), jnp.int32), jv)
+    td = tderive(tfn, KEY_SPEC, tv)
+    assert td.strategy == jd.strategy == "monoid"
+    assert _monoid_names(td.spec) == _monoid_names(jd.spec)
+    assert td.validated and jd.validated
+    assert td.recommended_flow == jd.recommended_flow == "stream"
+    jh = [str(l.dtype) for l in jax.tree.leaves(jd.spec.holder_avals(jv))]
+    th = [str(s.dtype).removeprefix("torch.") for s in jax.tree.leaves(
+        td.spec.holder_specs(tv), is_leaf=lambda x: isinstance(x, TC.ValueSpec))]
+    assert th == jh == ["float32" if op in ("sum", "prod") else dtype]
+    tapp, japp = _half_apps(dtype, op, shape)
+    tmr = T.MapReduce(tapp, device="cpu")
+    jmr = J.MapReduce(japp, cache=False)
+    assert (tmr.plan.flow, tmr.plan.reason) == (jmr.plan.flow,
+                                                jmr.plan.reason)
+    assert tmr.plan.flow == "stream"
+    tmr = T.MapReduce(tapp, device="cpu", n_pairs_hint=1 << 16)
+    jmr = J.MapReduce(japp, n_pairs_hint=1 << 16, cache=False)
+    assert (tmr.plan.flow, tmr.plan.reason) == (jmr.plan.flow,
+                                                jmr.plan.reason)
+    assert tmr.plan.cost.describe() == jmr.plan.cost.describe()
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+@pytest.mark.parametrize("shape", [(), (3,)])
+@pytest.mark.parametrize("op", list(HALF_REDUCERS))
+@pytest.mark.parametrize("dtype", list(HALF))
+def test_half_precision_values_match_the_reference(dtype, op, shape,
+                                                   use_kernels):
+    """C.27: the stream flow's results in the value dtype.  Max and min
+    bit for bit with the reference; a sum or product is one rounding of
+    its f32 accumulation, so within the dtype's unit roundoff u of the
+    float64 result (plus 1e-6 for the f32 sum's own error) and within 2u
+    of the reference's."""
+    import repro.core as J
+    import repro_torch as T
+
+    tdt, jdt, u = HALF[dtype]
+    rng = np.random.default_rng(11)
+    n = 256
+    keys = rng.integers(0, HALF_K, size=n).astype(np.int32)
+    vals = rng.standard_normal((n,) + shape)
+    if op == "prod":  # factors near 1: no overflow in a 32-factor product
+        vals = 1.0 + 0.25 * vals
+    half = torch.from_numpy(vals.astype(np.float32)).to(tdt)
+    tapp, japp = _half_apps(dtype, op, shape)
+    tmr = T.MapReduce(tapp, device="cpu", use_kernels=use_kernels)
+    res = tmr.run((torch.from_numpy(keys), half))
+    jres = J.MapReduce(japp, use_kernels=use_kernels, cache=False).run(
+        (jnp.asarray(keys), jnp.asarray(half.float().numpy()).astype(jdt)))
+    assert tmr.tiling.mode == ("additive" if op == "sum" else "dense")
+    assert res.values.dtype == tdt
+    np.testing.assert_array_equal(res.counts.numpy(), np.asarray(jres.counts))
+    got = res.values.float().numpy().astype(np.float64)
+    jgot = np.asarray(jres.values).astype(np.float64)
+    if op in ("max", "min"):
+        np.testing.assert_array_equal(got, jgot)
+        return
+    exact = half.double().numpy()
+    want = np.stack([getattr(np, op)(exact[keys == k], axis=0)
+                     for k in range(HALF_K)])
+    np.testing.assert_allclose(got, want, rtol=u, atol=1e-6)
+    np.testing.assert_allclose(got, jgot, rtol=2 * u, atol=2e-6)
