@@ -112,7 +112,23 @@ Phases (each raises on failure, and the script then exits non-zero):
    BoundingBox and KMeans scatter-lowering runs on each route, each
    main-path run after warm-up, the ratio of the reduce flow's time to the
    combine and stream flows' (the paper's speedup), and profile one run of
-   each (device time by kernel, busy share).
+   each (device time by kernel, busy share);
+10. the staged path (``staged_on_card``, the ``staged`` line): compiled
+   calls of KMeans (stream, B1), BoundingBox (stream, B2), KeyedSum
+   K = 2^20 (sort, B4 + B5) and KMeans ``flow="combine"`` (B6) at 2^24
+   pairs equal an uncached ``run()`` bit for bit and launch their kernels,
+   and a second call leaves the first call's tensors; a second MapReduce
+   over an equal app derives, tunes and compiles nothing; pow2 buckets at
+   2^24 - 4099 and 2^24 - 8191 points equal the exact runs bit for bit,
+   with one compile; a pipeline (KeyedSum K = 2^16, then a histogram of
+   the sums or key presence mod 8) fused, unfused and stage by stage bit
+   for bit; the measured probe and its tune cache; the host syncs of a
+   compiled call.
+
+``run()`` prepares its run on its first call (the staged ``compile()``),
+and on the card that is one warm-up run on zeros, whose launches count:
+the main paths call ``mr.lower(items).compile()`` before they reset the
+launch counters, so each path's launches are its run's own.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels' numbers as JSON.  Without a CUDA device it exits 1
@@ -464,13 +480,17 @@ def main_path_additive(pts, assign):
     from repro_torch import MapReduce, apps
     from repro_torch.kernels import ops
 
-    mr = MapReduce(apps.KMeans())
+    t0 = time.perf_counter()
+    mr = MapReduce(apps.KMeans())  # the process's first plan (C.20)
+    first_plan_ms = (time.perf_counter() - t0) * 1e3
+    log(f"first plan in the process: {first_plan_ms:.1f} ms")
     plan = mr.plan
     if (plan.flow, plan.derivation.strategy, mr.tiling.mode) != (
             "stream", "monoid", "additive") or not mr.use_kernels:
         raise AssertionError(f"unexpected plan:\n{mr.explain()}")
     items = (torch.from_numpy(assign).cuda(), torch.from_numpy(pts).cuda())
-    with fold_shapes() as seen:
+    mr.lower(items).compile()  # staged first: the warm-up's launches
+    with fold_shapes() as seen:  # stay out of the run's count
         ops.reset_launch_counts()
         res = mr.run(items)
         torch.cuda.synchronize()
@@ -488,7 +508,7 @@ def main_path_additive(pts, assign):
     log(f"main path additive: KMeans {len(assign)} points, counts exact "
         f"(max {want_counts.max()} per key), centroids max abs err "
         f"{np.abs(got - want).max():.3g}, launches {launches}, plans {seen}")
-    return mr, items, launches
+    return mr, items, launches, first_plan_ms
 
 
 def main_path_dense(pts, assign, items):
@@ -500,6 +520,7 @@ def main_path_dense(pts, assign, items):
     mr = MapReduce(apps.BoundingBox())
     if (mr.plan.flow, mr.tiling.mode) != ("stream", "dense"):
         raise AssertionError(f"unexpected plan:\n{mr.explain()}")
+    mr.lower(items).compile()  # staged first (the warm-up's launches)
     ops.reset_launch_counts()
     res = mr.run(items)
     torch.cuda.synchronize()
@@ -714,6 +735,7 @@ def main_path_combine(pts, assign, items):
         if mr.plan.flow != "combine" or chosen != impl or not mr.use_kernels:
             raise AssertionError(f"unexpected plan ({chosen}):\n"
                                  f"{mr.explain()}")
+        mr.lower(items).compile()  # staged first (the warm-up's launches)
         with fold_shapes() as seen:
             ops.reset_launch_counts()
             res = mr.run(items)
@@ -1330,6 +1352,7 @@ def main_path_combine_large_k():
     items = (torch.from_numpy(keys).cuda(), torch.from_numpy(weights).cuda())
     with warnings.catch_warnings():  # the sum's scatter lowering past 2048
         warnings.simplefilter("ignore", col.LoweringFallbackWarning)
+        mr.lower(items).compile()  # staged first (the warm-up's launches)
         ops.reset_launch_counts()
         res = mr.run(items)
         torch.cuda.synchronize()
@@ -1572,6 +1595,7 @@ def main_path_sort(key_space: int):
     if (mr.plan.flow, t.levels, t.use_kernel) != ("sort", levels, True):
         raise AssertionError(f"unexpected plan:\n{mr.explain()}")
     items, keys, weights = sort_items(key_space)
+    mr.lower(items).compile()  # staged first (the warm-up's launches)
     ops.reset_launch_counts()
     res = mr.run(items)
     torch.cuda.synchronize()
@@ -2058,6 +2082,7 @@ def main_path_hinted(kitems) -> dict:
         if mr.plan.cost is None or mr.plan.cost.backend != "cuda":
             raise AssertionError(f"{label}: the hint did not plan with the "
                                  f"cuda profile:\n{mr.explain()}")
+        mr.lower(items).compile()  # staged first (the warm-up's launches)
         ops.reset_launch_counts()
         res = mr.run(items)
         torch.cuda.synchronize()
@@ -2102,6 +2127,286 @@ def cost_model_on_card(card: str) -> dict:
     return main_path_hinted(kitems)
 
 
+# -- the staged path, the plan cache and pipelines ---------------------------
+
+#: (c): item counts below 2^24 that share its pow2 bucket
+POW2_NS = (N_POINTS - 4099, N_POINTS - 8191)
+#: (d): the pipeline's first stage, KeyedSum over 2^24 pairs
+PIPE_K = 1 << 16
+
+
+def wall_ms(fn, reps: int = 3) -> float:
+    """Median wall milliseconds of ``fn()`` after a warm-up call, each
+    ending in ``torch.cuda.synchronize()``."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def host_syncs(fn) -> dict:
+    """Host synchronizations one call of ``fn`` makes, by the warnings of
+    ``torch.cuda.set_sync_debug_mode("warn")``: their count, and for each
+    the innermost line of the port on the stack when it was raised."""
+    import os
+    import traceback
+    import warnings
+
+    import torch
+    where: dict[str, int] = {}
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        at = f"{os.path.basename(filename)}:{lineno}"
+        for frame in reversed(traceback.extract_stack()[:-1]):
+            if "repro_torch" in frame.filename:
+                at = f"{os.path.basename(frame.filename)}:{frame.lineno}"
+                break
+        where[at] = where.get(at, 0) + 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return {"count": sum(where.values()), "at": where}
+
+
+def same_bits(a, b) -> bool:
+    import torch
+    return (torch.equal(a.counts, b.counts)
+            and torch.equal(bits(a.values), bits(b.values)))
+
+
+def staged_on_card(card: str, kitems,
+                   first_plan_ms: float | None = None) -> dict:
+    """Phase 10: the staged path (``lower().optimize().compile()``), the
+    plan cache, pow2 bucketing, pipelines and the measured probe on the
+    card.  (a) KMeans (stream, B1), BoundingBox (stream, B2), KeyedSum
+    K = 2^20 (sort, B4 + B5) and KMeans ``flow="combine"`` (B6) at 2^24
+    pairs: the compiled call equals an uncached ``run()`` bit for bit and
+    launches each kernel; a second call leaves the first call's tensors as
+    they were.  (b) A second MapReduce over an equal app derives, tunes
+    and prepares nothing (``stats_snapshot``), ``cache_event == "hit"``;
+    the plan stage's ms on a miss and a hit, beside the process's first
+    plan (``first_plan_ms``, phase 3).  (c) KMeans and BoundingBox
+    at 2^24 - 4099 points, ``items_bucket="pow2"``: the bits of the exact
+    run, also when the caller passes the bucket's 2^24 rows; a second N
+    in the bucket prepares nothing; and, a diagnostic, whether a chunk
+    folded with a masked tail (sentinel keys up to its capacity) keeps
+    the short chunk's bits.  (d) KeyedSum K = 2^16 then a 64-bucket
+    histogram weighted by each sum (reads the values), or key presence
+    mod 8 (dead values): fused == unfused == the stages run one by one,
+    bit for bit; walls and ``model_bytes``.  (e) ``autotune_probe=True``
+    with a tune cache file: the candidates' times, then ``source ==
+    "cache"``.  (f) Host syncs of one compiled call in each flow of (a).
+    Prints one ``staged`` line."""
+    import os
+    import tempfile
+
+    import torch
+    from repro_torch import ExecutionOptions, MapReduce, Pipeline, apps
+    from repro_torch import make_app
+    from repro_torch.core import autotune as at
+    from repro_torch.core import plan_cache as pc
+    from repro_torch.core import ValueSpec
+    from repro_torch.kernels import ops
+
+    out: dict = {"card": card}
+    sitems, _, _ = sort_items(1 << 20)
+    cases = (("kmeans_stream", apps.KMeans, {}, kitems, ("onehot_fold",)),
+             ("bounding_box_stream", apps.BoundingBox, {}, kitems,
+              ("chunk_monoid_fold",)),
+             ("keyed_sum_K1048576_sort", lambda: apps.KeyedSum(1 << 20),
+              {"flow": "sort"}, sitems,
+              ("radix_partition_multi", "segment_reduce")),
+             ("kmeans_combine", apps.KMeans, {"flow": "combine"}, kitems,
+              ("onehot_combine",)))
+    staged, syncs = {}, {}
+    for label, make, kw, items, kernels in cases:  # (a) and (f)
+        mr = MapReduce(make(), **kw)
+        want = MapReduce(make(), cache=False, **kw).run(
+            items, options=ExecutionOptions(cache=False))
+        comp = mr.lower(items).optimize().compile()
+        ops.reset_launch_counts()
+        got = comp(items)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        if not all(launches[k] > 0 for k in kernels):
+            raise AssertionError(f"staged {label}: {kernels} not all "
+                                 f"launched: {launches}")
+        if not same_bits(got, want):
+            raise AssertionError(f"staged {label}: compiled call != run()")
+        kept = (got.values.clone(), got.counts.clone())
+        again = comp(items)
+        torch.cuda.synchronize()
+        if not (torch.equal(bits(got.values), bits(kept[0]))
+                and torch.equal(got.counts, kept[1])
+                and same_bits(again, want)):
+            raise AssertionError(f"staged {label}: a second call changed "
+                                 f"the first call's tensors or its bits")
+        syncs[label] = host_syncs(lambda: comp(items))
+        staged[label] = {
+            "launches": {k: launches[k] for k in kernels},
+            "compiled_ms": wall_ms(lambda: comp(items)),
+            "run_ms": wall_ms(lambda: mr.run(items)),
+            "memory": comp.memory_analysis()}
+        log(f"staged {label}: compiled call == run() bit for bit, "
+            f"launches {staged[label]['launches']}, a second call leaves "
+            f"the first's tensors; launch plan:\n{comp.as_text()}")
+    out["compiled"] = staged
+    out["host_syncs_per_call"] = syncs
+
+    pc.clear()  # (b)
+    t0 = time.perf_counter()
+    cold = MapReduce(apps.KMeans())
+    miss_ms = (time.perf_counter() - t0) * 1e3
+    cold.run(kitems)
+    s0 = pc.stats_snapshot()
+    t0 = time.perf_counter()
+    warm = MapReduce(apps.KMeans())
+    hit_ms = (time.perf_counter() - t0) * 1e3
+    if not same_bits(warm.run(kitems), cold.run(kitems)):
+        raise AssertionError("warm hit: results differ")
+    d = {k: v - s0[k] for k, v in pc.stats_snapshot().items()}
+    if (d["derives"], d["autotunes"], d["compiles"]) != (0, 0, 0) or \
+            warm.plan.cache_event != "hit":
+        raise AssertionError(f"warm hit derived, tuned or compiled: {d}, "
+                             f"cache_event {warm.plan.cache_event!r}")
+    out["warm_hit"] = {"first_plan_ms": first_plan_ms,
+                       "plan_miss_ms": miss_ms, "plan_hit_ms": hit_ms,
+                       "stats_delta": d}
+    log(f"plan cache: a miss plans in {miss_ms:.3f} ms, a hit in "
+        f"{hit_ms:.3f} ms; warm repeat {d}")
+
+    pow2 = ExecutionOptions(items_bucket="pow2")  # (c)
+    buckets = {}
+    for label, make in (("kmeans", apps.KMeans),
+                        ("bounding_box", apps.BoundingBox)):
+        mr = MapReduce(make())
+        n0, n1 = POW2_NS
+        part = tuple(a[:n0] for a in kitems)
+        exact = mr.run(part)
+        comp = mr.lower(part, options=pow2).compile()
+        if comp.n_bucket != N_POINTS:
+            raise AssertionError(f"pow2 {label}: bucket {comp.n_bucket}")
+        if not (same_bits(comp(part), exact)
+                and same_bits(comp(kitems), exact)):
+            raise AssertionError(f"pow2 {label}: padded != exact bits")
+        s0 = pc.stats_snapshot()
+        part1 = tuple(a[:n1] for a in kitems)
+        comp1 = mr.lower(part1, options=pow2).compile()
+        if pc.stats_snapshot()["compiles"] != s0["compiles"] or \
+                comp1.cache_event != "hit":
+            raise AssertionError(f"pow2 {label}: N={n1} compiled again")
+        if not same_bits(comp1(part1), mr.run(part1)):
+            raise AssertionError(f"pow2 {label}: N={n1} != exact bits")
+        buckets[label] = {"n": [n0, n1], "bucket": comp.n_bucket,
+                          "bits_equal": True}
+    out["pow2"] = buckets
+    out["masked_tail_bits_equal"] = masked_tail_bits()
+    log(f"pow2: KMeans and BoundingBox at N={POW2_NS} equal the exact runs "
+        f"bit for bit, one compile a bucket; masked-tail diagnostic "
+        f"{out['masked_tail_bits_equal']}")
+
+    keys, weights = sort_items(PIPE_K)[0]  # (d)
+
+    def hist_map(item, emit):
+        b = torch.clamp((item[1] - 96.0).floor().to(torch.int32), 0, 63)
+        emit(b, item[1], valid=item[2] > 0)
+
+    def presence_map(item, emit):
+        emit(item[0] % 8, torch.ones_like(item[0]))
+
+    hist = make_app(hist_map, lambda k, v, c: v.sum(0), key_space=64,
+                    value_spec=ValueSpec((), torch.float32), emit_capacity=1)
+    presence = make_app(presence_map, lambda k, v, c: v.sum(0), key_space=8,
+                        value_spec=ValueSpec((), torch.int32),
+                        emit_capacity=1)
+    pipes = {}
+    for label, consumer in (("histogram", hist), ("presence", presence)):
+        p = Pipeline(apps.KeyedSum(PIPE_K)).then(consumer)
+        fused, unfused = p.run((keys, weights)), p.run_unfused((keys, weights))
+        first = MapReduce(apps.KeyedSum(PIPE_K)).run((keys, weights))
+        alone = MapReduce(consumer).run(
+            (first.keys, first.values, first.counts))
+        if not (same_bits(fused, unfused) and same_bits(fused, alone)):
+            raise AssertionError(f"pipeline {label}: fused, unfused and the "
+                                 f"stages one by one differ")
+        if label == "histogram" and int(fused.counts.sum()) != PIPE_K:
+            raise AssertionError("pipeline histogram: counts != K")
+        pipes[label] = {
+            "dead_value": p.stages[1].dead_value,
+            "fused_ms": wall_ms(lambda: p.run((keys, weights))),
+            "unfused_ms": wall_ms(lambda: p.run_unfused((keys, weights))),
+            "model_bytes_fused": p.model_bytes(SORT_ITEMS, fused=True),
+            "model_bytes_unfused": p.model_bytes(SORT_ITEMS, fused=False)}
+        log(f"pipeline {label}: fused == unfused == stages one by one, bit "
+            f"for bit\n{p.explain()}")
+    out["pipeline"] = pipes
+
+    with tempfile.TemporaryDirectory() as tmp:  # (e)
+        os.environ[at.TUNE_CACHE_ENV] = os.path.join(tmp, "tune.json")
+        try:
+            pc.clear()
+            probed = MapReduce(apps.KMeans(), autotune_probe=True)
+            pc.clear()
+            cached = MapReduce(apps.KMeans(), autotune_probe=True)
+        finally:
+            del os.environ[at.TUNE_CACHE_ENV]
+    if (probed.tiling.source, cached.tiling.source) != ("probe", "cache"):
+        raise AssertionError(f"probe: sources {probed.tiling.source!r}, "
+                             f"{cached.tiling.source!r}:\n"
+                             f"{probed.explain()}")
+    out["probe"] = {"notes": list(probed.tiling.notes),
+                    "chunk_pairs": probed.tiling.chunk_pairs,
+                    "second_source": cached.tiling.source}
+    log(f"probe: {probed.tiling.notes}; second construction "
+        f"{cached.tiling.source}")
+    pc.clear()
+    log(json.dumps({"staged": out}))
+    return out
+
+
+def masked_tail_bits() -> dict:
+    """A diagnostic, not a gate: does a chunk folded with its tail masked
+    (sentinel keys up to the chunk's capacity, as the reference's padded
+    call folds it) keep the short chunk's bits?  B1's sum, KMeans width
+    (D = 4 with the counts), at the main path's last chunk and a short
+    one.  The port's padded calls never fold a masked tail."""
+    import torch
+    from repro_torch.core.autotune import CUDA_CHUNK_PAIRS
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(9)
+    res = {}
+    for n, cap in ((CUDA_CHUNK_PAIRS - 4099, CUDA_CHUNK_PAIRS),
+                   (5000, 8192)):
+        keys = torch.from_numpy(rng.integers(0, 100, size=cap)
+                                .astype(np.int32)).cuda()
+        vals = torch.from_numpy(rng.standard_normal((cap, 4))
+                                .astype(np.float32)).cuda()
+        keys[n:] = 100
+        acc = torch.zeros((100, 4), device="cuda")
+        short = ops.onehot_fold(keys[:n].contiguous(),
+                                vals[:n].contiguous(), acc)
+        masked = ops.onehot_fold(keys, vals, acc)
+        res[f"n={n} in {cap}"] = bool(torch.equal(bits(short),
+                                                  bits(masked)))
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2143,7 +2448,8 @@ def main() -> int:
     pts, assign, clusters = datasets.kmeans_data(
         np.random.default_rng(1), points=N_POINTS)
     assert clusters == 100
-    mr_add, items, launches_add = main_path_additive(pts, assign)
+    mr_add, items, launches_add, first_plan_ms = main_path_additive(
+        pts, assign)
     mr_dense, launches_dense = main_path_dense(pts, assign, items)
     phoenix_on_card()
     sort_runs = {k: main_path_sort(k) for k in SORT_KEY_SPACES}
@@ -2155,6 +2461,7 @@ def main() -> int:
     phoenix_on_card("reduce")
     hinted = cost_model_on_card(card)
     serve = main_path_serve()
+    staged_on_card(card, items, first_plan_ms)
 
     rows = kernel_rows(rng, launches_add, launches_dense)
     launches_sort = {name: sum(run[2][name] for run in sort_runs.values())

@@ -1,8 +1,10 @@
-"""The port's core: combiner derivation, planning, tiling and the four
-local flows (stream, sort, combine and reduce)."""
+"""The port's core: combiner derivation, planning, tiling, the four local
+flows (stream, sort, combine and reduce), the staged API with its plan
+cache, and multi-job pipelines."""
 
-from repro_torch.core.api import (ExecutionOptions, MapReduce, MapReduceApp,
-                                  MapReduceResult, make_app)
+from repro_torch.core.api import (Compiled, ExecutionOptions, Lowered,
+                                  MapReduce, MapReduceApp, MapReduceResult,
+                                  Optimized, make_app)
 from repro_torch.core.autotune import (StreamTiling, autotune_sort,
                                        autotune_stream)
 from repro_torch.core.collector import LoweringFallbackWarning, StreamCombiner
@@ -14,15 +16,19 @@ from repro_torch.core.cost_model import (CostReport, FlowCost, choose_flow,
                                          estimate_flow_cost)
 from repro_torch.core.engine import Emitter
 from repro_torch.core.optimizer import Derivation, derive_combiner
+from repro_torch.core.pipeline import (Pipeline, StageSemantics,
+                                       extract_semantics)
 from repro_torch.core.plan import FLOWS, ExecutionPlan, plan_execution
+from repro_torch.core.plan_cache import CacheStats, stats_snapshot
 
 __all__ = [
-    "FLOWS", "CombinerSpec", "CostReport", "Derivation", "Emitter",
-    "ExecutionOptions", "ExecutionPlan", "FlowCost",
-    "LoweringFallbackWarning", "MapReduce", "MapReduceApp",
-    "MapReduceResult", "Monoid", "StreamCombiner", "StreamTiling",
-    "ValueSpec", "autotune_sort", "autotune_stream", "choose_flow",
-    "count_spec", "derive_combiner", "estimate_flow_cost", "logsumexp_spec",
-    "make_app", "max_spec", "mean_spec", "min_spec", "monoid_spec",
-    "plan_execution", "product_spec", "sum_spec",
+    "FLOWS", "CacheStats", "CombinerSpec", "Compiled", "CostReport",
+    "Derivation", "Emitter", "ExecutionOptions", "ExecutionPlan", "FlowCost",
+    "LoweringFallbackWarning", "Lowered", "MapReduce", "MapReduceApp",
+    "MapReduceResult", "Monoid", "Optimized", "Pipeline", "StageSemantics",
+    "StreamCombiner", "StreamTiling", "ValueSpec", "autotune_sort",
+    "autotune_stream", "choose_flow", "count_spec", "derive_combiner",
+    "estimate_flow_cost", "extract_semantics", "logsumexp_spec", "make_app",
+    "max_spec", "mean_spec", "min_spec", "monoid_spec", "plan_execution",
+    "product_spec", "stats_snapshot", "sum_spec",
 ]

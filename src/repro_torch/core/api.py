@@ -1,7 +1,7 @@
-"""Public API of the port — ``MapReduce(app).run(items)``.
+"""Public API of the port — ``MapReduce(app).run(items)`` and its stages.
 
-Counterpart of the local-run part of ``repro/core/api.py``.  The user
-writes ``map`` and ``reduce`` with torch ops::
+Counterpart of the local part of ``repro/core/api.py``.  The user writes
+``map`` and ``reduce`` with torch ops::
 
     class WordCount(MapReduceApp):
         key_space = VOCAB
@@ -15,14 +15,36 @@ writes ``map`` and ``reduce`` with torch ops::
 
     result = MapReduce(WordCount()).run(token_windows)
 
+The staged path, as in the reference::
+
+    mr = MapReduce(WordCount())           # plan stage (cached by content)
+    lowered = mr.lower(items)             # bind an item spec
+    optimized = lowered.optimize()        # bind execution options
+    compiled = optimized.compile()        # prepare the run (cached)
+    result = compiled(items)              # dispatch only
+
+``run()`` is ``lower().optimize().compile()(items)``, and every stage
+answers ``explain()``.  The card has no XLA executable: what ``compile()``
+makes and caches is the prepared run (``engine.LocalRun``): the resolved
+knobs, the built collector and tiling, and, on the card, the kernel
+libraries loaded by one warm-up call on zeros of the bound shape.  A call
+dispatches the kernels eagerly, in the order ``run()`` always did, with
+no re-planning, re-tuning or rebuilding, and returns fresh tensors.
+Capturing a compiled call in a CUDA graph is queued (ROADMAP): a graph
+keeps its memory pool while cached, and a call still synchronizes with
+the host.  ``items_bucket="pow2"`` lets the batch sizes of one power-of-two
+bucket share a compiled entry; a padded call folds only its first
+``n_valid`` items (``engine.fold_items_chunked``), so it gives the bits of
+the exact call.
+
 The run happens on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without ``device="cpu"`` the constructor raises.
 ``use_kernels`` (default: on when the device is CUDA) routes the folds
 through the hand-written kernels.  All four flows run: stream, sort,
 combine and reduce (the paper's baseline, also the ``flow="auto"`` choice
-for a reducer the optimizer cannot turn into a combiner).  Staging
-(``lower/optimize/compile``), the plan cache, distributed, resilient and
-served runs are not ported yet (ROADMAP A9, A11–A13).
+for a reducer the optimizer cannot turn into a combiner).  The streaming,
+distributed and resilient modes are not ported yet (ROADMAP A13, A11,
+A12).
 """
 
 from __future__ import annotations
@@ -37,9 +59,13 @@ from torch.utils import _pytree as pytree
 from repro_torch.core import autotune as at
 from repro_torch.core import collector as col
 from repro_torch.core import combiner as C
+from repro_torch.core import cost_model as cm
 from repro_torch.core import engine as eng
-from repro_torch.core.plan import ExecutionPlan, plan_execution
+from repro_torch.core import plan_cache as pc
+from repro_torch.core.plan import (ExecutionPlan, _model_holder_bytes,
+                                   plan_execution)
 from repro_torch.device import resolve_device
+from repro_torch.roofline import analysis as roofline
 
 
 class MapReduceApp:
@@ -79,6 +105,11 @@ def make_app(map_fn: Callable, reduce_fn: Callable, **attrs) -> MapReduceApp:
 
 Emitter = eng.Emitter
 
+#: the ROADMAP item that ports each mode other than "local"
+MODE_ITEMS = {"streaming": "A13 (streaming)",
+              "distributed": "A11 (distribution)",
+              "resilient": "A12 (resilience)"}
+
 
 @dataclasses.dataclass(frozen=True)
 class ExecutionOptions:
@@ -86,7 +117,10 @@ class ExecutionOptions:
     constructor's choice.  ``combine_impl`` is the combine flow's
     (``auto``, ``onehot``, ``scatter``, ``first``, ``segment``);
     ``key_block`` the stream flow's; ``bucket_size`` (the leaf bucket) and
-    ``level_fanouts`` (the radix levels) the sort flow's."""
+    ``level_fanouts`` (the radix levels) the sort flow's.
+    ``items_bucket="pow2"`` lets batch sizes of one power-of-two bucket
+    share a compiled entry (rows past N are never folded);
+    ``cache=False`` bypasses the compiled-stage cache."""
 
     combine_impl: str | None = None
     use_kernels: bool | None = None
@@ -94,6 +128,28 @@ class ExecutionOptions:
     key_block: int | None = None
     bucket_size: int | None = None
     level_fanouts: tuple[int, ...] | None = None
+    items_bucket: str = "exact"
+    cache: bool = True
+
+
+_OPTION_FIELDS = {f.name for f in dataclasses.fields(ExecutionOptions)}
+
+
+def _resolve_options(options: ExecutionOptions | None, legacy: dict, *,
+                     method: str) -> ExecutionOptions:
+    """The options record; scattered keyword arguments raise ``TypeError``
+    (the reference's rule): an option's name with a pointer at
+    ``ExecutionOptions``, anything else as unexpected."""
+    if legacy:
+        retired = sorted(set(legacy) & _OPTION_FIELDS)
+        if retired:
+            raise TypeError(
+                f"{method}({', '.join(retired)}=...) scattered keyword "
+                f"arguments are not taken; pass "
+                f"options=ExecutionOptions({retired[0]}=...) instead")
+        raise TypeError(f"{method}() got unexpected keyword arguments "
+                        f"{sorted(legacy)}")
+    return options if options is not None else ExecutionOptions()
 
 
 @dataclasses.dataclass
@@ -128,13 +184,21 @@ class MapReduce:
     expected to fold, the cheaper of the stream and sort flows by the cost
     model in the device's profile: ``cuda`` on the card, ``cpu`` with
     ``device="cpu"``), "stream", "sort", "combine" or "reduce".
-    Construction plans: derives the combiner from ``app.reduce`` (or takes
-    ``app.manual_combiner``) and tiles the stream or sort flow's fold;
-    ``stream_chunk_pairs`` pins the chunk of either and
-    ``stream_key_block`` the stream fold's key block.  The combine and
-    reduce flows have no tiling; ``combine_impl`` picks the combine flow's
-    lowering.  ``explain()`` shows the cost model's ranking when a hint
-    enabled it.
+    Construction is the plan stage: it derives the combiner from
+    ``app.reduce`` (or takes ``app.manual_combiner``) and tiles the stream
+    or sort flow's fold; ``stream_chunk_pairs`` pins the chunk of either
+    and ``stream_key_block`` the stream fold's key block;
+    ``autotune_probe=True`` measures the stream chunk on the device (kept
+    in the tune cache file that ``REPRO_TORCH_TUNE_CACHE`` names).  The
+    combine and reduce flows have no tiling; ``combine_impl`` picks the
+    combine flow's lowering.
+
+    The plan stage is cached by content (``core/plan_cache.py``): a second
+    MapReduce over an app with the same reduce graph, shapes, knobs and
+    device takes the first one's derivation, flow and tiling without
+    running the optimizer (``cache=False`` opts out).  ``explain()`` shows
+    the decision, the cost model's ranking when a hint enabled it, and the
+    plan cache's outcome.
     """
 
     def __init__(self, app: MapReduceApp, *, flow: str = "auto",
@@ -144,6 +208,8 @@ class MapReduce:
                  stream_chunk_pairs: int | str = "auto",
                  stream_key_block: int | str | None = "auto",
                  n_pairs_hint: int | None = None,
+                 autotune_probe: bool = False,
+                 cache: bool = True,
                  device=None):
         if app.key_space <= 0:
             raise ValueError("app.key_space must be positive")
@@ -152,30 +218,63 @@ class MapReduce:
         self.use_kernels = (self.device.type == "cuda" if use_kernels is None
                             else use_kernels)
         self.combine_impl = combine_impl
+        self._plan_key = pc.plan_key(
+            app, flow=flow, trust_semantics=trust_semantics,
+            n_pairs_hint=n_pairs_hint, use_kernels=self.use_kernels,
+            combine_impl=combine_impl, chunk_pairs=stream_chunk_pairs,
+            key_block=stream_key_block, autotune_probe=autotune_probe,
+            device=self.device)
+        entry = pc.plan_get(self._plan_key) if cache else None
+        if entry is not None:
+            # a fresh plan instance, so that run-time diagnostics never
+            # reach the cached template
+            self.plan = dataclasses.replace(
+                entry.plan, stage="planned", cache_key=self._plan_key,
+                cache_event="hit")
+            self.tiling = entry.tiling
+            return
+        cache_event = "miss" if cache else ""
+        fentry = pc.file_get(self._plan_key, self.device) if cache else None
+        if (fentry is not None and not isinstance(stream_chunk_pairs, int)
+                and fentry["flow"] in ("stream", "sort")):
+            # another process's tiling: pin it, skip the probe (derivation
+            # still runs: closures do not serialize)
+            stream_chunk_pairs = fentry["chunk_pairs"]
+            if (fentry.get("key_block") is not None
+                    and fentry["flow"] == "stream"
+                    and not isinstance(stream_key_block, int)):
+                stream_key_block = fentry["key_block"]
+            cache_event = "file-hit"
         self.plan = plan_execution(app, flow=flow,
                                    trust_semantics=trust_semantics,
                                    n_pairs_hint=n_pairs_hint,
                                    device=self.device)
-        if self.plan.flow in ("combine", "reduce"):
-            self.tiling = None
-            if self.plan.flow == "combine":
-                self._combine_diagnostics()
-            return
-        if self.plan.flow == "sort":
+        self.tiling = None
+        if self.plan.flow == "combine":
+            self._combine_diagnostics()
+        elif self.plan.flow == "sort":
             self.tiling = at.autotune_sort(
                 app, self.plan.spec, device=self.device,
                 use_kernels=self.use_kernels, chunk_pairs=stream_chunk_pairs)
-            self.plan.tiling = self.tiling
-            return
-        self.tiling = at.autotune_stream(
-            app, self.plan.spec, device=self.device,
-            use_kernels=self.use_kernels, chunk_pairs=stream_chunk_pairs,
-            key_block=stream_key_block)
+        elif self.plan.flow == "stream":
+            self.tiling = at.autotune_stream(
+                app, self.plan.spec, device=self.device,
+                use_kernels=self.use_kernels, chunk_pairs=stream_chunk_pairs,
+                key_block=stream_key_block, probe=autotune_probe)
+            if self.tiling.mode == "scatter" and self.plan.spec.sum_lowerable:
+                self.plan.diagnostics += (
+                    "stream fold degraded to exact scatter (dense budget "
+                    "exceeded) — see tiling notes",)
         self.plan.tiling = self.tiling
-        if self.tiling.mode == "scatter" and self.plan.spec.sum_lowerable:
-            self.plan.diagnostics += (
-                "stream fold degraded to exact scatter (dense budget "
-                "exceeded) — see tiling notes",)
+        self.plan.stage = "planned"
+        self.plan.cache_key = self._plan_key
+        self.plan.cache_event = cache_event
+        if cache:
+            # a snapshot: the template must not see what a run appends
+            pc.plan_put(self._plan_key, pc.PlanEntry(
+                plan=dataclasses.replace(self.plan), tiling=self.tiling))
+            pc.file_put(self._plan_key, pc.file_entry_from(
+                self.plan, self.tiling, self.device))
 
     def _combine_diagnostics(self) -> None:
         """Flag, at plan time, a combine flow that the collector's rule
@@ -193,53 +292,265 @@ class MapReduce:
             f"fallback there (LoweringFallbackWarning at run time) — the "
             f"stream flow has no such limit",)
 
-    def run(self, items, *, options: ExecutionOptions | None = None,
-            n_valid: int | None = None) -> MapReduceResult:
-        """Run the planned flow over ``items`` (the first ``n_valid`` of
-        them when given) and finalize the tables."""
-        opts = options if options is not None else ExecutionOptions()
-        use_kernels = (self.use_kernels if opts.use_kernels is None
-                       else opts.use_kernels)
-        items = to_device(items, self.device)
-        if self.tiling is None:  # the combine and reduce flows
-            impl = (self.combine_impl if opts.combine_impl is None
-                    else opts.combine_impl)
-            with torch.no_grad():
-                keys, values, counts = eng.run_local(
-                    self.app, self.plan, items, device=self.device,
-                    combine_impl=impl, use_kernels=use_kernels,
-                    n_valid=n_valid)
-            return MapReduceResult(keys, values, counts, self.plan)
-        chunk = (self.tiling.chunk_pairs if opts.chunk_pairs is None
-                 else opts.chunk_pairs)
-        with torch.no_grad():
-            if self.plan.flow == "sort":
-                keys, values, counts = eng.run_local_sort(
-                    self.app, self.plan.spec, items, chunk_pairs=chunk,
-                    device=self.device, use_kernels=use_kernels,
-                    n_valid=n_valid, **self._sort_plan(opts))
-            else:
-                key_block = (opts.key_block if opts.key_block is not None
-                             else self.tiling.key_block
-                             if self.tiling.blocked else None)
-                keys, values, counts = eng.run_local_stream(
-                    self.app, self.plan.spec, items, chunk_pairs=chunk,
-                    device=self.device, use_kernels=use_kernels,
-                    key_block=key_block, n_valid=n_valid)
-        return MapReduceResult(keys, values, counts, self.plan)
-
-    def _sort_plan(self, opts: ExecutionOptions) -> dict:
-        """The radix plan of a sort run: the options' bucket and levels,
-        else the tiling's; none when the tiling has no feasible plan (the
-        engine then re-plans, and raises if it needs the kernels)."""
+    def _knobs(self, opts: ExecutionOptions) -> dict:
+        """The engine's knobs for this plan under ``opts``: the options'
+        values, else the constructor's and the tiling's.  The sort flow's
+        radix plan is the tiling's unless it has none (the engine then
+        re-plans, and raises if it needs the kernels)."""
         t = self.tiling
-        bucket = (opts.bucket_size if opts.bucket_size is not None
-                  else t.key_block if t.feasible else None)
-        fanouts = (tuple(opts.level_fanouts)
-                   if opts.level_fanouts is not None
-                   else t.level_fanouts if t.feasible
-                   and opts.bucket_size is None else None)
-        return {"bucket_size": bucket, "level_fanouts": fanouts}
+        knobs = dict(
+            combine_impl=(self.combine_impl if opts.combine_impl is None
+                          else opts.combine_impl),
+            use_kernels=(self.use_kernels if opts.use_kernels is None
+                         else opts.use_kernels),
+            chunk_pairs=(opts.chunk_pairs if opts.chunk_pairs is not None
+                         else t.chunk_pairs if t is not None else None),
+            key_block=None, bucket_size=None, level_fanouts=None)
+        if self.plan.flow == "stream":
+            knobs["key_block"] = (opts.key_block if opts.key_block is not None
+                                  else t.key_block if t.blocked else None)
+        elif self.plan.flow == "sort":
+            knobs["bucket_size"] = (
+                opts.bucket_size if opts.bucket_size is not None
+                else t.key_block if t.feasible else None)
+            knobs["level_fanouts"] = (
+                tuple(opts.level_fanouts) if opts.level_fanouts is not None
+                else t.level_fanouts if t.feasible
+                and opts.bucket_size is None else None)
+        return knobs
+
+    # -- the staged path ------------------------------------------------------
+
+    def lower(self, items, *, options: ExecutionOptions | None = None,
+              mode: str | None = None) -> "Lowered":
+        """Stage 1: bind this plan to an item spec (the shapes and dtypes
+        of ``items``: tensors, numpy arrays or ``plan_cache.TensorSpec``
+        leaves).  ``mode`` is "local"; the other modes raise, naming the
+        ROADMAP item that ports them."""
+        opts = options if options is not None else ExecutionOptions()
+        return Lowered(self, pc.items_spec_of(items), opts,
+                       mode=_infer_mode(mode))
+
+    def run(self, items, *, options: ExecutionOptions | None = None,
+            n_valid: int | None = None, **legacy) -> MapReduceResult:
+        """Run the planned flow over ``items`` (the first ``n_valid`` of
+        them when given) and finalize the tables:
+        ``lower(items).optimize().compile()(items)``."""
+        opts = _resolve_options(options, legacy, method="run")
+        return self.lower(items, options=opts, mode="local").optimize(
+        ).compile()(items, n_valid=n_valid)
 
     def explain(self) -> str:
         return self.plan.explain()
+
+
+def _infer_mode(mode: str | None) -> str:
+    if mode is None or mode == "local":
+        return "local"
+    if mode in MODE_ITEMS:
+        raise NotImplementedError(
+            f"mode={mode!r} is not ported to repro_torch yet (ROADMAP "
+            f"{MODE_ITEMS[mode]}); the port runs mode='local'")
+    raise ValueError(f"unknown execution mode {mode!r}")
+
+
+def _value_bytes(app) -> int:
+    vs = app.value_spec
+    return vs.dtype.itemsize * max(1, int(np.prod(vs.shape)))
+
+
+class Lowered:
+    """Stage 1: plan × item spec.  ``optimize(...)`` binds or overrides
+    execution options; ``compile()`` is ``optimize().compile()``."""
+
+    def __init__(self, mr: MapReduce, items_spec, options: ExecutionOptions,
+                 *, mode: str = "local"):
+        self.mr = mr
+        self.items_spec = items_spec
+        self.options = options
+        self.mode = _infer_mode(mode)
+
+    def optimize(self, options: ExecutionOptions | None = None,
+                 **hints) -> "Optimized":
+        """Stage 2: fix the execution options.  ``hints`` are single
+        ``ExecutionOptions`` fields (``items_bucket="pow2"``); an unknown
+        hint raises ``TypeError``."""
+        opts = options if options is not None else self.options
+        if hints:
+            unknown = sorted(set(hints) - _OPTION_FIELDS)
+            if unknown:
+                raise TypeError(f"optimize() got unknown hints {unknown}")
+            opts = dataclasses.replace(opts, **hints)
+        return Optimized(self.mr, self.items_spec, opts, mode=self.mode)
+
+    def compile(self) -> "Compiled":
+        return self.optimize().compile()
+
+    def explain(self) -> str:
+        plan = dataclasses.replace(self.mr.plan, stage="lowered")
+        return plan.explain() + f"\nitems: {pc.spec_sig_of(self.items_spec)}"
+
+
+class Optimized:
+    """Stage 2: plan × item spec × execution options."""
+
+    def __init__(self, mr: MapReduce, items_spec, options: ExecutionOptions,
+                 *, mode: str):
+        self.mr = mr
+        self.items_spec = items_spec
+        self.options = options
+        self.mode = mode
+        self.n_items = int(pytree.tree_leaves(items_spec)[0].shape[0])
+        self.n_bucket = pc.bucket_items(self.n_items, options.items_bucket)
+        self.cache_key = self._cache_key()
+
+    def _cache_key(self) -> str:
+        opts = self.options
+        knobs = self.mr._knobs(opts)
+        spec = self.items_spec
+        padded = self.n_bucket != self.n_items
+        if padded:  # every N of the bucket maps to one key
+            spec = pytree.tree_map(
+                lambda a: pc.TensorSpec((self.n_bucket,) + tuple(a.shape[1:]),
+                                        a.dtype), spec)
+        return pc.compiled_key(
+            self.mr.app, spec, plan_key=self.mr._plan_key,
+            flow=self.mr.plan.flow, n_bucket=self.n_bucket,
+            device=self.mr.device, mode=self.mode,
+            extra=(f"padded={padded}", f"bucket={opts.items_bucket}",
+                   *(f"{k}={v}" for k, v in sorted(knobs.items()))))
+
+    def compile(self) -> "Compiled":
+        """Stage 3: the prepared run.  A warm hit in the compiled cache
+        prepares nothing: no derivation, tuning or warm-up."""
+        use_cache = self.options.cache
+        if use_cache:
+            ent = pc.compiled_get(self.cache_key)
+            if ent is not None:
+                return Compiled(self, ent, cache_event="hit")
+        ent = self._build()
+        if use_cache:
+            pc.compiled_put(self.cache_key, ent)
+        return Compiled(self, ent, cache_event="miss" if use_cache else "")
+
+    def _build(self) -> pc.CompiledEntry:
+        mr = self.mr
+        pc.STATS.compiles += 1
+        run = eng.LocalRun(mr.app, mr.plan.flow, mr.plan.spec,
+                           device=mr.device, plan=mr.plan,
+                           **mr._knobs(self.options))
+        peak = None
+        if mr.device.type == "cuda":
+            # the warm-up: loads the kernels' libraries, and measures the
+            # bound shape's peak (the process's peak counter is reset)
+            zeros = pytree.tree_map(
+                lambda a: torch.zeros(tuple(a.shape), dtype=a.dtype,
+                                      device=mr.device), self.items_spec)
+            torch.cuda.synchronize(mr.device)
+            torch.cuda.reset_peak_memory_stats(mr.device)
+            with torch.no_grad():
+                run(zeros, sinks=(mr.plan,))
+            torch.cuda.synchronize(mr.device)
+            peak = int(torch.cuda.max_memory_allocated(mr.device))
+        return pc.CompiledEntry(executable=run, mode=self.mode,
+                                warmup_peak_bytes=peak)
+
+    def explain(self) -> str:
+        plan = dataclasses.replace(self.mr.plan, stage="optimized")
+        return "\n".join([
+            plan.explain(), f"mode: {self.mode}",
+            f"items: {pc.spec_sig_of(self.items_spec)} (N={self.n_items} "
+            f"bucket={self.n_bucket} policy={self.options.items_bucket})",
+            f"compiled-cache key: {self.cache_key}"])
+
+
+class Compiled:
+    """Stage 3: the prepared run (``engine.LocalRun``).  ``compiled(items)``
+    dispatches it.  The XLA introspection of the reference has no
+    counterpart on the card; here ``as_text()`` is the launch plan of the
+    bound shape, ``memory_analysis()`` the modelled peak (and, on the card,
+    the warm-up call's), ``cost_analysis()`` the modelled bytes and the
+    cost model's estimate."""
+
+    def __init__(self, opt: Optimized, entry: pc.CompiledEntry, *,
+                 cache_event: str):
+        self.options = opt.options
+        self.mode = entry.mode
+        self.items_spec = opt.items_spec
+        self.n_items = opt.n_items
+        self.n_bucket = opt.n_bucket
+        self.cache_key = opt.cache_key
+        self.cache_event = cache_event
+        self._mr = opt.mr
+        self._entry = entry
+        # this call's own copy of the plan: run-time diagnostics land here
+        # and on the MapReduce's plan, not on the cached template
+        self.plan = dataclasses.replace(opt.mr.plan, stage="compiled")
+
+    def __call__(self, items, n_valid: int | None = None) -> MapReduceResult:
+        """Run over ``items``: N rows (the bound count), or the bucket's
+        rows padded by the caller, of which the first N (or ``n_valid``)
+        are folded."""
+        items = to_device(items, self._mr.device)
+        n = eng.items_length(items)
+        if n not in (self.n_items, self.n_bucket):
+            raise ValueError(
+                f"this Compiled is bound to N={self.n_items} items (bucket "
+                f"{self.n_bucket}), got {n}; lower the new items")
+        if n_valid is None and n != self.n_items:
+            n_valid = self.n_items
+        with torch.no_grad():
+            keys, values, counts = self._entry.executable(
+                items, n_valid, sinks=(self._mr.plan, self.plan))
+        return MapReduceResult(keys, values, counts, plan=self.plan)
+
+    def _shape(self) -> dict:
+        app, t, spec = self._mr.app, self._mr.tiling, self._mr.plan.spec
+        holder = (_model_holder_bytes(spec, app.value_spec)
+                  if spec is not None else None)
+        return dict(n_pairs=self.n_items * app.emit_capacity,
+                    key_space=app.key_space, value_bytes=_value_bytes(app),
+                    holder_bytes=holder,
+                    chunk_pairs=t.chunk_pairs if t is not None else None,
+                    max_values_per_key=app.max_values_per_key)
+
+    def as_text(self) -> str:
+        """The launch plan of the bound shape: the chunk loop and each
+        kernel with its plan (``ops.fold_plan``,
+        ``radix_partition.partition_passes``)."""
+        return self._entry.executable.launch_plan(self.n_items)
+
+    def memory_analysis(self) -> dict:
+        """``model_peak_bytes`` (``roofline.mapreduce_flow_peak_bytes`` at
+        the bound shape) and ``warmup_peak_bytes``: on the card, the
+        warm-up call's ``torch.cuda.max_memory_allocated``; None on the
+        CPU."""
+        return {"model_peak_bytes": roofline.mapreduce_flow_peak_bytes(
+                    self._mr.plan.flow, **self._shape()),
+                "warmup_peak_bytes": self._entry.warmup_peak_bytes}
+
+    def cost_analysis(self) -> dict:
+        """The modelled bytes of the bound shape and the cost model's
+        estimate of its flow in the device's profile."""
+        mr, s = self._mr, self._shape()
+        spec = mr.plan.spec
+        backend = cm.default_backend(mr.device)
+        d = spec.holder_width(mr.app.value_spec)[0] if spec is not None else 1
+        fc = cm.estimate_flow_cost(
+            mr.plan.flow, d=d, backend=backend,
+            fold_op="add" if spec is None or spec.sum_lowerable else "max",
+            **s)
+        return {"flow": mr.plan.flow, "backend": backend,
+                "n_pairs": s["n_pairs"],
+                "model_bytes": roofline.mapreduce_flow_bytes(
+                    mr.plan.flow, **s),
+                "est_s": fc.est_s, "terms": dict(fc.terms)}
+
+    def explain(self) -> str:
+        lines = [self.plan.explain(), f"mode: {self.mode}",
+                 f"compiled-cache: {self.cache_event or 'off'} "
+                 f"key={self.cache_key}"]
+        if self.n_bucket != self.n_items:
+            lines.append(f"items: N={self.n_items} in bucket={self.n_bucket} "
+                         f"(rows past N are never folded)")
+        return "\n".join(lines)

@@ -366,3 +366,34 @@ def choose_flow(
     return CostReport(chosen=costs[0].flow, n_pairs=n_pairs,
                       key_space=key_space, backend=backend,
                       costs=tuple(costs))
+
+
+#: bytes per second of the ``cpu`` profile's pipeline handoff (the
+#: reference's constant)
+CPU_HANDOFF_BYTES_PER_S = 2.0e10
+
+
+def pipeline_overhead_s(n_stages: int, *, handoff_bytes: float = 0.0,
+                        fused: bool = True, backend: str) -> float:
+    """The per-call overhead a pipeline's structure adds: a dispatch per
+    program (one fused, one a stage unfused) and the handoff bytes
+    (``roofline.pipeline_handoff_bytes`` summed over the edges).
+
+    ``cpu`` is the reference's model: its fused program keeps the tables
+    out of memory, so only the unfused form pays the bytes, at
+    :data:`CPU_HANDOFF_BYTES_PER_S`.  ``cuda`` prices the port: a dispatch
+    is the fitted host term of a run (``CUDA_COEFF["dispatch"]``), and the
+    bytes go at the H100's HBM rate in both forms, since the fused path
+    still writes and reads each table (ROADMAP C.33); pass the bytes of
+    the path priced."""
+    if backend not in PROFILES:
+        raise ValueError(f"unknown backend profile {backend!r}; the port "
+                         f"has {sorted(PROFILES)}")
+    dispatches = 1 if fused else max(1, int(n_stages))
+    if backend == "cpu":
+        secs = dispatches * CPU_COEFF["dispatch"]
+        if not fused and handoff_bytes:
+            secs += float(handoff_bytes) / CPU_HANDOFF_BYTES_PER_S
+        return secs
+    return (dispatches * CUDA_COEFF["dispatch"]
+            + float(handoff_bytes) / roofline.H100_SXM_HBM_BYTES_PER_S)

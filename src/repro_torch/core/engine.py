@@ -3,11 +3,12 @@ fold, and the single-shot combine and reduce flows.
 
 Counterpart of the local part of ``repro/core/engine.py`` (``Emitter``,
 ``map_phase``, ``_fold_items_chunked``, ``stream_local_tables``,
-``run_local_stream``, ``sort_local_tables``, ``run_local_sort``,
-``run_local``).  The reference scans the chunks with ``lax.scan``; here the
-chunk loop is a Python loop, so chunks are large (see ``autotune``) and
-each one is a handful of launches.  The combine and reduce flows map every
-item at once and hand the whole pair buffer to their collector.
+``sort_local_tables``, ``run_local``).  The reference scans the chunks
+with ``lax.scan``; here the chunk loop is a Python loop, so chunks are
+large (see ``autotune``) and each one is a handful of launches.  The
+combine and reduce flows map every item at once and hand the whole pair
+buffer to their collector.  :class:`LocalRun` is a flow prepared to
+dispatch, what the staged API's ``compile()`` caches.
 """
 
 from __future__ import annotations
@@ -129,6 +130,19 @@ def stream_combiner(app, spec, *, device, use_kernels=False,
                               chunk_pairs=chunk_pairs, key_block=key_block)
 
 
+def valid_items(items, n_valid: int | None = None) -> int:
+    """Items a run folds: the first ``n_valid`` (all when None)."""
+    n_items = items_length(items)
+    return n_items if n_valid is None else max(0, min(int(n_valid), n_items))
+
+
+def chunk_items_of(app, n_items: int, chunk_pairs: int) -> int:
+    """Items of one chunk: about ``chunk_pairs`` emitted pairs, at most
+    the items the run folds."""
+    cap = max(app.emit_capacity, 1)
+    return max(1, min(n_items, chunk_pairs // cap))
+
+
 def fold_items_chunked(app, combiner, items, chunk_items: int,
                        n_valid: int | None = None, state=None):
     """Map ``items`` a chunk at a time and fold each chunk's pairs into the
@@ -136,49 +150,23 @@ def fold_items_chunked(app, combiner, items, chunk_items: int,
     ``combiner`` is the stream flow's :class:`~collector.StreamCombiner` or
     the sort flow's :class:`~collector.SortCombiner`.
 
-    Items at index ``n_valid`` and beyond are mapped but their pairs are
-    masked to the sentinel key, as in the reference's padded serving path.
+    Items at index ``n_valid`` and beyond are neither mapped nor folded:
+    the reference maps a padded batch and masks its tail to the sentinel
+    key (its executables have static shapes); the chunk loop here runs on
+    the host and stops at ``n_valid``, so a padded call folds the pairs of
+    the exact call, chunk for chunk.  A fold's sum order depends on the
+    pairs a call sees (the lane tables' segments, ROADMAP C.26), so this
+    is what keeps a padded run's bits those of the exact run.
     """
-    n_items = items_length(items)
+    n_items = valid_items(items, n_valid)
     if state is None:
         state = combiner.init_state()
-    valid_items = n_items if n_valid is None else int(n_valid)
-    cap = app.emit_capacity
     for lo in range(0, n_items, chunk_items):
         hi = min(lo + chunk_items, n_items)
         chunk = pytree.tree_map(lambda a: a[lo:hi], items)
-        stream = map_phase(app, chunk, combiner.device)
-        keys = stream.keys
-        if hi > valid_items:
-            item_ok = torch.arange(lo, hi, device=keys.device) < valid_items
-            keys = torch.where(item_ok.repeat_interleave(cap), keys,
-                               app.key_space)
-        state = combiner.fold_chunk(
-            state, col.PairStream(keys, stream.values, app.key_space))
+        state = combiner.fold_chunk(state, map_phase(app, chunk,
+                                                     combiner.device))
     return state
-
-
-def stream_local_tables(app, spec, items, *, chunk_pairs: int,
-                        device, use_kernels: bool = False,
-                        key_block: int | None = None,
-                        n_valid: int | None = None):
-    """Fused map+combine over ``items``: chunks of about ``chunk_pairs``
-    emitted pairs fold straight into the carried holder tables, so the full
-    ``N × emit_capacity`` pair buffer never exists.  Returns un-finalized
-    ``(tables, counts)``."""
-    n_items = items_length(items)
-    cap = max(app.emit_capacity, 1)
-    chunk_items = max(1, min(n_items, chunk_pairs // cap))
-    sc = stream_combiner(app, spec, device=device, use_kernels=use_kernels,
-                         chunk_pairs=chunk_items * cap, key_block=key_block)
-    state = fold_items_chunked(app, sc, items, chunk_items, n_valid=n_valid)
-    return sc.tables_counts(state)
-
-
-def run_local_stream(app, spec, items, **kw):
-    tables, counts = stream_local_tables(app, spec, items, **kw)
-    grouped = col.finalize_tables(spec, tables, counts, app.key_space)
-    return grouped.keys, grouped.values, grouped.counts
 
 
 def _sort_fold_kernel(use_kernels: bool, bucket_size: int | None,
@@ -218,6 +206,220 @@ def _check_sort_kernel_plan(spec, key_space: int, value_spec,
     return plan.bucket_size, plan.fanouts
 
 
+class LocalRun:
+    """One flow of one plan on one device, prepared to dispatch: the knobs
+    resolved, the sort flow's radix plan checked, and the stream or sort
+    collector built once per chunk size (kept for later calls).  Calling it
+    maps and folds ``items`` (the first ``n_valid`` of them) and returns
+    fresh ``(keys, values, counts)`` tensors.
+
+    ``plan`` (an ``ExecutionPlan``) is needed for the combine and reduce
+    flows, whose runs record their lowering and fallbacks on it."""
+
+    def __init__(self, app, flow: str, spec, *, device, plan=None,
+                 combine_impl: str = "auto", use_kernels: bool = False,
+                 chunk_pairs: int | None = None,
+                 key_block: int | None = None,
+                 bucket_size: int | None = None,
+                 level_fanouts: tuple[int, ...] | None = None):
+        if flow in ("stream", "sort") and chunk_pairs is None:
+            raise ValueError(f"the {flow} flow needs chunk_pairs")
+        if flow in ("combine", "reduce") and plan is None:
+            raise ValueError(f"the {flow} flow needs its plan")
+        self.app = app
+        self.flow = flow
+        self.spec = spec
+        self.plan = plan
+        self.device = torch.device(device)
+        self.combine_impl = combine_impl
+        self.use_kernels = use_kernels
+        self.chunk_pairs = chunk_pairs
+        self.key_block = key_block
+        if flow == "sort":
+            bucket_size, level_fanouts = _check_sort_kernel_plan(
+                spec, app.key_space, app.value_spec, use_kernels,
+                bucket_size, level_fanouts)
+        self.bucket_size = bucket_size
+        self.level_fanouts = level_fanouts
+        self._combiners: dict[int, col.CarriedTables] = {}
+
+    def combiner(self, chunk_items: int) -> col.CarriedTables:
+        """The collector of chunks of ``chunk_items`` items."""
+        comb = self._combiners.get(chunk_items)
+        if comb is None:
+            app = self.app
+            if self.flow == "stream":
+                comb = stream_combiner(
+                    app, self.spec, device=self.device,
+                    use_kernels=self.use_kernels,
+                    chunk_pairs=chunk_items * max(app.emit_capacity, 1),
+                    key_block=self.key_block)
+            else:
+                comb = col.SortCombiner(
+                    self.spec, app.key_space, app.value_spec,
+                    device=self.device,
+                    sort_fold_fn=_sort_fold_kernel(
+                        self.use_kernels, self.bucket_size,
+                        self.level_fanouts))
+            self._combiners[chunk_items] = comb
+        return comb
+
+    def tables(self, items, n_valid: int | None = None):
+        """The stream or sort flow's un-finalized ``(collector, tables,
+        counts)`` over ``items``."""
+        n_items = valid_items(items, n_valid)
+        ci = chunk_items_of(self.app, n_items, self.chunk_pairs)
+        comb = self.combiner(ci)
+        state = fold_items_chunked(self.app, comb, items, ci, n_valid=n_items)
+        tables, counts = comb.tables_counts(state)
+        return comb, tables, counts
+
+    def __call__(self, items, n_valid: int | None = None, *,
+                 values: bool = True, sinks=None):
+        """``(keys, values, counts)``.  ``values=False`` (a pipeline's dead
+        value column) leaves the values unfinalized in the stream and sort
+        flows and hands back zeros of their shape and dtype, broadcast from
+        one element (no ``[K]`` column is written); the combine and reduce
+        flows compute their values and drop them.  ``sinks``: the plans a
+        combine run records its lowering and fallbacks on (default: the
+        plan)."""
+        K = self.app.key_space
+        if self.flow in ("combine", "reduce"):
+            keys, vals, counts = run_local(
+                self.app, self.plan, items, device=self.device,
+                combine_impl=self.combine_impl, use_kernels=self.use_kernels,
+                n_valid=n_valid, sinks=sinks)
+            return keys, (vals if values else dead_values(vals, K)), counts
+        comb, tables, counts = self.tables(items, n_valid)
+        if values:
+            grouped = col.finalize_tables(self.spec, tables, counts, K)
+            return grouped.keys, grouped.values, grouped.counts
+        # one row is finalized, for the values' shape and dtype only
+        one = col.finalize_tables(
+            self.spec, pytree.tree_map(lambda t: t[:1], tables),
+            counts[:1], 1)
+        keys = torch.arange(K, dtype=torch.int32, device=counts.device)
+        return keys, dead_values(one.values, K), counts
+
+
+    def launch_plan(self, n_items: int) -> str:
+        """The launches of a run over ``n_items`` items: the chunk loop and,
+        per chunk, each fold with its kernel plan (``ops.fold_plan``;
+        the sort flow's ``radix_partition.partition_passes``); the plain
+        versions where the kernels are off.  The combine flow's lowering
+        is the collector's rule at this size (the run records the one it
+        took on ``plan.lowering``)."""
+        from repro_torch.kernels import ops
+        from repro_torch.kernels import radix_partition as rp
+
+        app, spec, K = self.app, self.spec, self.app.key_space
+        cap = max(app.emit_capacity, 1)
+        head = (f"flow {self.flow} on {self.device}: N={n_items} items x "
+                f"{cap} pairs = {n_items * cap} pairs, kernels "
+                f"{'on' if self.use_kernels else 'off'}")
+        if self.flow == "reduce":
+            return "\n".join([head, "map over every item (torch.func.vmap)",
+                              "reduce flow: stable torch.sort of the pairs, "
+                              f"[K={K}, Lmax={app.max_values_per_key}] "
+                              "windows, vmap of app.reduce; no kernel"])
+        if self.flow == "combine":
+            n = n_items * cap
+            impl = self.combine_impl
+            if impl == "auto":
+                impl, _ = col.choose_combine_impl(
+                    spec, K, n, onehot_kernel=self.use_kernels)
+            d, _ = spec.holder_width(app.value_spec)
+            line = f"combine flow: lowering {impl} over the {n} pairs"
+            if impl == "onehot" and self.use_kernels:
+                line += (f"; onehot_combine per holder leaf, [K={K}, "
+                         f"D={d}] in all: "
+                         f"{_fold_desc(ops.fold_plan(n, K, d, 'add'))}; "
+                         f"and the counts, [K={K}, 1]: "
+                         f"{_fold_desc(ops.fold_plan(n, K, 1, 'add'))}")
+            elif impl == "scatter" and self.use_kernels:
+                line += ("; per f32 leaf combine_scatter or sort_segment_fold "
+                         "by collector.scatter_route")
+            if not (impl == "onehot" and self.use_kernels):
+                line += "; counts: torch.bincount"
+            return "\n".join([head, "map over every item (torch.func.vmap)",
+                              line])
+        n_items = max(n_items, 0)
+        ci = chunk_items_of(self.app, max(n_items, 1), self.chunk_pairs)
+        full, last = divmod(n_items, ci)
+        loop = f"chunk loop: {full} chunk(s) of {ci * cap} pairs"
+        if last:
+            loop += f" and one of {last * cap}"
+        lines = [head, loop + "; per chunk: map (torch.func.vmap), then:"]
+        comb = self.combiner(ci)
+        sizes = sorted({ci * cap} | ({last * cap} if last else set()))
+        if self.flow == "stream":
+            if comb.fused_acc:
+                width = sum(comb._widths()) + 1
+                for m in sizes:
+                    lines.append(
+                        f"  onehot_fold, fused [K={K}, {width}] accumulator "
+                        f"(counts in the last column), n={m}: "
+                        f"{_fold_desc(ops.fold_plan(m, K, width, 'add', self.key_block))}")
+            elif comb.mode == "dense" and comb.monoid_fold_fn is not None:
+                for mono, leaf in zip(spec.monoids, comb._holder_leaves):
+                    for m in sizes:
+                        lines.append(
+                            f"  chunk_monoid_fold {mono.name} [K={K}, "
+                            f"{leaf.numel()}], n={m}: "
+                            f"{_fold_desc(ops.fold_plan(m, K, leaf.numel(), mono.name, self.key_block))}")
+                lines.append("  counts: torch.bincount")
+            else:
+                lines.append(f"  {comb.mode} fold in plain PyTorch (no "
+                             f"kernel); counts: torch.bincount")
+        elif comb.sort_fold_fn is not None:
+            passes = rp.partition_passes(K, self.bucket_size,
+                                         ops.KERNEL_MAX_LEVEL_BUCKETS)
+            name = ("radix_partition_multi" if len(self.level_fanouts or ())
+                    > 1 else "radix_partition")
+            lines.append(
+                f"  per holder leaf (the counts column with the first "
+                f"additive leaf): {name}, leaf {self.bucket_size} keys, "
+                f"levels {tuple(self.level_fanouts or ())}, "
+                + ", ".join(f"pass range {p.range_} fan-out {p.fanout}"
+                            for p in passes)
+                + "; then segment_reduce")
+        else:
+            lines.append("  one stable torch.sort per chunk, one aggregate "
+                         "per run merged at its key (no kernel)")
+        lines.append(f"finalize: vmap of the combiner's finalize over "
+                     f"K={K} rows")
+        return "\n".join(lines)
+
+
+def _fold_desc(plan) -> str:
+    return (f"{plan.shape} block_k={plan.block_k} cols={plan.cols} "
+            f"warps={plan.warps} stage={plan.stage} seg_len={plan.seg_len} "
+            f"n_seg={plan.n_seg} key_tiles={plan.key_tiles} "
+            f"col_tiles={plan.col_tiles}")
+
+
+def dead_values(values, key_space: int):
+    """Zeros of ``values``' row shape and dtype for ``key_space`` rows,
+    broadcast from one element."""
+    return pytree.tree_map(
+        lambda v: torch.zeros((), dtype=v.dtype, device=v.device).expand(
+            (key_space,) + tuple(v.shape[1:])), values)
+
+
+def stream_local_tables(app, spec, items, *, chunk_pairs: int,
+                        device, use_kernels: bool = False,
+                        key_block: int | None = None,
+                        n_valid: int | None = None):
+    """Fused map+combine over ``items``: chunks of about ``chunk_pairs``
+    emitted pairs fold straight into the carried holder tables, so the full
+    ``N × emit_capacity`` pair buffer never exists.  Returns un-finalized
+    ``(tables, counts)``."""
+    run = LocalRun(app, "stream", spec, device=device,
+                   use_kernels=use_kernels, chunk_pairs=chunk_pairs,
+                   key_block=key_block)
+    return run.tables(items, n_valid)[1:]
+
+
 def sort_local_tables(app, spec, items, *, chunk_pairs: int, device,
                       use_kernels: bool = False,
                       bucket_size: int | None = None,
@@ -227,24 +429,10 @@ def sort_local_tables(app, spec, items, *, chunk_pairs: int, device,
     partitioned by key and reduced a run (or a leaf bucket) at a time into
     the carried tables (:class:`collector.SortCombiner`).  Returns
     un-finalized ``(tables, counts)``."""
-    n_items = items_length(items)
-    cap = max(app.emit_capacity, 1)
-    chunk_items = max(1, min(n_items, chunk_pairs // cap))
-    bucket_size, level_fanouts = _check_sort_kernel_plan(
-        spec, app.key_space, app.value_spec, use_kernels, bucket_size,
-        level_fanouts)
-    sc = col.SortCombiner(
-        spec, app.key_space, app.value_spec, device=device,
-        sort_fold_fn=_sort_fold_kernel(use_kernels, bucket_size,
-                                       level_fanouts))
-    state = fold_items_chunked(app, sc, items, chunk_items, n_valid=n_valid)
-    return sc.tables_counts(state)
-
-
-def run_local_sort(app, spec, items, **kw):
-    tables, counts = sort_local_tables(app, spec, items, **kw)
-    grouped = col.finalize_tables(spec, tables, counts, app.key_space)
-    return grouped.keys, grouped.values, grouped.counts
+    run = LocalRun(app, "sort", spec, device=device,
+                   use_kernels=use_kernels, chunk_pairs=chunk_pairs,
+                   bucket_size=bucket_size, level_fanouts=level_fanouts)
+    return run.tables(items, n_valid)[1:]
 
 
 # ---------------------------------------------------------------------------
@@ -268,55 +456,59 @@ def _scatter_kernel(use_kernels: bool) -> Callable | None:
     return ops.combine_scatter
 
 
-def _plan_fallback_cb(plan) -> Callable | None:
-    """The plan's fallback sink: warn once per plan, and record every
-    message on ``plan.diagnostics`` for ``explain()``."""
-    if plan is None:
+def _plan_fallback_cb(plans) -> Callable | None:
+    """The plans' fallback sink: warn once per plan (the first of
+    ``plans``), and record every message on each plan's ``diagnostics``
+    for ``explain()``."""
+    if not plans:
         return None
 
     def cb(msg: str) -> None:
-        if not getattr(plan, "_fallback_warned", False):
+        if not getattr(plans[0], "_fallback_warned", False):
             warnings.warn(msg, col.LoweringFallbackWarning, stacklevel=4)
-            plan._fallback_warned = True
-        if msg not in plan.diagnostics:
-            plan.diagnostics += (msg,)
+            plans[0]._fallback_warned = True
+        for plan in plans:
+            if msg not in plan.diagnostics:
+                plan.diagnostics += (msg,)
 
     return cb
 
 
-def _plan_lowering_cb(plan) -> Callable | None:
-    """Record the lowering a combine run took on ``plan.lowering``."""
-    if plan is None:
+def _plan_lowering_cb(plans) -> Callable | None:
+    """Record the lowering a combine run took on each plan's
+    ``lowering``."""
+    if not plans:
         return None
 
     def cb(taken: str) -> None:
-        plan.lowering = taken
+        for plan in plans:
+            plan.lowering = taken
 
     return cb
 
 
 def run_local(app, plan, items, *, device, combine_impl: str = "auto",
-              use_kernels: bool = False, n_valid: int | None = None):
-    """The combine or reduce flow over ``items``: one map phase over every
-    item, the pairs of items at ``n_valid`` and beyond masked to the
-    sentinel, then ``combine_flow`` (kernels bound by ``use_kernels``) or
-    ``reduce_flow``.  Returns ``(keys, values, counts)``."""
-    stream = map_phase(app, items, device)
+              use_kernels: bool = False, n_valid: int | None = None,
+              sinks=None):
+    """The combine or reduce flow over ``items``: one map phase over the
+    first ``n_valid`` items (all when None; the rest are neither mapped nor
+    folded, as in :func:`fold_items_chunked`), then ``combine_flow``
+    (kernels bound by ``use_kernels``) or ``reduce_flow``.  The combine
+    flow records its lowering and fallbacks on the plans ``sinks``
+    (default: ``plan``).  Returns ``(keys, values, counts)``."""
+    sinks = (plan,) if sinks is None else tuple(sinks)
     if n_valid is not None:
-        n_items = items_length(items)
-        item_ok = torch.arange(n_items, device=stream.keys.device) < n_valid
-        stream = col.PairStream(
-            torch.where(item_ok.repeat_interleave(app.emit_capacity),
-                        stream.keys, app.key_space),
-            stream.values, app.key_space)
+        n = valid_items(items, n_valid)
+        items = pytree.tree_map(lambda a: a[:n], items)
+    stream = map_phase(app, items, device)
     if plan.flow == "combine":
         grouped = col.combine_flow(
             plan.spec, stream, impl=combine_impl,
             onehot_fn=_onehot_kernel(use_kernels),
             scatter_fn=_scatter_kernel(use_kernels),
             sort_fold_fn=_sort_fold_kernel(use_kernels, None, None),
-            on_fallback=_plan_fallback_cb(plan),
-            on_lowering=_plan_lowering_cb(plan))
+            on_fallback=_plan_fallback_cb(sinks),
+            on_lowering=_plan_lowering_cb(sinks))
     elif plan.flow == "reduce":
         grouped = col.reduce_flow(
             app.reduce, stream, max_values_per_key=app.max_values_per_key,

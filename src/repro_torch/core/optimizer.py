@@ -24,6 +24,7 @@ import torch
 
 from repro_torch import numerics
 from repro_torch.core import combiner as C
+from repro_torch.core import plan_cache as pc
 from repro_torch.core import semantics as S
 
 KEY_SPEC = C.ValueSpec((), torch.int32)
@@ -57,6 +58,7 @@ def derive_combiner(reduce_fn: Callable, key_spec: C.ValueSpec,
                     trust_semantics: bool = False, validate_trials: int = 3,
                     rtol: float = 1e-4, atol: float = 1e-4) -> Derivation:
     """Run the optimizer on one reduce function."""
+    pc.STATS.derives += 1
     t0 = time.perf_counter()
     try:
         an = S.analyze(reduce_fn, key_spec, value_spec, max_len=max_len)

@@ -39,6 +39,15 @@ class ExecutionPlan:
     #: the lowering and kernels the combine flow's last run took (set by
     #: the collector at run time; empty before the first run)
     lowering: str = ""
+    #: the staged path's bookkeeping (``api.Lowered``/``Optimized``/
+    #: ``Compiled``): the furthest stage this plan reached, the content key
+    #: it was stored or looked up under, and how the lookup went ("hit" |
+    #: "miss" | "file-hit"; "" when the cache was bypassed)
+    stage: str = ""
+    cache_key: str | None = None
+    cache_event: str = ""
+    #: pipeline fusion decisions (``core/pipeline.py``), one line each
+    fusion: tuple[str, ...] = ()
 
     @property
     def optimized(self) -> bool:
@@ -47,9 +56,15 @@ class ExecutionPlan:
         return self.flow in ("stream", "sort", "combine")
 
     def explain(self) -> str:
-        """What the optimizer decided and why: flow, combiner, the cost
-        model's ranking, tiling."""
+        """What the optimizer decided and why: flow, the staged path's
+        stage and plan-cache outcome, combiner, the cost model's ranking,
+        tiling, pipeline fusion."""
         lines = [f"flow: {self.flow} ({self.reason})"]
+        if self.stage:
+            lines.append(f"stage: {self.stage}")
+        if self.cache_key is not None:
+            lines.append(f"plan-cache: {self.cache_event or 'off'} "
+                         f"key={self.cache_key}")
         d = self.derivation
         if d is not None:
             v = "validated" if d.validated else "trusted"
@@ -71,6 +86,8 @@ class ExecutionPlan:
                          "pass over the whole pair buffer)")
         if self.lowering:
             lines.append(f"lowering: {self.lowering}")
+        for decision in self.fusion:
+            lines.append(f"fusion: {decision}")
         for diag in self.diagnostics:
             lines.append(f"diagnostic: {diag}")
         return "\n".join(lines)

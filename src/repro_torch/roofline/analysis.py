@@ -8,9 +8,10 @@ explicit ``chunk_pairs`` they return its numbers exactly.  With
 (``core/autotune.CUDA_CHUNK_PAIRS``), not the reference engine's
 defaults.
 
-The HLO parser and the compiled-artifact roofline of the reference read
-XLA's output and have no counterpart here; the wire, pipeline and model
-FLOP models come with the modules that need them.
+:func:`pipeline_handoff_bytes` is the reference's too.  The HLO parser and
+the compiled-artifact roofline of the reference read XLA's output and
+have no counterpart here; the wire and model FLOP models come with the
+modules that need them.
 """
 
 from __future__ import annotations
@@ -127,3 +128,15 @@ def stream_working_set_bytes(
     tn = min(tile_n, max(chunk_pairs, 8))
     td = min(tile_d, max(d, 1))
     return 4.0 * (key_block * td + tn * key_block + tn * td)
+
+
+def pipeline_handoff_bytes(key_space: int, *, value_bytes: int = 4,
+                           dead_value: bool = False) -> float:
+    """Device-memory bytes of one producer→consumer pipeline edge: the
+    producer's dense ``[K]`` table of (int32 key, value, int32 count) rows
+    written and read back, ``2 · K · row_bytes``; a dead value column
+    (``StageSemantics.reads_value == False``) leaves the value out.  The
+    reference's arithmetic.  In the port both of a pipeline's paths move
+    the table (``core/pipeline.py``, ROADMAP C.33)."""
+    row = 4 + 4 + (0 if dead_value else int(value_bytes))
+    return 2.0 * float(key_space) * row

@@ -22,7 +22,8 @@ names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 assert len(names) >= 32, names
-for name in ("repro_torch.core.cost_model", "repro_torch.roofline",
+for name in ("repro_torch.core.cost_model", "repro_torch.core.plan_cache",
+             "repro_torch.core.pipeline", "repro_torch.roofline",
              "repro_torch.roofline.analysis",
              "repro_torch.kernels.radix_partition",
              "repro_torch.kernels.segment_reduce",
