@@ -123,7 +123,31 @@ Phases (each raises on failure, and the script then exits non-zero):
    with one compile; a pipeline (KeyedSum K = 2^16, then a histogram of
    the sums or key presence mod 8) fused, unfused and stage by stage bit
    for bit; the measured probe and its tune cache; the host syncs of a
-   compiled call.
+   compiled call;
+11. the streaming service (``streaming_on_card``, the ``streaming``
+   line): ``MapReduce(app, streaming=True).serve(...)``.  (a) Four
+   ingests of 2^22 KMeans points (B1, 4 launches, lane plan), of 2^22
+   BoundingBox points (B2, 8 launches) and of 2^19 KeyedSum items at
+   K = 2^16 (2^22 pairs; B1, 4 launches on the index-order pass) equal
+   the batch run whose chunk is the micro-batch, bit for bit, and the
+   KeyedSum snapshot equals float64 numpy's per-key sums (within
+   SUM_RTOL) and counts (exactly), since the ingests and the batch run
+   share B1's launches (phase 2 holds B1 against its plain version at
+   this shape); (b) ragged
+   micro-batches 2^22, 2^22 - 4099, 5000, 1, 0 and 2^22: counts exact,
+   boxes bit for bit numpy's, centroids against float64 numpy, a second
+   service bit for bit; (c) 20 ingests of 2^20 points under
+   ``sliding(8, 2)`` cover exactly the live periods, and ``tumbling(2)``
+   drops a key seen only in expired batches; (d) 50 ingests of one
+   2^22-point KMeans batch: ingest ms (median, p99), pairs/s, ``run()``
+   of the batch, host syncs an ingest, device busy share, zero derives,
+   tunes, probes and compiles, and a second service is a compiled-cache
+   hit; (e) snapshots from the main thread while an ``IngestionQueue``
+   worker folds 30 batches under ``sliding(4, 1)``, each consistent, with
+   their ms; (f) a warm restart from step 8 of ``ckpt_every=4`` replayed
+   to 12, and the newest step, bit for bit, with the checkpoint's and
+   the restore's ms and bytes.  B1's and B2's rows of the ``kernels``
+   line name their launches on this path (``streaming_launches``).
 
 ``run()`` prepares its run on its first call (the staged ``compile()``),
 and on the card that is one warm-up run on zeros, whose launches count:
@@ -292,6 +316,8 @@ def check_kernels(rng) -> None:
          "K one past a table (two key tiles)"),
         (200_003, 128, 100, None, "D = 128 (two column tiles)"),
         (1_000_003, 3, 1000, None, "K = 1000, one-warp blocks"),
+        (1 << 22, 2, 1 << 16, None,
+         "streaming KeyedSum K = 2^16 (fused [K, 1+1], index order)"),
     ] + [(n, 3, k, None, f"NaN payloads: one and two a key, K = {k}",
           "uniform", 0.3) for n, k in ((501, 100), (5_001, 1000),
                                        (5_001, 2000))]
@@ -2407,6 +2433,338 @@ def masked_tail_bits() -> dict:
     return res
 
 
+# -- phase 11: the streaming service (A13) ------------------------------------
+
+STREAM_CAP = 1 << 22  # KMeans / BoundingBox points a micro-batch: one chunk
+STREAM_KS_CAP = 1 << 19  # KeyedSum items a micro-batch: 2^22 pairs
+STREAM_KS_K = 1 << 16
+STREAM_RAGGED = (1 << 22, (1 << 22) - 4099, 5000, 1, 0, 1 << 22)
+STREAM_WIN_N = 1 << 20  # points a micro-batch of the windowed phases
+STREAM_STEADY_INGESTS = 50
+STREAM_QUEUE_BATCHES = 30
+
+
+def window_batch(arrays, i: int):
+    """Micro-batch ``i`` of :data:`STREAM_WIN_N` points (views of
+    ``arrays``; batch 16 starts over at point 0)."""
+    n = STREAM_WIN_N
+    lo = (i * n) % N_POINTS
+    return tuple(a[lo:lo + n] for a in arrays)
+
+
+def stream_check(label, res, pts, assign) -> None:
+    """Counts exact; KMeans centroids within SUM_RTOL of float64 numpy,
+    boxes bit for bit numpy's per-key max/min."""
+    want_counts, want = kmeans_centroids(pts, assign)
+    if not np.array_equal(res.counts.cpu().numpy(), want_counts):
+        raise AssertionError(f"streaming {label}: counts != np.bincount")
+    got = res.values.cpu().numpy()
+    if label.startswith("bounding_box"):
+        if not np.array_equal(got.view(np.uint32),
+                              numpy_boxes(pts, assign).view(np.uint32)):
+            raise AssertionError(f"streaming {label}: boxes != numpy")
+    else:
+        np.testing.assert_allclose(got, want, rtol=SUM_RTOL, atol=SUM_RTOL)
+
+
+def keyed_sum_check(label, res, keys, weights) -> float:
+    """KeyedSum: counts equal ``np.bincount``; each key's sum within
+    SUM_RTOL of float64 numpy's.  Returns the largest absolute error."""
+    k = STREAM_KS_K
+    if not np.array_equal(res.counts.cpu().numpy(),
+                          np.bincount(keys, minlength=k)):
+        raise AssertionError(f"streaming {label}: counts != np.bincount")
+    want = np.bincount(keys, weights=weights.astype(np.float64),
+                       minlength=k)
+    got = res.values.cpu().numpy().astype(np.float64)
+    np.testing.assert_allclose(got, want, rtol=SUM_RTOL, atol=SUM_RTOL)
+    return float(np.abs(got - want).max())
+
+
+def streaming_parity(label, make, items, cap, item_spec, kernel):
+    """(a): ``cap``-item ingests of ``items`` against one batch run whose
+    chunk is the micro-batch, bit for bit; the launches and plan shapes of
+    ``kernel`` in the ingests alone."""
+    import torch
+    from repro_torch import ExecutionOptions, MapReduce
+    from repro_torch.kernels import ops
+
+    app = make()
+    svc = MapReduce(app, streaming=True).serve(batch_capacity=cap,
+                                               item_spec=item_spec)
+    n = items[0].shape[0]
+    batches = [tuple(a[lo:lo + cap] for a in items)
+               for lo in range(0, n, cap)]
+    torch.cuda.synchronize()
+    with fold_shapes() as seen:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        for b in batches:
+            svc.ingest(b)
+        torch.cuda.synchronize()
+        ingest_ms = (time.perf_counter() - t0) * 1e3
+        launches = ops.launch_counts()
+    got = svc.snapshot()
+    want = MapReduce(make(), flow="stream").run(
+        items, options=ExecutionOptions(
+            chunk_pairs=cap * max(app.emit_capacity, 1)))
+    if not same_bits(got, want):
+        raise AssertionError(f"streaming {label}: {len(batches)} ingests != "
+                             f"the chunk-aligned batch run")
+    if launches[kernel] <= 0:
+        raise AssertionError(f"streaming {label}: {kernel} never launched: "
+                             f"{launches}")
+    return svc, {"ingests": len(batches), "launches": launches[kernel],
+                 "plans": sorted(set(seen.get(kernel, []))),
+                 "ingests_ms": ingest_ms, "bits_equal": True}
+
+
+def streaming_on_card(card: str, pts, assign, items) -> dict:
+    """Phase 11: ``MapReduce(app, streaming=True).serve(...)`` on the card.
+    (a) KMeans and BoundingBox at 2^24 points in four 2^22-point ingests,
+    KeyedSum K = 2^16 in four ingests of 2^19 items (2^22 pairs): bit for
+    bit with the chunk-aligned batch run, and KeyedSum's snapshot against
+    float64 numpy's per-key sums and counts; B1 launches 4 a run (lane
+    plan for KMeans, the index-order pass at K = 2^16), B2 8.  (b) Ragged
+    micro-batches 2^22, 2^22 - 4099, 5000, 1, 0, 2^22: counts exact, boxes
+    bit for bit numpy's, centroids against float64 numpy, a second service
+    fed the same batches gives the same bits.  (c) 20 ingests of 2^20
+    points under ``sliding(8, 2)``: each snapshot covers exactly the live
+    periods; ``tumbling(2)`` drops a key seen only in expired batches.
+    (d) Steady state: 50 ingests of one 2^22-point KMeans batch, each
+    ending in a synchronize (median and p99 ms, pairs/s), against
+    ``run()`` of the batch; host syncs an ingest; device busy share; zero
+    derives, tunes, probes and compiles; a second service is a
+    compiled-cache hit.  (e) An ``IngestionQueue`` worker folds 30 batches
+    of 2^20 points under ``sliding(4, 1)`` while the main thread takes
+    snapshots: each covers whole batches, generations are monotone.
+    (f) Warm restart: ``ckpt_every=4`` under ``sliding(8, 2)``, a fresh
+    service restores step 8 and replays to 12 bit for bit; the newest
+    step restores the final tables.  Prints one ``streaming`` line."""
+    import os
+    import tempfile
+    import threading
+
+    import torch
+    from repro_torch import MapReduce, apps
+    from repro_torch.core import plan_cache as pc
+    from repro_torch.core.plan_cache import TensorSpec
+    from repro_torch.streaming import IngestionQueue, sliding, tumbling
+
+    out: dict = {"card": card}
+    spec = (TensorSpec((), torch.int32), TensorSpec((3,), torch.float32))
+
+    def serve(make, cap, **kw):
+        return MapReduce(make(), streaming=True).serve(
+            batch_capacity=cap, item_spec=spec, **kw)
+
+    parity = {}  # (a)
+    for label, make, kernel in (("kmeans", apps.KMeans, "onehot_fold"),
+                                ("bounding_box", apps.BoundingBox,
+                                 "chunk_monoid_fold")):
+        _, parity[label] = streaming_parity(label, make, items, STREAM_CAP,
+                                            spec, kernel)
+    sitems, skeys, sweights = sort_items(STREAM_KS_K)
+    ks_svc, parity["keyed_sum_K65536"] = streaming_parity(
+        "keyed_sum_K65536", lambda: apps.KeyedSum(STREAM_KS_K), sitems,
+        STREAM_KS_CAP, (TensorSpec((8,), torch.int32),
+                        TensorSpec((8,), torch.float32)), "onehot_fold")
+    # the ingests and the batch run share B1's launches: hold the pair
+    # against numpy too, so a wrong kernel at this shape cannot pass
+    parity["keyed_sum_K65536"]["max_abs_err_vs_numpy"] = keyed_sum_check(
+        "keyed_sum_K65536", ks_svc.snapshot(), skeys, sweights)
+    want_launches = {"kmeans": 4, "bounding_box": 8, "keyed_sum_K65536": 4}
+    for label, n in want_launches.items():
+        if parity[label]["launches"] != n:
+            raise AssertionError(f"streaming {label}: {parity[label]} "
+                                 f"launches, {n} expected")
+    if parity["kmeans"]["plans"] != ["lane"]:
+        raise AssertionError(f"streaming kmeans plans {parity['kmeans']}")
+    if "lane" in parity["keyed_sum_K65536"]["plans"]:
+        raise AssertionError(f"streaming keyed_sum K=2^16 took the lane "
+                             f"plan: {parity['keyed_sum_K65536']}")
+    out["parity"] = parity
+    log(f"streaming parity: KMeans, BoundingBox, KeyedSum K=2^16 ingests "
+        f"== chunk-aligned batch runs bit for bit: {parity}")
+
+    ragged = {}  # (b)
+    total = sum(STREAM_RAGGED)
+    for label, make in (("kmeans", apps.KMeans),
+                        ("bounding_box", apps.BoundingBox)):
+        snaps = []
+        for _ in range(2):
+            svc = serve(make, STREAM_CAP)
+            lo = 0
+            for n in STREAM_RAGGED:
+                svc.ingest(tuple(a[lo:lo + n] for a in items))
+                lo += n
+            snaps.append(svc.snapshot())
+        stream_check(f"{label} ragged", snaps[0], pts[:total], assign[:total])
+        if not same_bits(snaps[0], snaps[1]):
+            raise AssertionError(f"streaming {label} ragged: a second "
+                                 f"service gave other bits")
+        ragged[label] = {"sizes": list(STREAM_RAGGED), "points": total,
+                         "batch_id": snaps[0].batch_id, "repeat_bits": True}
+    out["ragged"] = ragged
+    log(f"streaming ragged {STREAM_RAGGED}: counts exact, boxes bit for "
+        f"bit, centroids within {SUM_RTOL}, repeats bit for bit")
+
+    windows = {}  # (c)
+    np_arrays = (assign, pts)
+    for label, make in (("kmeans", apps.KMeans),
+                        ("bounding_box", apps.BoundingBox)):
+        svc = serve(make, STREAM_WIN_N, window=sliding(8, 2))
+        checked = []
+        for i in range(20):
+            svc.ingest(window_batch(items, i))
+            b = i + 1
+            if b not in (11, 20):
+                continue
+            p = (b - 1) // 2  # the current slide period
+            first = 2 * max(0, p - 3)  # the oldest live period's batch
+            live = [window_batch(np_arrays, j) for j in range(first, b)]
+            stream_check(f"{label} sliding(8, 2) at batch {b}",
+                         svc.snapshot(),
+                         np.concatenate([x[1] for x in live]),
+                         np.concatenate([x[0] for x in live]))
+            checked.append({"batch_id": b, "live_batches": [first, b - 1]})
+        windows[label] = checked
+    tum = serve(apps.KMeans, STREAM_WIN_N, window=tumbling(2))
+    hot = (torch.full((STREAM_WIN_N,), 7, dtype=torch.int32,
+                      device=items[0].device),
+           items[1][:STREAM_WIN_N])
+    cold = (torch.full_like(hot[0], 9), hot[1])
+    tum.ingest(hot)
+    tum.ingest(hot)
+    before = tum.snapshot().counts.cpu().numpy()
+    tum.ingest(cold)
+    after = tum.snapshot().counts.cpu().numpy()
+    if (before[7], after[7], after[9]) != (2 * STREAM_WIN_N, 0,
+                                           STREAM_WIN_N):
+        raise AssertionError(f"streaming tumbling(2) expiry: key 7 "
+                             f"{before[7]} -> {after[7]}, key 9 {after[9]}")
+    windows["tumbling_expiry"] = {"key7_before": int(before[7]),
+                                  "key7_after": int(after[7]),
+                                  "key9_after": int(after[9])}
+    out["windows"] = windows
+    log(f"streaming windows: {windows}")
+
+    batch = tuple(a[:STREAM_CAP] for a in items)  # (d)
+    svc = serve(apps.KMeans, STREAM_CAP)
+    svc.ingest(batch)
+    torch.cuda.synchronize()
+    s0 = pc.stats_snapshot()
+    times = []
+    for _ in range(STREAM_STEADY_INGESTS):
+        t0 = time.perf_counter()
+        svc.ingest(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    delta = {k: v - s0[k] for k, v in pc.stats_snapshot().items()}
+    if any(delta[k] for k in ("derives", "autotunes", "probes", "compiles")):
+        raise AssertionError(f"streaming steady state re-staged: {delta}")
+    med = float(np.median(times))
+    mr = MapReduce(apps.KMeans())
+    mr.lower(batch).compile()
+    s1 = pc.stats_snapshot()
+    svc2 = serve(apps.KMeans, STREAM_CAP)
+    if ("compiled-cache: hit" not in svc2.explain()
+            or pc.stats_snapshot()["compiles"] != s1["compiles"]):
+        raise AssertionError(f"streaming: a second service compiled "
+                             f"again:\n{svc2.explain()}")
+    out["steady"] = {
+        "ingests": STREAM_STEADY_INGESTS, "pairs_per_ingest": STREAM_CAP,
+        "ingest_ms_p50": med, "ingest_ms_p99": float(np.percentile(times,
+                                                                   99)),
+        "ingest_ms_min": float(min(times)),
+        "pairs_per_s": STREAM_CAP / (med / 1e3),
+        "run_ms": wall_ms(lambda: mr.run(batch)),
+        "host_syncs_per_ingest": host_syncs(lambda: svc.ingest(batch)),
+        "profile": profile_fn(lambda: svc.ingest(batch), med),
+        "stats_delta": delta, "second_service": "hit"}
+    log(f"streaming steady state: {out['steady']}\n{svc2.explain()}")
+
+    svc = serve(apps.KMeans, STREAM_WIN_N, window=sliding(4, 1))  # (e)
+    q = IngestionQueue(svc, maxsize=4)
+    producer = threading.Thread(target=lambda: [
+        q.put(window_batch(items, i), timeout=120.0)
+        for i in range(STREAM_QUEUE_BATCHES)], daemon=True)
+    producer.start()
+    deadline = time.monotonic() + 300.0
+    seen, snap_ms = [], []
+    while (svc.batch_id < STREAM_QUEUE_BATCHES
+           and time.monotonic() < deadline):
+        if svc.batch_id == 0:
+            time.sleep(0.001)
+            continue
+        t0 = time.perf_counter()
+        snap = svc.snapshot()
+        covered = int(snap.counts.sum())  # waits for the snapshot's work
+        snap_ms.append((time.perf_counter() - t0) * 1e3)
+        if covered != min(snap.batch_id, 4) * STREAM_WIN_N:
+            raise AssertionError(f"streaming snapshot under ingestion: "
+                                 f"{covered} points at batch "
+                                 f"{snap.batch_id}")
+        seen.append(snap.batch_id)
+    producer.join(timeout=120.0)
+    q.close()
+    final = svc.snapshot()
+    if (producer.is_alive() or final.batch_id != STREAM_QUEUE_BATCHES
+            or seen != sorted(seen) or not seen
+            or int(final.counts.sum()) != 4 * STREAM_WIN_N):
+        raise AssertionError(f"streaming queue: final batch "
+                             f"{final.batch_id}, generations {seen}")
+    out["queue"] = {"batches": STREAM_QUEUE_BATCHES, "snapshots": len(seen),
+                    "generations_seen": len(set(seen)),
+                    "snapshot_ms_p50": float(np.median(snap_ms)),
+                    "snapshot_ms_p99": float(np.percentile(snap_ms, 99)),
+                    "snapshot_ms_includes": "the snapshot's merge and "
+                    "finalize and the ingest work queued before it on "
+                    "the same stream (ends in a sync on counts.sum())",
+                    "all_consistent": True}
+    log(f"streaming queue: {out['queue']}")
+
+    restart = {}  # (f)
+    for label, make in (("kmeans", apps.KMeans),
+                        ("bounding_box", apps.BoundingBox)):
+        with tempfile.TemporaryDirectory() as d:
+            def build():
+                return serve(make, STREAM_WIN_N, window=sliding(8, 2),
+                             ckpt_dir=d, ckpt_every=4)
+            a = build()
+            for i in range(12):
+                a.ingest(window_batch(items, i))
+            want = a.snapshot()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = a.checkpoint()
+            ckpt_ms = (time.perf_counter() - t0) * 1e3
+            b = build()
+            t0 = time.perf_counter()
+            if b.restore(step=8) != 8:
+                raise AssertionError("streaming restore: step 8 expected")
+            torch.cuda.synchronize()
+            restore_ms = (time.perf_counter() - t0) * 1e3
+            for i in range(8, 12):
+                b.ingest(window_batch(items, i))
+            c = build()
+            if c.restore() != 12:
+                raise AssertionError("streaming restore: step 12 expected")
+            if not (same_bits(b.snapshot(), want)
+                    and same_bits(c.snapshot(), want)):
+                raise AssertionError(f"streaming {label} restore: other "
+                                     f"bits than the unfailed service")
+            restart[label] = {
+                "checkpoint_ms": ckpt_ms, "restore_ms": restore_ms,
+                "checkpoint_bytes": os.path.getsize(
+                    os.path.join(path, "arrays.npz")),
+                "bits_equal": True}
+    out["restart"] = restart
+    log(f"streaming restart: {restart}")
+    log(json.dumps({"streaming": out}))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2462,8 +2820,15 @@ def main() -> int:
     hinted = cost_model_on_card(card)
     serve = main_path_serve()
     staged_on_card(card, items, first_plan_ms)
+    streaming = streaming_on_card(card, pts, assign, items)
 
     rows = kernel_rows(rng, launches_add, launches_dense)
+    for row in rows:  # B1, B2: their launches on the streaming path too
+        row["streaming_launches"] = {
+            label: run["launches"]
+            for label, run in streaming["parity"].items()
+            if (row["name"] == "chunk_monoid_fold")
+            == (label == "bounding_box")}
     launches_sort = {name: sum(run[2][name] for run in sort_runs.values())
                      for name in ("radix_partition", "radix_partition_multi",
                                   "segment_reduce")}

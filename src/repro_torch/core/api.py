@@ -42,9 +42,14 @@ without a card and without ``device="cpu"`` the constructor raises.
 ``use_kernels`` (default: on when the device is CUDA) routes the folds
 through the hand-written kernels.  All four flows run: stream, sort,
 combine and reduce (the paper's baseline, also the ``flow="auto"`` choice
-for a reducer the optimizer cannot turn into a combiner).  The streaming,
-distributed and resilient modes are not ported yet (ROADMAP A13, A11,
-A12).
+for a reducer the optimizer cannot turn into a combiner).
+
+Long-lived serving: ``MapReduce(app, streaming=True).serve(...)`` stages
+the plan at mode="streaming" into a
+:class:`repro_torch.streaming.MapReduceService`: micro-batches fold into
+persistent holder tables, with windows, live snapshots and checkpointed
+warm restarts.  The distributed and resilient modes are not ported yet
+(ROADMAP A11, A12).
 """
 
 from __future__ import annotations
@@ -105,9 +110,8 @@ def make_app(map_fn: Callable, reduce_fn: Callable, **attrs) -> MapReduceApp:
 
 Emitter = eng.Emitter
 
-#: the ROADMAP item that ports each mode other than "local"
-MODE_ITEMS = {"streaming": "A13 (streaming)",
-              "distributed": "A11 (distribution)",
+#: the ROADMAP item that ports each mode not ported yet
+MODE_ITEMS = {"distributed": "A11 (distribution)",
               "resilient": "A12 (resilience)"}
 
 
@@ -154,10 +158,15 @@ def _resolve_options(options: ExecutionOptions | None, legacy: dict, *,
 
 @dataclasses.dataclass
 class MapReduceResult:
+    """The result record of every entry point: ``run()``, a compiled call
+    and ``MapReduceService.snapshot()``, which also sets ``batch_id``."""
+
     keys: torch.Tensor  # [K] = arange(K)
     values: Any  # [K, ...]
     counts: torch.Tensor  # [K]; 0 == key never emitted
     plan: ExecutionPlan | None = None
+    #: micro-batches folded in, when the result is a service snapshot
+    batch_id: int | None = None
 
     @property
     def diagnostics(self) -> tuple[str, ...]:
@@ -199,6 +208,10 @@ class MapReduce:
     running the optimizer (``cache=False`` opts out).  ``explain()`` shows
     the decision, the cost model's ranking when a hint enabled it, and the
     plan cache's outcome.
+
+    ``streaming=True`` plans for continuous ingestion: the flow is pinned
+    to "stream" and a combiner must be derivable; :meth:`serve` then
+    stages the plan into a long-lived ``MapReduceService``.
     """
 
     def __init__(self, app: MapReduceApp, *, flow: str = "auto",
@@ -210,7 +223,8 @@ class MapReduce:
                  n_pairs_hint: int | None = None,
                  autotune_probe: bool = False,
                  cache: bool = True,
-                 device=None):
+                 device=None,
+                 streaming: bool = False):
         if app.key_space <= 0:
             raise ValueError("app.key_space must be positive")
         self.device = resolve_device(device)
@@ -223,7 +237,7 @@ class MapReduce:
             n_pairs_hint=n_pairs_hint, use_kernels=self.use_kernels,
             combine_impl=combine_impl, chunk_pairs=stream_chunk_pairs,
             key_block=stream_key_block, autotune_probe=autotune_probe,
-            device=self.device)
+            device=self.device, streaming=streaming)
         entry = pc.plan_get(self._plan_key) if cache else None
         if entry is not None:
             # a fresh plan instance, so that run-time diagnostics never
@@ -248,7 +262,7 @@ class MapReduce:
         self.plan = plan_execution(app, flow=flow,
                                    trust_semantics=trust_semantics,
                                    n_pairs_hint=n_pairs_hint,
-                                   device=self.device)
+                                   device=self.device, streaming=streaming)
         self.tiling = None
         if self.plan.flow == "combine":
             self._combine_diagnostics()
@@ -325,8 +339,9 @@ class MapReduce:
               mode: str | None = None) -> "Lowered":
         """Stage 1: bind this plan to an item spec (the shapes and dtypes
         of ``items``: tensors, numpy arrays or ``plan_cache.TensorSpec``
-        leaves).  ``mode`` is "local"; the other modes raise, naming the
-        ROADMAP item that ports them."""
+        leaves).  ``mode`` is "local" or "streaming" (the service's ingest,
+        :meth:`serve`); the other modes raise, naming the ROADMAP item
+        that ports them."""
         opts = options if options is not None else ExecutionOptions()
         return Lowered(self, pc.items_spec_of(items), opts,
                        mode=_infer_mode(mode))
@@ -340,6 +355,31 @@ class MapReduce:
         return self.lower(items, options=opts, mode="local").optimize(
         ).compile()(items, n_valid=n_valid)
 
+    def serve(self, *, batch_capacity: int, window=None,
+              options: ExecutionOptions | None = None, item_spec=None,
+              ckpt_dir: str | None = None, ckpt_every: int = 0,
+              keep_ckpts: int = 3, retry_policy=None):
+        """Stage this plan into a long-lived
+        :class:`repro_torch.streaming.MapReduceService`.
+
+        The staged path runs once (``lower().optimize().compile()`` at
+        mode="streaming"); each ``service.ingest(items)`` then folds a
+        micro-batch of up to ``batch_capacity`` items into the persistent
+        holder tables, with no re-planning, re-tuning or re-compiling.
+        ``window`` (a :class:`repro_torch.streaming.Window`) bounds the
+        aggregation to the trailing micro-batches; ``ckpt_dir`` /
+        ``ckpt_every`` checkpoint the tables for warm restarts.
+        ``item_spec`` (one item's ``plan_cache.TensorSpec`` pytree, or a
+        tensor of one item) stages eagerly, which ``restore()`` on a fresh
+        service needs; without it the first ingest stages."""
+        from repro_torch.streaming import MapReduceService
+
+        return MapReduceService(
+            self, batch_capacity=batch_capacity, window=window,
+            options=options, item_spec=item_spec, ckpt_dir=ckpt_dir,
+            ckpt_every=ckpt_every, keep_ckpts=keep_ckpts,
+            retry_policy=retry_policy)
+
     def explain(self) -> str:
         return self.plan.explain()
 
@@ -347,6 +387,8 @@ class MapReduce:
 def _infer_mode(mode: str | None) -> str:
     if mode is None or mode == "local":
         return "local"
+    if mode == "streaming":
+        return mode
     if mode in MODE_ITEMS:
         raise NotImplementedError(
             f"mode={mode!r} is not ported to repro_torch yet (ROADMAP "
@@ -435,6 +477,8 @@ class Optimized:
 
     def _build(self) -> pc.CompiledEntry:
         mr = self.mr
+        if self.mode == "streaming":
+            return self._build_streaming()
         pc.STATS.compiles += 1
         run = eng.LocalRun(mr.app, mr.plan.flow, mr.plan.spec,
                            device=mr.device, plan=mr.plan,
@@ -453,6 +497,37 @@ class Optimized:
             torch.cuda.synchronize(mr.device)
             peak = int(torch.cuda.max_memory_allocated(mr.device))
         return pc.CompiledEntry(executable=run, mode=self.mode,
+                                warmup_peak_bytes=peak)
+
+    def _build_streaming(self) -> pc.CompiledEntry:
+        """The ingest of micro-batches of up to ``n_bucket`` items
+        (``engine.build_stream_ingest``) and its collector; on the card,
+        one warm-up ingest of zeros loads the kernels' libraries."""
+        mr = self.mr
+        if mr.plan.flow != "stream":
+            raise ValueError(
+                f"streaming mode requires the stream flow (plan chose "
+                f"{mr.plan.flow!r}); construct MapReduce(app, "
+                f"streaming=True) or flow='stream'")
+        knobs = mr._knobs(self.options)
+        ingest = eng.build_stream_ingest(
+            mr.app, mr.plan.spec, batch_items=self.n_bucket,
+            chunk_pairs=knobs["chunk_pairs"], device=mr.device,
+            use_kernels=knobs["use_kernels"], key_block=knobs["key_block"])
+        comb = ingest.combiner
+        peak = None
+        if mr.device.type == "cuda":
+            zeros = pytree.tree_map(
+                lambda a: torch.zeros(tuple(a.shape), dtype=a.dtype,
+                                      device=mr.device), self.items_spec)
+            torch.cuda.synchronize(mr.device)
+            torch.cuda.reset_peak_memory_stats(mr.device)
+            with torch.no_grad():
+                ingest(comb.init_state(), zeros)
+            torch.cuda.synchronize(mr.device)
+            peak = int(torch.cuda.max_memory_allocated(mr.device))
+        pc.STATS.compiles += 1
+        return pc.CompiledEntry(executable=ingest, mode="streaming",
                                 warmup_peak_bytes=peak)
 
     def explain(self) -> str:
@@ -491,6 +566,11 @@ class Compiled:
         """Run over ``items``: N rows (the bound count), or the bucket's
         rows padded by the caller, of which the first N (or ``n_valid``)
         are folded."""
+        if self.mode == "streaming":
+            raise TypeError(
+                "a streaming-mode Compiled is an incremental ingest, not a "
+                "batch job — drive it through MapReduceService "
+                "(MapReduce.serve(...)) or via init_state()/ingest_state()")
         items = to_device(items, self._mr.device)
         n = eng.items_length(items)
         if n not in (self.n_items, self.n_bucket):
@@ -503,6 +583,40 @@ class Compiled:
             keys, values, counts = self._entry.executable(
                 items, n_valid, sinks=(self._mr.plan, self.plan))
         return MapReduceResult(keys, values, counts, plan=self.plan)
+
+    # -- the streaming-mode surface (driven by MapReduceService) -------------
+
+    @property
+    def collector(self):
+        """The streaming ingest's collector (``StreamCombiner``), which
+        makes, reads and finalizes the carried state (streaming mode)."""
+        if self.mode != "streaming":
+            raise TypeError(f"a {self.mode}-mode Compiled carries no "
+                            f"streaming state")
+        return self._entry.executable.combiner
+
+    def init_state(self):
+        """A fresh carried collector state (streaming mode)."""
+        return self.collector.init_state()
+
+    def ingest_state(self, state, items, n_valid: int | None = None):
+        """The state after folding the first ``n_valid`` of ``items`` (at
+        most ``n_bucket`` rows, none padded) into ``state``, which is left
+        as it was (streaming mode).  Grad mode is thread-local, so this
+        enters ``torch.no_grad()`` itself: an ingestion worker thread
+        records no graph either."""
+        items = to_device(items, self._mr.device)
+        with torch.no_grad():
+            return self._entry.executable(state, items, n_valid)
+
+    def state_tables(self, state):
+        """Un-finalized ``(tables, counts)`` of a carried state."""
+        return self.collector.tables_counts(state)
+
+    def finalize_state(self, state):
+        """Finalized ``Grouped(keys, values, counts)`` of a carried state."""
+        with torch.no_grad():
+            return self.collector.finalize(state)
 
     def _shape(self) -> dict:
         app, t, spec = self._mr.app, self._mr.tiling, self._mr.plan.spec
@@ -517,7 +631,10 @@ class Compiled:
     def as_text(self) -> str:
         """The launch plan of the bound shape: the chunk loop and each
         kernel with its plan (``ops.fold_plan``,
-        ``radix_partition.partition_passes``)."""
+        ``radix_partition.partition_passes``); in streaming mode, that of
+        one full micro-batch (the batch run's over ``n_bucket`` items)."""
+        if self.mode == "streaming":
+            return self._entry.executable.launch_plan()
         return self._entry.executable.launch_plan(self.n_items)
 
     def memory_analysis(self) -> dict:

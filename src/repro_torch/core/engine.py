@@ -3,7 +3,8 @@ fold, and the single-shot combine and reduce flows.
 
 Counterpart of the local part of ``repro/core/engine.py`` (``Emitter``,
 ``map_phase``, ``_fold_items_chunked``, ``stream_local_tables``,
-``sort_local_tables``, ``run_local``).  The reference scans the chunks
+``sort_local_tables``, ``run_local``, ``build_stream_ingest``,
+``merge_partial_tables``).  The reference scans the chunks
 with ``lax.scan``; here the chunk loop is a Python loop, so chunks are
 large (see ``autotune``) and each one is a handful of launches.  The
 combine and reduce flows map every item at once and hand the whole pair
@@ -433,6 +434,142 @@ def sort_local_tables(app, spec, items, *, chunk_pairs: int, device,
                    use_kernels=use_kernels, chunk_pairs=chunk_pairs,
                    bucket_size=bucket_size, level_fanouts=level_fanouts)
     return run.tables(items, n_valid)[1:]
+
+
+class StreamIngest:
+    """The streaming service's incremental fold, built by
+    :func:`build_stream_ingest`.  ``ingest(state, items, n_valid)`` maps
+    and folds the first ``n_valid`` of ``items`` (at most ``batch_items``
+    rows) into the carried ``state`` and returns the new state;
+    ``combiner`` is its collector, which makes, reads and finalizes the
+    state, and ``run`` the batch run it was taken from.
+
+    The collector is the one a batch run over chunks of ``batch_items``
+    items builds (:meth:`LocalRun.combiner`), and the fold is the batch
+    run's chunk loop (:func:`fold_items_chunked`) seeded with ``state``.
+    So N ingests of full micro-batches give the bits of one batch run
+    whose chunk is the micro-batch.  A short batch is not padded: the
+    reference pads it and masks the tail to the sentinel key, but a sum's
+    lane order depends on the pairs a fold call sees (ROADMAP C.26), so
+    here the loop stops at ``n_valid``.  The state passed in is never
+    written through (every fold returns new tensors)."""
+
+    def __init__(self, app, spec, *, batch_items: int, chunk_pairs: int,
+                 device, use_kernels: bool = False,
+                 key_block: int | None = None):
+        self.app = app
+        self.batch_items = batch_items
+        self.run = LocalRun(app, "stream", spec, device=device,
+                            use_kernels=use_kernels, chunk_pairs=chunk_pairs,
+                            key_block=key_block)
+        self.chunk_items = chunk_items_of(app, batch_items, chunk_pairs)
+        self.combiner = self.run.combiner(self.chunk_items)
+
+    def __call__(self, state, items, n_valid: int | None = None):
+        n = items_length(items)
+        if n > self.batch_items:
+            raise ValueError(
+                f"micro-batch of {n} items exceeds batch_capacity="
+                f"{self.batch_items}; split it or raise the capacity")
+        return fold_items_chunked(self.app, self.combiner, items,
+                                  self.chunk_items,
+                                  n_valid=valid_items(items, n_valid),
+                                  state=state)
+
+    def launch_plan(self) -> str:
+        """The launches of one full micro-batch (the batch run's over
+        ``batch_items`` items)."""
+        return self.run.launch_plan(self.batch_items)
+
+
+def build_stream_ingest(app, spec, *, batch_items: int, chunk_pairs: int,
+                        device, use_kernels: bool = False,
+                        key_block: int | None = None) -> StreamIngest:
+    """The streaming service's ingest (:class:`StreamIngest`): the
+    reference's ``(combiner, ingest)`` pair as one object, whose
+    ``combiner`` is the collector and whose call is the ingest."""
+    return StreamIngest(app, spec, batch_items=batch_items,
+                        chunk_pairs=chunk_pairs, device=device,
+                        use_kernels=use_kernels, key_block=key_block)
+
+
+# ---------------------------------------------------------------------------
+# Merging partial tables (window slots; A11 and A12 reuse these)
+# ---------------------------------------------------------------------------
+
+
+def _merge_tables_host(spec, tables_seq, counts_seq):
+    """Un-finalized merge of partial holder tables, in sequence order:
+    per leaf ``Monoid.dense_reduce`` over the stacked partials (the first
+    partial's table where a monoid has no dense reduction), else
+    ``spec.merge`` folded left to right."""
+    leaves_seq = [pytree.tree_leaves(t) for t in tables_seq]
+    treedef = pytree.tree_structure(tables_seq[0])
+    if (spec.monoids is not None
+            and len(spec.monoids) == len(leaves_seq[0])):
+        merged = []
+        for i, mono in enumerate(spec.monoids):
+            stack = torch.stack([ls[i] for ls in leaves_seq])
+            red = (mono.dense_reduce(stack, 0)
+                   if mono.dense_reduce is not None else stack[0])
+            merged.append(red.to(leaves_seq[0][i].dtype))
+        return pytree.tree_unflatten(merged, treedef)
+    tables, na = tables_seq[0], counts_seq[0]
+    for tab, nb in zip(tables_seq[1:], counts_seq[1:]):
+        tables = torch.func.vmap(spec.merge)(tables, tab, na, nb)
+        na = na + nb
+    return tables
+
+
+def _reapply_merge(app, g_vals, g_cnt):
+    """The Hadoop reapply contract over stacked finalized partials:
+    values ``[S, K, ...]``, counts ``[S, K]``.  Per key, the partials with
+    a count come first (in partial order), the rest hold ``pad_value``,
+    and ``app.reduce`` runs over them with the number of such partials as
+    its count."""
+    cnt_t = g_cnt.T  # [K, S]
+    order = torch.argsort((cnt_t == 0).to(torch.int8), dim=1, stable=True)
+    live = torch.take_along_dim(cnt_t, order, dim=1) > 0
+
+    def gather(v):
+        v = v.movedim(0, 1)  # [K, S, ...]
+        tail = (1,) * (v.ndim - 2)
+        got = torch.take_along_dim(v, order.reshape(order.shape + tail),
+                                   dim=1)
+        pad = torch.tensor(app.pad_value, dtype=v.dtype, device=v.device)
+        return torch.where(live.reshape(live.shape + tail), got, pad)
+
+    vals = pytree.tree_map(gather, g_vals)
+    nvalid = (cnt_t > 0).sum(dim=1).to(torch.int32)
+    keys = torch.arange(app.key_space, dtype=torch.int32,
+                        device=g_cnt.device)
+    merged = torch.func.vmap(app.reduce)(keys, vals, nvalid)
+    return keys, merged, g_cnt.sum(dim=0).to(g_cnt.dtype)
+
+
+def merge_partial_tables(app, spec, tables_seq, counts_seq):
+    """Merge partial holder tables, first to last, and finalize:
+    ``(keys, values, counts)``.
+
+    The derived combiner is a monoid, so partials folded apart (window
+    slots; in A11 and A12, shards) merge into the tables of one fold over
+    all their pairs: exactly for counts, integer sums and max/min, and
+    within rounding for float sums, whose merge adds the partial sums in
+    another order than one fold would.  Per-leaf monoid reductions over
+    the stacked partials, else ``spec.merge``, else the reapply
+    contract."""
+    counts_stack = torch.stack(counts_seq)  # [S, K]
+    total = counts_stack.sum(dim=0).to(counts_seq[0].dtype)
+    if spec.merge is not None:
+        tables = _merge_tables_host(spec, tables_seq, counts_seq)
+        out = col.finalize_tables(spec, tables, total, total.shape[0])
+        return out.keys, out.values, out.counts
+    if spec.reapply_ok:
+        finals = [col.finalize_tables(spec, t, c, app.key_space).values
+                  for t, c in zip(tables_seq, counts_seq)]
+        g_vals = pytree.tree_map(lambda *vs: torch.stack(vs), *finals)
+        return _reapply_merge(app, g_vals, counts_stack)
+    raise ValueError("combiner has no cross-partial merge strategy")
 
 
 # ---------------------------------------------------------------------------

@@ -52,6 +52,16 @@ class Derivation:
     def recommended_flow(self) -> str:
         return "stream" if self.spec is not None else "reduce"
 
+    @property
+    def mergeable_partials(self) -> bool:
+        """Whether two partial tables folded apart can be merged exactly
+        afterwards: ``spec.merge`` or the Hadoop reapply contract.  A
+        windowed streaming service merges its window slots' partials at
+        query time, so it needs this; without it a service can still
+        aggregate globally (one carried table)."""
+        return self.spec is not None and (self.spec.merge is not None
+                                          or self.spec.reapply_ok)
+
 
 def derive_combiner(reduce_fn: Callable, key_spec: C.ValueSpec,
                     value_spec: C.ValueSpec, *, max_len: int = 8,

@@ -8,6 +8,7 @@ flow (an error without a combiner), ``"reduce"`` the baseline.  With a
 workload hint (``n_pairs_hint``) ``flow="auto"`` ranks the stream flow
 against the sort flow with the cost model (``core/cost_model.py``), in the
 profile of the run's device, and records the report on the plan.
+``streaming=True`` pins the stream flow for the streaming service.
 """
 
 from __future__ import annotations
@@ -136,15 +137,28 @@ def flow_cost_report(app, spec: C.CombinerSpec, n_pairs_hint: int, *,
 def plan_execution(app, *, flow: str = "auto",
                    trust_semantics: bool = False,
                    n_pairs_hint: int | None = None,
-                   device="cuda") -> ExecutionPlan:
+                   device="cuda", streaming: bool = False) -> ExecutionPlan:
     """Pick the execution flow: derive (or take the manual) combiner and
     run the stream flow with it, the forced optimized flow, or the reduce
     flow when forced or when no combiner can be derived.  Under
     ``flow="auto"`` with ``n_pairs_hint`` the cost model ranks the stream
     and sort flows in the profile of ``device`` and the cheapest wins; the
-    report lands on ``plan.cost``."""
+    report lands on ``plan.cost``.
+
+    ``streaming=True`` plans for continuous ingestion (the
+    ``MapReduceService`` path): the flow is pinned to "stream", the only
+    flow whose carried tables take micro-batches one at a time, and a
+    combiner must be derivable (an unbounded stream cannot be buffered
+    for the reduce flow); ``n_pairs_hint`` does not move it."""
     if flow not in FLOWS:
         raise ValueError(f"unknown flow {flow!r}")
+    if streaming:
+        if flow not in ("auto", "stream"):
+            raise ValueError(
+                f"streaming execution requires the stream flow (its carried "
+                f"holder tables are what micro-batches fold into); got "
+                f"flow={flow!r}")
+        flow = "stream"
     if flow == "reduce":
         return ExecutionPlan("reduce", None, None, reason="forced by user")
     spec = getattr(app, "manual_combiner", None)
@@ -157,6 +171,11 @@ def plan_execution(app, *, flow: str = "auto",
         derived = derive_combiner(app.reduce, KEY_SPEC, app.value_spec,
                                   trust_semantics=trust_semantics)
         if not derived.combinable:
+            if streaming:
+                raise ValueError(
+                    f"streaming execution needs a derived combiner (an "
+                    f"unbounded stream cannot be buffered for the reduce "
+                    f"flow) but derivation failed: {derived.failure}")
             if flow != "auto":
                 raise ValueError(f"{flow} flow forced but derivation "
                                  f"failed: {derived.failure}")
@@ -164,6 +183,8 @@ def plan_execution(app, *, flow: str = "auto",
                                  reason=f"not combinable: {derived.failure}")
         reason = f"derived ({derived.strategy})"
     spec = derived.spec
+    if streaming:
+        reason += "; streaming pins the stream flow"
     if flow != "auto":
         return ExecutionPlan(flow, derived, spec, reason=reason)
     if n_pairs_hint is not None:

@@ -293,18 +293,20 @@ def _manual_sig(app) -> str:
 def plan_key(app, *, flow: str, trust_semantics: bool,
              n_pairs_hint: int | None, use_kernels: bool,
              combine_impl: str, chunk_pairs, key_block,
-             autotune_probe: bool, device) -> str:
+             autotune_probe: bool, device, streaming: bool = False) -> str:
     """Key of the plan stage (derivation, flow choice, tiling): everything
     ``MapReduce`` resolves before it sees item shapes, with the device type
     (the ``cpu`` and ``cuda`` cost profiles and tilings plan differently),
-    the resolved ``use_kernels``, a manual combiner and
-    :func:`planner_sig`."""
+    the resolved ``use_kernels``, a manual combiner, the streaming pin
+    (a streaming plan and a local one of the same app never share an
+    entry) and :func:`planner_sig`."""
     return _digest(
         "plan", reduce_fingerprint(app), _app_attr_sig(app),
         f"flow={flow}", f"trust={trust_semantics}",
         f"hint={n_pairs_hint}", f"kern={use_kernels}",
         f"impl={combine_impl}", f"chunk={chunk_pairs}",
         f"blk={key_block}", f"probe={autotune_probe}",
+        f"streaming={streaming}",
         f"dev={torch.device(device).type}", f"manual={_manual_sig(app)}",
         planner_sig())
 
@@ -340,10 +342,13 @@ class PlanEntry:
 
 @dataclasses.dataclass
 class CompiledEntry:
-    """The cached compile stage: the prepared run."""
+    """The cached compile stage: the prepared run (mode "local" and
+    "pipeline") or the ingest (mode "streaming", an
+    ``engine.StreamIngest``, whose ``combiner`` is the reference's
+    ``aux``)."""
 
     executable: Any
-    mode: str  # "local" | "pipeline"
+    mode: str  # "local" | "pipeline" | "streaming"
     #: the warm-up call's ``torch.cuda.max_memory_allocated`` (card only)
     warmup_peak_bytes: int | None = None
 

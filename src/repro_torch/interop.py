@@ -17,10 +17,11 @@ in one of three layouts, and so do the port's
 port's state for a given combiner, converting between the fused and the
 per-leaf layouts when the two sides chose differently; a fold seeded with
 it continues exactly as the reference's next fold would.
-:func:`state_to_repro` goes back.  Holder dtypes follow the port's
-combiner (torch sums integers into int64, the reference into int32).  The
-combine and reduce flows keep no state between runs, so there is nothing
-of theirs to carry.
+:func:`state_to_repro` goes back.  :func:`service_state_from_repro`
+carries a streaming service's checkpoint tree, slot by slot.  Holder
+dtypes follow the port's combiner (torch sums integers into int64, the
+reference into int32).  The combine and reduce flows keep no state
+between runs, so there is nothing of theirs to carry.
 
 For the models, :func:`params_from_repro` turns the reference's parameter
 pytree (numpy leaves, layers stacked ``[L, ...]``) into the port's, key for
@@ -90,6 +91,31 @@ def state_to_repro(comb: CarriedTables, state, *, fused: bool):
         return np.concatenate(cols + [counts.astype(np.float32)[:, None]],
                               axis=1)
     return pytree.tree_unflatten(leaves, comb._holder_treedef), counts
+
+
+def service_state_from_repro(svc, tree) -> dict:
+    """The port's checkpoint tree for the streaming service ``svc`` (staged,
+    so its collector is known) from a reference service's tree
+    ``{"slots": [state, ...], "meta": [batch_id, n_items]}``, given as
+    numpy arrays or as tensors (``ckpt.restore`` of the reference's
+    checkpoint into that structure).  Each slot crosses through
+    :func:`state_from_repro`, which converts between the fused and the
+    per-leaf layouts and widens int32 tables to the port's int64.  Save
+    the result with ``repro_torch.checkpoint.ckpt.save`` under
+    ``ckpt.service_state_dir(d)`` and ``svc.restore(d)`` resumes the
+    reference service's state."""
+    from repro_torch.checkpoint import ckpt
+
+    comb = svc.collector
+    leaves, _ = ckpt.flatten(tree)
+    host = ckpt.unflatten(tree, [
+        x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+        for x in leaves])
+    if len(host["slots"]) != svc.n_slots:
+        raise ValueError(f"the tree holds {len(host['slots'])} window "
+                         f"slots, the service {svc.n_slots}")
+    return {"slots": [state_from_repro(comb, s) for s in host["slots"]],
+            "meta": np.asarray(host["meta"], np.int64)}
 
 
 def _tensor_from_numpy(x, device) -> torch.Tensor:

@@ -34,7 +34,10 @@ for name in ("repro_torch.core.cost_model", "repro_torch.core.plan_cache",
              "repro_torch.models.attention", "repro_torch.models.transformer",
              "repro_torch.models.registry", "repro_torch.configs",
              "repro_torch.configs.llama3_8b",
-             "repro_torch.serving.serve_step", "repro_torch.launch.serve"):
+             "repro_torch.serving.serve_step", "repro_torch.launch.serve",
+             "repro_torch.streaming", "repro_torch.streaming.service",
+             "repro_torch.streaming.ingest", "repro_torch.streaming.windows",
+             "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt"):
     assert name in names, name
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))

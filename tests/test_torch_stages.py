@@ -236,9 +236,18 @@ def test_calls_return_fresh_tensors(items):
                                        ("distributed", "A11"),
                                        ("resilient", "A12")])
 def test_other_modes_name_their_roadmap_item(mode, item, items):
+    """The modes still to port raise naming their ROADMAP item; streaming
+    (A13, ported) lowers and compiles an ingest, which refuses a batch
+    call."""
     mr = T.MapReduce(wc_app(), device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        mr.lower(items, mode=mode)
+    if mode == "streaming":
+        comp = mr.lower(items, mode=mode).compile()
+        assert comp.mode == "streaming"
+        with pytest.raises(TypeError, match="MapReduceService"):
+            comp(items)
+    else:
+        with pytest.raises(NotImplementedError, match=item):
+            mr.lower(items, mode=mode)
     with pytest.raises(ValueError, match="unknown execution mode"):
         mr.lower(items, mode="warp")
 
