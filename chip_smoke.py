@@ -1913,15 +1913,37 @@ COST_GROUPS = {"fold": ("lane_fold::", "keyed_fold::"),
                "partition": ("radix::",), "segment": ("segred::",)}
 #: a measured winner by this factor or more must be the model's choice
 COST_GATE_MARGIN = 2.0
+#: timed runs of each flow at a swept shape, taken in turn (median)
+COST_REPS = 9
 
 
-def cost_run(mr, items, *, label, k, n, d, value_bytes, lmax) -> dict:
-    """One refit row: the run's median wall (:func:`run_ms`), its device
-    time by kernel group (torch.profiler) and the units the ``cuda``
-    profile prices for it (``cost_model.cuda_work``)."""
+def interleaved_ms(mrs: dict, items, reps: int = COST_REPS) -> dict:
+    """Median wall milliseconds of ``mr.run(items)`` for each ``mr`` in
+    ``mrs`` (by label), after a warm-up run of each.  The runs take turns,
+    ``reps`` rounds of one run each, so that a stretch of load on the
+    host's shared cores falls on every flow alike rather than on the
+    flow timed while it lasts."""
+    import torch
+    times = {label: [] for label in mrs}
+    for mr in mrs.values():
+        mr.run(items)
+    torch.cuda.synchronize()
+    for _ in range(reps):
+        for label, mr in mrs.items():
+            t0 = time.perf_counter()
+            mr.run(items)
+            torch.cuda.synchronize()
+            times[label].append((time.perf_counter() - t0) * 1e3)
+    return {label: float(np.median(t)) for label, t in times.items()}
+
+
+def cost_run(mr, items, wall: float, *, label, k, n, d, value_bytes,
+             lmax) -> dict:
+    """One refit row: the run's median wall ``wall`` (:func:`interleaved_ms`),
+    its device time by kernel group (torch.profiler) and the units the
+    ``cuda`` profile prices for it (``cost_model.cuda_work``)."""
     from repro_torch.core import cost_model as cm
 
-    wall = run_ms(mr, items)
     prof = profile_fn(lambda: mr.run(items), wall, top=0,
                       groups=COST_GROUPS)
     fold_op = ("add" if mr.plan.spec is None or mr.plan.spec.sum_lowerable
@@ -2045,7 +2067,8 @@ def cost_gate(rows: list[dict], plans: dict) -> dict:
 def cost_refit(card: str):
     """Phase 7c(a): time the stream and sort flows of KeyedSum (f32
     weights) at ``COST_KEYS`` x ``COST_PAIRS``, KMeans at 2^24 points and
-    two reduce-flow runs, and refit the ``cuda`` profile from them: the
+    two reduce-flow runs (the flows of a shape timed in turn,
+    :func:`interleaved_ms`), and refit the ``cuda`` profile from them: the
     ``cost_profile`` line gives ``CUDA_COEFF`` beside the refit.  Returns
     the rows, the apps' derived specs, and the KMeans items."""
     import torch
@@ -2058,27 +2081,32 @@ def cost_refit(card: str):
         full, _, _ = sort_items(k)
         for n in COST_PAIRS:
             items = tuple(t[:n // 8] for t in full)
-            for flow in ("stream", "sort"):
-                mr = MapReduce(apps.KeyedSum(k), flow=flow)
-                plans[("keyed_sum", k)] = (apps.KeyedSum(k), mr.plan.spec)
-                rows.append(cost_run(mr, items, label="keyed_sum", k=k, n=n,
-                                     d=1, value_bytes=4, lmax=64))
+            mrs = {flow: MapReduce(apps.KeyedSum(k), flow=flow)
+                   for flow in ("stream", "sort")}
+            plans[("keyed_sum", k)] = (apps.KeyedSum(k),
+                                       mrs["stream"].plan.spec)
+            walls = interleaved_ms(mrs, items)
+            for flow, mr in mrs.items():
+                rows.append(cost_run(mr, items, walls[flow],
+                                     label="keyed_sum", k=k, n=n, d=1,
+                                     value_bytes=4, lmax=64))
         if k == 1 << 14:
             mr = MapReduce(apps.KeyedSum(k), flow="reduce")
             items = tuple(t[:COST_PAIRS[0] // 8] for t in full)
-            rows.append(cost_run(mr, items, label="keyed_sum", k=k,
-                                 n=COST_PAIRS[0], d=1, value_bytes=4,
-                                 lmax=64))
+            rows.append(cost_run(mr, items, run_ms(mr, items),
+                                 label="keyed_sum", k=k, n=COST_PAIRS[0],
+                                 d=1, value_bytes=4, lmax=64))
         del full
     pts, assign, _ = datasets.kmeans_data(np.random.default_rng(1),
                                           points=N_POINTS)
     kitems = (torch.from_numpy(assign).cuda(), torch.from_numpy(pts).cuda())
-    for flow in ("stream", "sort", "reduce"):
-        mr = MapReduce(apps.KMeans(), flow=flow)
-        if flow == "stream":
-            plans[("kmeans", 100)] = (apps.KMeans(), mr.plan.spec)
-        rows.append(cost_run(mr, kitems, label="kmeans", k=100, n=N_POINTS,
-                             d=3, value_bytes=12,
+    mrs = {flow: MapReduce(apps.KMeans(), flow=flow)
+           for flow in ("stream", "sort", "reduce")}
+    plans[("kmeans", 100)] = (apps.KMeans(), mrs["stream"].plan.spec)
+    walls = interleaved_ms(mrs, kitems)
+    for flow, mr in mrs.items():
+        rows.append(cost_run(mr, kitems, walls[flow], label="kmeans", k=100,
+                             n=N_POINTS, d=3, value_bytes=12,
                              lmax=apps.KMeans.max_values_per_key))
     log(json.dumps({"cost_profile": {
         "card": card, "committed": cm.CUDA_COEFF,
