@@ -149,6 +149,33 @@ Phases (each raises on failure, and the script then exits non-zero):
    the restore's ms and bytes.  B1's and B2's rows of the ``kernels``
    line name their launches on this path (``streaming_launches``).
 
+12. distribution (``distributed_on_card``, the ``distributed`` line), on
+   ``LocalMesh(S)``, whose S shards run in turn on the card:
+   ``MapReduce(app).run_distributed(items, mesh=...)`` through the staged
+   path.  KMeans at 2^24 points, stream flow, S = 1, 2, 4: counts exact,
+   centroids against float64 numpy, bit for bit with
+   ``engine.merge_partial_tables`` over the shards' own ``LocalRun``
+   tables, B1 on every shard; key-sharded (``scatter_output``) the same
+   bits.  BoundingBox, S = 4: boxes bit for bit numpy's and the local
+   run's, B2 on every shard.  The KMeans combine flow at S = 4, one-hot
+   (B6) and scatter (B7), as the stream run.  KeyedSum on 2^24 pairs, sort
+   flow, S = 4, K = 2^20 (B3 + B5 on each shard's 2^18 keys) and K = 2^22
+   (B4 + B5 on 2^20): counts exact, sums against float64 numpy, delta bit
+   for bit with raw, the encoded bytes a shard equal to
+   ``roofline.shuffle_wire_bytes``, and the all-to-all's stages timed (the
+   rate behind ``cost_model.CUDA_EXCHANGE_BYTES_PER_S``).  The
+   reference's wire gate at 2^22 pairs over 16 shards (delta <= 0.6x raw).
+   WordCount on zipf text (2^24 tokens, 2^16 words), reduce and sort
+   flows at S = 4, ``skew="off"`` and ``"auto"`` (balanced boundaries,
+   a hot key split on the sort flow): counts exact, off and auto bit for
+   bit, nothing overflows under ``strict``; the default capacity overflows,
+   raises under ``strict`` and otherwise warns into ``plan.diagnostics``.
+   ``ProcessGroupMesh`` over NCCL at world size 1: bit for bit with
+   ``LocalMesh(1)``.  A second ``compile()`` is a cache hit with no
+   derive, tune or compile.  Each run's wall (median of 3), device time
+   and launches a shard; B1-B7's rows of the ``kernels`` line name their
+   launches a shard on this path (``distributed_launches``).
+
 ``run()`` prepares its run on its first call (the staged ``compile()``),
 and on the card that is one warm-up run on zeros, whose launches count:
 the main paths call ``mr.lower(items).compile()`` before they reset the
@@ -2793,6 +2820,438 @@ def streaming_on_card(card: str, pts, assign, items) -> dict:
     return out
 
 
+DIST_SHARDS = (1, 2, 4)
+DIST_KS_KEYS = (1 << 20, 1 << 22)  # K_local 2^18 (B3) and 2^20 (B4) at S = 4
+DIST_WC_TOKENS = 1 << 24
+DIST_WC_VOCAB = 1 << 16
+DIST_WIRE_SHARDS = 16
+DIST_WIRE_PAIRS = 1 << 22
+DIST_WIRE_K = 8192  # the reference's wire rows: span 512 at 16 shards
+DIST_NOTE = ("the S shards of a LocalMesh run in turn on one card: their "
+             "kernels and collectives are on the device, their exchange is a "
+             "copy within the card's memory, not a link between cards")
+
+
+@contextlib.contextmanager
+def per_shard_launches():
+    """Each shard's kernel launches in the block: the launch counters'
+    deltas across every call of the shard bodies' folds (the stream flow's
+    ``LocalRun.tables``, the combine flow's ``_combine_local_tables``, the
+    sort flow's ``_sort_range_tables``, the reduce flow's
+    ``_reduce_range``), one dict a call, in order."""
+    from repro_torch.core import engine as eng
+    from repro_torch.kernels import ops
+
+    seen: list[dict] = []
+    names = ("tables", "_combine_local_tables", "_sort_range_tables",
+             "_reduce_range")
+    owners = (eng.LocalRun, eng, eng, eng)
+    saved = [getattr(o, n) for o, n in zip(owners, names)]
+
+    def wrap(fn):
+        def call(*args, **kwargs):
+            before = ops.launch_counts()
+            out = fn(*args, **kwargs)
+            after = ops.launch_counts()
+            seen.append({k: after[k] - before[k] for k in after
+                         if after[k] != before[k]})
+            return out
+        return call
+
+    for o, n, fn in zip(owners, names, saved):
+        setattr(o, n, wrap(fn))
+    try:
+        yield seen
+    finally:
+        for o, n, fn in zip(owners, names, saved):
+            setattr(o, n, fn)
+
+
+def dist_run(label, mr, items, opts, kernels, shards, *, profile_it=True):
+    """One distributed run of ``mr`` over ``items``: the compiled call
+    (staged first), its per-shard launches (each of ``kernels`` on every
+    shard), the median wall of 3 and its device time.  Returns
+    ``(compiled, result, record)``."""
+    import torch
+
+    comp = mr.lower(items, options=opts).compile()
+    torch.cuda.synchronize()
+    with per_shard_launches() as seen:
+        res = comp(items)
+        torch.cuda.synchronize()
+    if len(seen) != shards:
+        raise AssertionError(f"distributed {label}: {len(seen)} shard folds "
+                             f"for {shards} shards")
+    for name in kernels:
+        got = [s.get(name, 0) for s in seen]
+        if min(got) <= 0:
+            raise AssertionError(f"distributed {label}: {name} did not launch "
+                                 f"on every shard: {got}")
+    rec = {"shards": shards, "launches_per_shard": seen}
+    if profile_it:
+        rec["wall_ms"] = wall_ms(lambda: comp(items))
+        prof = profile_fn(lambda: comp(items), rec["wall_ms"], top=4)
+        rec["device_ms"] = prof["device_ms"]
+        rec["busy_share"] = prof["busy_share"]
+    log(f"distributed {label}: S={shards} launches/shard {seen}"
+        + (f", wall {rec['wall_ms']:.2f} ms, device {rec['device_ms']:.2f} "
+           f"ms" if profile_it else ""))
+    return comp, res, rec
+
+
+def merged_bits(label, mr, comp, items, res, flow, combine_impl="auto"):
+    """The distributed result is ``engine.merge_partial_tables`` over the
+    shards' own partial tables (the stream flow's ``LocalRun.tables`` at
+    the run's tiling, the combine flow's shard fold), bit for bit."""
+    import torch
+    from repro_torch.core import engine as eng
+
+    run = comp._entry.executable
+    blocks = eng.shard_items(items, run.mesh.size)
+    parts = []
+    for b in blocks:
+        if flow == "stream":
+            lr = eng.LocalRun(mr.app, "stream", mr.plan.spec, device="cuda",
+                              use_kernels=True, chunk_pairs=run.chunk_pairs,
+                              key_block=run.key_block)
+            parts.append(lr.tables(b)[1:])
+        else:
+            parts.append(eng._combine_local_tables(
+                mr.app, mr.plan.spec, eng.map_phase(mr.app, b,
+                                                    torch.device("cuda")),
+                combine_impl=combine_impl, use_kernels=True))
+    k, v, c = eng.merge_partial_tables(mr.app, mr.plan.spec,
+                                       [p[0] for p in parts],
+                                       [p[1] for p in parts])
+    if not (torch.equal(res.counts, c) and torch.equal(bits(res.values),
+                                                       bits(v))):
+        raise AssertionError(f"distributed {label}: != merge_partial_tables "
+                             f"over the shards' tables")
+
+
+def dist_kmeans(pts, assign, items, rows: dict, launches: dict) -> None:
+    """KMeans (B1) at S = 1, 2, 4 and key-sharded at 4; BoundingBox (B2);
+    the combine flow, one-hot (B6) and scatter (B7)."""
+    from repro_torch import ExecutionOptions, MapReduce, apps
+    from repro_torch.distributed import LocalMesh
+
+    want_counts, want = kmeans_centroids(pts, assign)
+    boxes = numpy_boxes(pts, assign)
+    replicated = None
+    for S in DIST_SHARDS:
+        mr = MapReduce(apps.KMeans())
+        label = f"kmeans_stream_S{S}"
+        comp, res, rows[label] = dist_run(
+            label, mr, items, ExecutionOptions(mesh=LocalMesh(S)),
+            ["onehot_fold"], S)
+        launches[label] = rows[label]["launches_per_shard"]
+        np.testing.assert_array_equal(res.counts.cpu().numpy(), want_counts)
+        np.testing.assert_allclose(res.values.cpu().numpy(), want,
+                                   rtol=SUM_RTOL, atol=SUM_RTOL)
+        merged_bits(label, mr, comp, items, res, "stream")
+        replicated = res
+    mr = MapReduce(apps.KMeans())
+    comp, res, rec = dist_run(
+        "kmeans_stream_S4_scatter", mr, items,
+        ExecutionOptions(mesh=LocalMesh(4), scatter_output=True),
+        ["onehot_fold"], 4, profile_it=False)
+    if not same_bits(res, replicated):
+        raise AssertionError("distributed KMeans scatter_output != the "
+                             "replicated result")
+    rows["kmeans_stream_S4_scatter"] = {"bits_equal_replicated": True}
+    mr = MapReduce(apps.BoundingBox())
+    local = mr.run(items)
+    comp, res, rows["bbox_stream_S4"] = dist_run(
+        "bbox_stream_S4", mr, items, ExecutionOptions(mesh=LocalMesh(4)),
+        ["chunk_monoid_fold"], 4)
+    launches["bbox_stream_S4"] = rows["bbox_stream_S4"]["launches_per_shard"]
+    if not (np.array_equal(res.values.cpu().numpy().view(np.uint32),
+                           boxes.view(np.uint32))
+            and same_bits(res, local)):
+        raise AssertionError("distributed BoundingBox != numpy / local run")
+    merged_bits("bbox_stream_S4", mr, comp, items, res, "stream")
+    for impl, kernel in (("onehot", "onehot_combine"),
+                         ("scatter", "combine_scatter")):
+        label = f"kmeans_combine_{impl}_S4"
+        mr = MapReduce(apps.KMeans(), flow="combine", combine_impl=impl)
+        comp, res, rows[label] = dist_run(
+            label, mr, items, ExecutionOptions(mesh=LocalMesh(4)), [kernel],
+            4)
+        launches[label] = rows[label]["launches_per_shard"]
+        np.testing.assert_array_equal(res.counts.cpu().numpy(), want_counts)
+        np.testing.assert_allclose(res.values.cpu().numpy(), want,
+                                   rtol=SUM_RTOL, atol=SUM_RTOL)
+        merged_bits(label, mr, comp, items, res, "combine", impl)
+
+
+def dist_keyed_sum(rows: dict, launches: dict, exchange: dict) -> None:
+    """KeyedSum, 2^24 pairs, sort flow at S = 4: K = 2^20 (B3 + B5 on each
+    shard's 2^18 keys) and K = 2^22 (B4 + B5 on 2^20): counts exact, sums
+    against float64 numpy, delta bit for bit with raw, the encoded bytes a
+    shard equal to the roofline's model, and the exchange's stages timed."""
+    import torch
+    from repro_torch import ExecutionOptions, MapReduce, ShuffleOptions, apps
+    from repro_torch.distributed import LocalMesh
+    from repro_torch.roofline import analysis as roofline
+
+    for k in DIST_KS_KEYS:
+        items, keys, weights = sort_items(k)
+        part = ("radix_partition" if k == DIST_KS_KEYS[0]
+                else "radix_partition_multi")
+        results = {}
+        for codec in ("raw", "delta"):
+            label = f"keyed_sum_K{k}_sort_S4_{codec}"
+            mr = MapReduce(apps.KeyedSum(k), flow="sort")
+            comp, res, rec = dist_run(
+                label, mr, items, ExecutionOptions(
+                    mesh=LocalMesh(4), shuffle=ShuffleOptions(
+                        wire=codec, strict=True)),
+                [part, "segment_reduce"], 4, profile_it=codec == "raw")
+            rows[label] = rec
+            launches[label] = rec["launches_per_shard"]
+            np.testing.assert_array_equal(res.counts[:k].cpu().numpy(),
+                                          np.bincount(keys, minlength=k))
+            want = np.bincount(keys, weights=weights.astype(np.float64),
+                               minlength=k)
+            got = res.values[:k].cpu().numpy()
+            np.testing.assert_allclose(got, want, rtol=SUM_RTOL,
+                                       atol=SUM_RTOL)
+            rec["max_abs_err"] = float(np.abs(got - want).max())
+            run = comp._entry.executable
+            model = roofline.shuffle_wire_bytes(
+                codec, n_pairs=keys.size, key_space=k, num_shards=4,
+                value_bytes=4, value_dtype="float32")
+            measured = run.last_exchange["sent_bytes"] * 3 / 4
+            if measured != model:
+                raise AssertionError(f"distributed {label}: wire bytes "
+                                     f"{measured} != model {model}")
+            rec["wire_bytes_per_shard"] = measured
+            results[codec] = res
+            if codec == "raw" and k == DIST_KS_KEYS[0]:
+                run.time_exchange = True
+                stages = []
+                for _ in range(3):
+                    comp(items)
+                    stages.append(dict(run.last_exchange["seconds"]))
+                run.time_exchange = False
+                a2a = float(np.median([st["all_to_all"] for st in stages]))
+                sent = run.last_exchange["sent_bytes"]
+                exchange.update({
+                    "run": label, "encoded_bytes_per_shard": sent,
+                    "wire_bytes_per_shard": measured,
+                    "stage_ms": {st: float(np.median(
+                        [x[st] for x in stages])) * 1e3
+                        for st in stages[0]},
+                    "all_to_all_ms": a2a * 1e3,
+                    # S shards' sends over the exchange's wall: the rate
+                    # the cuda profile's wire term divides by
+                    "bytes_per_s": 4 * measured / a2a,
+                    "what": "LocalMesh all-to-all: a copy within one "
+                            "card's memory, no link"})
+        if not same_bits(results["raw"], results["delta"]):
+            raise AssertionError(f"KeyedSum K={k}: delta != raw")
+        torch.cuda.synchronize()
+
+
+def dist_wire_gate(rows: dict) -> None:
+    """The reference's wire gate (``bench_flow_sweep --wire``) at 2^22
+    pairs over 16 shards: sorted Zipf(1.1) keys over K = 8192, int16
+    values, capacity a shard's pairs; delta bit for bit with raw and the
+    counts of numpy; delta's measured bytes a shard <= 0.6x raw's and
+    equal to the model."""
+    import torch
+    from repro_torch import (ExecutionOptions, MapReduce, ShuffleOptions,
+                             ValueSpec, make_app)
+    from repro_torch.distributed import LocalMesh
+    from repro_torch.roofline import analysis as roofline
+
+    S, n, k = DIST_WIRE_SHARDS, DIST_WIRE_PAIRS, DIST_WIRE_K
+    keys = np.sort((np.random.default_rng(3).zipf(1.1, size=n) % k)
+                   .astype(np.int32))
+    items = torch.from_numpy(keys.reshape(-1, 8)).cuda()
+    per = n // S
+    app = make_app(lambda item, emit: emit(item, (item % 1000).to(
+                       torch.int16)),
+                   lambda kk, v, c: v.amax(), key_space=k,
+                   value_spec=ValueSpec((), torch.int16), emit_capacity=8)
+    out, nbytes = {}, {}
+    for codec in ("raw", "delta"):
+        mr = MapReduce(app, flow="sort")
+        comp = mr.lower(items, options=ExecutionOptions(
+            mesh=LocalMesh(S), shuffle=ShuffleOptions(
+                wire=codec, capacity=per, strict=True))).compile()
+        t0 = time.perf_counter()
+        out[codec] = comp(items)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        run = comp._entry.executable
+        nbytes[codec] = run.last_exchange["sent_bytes"] * (S - 1) / S
+        model = roofline.shuffle_wire_bytes(
+            codec, n_pairs=n, key_space=k, num_shards=S, value_bytes=2,
+            value_dtype="int16", capacity=per)
+        if nbytes[codec] != model:
+            raise AssertionError(f"wire gate {codec}: {nbytes[codec]} bytes "
+                                 f"!= model {model}")
+        rows[f"wire_gate_{codec}_ms"] = ms
+    if not same_bits(out["raw"], out["delta"]):
+        raise AssertionError("wire gate: delta != raw")
+    np.testing.assert_array_equal(out["delta"].counts[:k].cpu().numpy(),
+                                  np.bincount(keys, minlength=k))
+    ratio = nbytes["delta"] / nbytes["raw"]
+    if ratio > 0.6:
+        raise AssertionError(f"wire gate: delta {ratio:.3f}x raw > 0.6x")
+    rows["wire_gate"] = {"shards": S, "pairs": n, "key_space": k,
+                         "bytes_per_shard": nbytes, "delta_over_raw": ratio}
+    log(f"distributed wire gate: S={S} delta/raw {ratio:.3f}")
+
+
+def dist_wordcount(rows: dict) -> dict:
+    """WordCount on zipf text, 2^24 tokens over 2^16 words, reduce and
+    sort flows at S = 4: ``skew="off"`` (capacity a shard's pairs) and
+    ``skew="auto"`` (balanced boundaries; a hot key split on the sort
+    flow), counts exact against ``np.bincount`` and bit for bit between
+    the two; nothing overflows under ``strict``; the default capacity
+    overflows, which raises under ``strict`` and otherwise warns and lands
+    in ``plan.diagnostics``."""
+    import warnings
+
+    import torch
+    from repro_torch import (ExecutionOptions, LoweringFallbackWarning,
+                             MapReduce, ShuffleOptions, apps)
+    from repro_torch.core import skew
+    from repro_torch.data import datasets
+    from repro_torch.distributed import LocalMesh
+
+    toks, vocab = datasets.wordcount_data(
+        np.random.default_rng(6), tokens=DIST_WC_TOKENS, vocab=DIST_WC_VOCAB)
+    items = torch.from_numpy(toks.reshape(-1, 16)).cuda()
+    want = np.bincount(toks, minlength=vocab)
+    per = DIST_WC_TOKENS // 4
+    overflow = {}
+    for flow in ("reduce", "sort"):
+        got = {}
+        for mode, sh in (("off", ShuffleOptions(capacity=per, strict=True)),
+                         ("auto", ShuffleOptions(skew="auto", strict=True))):
+            label = f"wordcount_{flow}_S4_skew_{mode}"
+            mr = MapReduce(apps.WordCount(vocab), flow=flow)
+            comp, res, rows[label] = dist_run(
+                label, mr, items, ExecutionOptions(mesh=LocalMesh(4),
+                                                   shuffle=sh), [], 4)
+            counts = res.counts.cpu().numpy()[:vocab]
+            np.testing.assert_array_equal(counts, want)
+            got[mode] = res
+            if mode == "auto":
+                text = mr.explain()
+                if "skew: boundaries: 4 ranges" not in text or (
+                        flow == "sort" and "hot keys split" not in text):
+                    raise AssertionError(f"{label}: no skew plan:\n{text}")
+                rows[label]["skew"] = list(mr.plan.skew)
+        if not (torch.equal(got["off"].counts[:vocab], got["auto"].counts)
+                and torch.equal(got["off"].values[:vocab],
+                                got["auto"].values)):
+            raise AssertionError(f"WordCount {flow}: skew auto != off")
+        mr = MapReduce(apps.WordCount(vocab), flow=flow)
+        try:
+            mr.run_distributed(items, mesh=LocalMesh(4), options=(
+                ExecutionOptions(shuffle=ShuffleOptions(strict=True))))
+            raise AssertionError(f"WordCount {flow}: strict overflow did "
+                                 f"not raise")
+        except ValueError as e:
+            if "shuffle overflow" not in str(e):
+                raise
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            res = mr.run_distributed(items, mesh=LocalMesh(4))
+        warned = [x for x in w
+                  if issubclass(x.category, LoweringFallbackWarning)
+                  and "overflow" in str(x.message)]
+        diag = [d for d in res.diagnostics if "shuffle overflow" in d]
+        if not (warned and diag):
+            raise AssertionError(f"WordCount {flow}: overflow not reported")
+        overflow[flow] = {"strict": "raised", "warned": len(warned),
+                          "dropped_pairs": int(DIST_WC_TOKENS
+                                               - res.counts.sum().item())}
+    overflow["skew_stats"] = skew.stats_snapshot()
+    return overflow
+
+
+def dist_process_group_nccl(items, rows: dict) -> None:
+    """``ProcessGroupMesh`` over NCCL at world size 1 on the card: its
+    collectives launch on the card, and KMeans (stream) and KeyedSum
+    K = 2^20 (sort) equal ``LocalMesh(1)`` bit for bit.  More ranks need
+    a card each."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch import ExecutionOptions, MapReduce, apps
+    from repro_torch.distributed import LocalMesh, ProcessGroupMesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = ProcessGroupMesh()
+        kitems = sort_items(DIST_KS_KEYS[0])[0]
+        for label, make, flow, its in (
+                ("kmeans_stream", apps.KMeans, "stream", items),
+                ("keyed_sum_sort", lambda: apps.KeyedSum(DIST_KS_KEYS[0]),
+                 "sort", kitems)):
+            pg = MapReduce(make(), flow=flow).run_distributed(
+                its, mesh=mesh).gather_result()
+            lo = MapReduce(make(), flow=flow).run_distributed(
+                its, mesh=LocalMesh(1))
+            if not same_bits(pg, lo):
+                raise AssertionError(f"NCCL world 1 {label} != LocalMesh(1)")
+            rows[f"nccl_world1_{label}"] = {"bits_equal_local_mesh": True,
+                                            "backend": mesh.backend}
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    log("distributed: ProcessGroupMesh over NCCL, world 1: bit for bit")
+
+
+def dist_repeat(items) -> dict:
+    """A second ``compile()`` of the same distributed plan is a cache hit:
+    no derive, tune or compile."""
+    from repro_torch import ExecutionOptions, MapReduce, apps
+    from repro_torch.core import plan_cache as pc
+    from repro_torch.distributed import LocalMesh
+
+    opts = ExecutionOptions(mesh=LocalMesh(4))
+    MapReduce(apps.KMeans()).lower(items, options=opts).compile()
+    before = pc.stats_snapshot()
+    comp = MapReduce(apps.KMeans()).lower(items, options=opts).compile()
+    delta = {k: v - before[k] for k, v in pc.stats_snapshot().items()}
+    if comp.cache_event != "hit" or any(
+            delta[k] for k in ("derives", "autotunes", "compiles")):
+        raise AssertionError(f"distributed repeat compile: "
+                             f"{comp.cache_event}, deltas {delta}")
+    return {"cache_event": comp.cache_event, "deltas": delta}
+
+
+def distributed_on_card(card: str, pts, assign, items) -> dict:
+    """Phase 12: distribution on the card (``LocalMesh(S)``; see the
+    module docstring).  Returns the ``distributed`` line's record; its
+    ``launches`` map each run to its per-shard kernel launches."""
+    t0 = time.perf_counter()
+    rows: dict = {}
+    launches: dict = {}
+    exchange: dict = {}
+    dist_kmeans(pts, assign, items, rows, launches)
+    dist_keyed_sum(rows, launches, exchange)
+    dist_wire_gate(rows)
+    overflow = dist_wordcount(rows)
+    dist_process_group_nccl(items, rows)
+    repeat = dist_repeat(items)
+    return {"card": card, "note": DIST_NOTE, "runs": rows,
+            "exchange": exchange, "overflow": overflow, "repeat": repeat,
+            "launches": launches,
+            "phase_wall_s": time.perf_counter() - t0}
+
+
 def main() -> int:
     import torch
 
@@ -2849,6 +3308,8 @@ def main() -> int:
     serve = main_path_serve()
     staged_on_card(card, items, first_plan_ms)
     streaming = streaming_on_card(card, pts, assign, items)
+    distributed = distributed_on_card(card, pts, assign, items)
+    log(json.dumps({"distributed": distributed}))
 
     rows = kernel_rows(rng, launches_add, launches_dense)
     for row in rows:  # B1, B2: their launches on the streaming path too
@@ -2865,6 +3326,11 @@ def main() -> int:
         "onehot_combine": combine_runs["kmeans"][1]["onehot_combine"],
         "combine_scatter":
             combine_runs["kmeans_scatter"][1]["combine_scatter"]})
+    for row in rows:  # B1-B7: their launches a shard on the distributed path
+        row["distributed_launches"] = {
+            label: [s.get(row["name"], 0) for s in shards]
+            for label, shards in distributed["launches"].items()
+            if any(s.get(row["name"], 0) for s in shards)}
     rows.append(flash_decode_rows(rng, serve["launches"]))
     log(json.dumps({"combine_route_sweep": {"card": card,
                                             **combine_route_sweep(rng)}}))

@@ -362,12 +362,12 @@ def restore(ckpt_dir: str, example_tree: Any, *, step: int | None = None,
     corrupt ones are quarantined with a ``RuntimeWarning`` and skipped, so
     a torn newest write degrades to the previous checkpoint.
 
-    ``shardings`` (the reference's resharding restore) needs a mesh, which
-    the port has not yet (ROADMAP A11, A12)."""
+    ``shardings`` (the reference's resharding restore of a resilient
+    run's partials) comes with the resilient driver (ROADMAP A12)."""
     if shardings is not None:
         raise NotImplementedError(
-            "restore(shardings=...) reshards onto a mesh, which is not "
-            "ported to repro_torch yet (ROADMAP A11 (distribution), A12 "
+            "restore(shardings=...) reshards a resilient run's partials, "
+            "which is not ported to repro_torch yet (ROADMAP A12 "
             "(resilience)); restore onto one device with device=")
     dev = resolve_device(device)
     if step is not None:

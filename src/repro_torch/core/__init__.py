@@ -1,6 +1,7 @@
-"""The port's core: combiner derivation, planning, tiling, the four local
-flows (stream, sort, combine and reduce), the staged API with its plan
-cache, and multi-job pipelines."""
+"""The port's core: combiner derivation, planning, tiling, the four flows
+(stream, sort, combine and reduce) on one device and over a shard mesh,
+the skew planner of the shuffle, the staged API with its plan cache, and
+multi-job pipelines."""
 
 from repro_torch.core.api import (Compiled, ExecutionOptions, Lowered,
                                   MapReduce, MapReduceApp, MapReduceResult,
@@ -20,12 +21,14 @@ from repro_torch.core.pipeline import (Pipeline, StageSemantics,
                                        extract_semantics)
 from repro_torch.core.plan import FLOWS, ExecutionPlan, plan_execution
 from repro_torch.core.plan_cache import CacheStats, stats_snapshot
+from repro_torch.core.skew import ShuffleOptions, ShufflePlan, SkewProfile
 
 __all__ = [
     "FLOWS", "CacheStats", "CombinerSpec", "Compiled", "CostReport",
     "Derivation", "Emitter", "ExecutionOptions", "ExecutionPlan", "FlowCost",
     "LoweringFallbackWarning", "Lowered", "MapReduce", "MapReduceApp",
-    "MapReduceResult", "Monoid", "Optimized", "Pipeline", "StageSemantics",
+    "MapReduceResult", "Monoid", "Optimized", "Pipeline", "ShuffleOptions",
+    "ShufflePlan", "SkewProfile", "StageSemantics",
     "StreamCombiner", "StreamTiling", "ValueSpec", "autotune_sort",
     "autotune_stream", "choose_flow", "count_spec", "derive_combiner",
     "estimate_flow_cost", "extract_semantics", "logsumexp_spec", "make_app",

@@ -48,13 +48,25 @@ Long-lived serving: ``MapReduce(app, streaming=True).serve(...)`` stages
 the plan at mode="streaming" into a
 :class:`repro_torch.streaming.MapReduceService`: micro-batches fold into
 persistent holder tables, with windows, live snapshots and checkpointed
-warm restarts.  The distributed and resilient modes are not ported yet
-(ROADMAP A11, A12).
+warm restarts.
+
+Distribution: ``MapReduce(app).run_distributed(items, mesh=...)`` (or
+``lower(items, options=ExecutionOptions(mesh=...))``, which infers
+mode="distributed") runs the planned flow over the shards of a mesh
+(``repro_torch.distributed.mesh``): ``LocalMesh(S)`` runs the S shards in
+turn on one device, ``ProcessGroupMesh()`` one shard a
+``torch.distributed`` rank.  The stream and combine flows fold each
+shard's items and merge the tables; the reduce and sort flows route the
+pairs through a key-partitioned all-to-all under a wire codec
+(``ShuffleOptions(wire=...)``), balanced by the skew planner under
+``ShuffleOptions(skew="auto")`` (``core/skew.py``).  The resilient mode is
+not ported yet (ROADMAP A12).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings as _warnings
 from typing import Any, Callable
 
 import numpy as np
@@ -67,6 +79,7 @@ from repro_torch.core import combiner as C
 from repro_torch.core import cost_model as cm
 from repro_torch.core import engine as eng
 from repro_torch.core import plan_cache as pc
+from repro_torch.core import skew as sk
 from repro_torch.core.plan import (ExecutionPlan, _model_holder_bytes,
                                    plan_execution)
 from repro_torch.device import resolve_device
@@ -111,8 +124,7 @@ def make_app(map_fn: Callable, reduce_fn: Callable, **attrs) -> MapReduceApp:
 Emitter = eng.Emitter
 
 #: the ROADMAP item that ports each mode not ported yet
-MODE_ITEMS = {"distributed": "A11 (distribution)",
-              "resilient": "A12 (resilience)"}
+MODE_ITEMS = {"resilient": "A12 (resilience)"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,9 +135,24 @@ class ExecutionOptions:
     ``key_block`` the stream flow's; ``bucket_size`` (the leaf bucket) and
     ``level_fanouts`` (the radix levels) the sort flow's.
     ``items_bucket="pow2"`` lets batch sizes of one power-of-two bucket
-    share a compiled entry (rows past N are never folded);
-    ``cache=False`` bypasses the compiled-stage cache."""
+    share a compiled entry (rows past N are never folded; local runs
+    only); ``cache=False`` bypasses the compiled-stage cache.
 
+    Distribution: ``mesh`` (a ``distributed.mesh`` mesh) and its
+    ``data_axis``; ``scatter_output`` key-shards the stream and combine
+    flows' results; ``shuffle`` (a :class:`~repro_torch.core.skew.
+    ShuffleOptions`) is the all-to-all's capacity, strictness, skew
+    planner and wire codec.  The flat ``shuffle_capacity`` /
+    ``strict_shuffle`` are its deprecated spelling: set without
+    ``shuffle`` they forward into one with a ``DeprecationWarning``; with
+    ``shuffle`` set they mirror it."""
+
+    mesh: Any = None
+    data_axis: str = "data"
+    scatter_output: bool = False
+    shuffle_capacity: int | None = None
+    strict_shuffle: bool = False
+    shuffle: sk.ShuffleOptions | None = None
     combine_impl: str | None = None
     use_kernels: bool | None = None
     chunk_pairs: int | None = None
@@ -135,15 +162,36 @@ class ExecutionOptions:
     items_bucket: str = "exact"
     cache: bool = True
 
+    def __post_init__(self):
+        sh = self.shuffle
+        if sh is None:
+            if self.shuffle_capacity is not None or self.strict_shuffle:
+                _warnings.warn(
+                    "ExecutionOptions(shuffle_capacity=..., "
+                    "strict_shuffle=...) are deprecated; pass "
+                    "shuffle=ShuffleOptions(capacity=..., strict=...) "
+                    "instead", DeprecationWarning, stacklevel=3)
+                object.__setattr__(self, "shuffle", sk.ShuffleOptions(
+                    capacity=self.shuffle_capacity,
+                    strict=self.strict_shuffle))
+            return
+        if not isinstance(sh, sk.ShuffleOptions):
+            raise TypeError(
+                f"ExecutionOptions.shuffle must be a skew.ShuffleOptions, "
+                f"got {type(sh).__name__}")
+        object.__setattr__(self, "shuffle_capacity", sh.capacity)
+        object.__setattr__(self, "strict_shuffle", sh.strict)
+
 
 _OPTION_FIELDS = {f.name for f in dataclasses.fields(ExecutionOptions)}
 
 
 def _resolve_options(options: ExecutionOptions | None, legacy: dict, *,
-                     method: str) -> ExecutionOptions:
+                     method: str, mesh=None) -> ExecutionOptions:
     """The options record; scattered keyword arguments raise ``TypeError``
     (the reference's rule): an option's name with a pointer at
-    ``ExecutionOptions``, anything else as unexpected."""
+    ``ExecutionOptions``, anything else as unexpected.  ``mesh``, the
+    distributed entry point's own argument, goes onto the record."""
     if legacy:
         retired = sorted(set(legacy) & _OPTION_FIELDS)
         if retired:
@@ -153,13 +201,17 @@ def _resolve_options(options: ExecutionOptions | None, legacy: dict, *,
                 f"options=ExecutionOptions({retired[0]}=...) instead")
         raise TypeError(f"{method}() got unexpected keyword arguments "
                         f"{sorted(legacy)}")
-    return options if options is not None else ExecutionOptions()
+    opts = options if options is not None else ExecutionOptions()
+    if mesh is not None:
+        opts = dataclasses.replace(opts, mesh=mesh)
+    return opts
 
 
 @dataclasses.dataclass
 class MapReduceResult:
-    """The result record of every entry point: ``run()``, a compiled call
-    and ``MapReduceService.snapshot()``, which also sets ``batch_id``."""
+    """The result record of every entry point: ``run()``,
+    ``run_distributed()``, a compiled call and
+    ``MapReduceService.snapshot()``, which also sets ``batch_id``."""
 
     keys: torch.Tensor  # [K] = arange(K)
     values: Any  # [K, ...]
@@ -167,6 +219,20 @@ class MapReduceResult:
     plan: ExecutionPlan | None = None
     #: micro-batches folded in, when the result is a service snapshot
     batch_id: int | None = None
+    #: where a distributed result's rows live (``engine.ShardedResult``)
+    layout: Any = None
+
+    def gather_result(self) -> "MapReduceResult":
+        """The global layout of a distributed result: a ProcessGroupMesh
+        rank holds its own block of a key-sharded result, and this gathers
+        every rank's (a collective: every rank calls it).  Any other
+        result is returned as it is."""
+        if self.layout is None or not self.layout.local:
+            return self
+        keys, values, counts = self.layout.gather(self.keys, self.values,
+                                                  self.counts)
+        return dataclasses.replace(self, keys=keys, values=values,
+                                   counts=counts, layout=None)
 
     @property
     def diagnostics(self) -> tuple[str, ...]:
@@ -343,8 +409,75 @@ class MapReduce:
         :meth:`serve`); the other modes raise, naming the ROADMAP item
         that ports them."""
         opts = options if options is not None else ExecutionOptions()
-        return Lowered(self, pc.items_spec_of(items), opts,
-                       mode=_infer_mode(mode))
+        rmode = _infer_mode(mode, opts)
+        if rmode == "distributed":
+            opts = self._resolve_shuffle(opts, items)
+        return Lowered(self, pc.items_spec_of(items), opts, mode=rmode)
+
+    def _resolve_shuffle(self, opts: ExecutionOptions,
+                         items) -> ExecutionOptions:
+        """lower()-time skew resolution: sample (or recall) the key
+        histogram and return options whose ``shuffle`` holds the decision;
+        its provenance lands on ``plan.skew``.  A codec other than raw puts
+        its modelled bytes on ``plan.wire``."""
+        sh = opts.shuffle
+        if sh is not None and sh.wire != "raw":
+            self.plan.wire = self._wire_provenance(opts, items)
+        if sh is None or (sh.skew != "auto" and sh.boundaries is None):
+            return opts
+        if _spec_only(items):
+            return opts  # nothing to sample
+        S = _shard_count(opts)
+        if S <= 1:
+            return opts
+        resolved, profile = sk.resolve_shuffle_options(
+            self.app, self.plan, items, num_shards=S, options=sh,
+            device=self.device)
+        lines: list[str] = []
+        if profile is not None:
+            lines.extend(profile.describe())
+        splan = sk.plan_from_options(
+            self.app.key_space, S, resolved, flow=self.plan.flow,
+            spec=self.plan.spec, value_spec=self.app.value_spec)
+        if splan is not None:
+            lines.extend(splan.describe())
+        elif profile is not None and resolved.boundaries is None:
+            lines.append(
+                f"plan: fixed-width ranges kept (imbalance at/under the "
+                f"{sk.SNAP_IMBALANCE}x snap threshold)")
+        if lines:
+            self.plan.skew = tuple(lines)
+        if resolved is sh:
+            return opts
+        return dataclasses.replace(opts, shuffle=resolved)
+
+    def _wire_provenance(self, opts: ExecutionOptions,
+                         items) -> tuple[str, ...]:
+        """``explain()`` lines for a codec other than raw: the codec, and
+        the modelled encoded and raw bytes a shard when the item count is
+        known."""
+        from repro_torch.distributed.wire import dtype_name
+
+        sh = opts.shuffle
+        lines = [f"codec {sh.wire} on the all-to-all "
+                 f"(repro_torch/distributed/wire.py)"]
+        S = _shard_count(opts)
+        leaves = pytree.tree_leaves(items)
+        if S > 1 and leaves:
+            vs = self.app.value_spec
+            n_pairs = int(leaves[0].shape[0]) * self.app.emit_capacity
+            kw = dict(n_pairs=n_pairs, key_space=self.app.key_space,
+                      num_shards=S, value_bytes=_value_bytes(self.app),
+                      value_dtype=dtype_name(vs.dtype),
+                      capacity=sh.capacity)
+            enc_b = roofline.shuffle_wire_bytes(sh.wire, **kw)
+            raw_b = roofline.shuffle_wire_bytes("raw", **kw)
+            if raw_b > 0:
+                lines.append(
+                    f"modeled wire bytes/shard: {enc_b / 1e3:.1f}kB "
+                    f"({enc_b / raw_b:.2f}x raw {raw_b / 1e3:.1f}kB) "
+                    f"at S={S}")
+        return tuple(lines)
 
     def run(self, items, *, options: ExecutionOptions | None = None,
             n_valid: int | None = None, **legacy) -> MapReduceResult:
@@ -354,6 +487,23 @@ class MapReduce:
         opts = _resolve_options(options, legacy, method="run")
         return self.lower(items, options=opts, mode="local").optimize(
         ).compile()(items, n_valid=n_valid)
+
+    def run_distributed(self, items, *, mesh=None,
+                        options: ExecutionOptions | None = None,
+                        **legacy) -> MapReduceResult:
+        """Run the planned flow over the shards of ``mesh`` (or
+        ``options.mesh``): ``lower(items, mode="distributed").optimize()
+        .compile()(items)``.  The items are the global batch; the mesh
+        splits them into S equal contiguous blocks.  A LocalMesh gives the
+        global layout; a ProcessGroupMesh rank gets its own rows
+        (``result.gather_result()`` assembles them)."""
+        opts = _resolve_options(options, legacy, method="run_distributed",
+                                mesh=mesh)
+        if opts.mesh is None:
+            raise TypeError("run_distributed requires a mesh (pass mesh=... "
+                            "or options=ExecutionOptions(mesh=...))")
+        return self.lower(items, options=opts, mode="distributed"
+                          ).optimize().compile()(items)
 
     def serve(self, *, batch_capacity: int, window=None,
               options: ExecutionOptions | None = None, item_spec=None,
@@ -384,10 +534,35 @@ class MapReduce:
         return self.plan.explain()
 
 
-def _infer_mode(mode: str | None) -> str:
-    if mode is None or mode == "local":
-        return "local"
-    if mode == "streaming":
+def _spec_only(items) -> bool:
+    return any(isinstance(a, pc.TensorSpec)
+               for a in pytree.tree_leaves(items))
+
+
+def _shard_count(opts: ExecutionOptions) -> int:
+    """The shards a distributed run sees: the mesh's size."""
+    return int(opts.mesh.size) if opts.mesh is not None else 1
+
+
+def _infer_mode(mode: str | None, opts: ExecutionOptions | None = None
+                ) -> str:
+    """The execution mode: ``mode``, else "distributed" when the options
+    carry a mesh, else "local".  The distributed mode needs the mesh."""
+    if mode is None:
+        mode = ("distributed" if opts is not None and opts.mesh is not None
+                else "local")
+    if mode == "distributed":
+        if opts is None or opts.mesh is None:
+            raise TypeError(
+                "mode='distributed' requires a mesh: pass "
+                "options=ExecutionOptions(mesh=LocalMesh(S) or "
+                "ProcessGroupMesh())")
+        if opts.data_axis != opts.mesh.axis_name:
+            raise ValueError(
+                f"the mesh has no data axis {opts.data_axis!r} (its axis is "
+                f"{opts.mesh.axis_name!r})")
+        return mode
+    if mode in ("local", "streaming"):
         return mode
     if mode in MODE_ITEMS:
         raise NotImplementedError(
@@ -410,7 +585,7 @@ class Lowered:
         self.mr = mr
         self.items_spec = items_spec
         self.options = options
-        self.mode = _infer_mode(mode)
+        self.mode = _infer_mode(mode, options)
 
     def optimize(self, options: ExecutionOptions | None = None,
                  **hints) -> "Optimized":
@@ -443,7 +618,12 @@ class Optimized:
         self.options = options
         self.mode = mode
         self.n_items = int(pytree.tree_leaves(items_spec)[0].shape[0])
-        self.n_bucket = pc.bucket_items(self.n_items, options.items_bucket)
+        if mode == "distributed":
+            # the shards split the exact batch: no padded buckets
+            self.n_bucket = self.n_items
+        else:
+            self.n_bucket = pc.bucket_items(self.n_items,
+                                            options.items_bucket)
         self.cache_key = self._cache_key()
 
     def _cache_key(self) -> str:
@@ -455,12 +635,20 @@ class Optimized:
             spec = pytree.tree_map(
                 lambda a: pc.TensorSpec((self.n_bucket,) + tuple(a.shape[1:]),
                                         a.dtype), spec)
+        extra = (f"padded={padded}", f"bucket={opts.items_bucket}",
+                 *(f"{k}={v}" for k, v in sorted(knobs.items())))
+        if self.mode == "distributed":
+            # the resolved shuffle record's repr names the capacity, the
+            # strictness, the skew planner's boundaries and hot splits and
+            # the codec: two layouts never share an entry
+            extra += (f"scatter={opts.scatter_output}",
+                      f"shuffle={opts.shuffle!r}")
         return pc.compiled_key(
             self.mr.app, spec, plan_key=self.mr._plan_key,
             flow=self.mr.plan.flow, n_bucket=self.n_bucket,
             device=self.mr.device, mode=self.mode,
-            extra=(f"padded={padded}", f"bucket={opts.items_bucket}",
-                   *(f"{k}={v}" for k, v in sorted(knobs.items()))))
+            mesh=opts.mesh if self.mode == "distributed" else None,
+            extra=extra)
 
     def compile(self) -> "Compiled":
         """Stage 3: the prepared run.  A warm hit in the compiled cache
@@ -479,6 +667,8 @@ class Optimized:
         mr = self.mr
         if self.mode == "streaming":
             return self._build_streaming()
+        if self.mode == "distributed":
+            return self._build_distributed()
         pc.STATS.compiles += 1
         run = eng.LocalRun(mr.app, mr.plan.flow, mr.plan.spec,
                            device=mr.device, plan=mr.plan,
@@ -498,6 +688,44 @@ class Optimized:
             peak = int(torch.cuda.max_memory_allocated(mr.device))
         return pc.CompiledEntry(executable=run, mode=self.mode,
                                 warmup_peak_bytes=peak)
+
+    def _build_distributed(self) -> pc.CompiledEntry:
+        """The distributed run (``engine.DistributedRun``) over the
+        options' mesh, with the per-shard tiling and the shuffle plan of
+        the resolved ``ShuffleOptions``.  No warm-up call: zeros would
+        route every pair to one destination, and the kernels' libraries
+        load at the first call."""
+        mr, opts = self.mr, self.options
+        mesh = opts.mesh
+        if mesh.device.type != mr.device.type:
+            raise ValueError(
+                f"the mesh runs on {mesh.device} but this MapReduce on "
+                f"{mr.device}; construct MapReduce(app, device=...) on the "
+                f"mesh's device")
+        knobs = mr._knobs(opts)
+        plan = mr.plan
+        chunk_pairs, key_block = eng._distributed_tiling(
+            mr.app, plan, device=mesh.device,
+            use_kernels=knobs["use_kernels"],
+            chunk_pairs=knobs["chunk_pairs"], key_block=knobs["key_block"])
+        shuffle_plan = sk.plan_from_options(
+            mr.app.key_space, mesh.size, opts.shuffle, flow=plan.flow,
+            spec=plan.spec, value_spec=mr.app.value_spec)
+        run, _ = eng.build_distributed_fn(
+            mr.app, plan, mesh=mesh, combine_impl=knobs["combine_impl"],
+            use_kernels=knobs["use_kernels"],
+            scatter_output=opts.scatter_output,
+            shuffle_capacity=opts.shuffle_capacity,
+            chunk_pairs=chunk_pairs, key_block=key_block,
+            # the shards re-plan their radix levels for their own key
+            # range; only explicit options pin them
+            bucket_size=opts.bucket_size,
+            level_fanouts=(tuple(opts.level_fanouts)
+                           if opts.level_fanouts is not None else None),
+            shuffle_plan=shuffle_plan,
+            wire=opts.shuffle.wire if opts.shuffle is not None else "raw")
+        pc.STATS.compiles += 1
+        return pc.CompiledEntry(executable=run, mode="distributed")
 
     def _build_streaming(self) -> pc.CompiledEntry:
         """The ingest of micro-batches of up to ``n_bucket`` items
@@ -573,6 +801,19 @@ class Compiled:
                 "(MapReduce.serve(...)) or via init_state()/ingest_state()")
         items = to_device(items, self._mr.device)
         n = eng.items_length(items)
+        if self.mode == "distributed":
+            if n != self.n_items:
+                raise ValueError(
+                    f"this Compiled is bound to N={self.n_items} items, got "
+                    f"{n}; lower the new items")
+            run = self._entry.executable
+            sinks = (self._mr.plan, self.plan)
+            with torch.no_grad():
+                keys, values, counts, layout = run.postprocess(
+                    run(items, sinks=sinks),
+                    strict_shuffle=self.options.strict_shuffle, sinks=sinks)
+            return MapReduceResult(keys, values, counts, plan=self.plan,
+                                   layout=layout)
         if n not in (self.n_items, self.n_bucket):
             raise ValueError(
                 f"this Compiled is bound to N={self.n_items} items (bucket "
@@ -618,6 +859,10 @@ class Compiled:
         with torch.no_grad():
             return self.collector.finalize(state)
 
+    @property
+    def num_shards(self) -> int:
+        return _shard_count(self.options) if self.mode == "distributed" else 1
+
     def _shape(self) -> dict:
         app, t, spec = self._mr.app, self._mr.tiling, self._mr.plan.spec
         holder = (_model_holder_bytes(spec, app.value_spec)
@@ -653,10 +898,19 @@ class Compiled:
         spec = mr.plan.spec
         backend = cm.default_backend(mr.device)
         d = spec.holder_width(mr.app.value_spec)[0] if spec is not None else 1
+        dist = {}
+        if self.mode == "distributed":
+            from repro_torch.distributed.wire import dtype_name
+
+            sh = self.options.shuffle
+            dist = dict(num_shards=self.num_shards,
+                        wire=sh.wire if sh is not None else "raw",
+                        shuffle_capacity=self.options.shuffle_capacity,
+                        value_dtype=dtype_name(mr.app.value_spec.dtype))
         fc = cm.estimate_flow_cost(
             mr.plan.flow, d=d, backend=backend,
             fold_op="add" if spec is None or spec.sum_lowerable else "max",
-            **s)
+            **s, **dist)
         return {"flow": mr.plan.flow, "backend": backend,
                 "n_pairs": s["n_pairs"],
                 "model_bytes": roofline.mapreduce_flow_bytes(

@@ -22,6 +22,15 @@ named terms in seconds, from one of two profiles:
 
 ``default_backend(device)`` picks ``cuda`` for a CUDA device and ``cpu``
 otherwise; nothing falls back from one to the other.
+
+With ``num_shards > 1`` the shuffled flows (sort, reduce) pay a wire term:
+the bytes a shard sends in the all-to-all under the codec
+(``roofline.shuffle_wire_bytes``) over a link rate.  The ``cpu`` profile
+divides by the reference's constant
+(``roofline.REFERENCE_LINK_BYTES_PER_S``), so that its rankings equal the
+reference's; the ``cuda`` profile by :data:`CUDA_EXCHANGE_BYTES_PER_S`,
+measured on one card.  ``skew_factor`` (from ``core/skew.py``) scales the
+shuffled flows by their hottest shard.
 """
 
 from __future__ import annotations
@@ -89,8 +98,22 @@ CUDA_COEFF = {
 #: coefficients of each profile; a profile names every key its terms read
 PROFILES = {"cpu": CPU_COEFF, "cuda": CUDA_COEFF}
 
-#: the ROADMAP item that ports the shuffle's wire term and the skew model
-DISTRIBUTION_ITEM = "A11 (distribution)"
+#: The ``cuda`` profile's link rate, bytes per second: what
+#: ``chip_smoke.py`` phase 12 measured for the all-to-all of a
+#: ``LocalMesh`` on one "NVIDIA H100 80GB HBM3, 700.00 W" (the four
+#: shards' wire bytes, 4 x 50331648, over the exchange's median wall of
+#: 0.349 ms; KeyedSum K = 2^20, 2^24 pairs, S = 4; chip call 1 of the
+#: distribution findings in PERF.md §6).  That exchange is a copy within
+#: one card's memory, not a link between cards: an NVLink rate waits for a
+#: machine with more than one card.
+CUDA_EXCHANGE_BYTES_PER_S = 5.77e11
+
+
+def link_bytes_per_s(backend: str) -> float:
+    """The link rate the wire term of ``backend`` divides by."""
+    if backend == "cpu":
+        return roofline.REFERENCE_LINK_BYTES_PER_S
+    return CUDA_EXCHANGE_BYTES_PER_S
 
 
 @dataclasses.dataclass(frozen=True)
@@ -277,18 +300,20 @@ def estimate_flow_cost(
     backend: str = "cpu",
     skew_factor: float = 1.0,
     num_shards: int = 1,
+    wire: str = "raw",
+    shuffle_capacity: int | None = None,
+    value_dtype: str = "int32",
     fold_op: str = "add",
 ) -> FlowCost:
     """Model one flow's cost for a workload (see the module docstring).
 
     ``skew_factor`` (>= 1.0) is the key distribution's imbalance: the
     shuffled flows (sort, reduce) scale by it, as in the reference.
-    ``num_shards > 1`` (the shuffle's wire term) is not ported.
-    ``fold_op`` is the ``cuda`` stream fold's monoid (add or max)."""
-    if int(num_shards) > 1:
-        raise NotImplementedError(
-            f"num_shards={num_shards}: the shuffle's wire term is not "
-            f"ported to repro_torch yet (ROADMAP {DISTRIBUTION_ITEM})")
+    ``num_shards > 1`` adds the shuffled flows' wire term: the bytes a
+    shard sends under the ``wire`` codec (``value_dtype`` the values',
+    ``shuffle_capacity`` the send envelope) over the profile's link rate
+    (:func:`link_bytes_per_s`).  ``fold_op`` is the ``cuda`` stream fold's
+    monoid (add or max)."""
     if backend not in PROFILES:
         raise ValueError(f"unknown backend profile {backend!r}; the port "
                          f"has {sorted(PROFILES)}")
@@ -317,6 +342,16 @@ def estimate_flow_cost(
             max_values_per_key=lmax)
         terms = _cuda_terms(work)
     est = sum(v for _, v in terms)
+    S = max(int(num_shards), 1)
+    if S > 1 and flow in ("sort", "reduce"):
+        # added before the skew scaling: a hot destination paces the
+        # exchange as it paces the fold
+        wire_s = roofline.shuffle_wire_bytes(
+            wire, n_pairs=n, key_space=k, num_shards=S,
+            value_bytes=value_bytes, value_dtype=value_dtype,
+            capacity=shuffle_capacity) / link_bytes_per_s(backend)
+        terms = list(terms) + [("wire", wire_s)]
+        est += wire_s
     sf = max(float(skew_factor), 1.0)
     if sf > 1.0 and flow in ("sort", "reduce"):
         # the shuffled flows finish when their hottest shard does
@@ -346,6 +381,9 @@ def choose_flow(
     backend: str,
     skew_factor: float = 1.0,
     num_shards: int = 1,
+    wire: str = "raw",
+    shuffle_capacity: int | None = None,
+    value_dtype: str = "int32",
     fold_op: str = "add",
 ) -> CostReport:
     """Rank ``candidates`` by modeled cost and pick the cheapest.
@@ -360,7 +398,9 @@ def choose_flow(
                             chunk_pairs=chunk_pairs,
                             max_values_per_key=max_values_per_key,
                             backend=backend, skew_factor=skew_factor,
-                            num_shards=num_shards, fold_op=fold_op)
+                            num_shards=num_shards, wire=wire,
+                            shuffle_capacity=shuffle_capacity,
+                            value_dtype=value_dtype, fold_op=fold_op)
          for f in candidates),
         key=lambda fc: fc.est_s)
     return CostReport(chosen=costs[0].flow, n_pairs=n_pairs,

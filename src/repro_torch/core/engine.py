@@ -1,10 +1,13 @@
 """Execution engine: the map phase, the stream and sort flows' chunked
-fold, and the single-shot combine and reduce flows.
+fold, the single-shot combine and reduce flows, and the four flows over a
+shard mesh.
 
-Counterpart of the local part of ``repro/core/engine.py`` (``Emitter``,
-``map_phase``, ``_fold_items_chunked``, ``stream_local_tables``,
-``sort_local_tables``, ``run_local``, ``build_stream_ingest``,
-``merge_partial_tables``).  The reference scans the chunks
+Counterpart of ``repro/core/engine.py`` up to the resilient driver:
+``Emitter``, ``map_phase``, ``_fold_items_chunked``,
+``stream_local_tables``, ``sort_local_tables``, ``run_local``,
+``build_stream_ingest``, ``merge_partial_tables``, and the distributed
+half (``merge_tables_collective``, the shuffle, ``run_distributed``,
+``build_distributed_fn``).  The reference scans the chunks
 with ``lax.scan``; here the chunk loop is a Python loop, so chunks are
 large (see ``autotune``) and each one is a handful of launches.  The
 combine and reduce flows map every item at once and hand the whole pair
@@ -654,3 +657,709 @@ def run_local(app, plan, items, *, device, combine_impl: str = "auto",
         raise ValueError(f"run_local runs the combine and reduce flows, not "
                          f"{plan.flow!r}")
     return grouped.keys, grouped.values, grouped.counts
+
+
+# ---------------------------------------------------------------------------
+# Distributed (A11): the four flows over a shard mesh
+# ---------------------------------------------------------------------------
+#
+# A flow's shard body is written as stages separated by collectives
+# (``distributed/mesh.py``): each stage maps over ``mesh.shards()`` (every
+# shard of a LocalMesh, in turn; the rank's own on a ProcessGroupMesh), and
+# every collective takes and returns one tensor per shard of that list.
+
+
+def shard_items(items, num_shards: int) -> list:
+    """The S contiguous blocks of ``items`` along the item axis (views), as
+    the reference's ``P(data_axis)`` splits them; an item count that S does
+    not divide raises, as the reference's ``shard_map`` does."""
+    n = items_length(items)
+    if n % num_shards:
+        raise ValueError(
+            f"{n} items are not evenly divisible by the mesh's "
+            f"{num_shards} shards (the data axis splits the items into "
+            f"equal contiguous blocks)")
+    per = n // num_shards
+    return [pytree.tree_map(lambda a: a[s * per:(s + 1) * per], items)
+            for s in range(num_shards)]
+
+
+def _stack_leaves(xs):
+    return [pytree.tree_leaves(x) for x in xs]
+
+
+def merge_tables_collective(spec, tables, counts, mesh, *,
+                            scatter: bool = False):
+    """Merge the shards' un-finalized holder tables across ``mesh``.
+
+    ``tables`` / ``counts`` hold one partial a shard of ``mesh.shards()``;
+    the result holds the merged ``(tables, counts)`` a shard: every key
+    (replicated), or with ``scatter=True`` the shard's block of
+    ``K / S`` keys (the reference's ``psum_scatter``).
+
+    The merge equals :func:`merge_partial_tables` over the shards' tables
+    in shard order, bit for bit, on every mesh: integer sums and counts
+    are summed and integer max/min (and/or) reduced by the mesh (exact in
+    any order); float leaves, integer products and a ``spec.merge``
+    without monoids are all-gathered and merged as
+    :func:`_merge_tables_host` merges them, since a backend's float
+    all-reduce adds in an order of its own."""
+    S = mesh.size
+    mine = mesh.shards()
+    K = counts[0].shape[0]
+    if scatter and K % S:
+        raise ValueError(f"scatter_output needs the key space ({K}) to be a "
+                         f"multiple of the mesh size ({S})")
+
+    def block(x, s):
+        return x[s * (K // S):(s + 1) * (K // S)] if scatter else x
+
+    def reduce_exact(op, xs):
+        if scatter and op is mesh.psum:
+            return mesh.psum_scatter(xs)
+        return [block(r, s) for r, s in zip(op(xs), mine)]
+
+    total = reduce_exact(mesh.psum, counts)
+    leaves_seq = _stack_leaves(tables)
+    treedef = pytree.tree_structure(tables[0])
+    if spec.monoids is not None and len(spec.monoids) == len(leaves_seq[0]):
+        merged = [[] for _ in mine]
+        for i, mono in enumerate(spec.monoids):
+            xs = [ls[i] for ls in leaves_seq]
+            dt = xs[0].dtype
+            if not dt.is_floating_point and mono.name == "add":
+                red = reduce_exact(mesh.psum, xs)
+            elif not dt.is_floating_point and mono.name in (
+                    "max", "min", "and", "or"):
+                op = mesh.pmax if mono.name in ("max", "or") else mesh.pmin
+                wide = [x.to(torch.int64) if dt == torch.bool else x
+                        for x in xs]
+                red = [r.to(dt) for r in reduce_exact(op, wide)]
+            else:
+                red = []
+                for g, s in zip(mesh.all_gather(xs), mine):
+                    r = (mono.dense_reduce(g, 0)
+                         if mono.dense_reduce is not None else g[0])
+                    red.append(block(r.to(dt), s))
+            for out, r in zip(merged, red):
+                out.append(r)
+        return ([pytree.tree_unflatten(m, treedef) for m in merged], total)
+    # a spec.merge without monoids: gather every shard's tables and fold
+    # them left to right, as the host merge does
+    g_leaves = [mesh.all_gather([ls[i] for ls in leaves_seq])
+                for i in range(len(leaves_seq[0]))]
+    g_counts = mesh.all_gather(counts)
+    out = []
+    for j, s in enumerate(mine):
+        seq = [pytree.tree_unflatten([g[j][src] for g in g_leaves], treedef)
+               for src in range(S)]
+        merged = _merge_tables_host(spec, seq, list(g_counts[j].unbind(0)))
+        out.append(pytree.tree_map(lambda t, s=s: block(t, s), merged))
+    return out, total
+
+
+def _finalize_rows(spec, tables, counts, lo: int = 0):
+    """``(keys, values, counts)`` of tables whose row 0 is key ``lo``."""
+    keys = torch.arange(counts.shape[0], dtype=torch.int32,
+                        device=counts.device) + lo
+    return keys, torch.func.vmap(spec.finalize)(keys, tables, counts), counts
+
+
+def _merge_shard_tables(app, spec, tables, counts, mesh, *, scatter):
+    """Merge the shards' partial tables and finalize: the shared tail of the
+    stream and combine flows.  ``spec.merge`` (monoid collectives, or the
+    gathered fold), else the reapply contract over the gathered finalized
+    partials.  Returns ``(keys, values, counts)`` a shard."""
+    mine = mesh.shards()
+    if spec.merge is not None:
+        mt, mc = merge_tables_collective(spec, tables, counts, mesh,
+                                         scatter=scatter)
+        if not scatter:  # replicated: every shard's merge is the same
+            out = _finalize_rows(spec, mt[0], mc[0])
+            return [out] * len(mine)
+        rows = mc[0].shape[0]
+        return [_finalize_rows(spec, t, c, s * rows)
+                for t, c, s in zip(mt, mc, mine)]
+    if spec.reapply_ok:
+        K = app.key_space
+        finals = [col.finalize_tables(spec, t, c, K).values
+                  for t, c in zip(tables, counts)]
+        leaves = _stack_leaves(finals)
+        treedef = pytree.tree_structure(finals[0])
+        g_leaves = [mesh.all_gather([ls[i] for ls in leaves])
+                    for i in range(len(leaves[0]))]
+        g_cnt = mesh.all_gather(counts)
+        outs = []
+        for j, s in enumerate(mine):
+            g_vals = pytree.tree_unflatten([g[j] for g in g_leaves], treedef)
+            keys, vals, cnt = _reapply_merge(app, g_vals, g_cnt[j])
+            if scatter:
+                if K % mesh.size:
+                    raise ValueError(
+                        f"scatter_output needs the key space ({K}) to be a "
+                        f"multiple of the mesh size ({mesh.size})")
+                rows = K // mesh.size
+                cut = slice(s * rows, (s + 1) * rows)
+                keys, cnt = keys[cut], cnt[cut]
+                vals = pytree.tree_map(lambda v: v[cut], vals)
+            outs.append((keys, vals, cnt))
+        return outs
+    raise ValueError("combiner has no cross-shard merge strategy")
+
+
+def _combine_local_tables(app, spec, stream: col.PairStream, *,
+                          combine_impl: str, use_kernels: bool, routes=None):
+    """The combine flow's fold of one shard's pairs into un-finalized
+    ``(tables, counts)``, by the reference's rule for its distributed run:
+    counts alone, the first-element idiom, the scatter lowering
+    (``combine_impl`` auto or scatter; ``combine_scatter`` or the sort
+    route with the kernels), the one-hot lowering (``onehot_combine``),
+    else the coupled fold.  ``routes`` receives the lowering taken."""
+    K = app.key_space
+    note = routes.append if routes is not None else (lambda _: None)
+    if spec.strategy == C.STRATEGY_SIZE:
+        note("scatter (counts only)")
+        return (), col._counts(stream.keys, stream.valid, K)
+    if spec.strategy == C.STRATEGY_FIRST:
+        note("first")
+        return col.combine_first(spec, stream)
+    if spec.scatter_lowerable and combine_impl in ("auto", "scatter"):
+        leaf_routes: list[str] = []
+        out = col.combine_scatter(
+            spec, stream, scatter_fn=_scatter_kernel(use_kernels),
+            sort_fold_fn=_sort_fold_kernel(use_kernels, None, None),
+            routes=leaf_routes)
+        note(f"scatter (K={K}: {', '.join(leaf_routes)})")
+        return out
+    if spec.sum_lowerable and combine_impl == "onehot":
+        note("onehot (onehot_combine)" if use_kernels
+             else "onehot (plain contraction)")
+        return col.combine_onehot(spec, stream,
+                                  onehot_fn=_onehot_kernel(use_kernels))
+    note("segment")
+    return col.combine_segment(spec, stream)
+
+
+def _wire_format_for(app, stream: col.PairStream, *, num_shards: int,
+                     shuffle_capacity, shuffle_plan=None, wire="raw"):
+    """The shuffle's ``wire.WireFormat`` for one shard's pair stream."""
+    from repro_torch.distributed import wire as wirelib
+
+    return wirelib.wire_format(
+        key_space=app.key_space, num_shards=num_shards,
+        n_pairs=stream.keys.shape[0], value_avals=stream.values,
+        codec=wire, capacity=shuffle_capacity, plan=shuffle_plan)
+
+
+def _localize_recv(app, recv_keys, recv_vals, *, num_shards: int,
+                   shard_index: int, shuffle_plan=None):
+    """Rebase a received ``[S, B]`` bucket stack into the shard's key range
+    ``[0, K_local]`` (sentinel ``K_local``): ``(local stream, lo)``.  With a
+    skew plan the range is the shard's boundary span, rebased into the
+    static width ``plan.width``, and hot keys drop to the sentinel (they
+    fold into the hot tables and land back at the finalize patch)."""
+    K = app.key_space
+    if shuffle_plan is None:
+        K_local = -(-K // num_shards)
+        lo = shard_index * K_local
+        lkeys = torch.where(recv_keys < K, recv_keys - lo, K_local)
+        lkeys = torch.where((lkeys >= 0) & (lkeys <= K_local), lkeys,
+                            K_local)
+    else:
+        K_local = shuffle_plan.width
+        lo = shuffle_plan.boundaries[shard_index]
+        hi = shuffle_plan.boundaries[shard_index + 1]
+        inside = (recv_keys >= lo) & (recv_keys < hi)
+        for k in shuffle_plan.hot_keys:
+            inside = inside & (recv_keys != k)
+        lkeys = torch.where(inside, recv_keys - lo, K_local)
+    lstream = col.PairStream(
+        lkeys.reshape(-1).to(torch.int32).contiguous(),
+        pytree.tree_map(lambda v: v.reshape((-1,) + tuple(v.shape[2:])),
+                        recv_vals), K_local)
+    return lstream, int(lo)
+
+
+def _shuffle_pairs(app, streams, mesh, *, shuffle_capacity,
+                   shuffle_plan=None, wire="raw", clock=None):
+    """The key-partitioned all-to-all of the shards' pair streams, under
+    the ``wire`` codec: bucketize and encode (a stage), the all-to-all of
+    every encoded leaf, then decode.  Returns, a shard, the received local
+    stream, its key offset, the overflow count and the decoded flat
+    ``(keys, values)`` (the hot-split path folds its tables from them),
+    and the wire format with the encoded bytes one shard sent.
+    ``clock``, when given, is called between the stages (it synchronizes
+    and stamps: ``DistributedRun.time_exchange``)."""
+    from repro_torch.distributed import wire as wirelib
+
+    tick = clock if clock is not None else (lambda stage: None)
+    S = mesh.size
+    fmt = _wire_format_for(app, streams[0], num_shards=S,
+                           shuffle_capacity=shuffle_capacity,
+                           shuffle_plan=shuffle_plan, wire=wire)
+    encs, overflows = [], []
+    for stream in streams:
+        sk, sv, ovf = wirelib.bucketize(fmt, stream, shuffle_plan)
+        encs.append(wirelib.encode(fmt, sk, sv))
+        overflows.append(ovf)
+    sent_bytes = wirelib.tree_nbytes(encs[0])
+    leaves = _stack_leaves(encs)
+    treedef = pytree.tree_structure(encs[0])
+    tick("encode")
+    recv_leaves = [mesh.all_to_all([ls[i] for ls in leaves])
+                   for i in range(len(leaves[0]))]
+    tick("all_to_all")
+    out = []
+    for j, d in enumerate(mesh.shards()):
+        recv_enc = pytree.tree_unflatten([r[j] for r in recv_leaves],
+                                         treedef)
+        recv_keys, recv_vals = wirelib.decode(fmt, recv_enc, d)
+        lstream, lo = _localize_recv(app, recv_keys, recv_vals,
+                                     num_shards=S, shard_index=d,
+                                     shuffle_plan=shuffle_plan)
+        flat = (recv_keys.reshape(-1),
+                pytree.tree_map(lambda v: v.reshape((-1,) + tuple(v.shape[2:])),
+                                recv_vals))
+        out.append((lstream, lo, overflows[j], flat))
+    tick("decode")
+    return out, fmt, sent_bytes
+
+
+def _reduce_range(app, lstream: col.PairStream, lo: int):
+    """The reduce flow's tail for one key range: group the local stream and
+    run the user reduce with the global keys."""
+
+    def reduce_global(k, vals, cnt):
+        return app.reduce(k + lo, vals, cnt)
+
+    grouped = col.reduce_flow(reduce_global, lstream,
+                              max_values_per_key=app.max_values_per_key,
+                              pad_value=app.pad_value)
+    return grouped.keys + lo, grouped.values, grouped.counts
+
+
+def _fold_hot_tables(app, spec, recv_keys, recv_vals, shuffle_plan, *,
+                     device, use_kernels: bool):
+    """A shard's received hot-key pairs folded into ``[H, ...]`` partial
+    tables (identity rows for hot keys it received nothing of)."""
+    H = len(shuffle_plan.hot_keys)
+    hidx = torch.full_like(recv_keys, H, dtype=torch.int32)
+    for i, k in enumerate(shuffle_plan.hot_keys):
+        hidx = torch.where(recv_keys == k, i, hidx)
+    fold_fn, monoid_fold_fn = _fold_kernels(use_kernels)
+    sc = col.StreamCombiner(spec, H, app.value_spec, device=device,
+                            fold_fn=fold_fn, monoid_fold_fn=monoid_fold_fn)
+    state = sc.fold_chunk(sc.init_state(),
+                          col.PairStream(hidx, recv_vals, H))
+    return sc.tables_counts(state)
+
+
+def _patch_hot_rows(tables, counts, hot_tables, hot_counts, shuffle_plan,
+                    shard_index: int):
+    """Write the merged hot-key rows into the range tables of each key's
+    owner shard, before the finalize."""
+    tables = pytree.tree_map(lambda t: t.clone(), tables)
+    counts = counts.clone()
+    hot_leaves = pytree.tree_leaves(hot_tables)
+    leaves, treedef = pytree.tree_flatten(tables)
+    for i, k in enumerate(shuffle_plan.hot_keys):
+        owner = shuffle_plan.hot_owner(k)
+        if owner != shard_index:
+            continue
+        row = k - shuffle_plan.boundaries[owner]
+        counts[row] = hot_counts[i].to(counts.dtype)
+        for leaf, hot in zip(leaves, hot_leaves):
+            leaf[row] = hot[i].to(leaf.dtype)
+    return pytree.tree_unflatten(leaves, treedef), counts
+
+
+def _sort_range_tables(app, spec, lstream: col.PairStream, *, device,
+                       use_kernels: bool, chunk_pairs: int,
+                       bucket_size=None, level_fanouts=None):
+    """One key range folded by the sort collector in ``chunk_pairs``
+    pieces, to un-finalized ``(tables, counts)``.  The radix plan is the
+    range's own (``K_local``): the all-to-all was radix level 0."""
+    K_local = lstream.key_space
+    bs, lf = _check_sort_kernel_plan(spec, K_local, app.value_spec,
+                                     use_kernels, bucket_size, level_fanouts)
+    sc = col.SortCombiner(spec, K_local, app.value_spec, device=device,
+                          sort_fold_fn=_sort_fold_kernel(use_kernels, bs, lf))
+    state = sc.init_state()
+    n = lstream.keys.shape[0]
+    for lo in range(0, n, chunk_pairs):
+        hi = min(lo + chunk_pairs, n)
+        state = sc.fold_chunk(state, col.PairStream(
+            lstream.keys[lo:hi],
+            pytree.tree_map(lambda v: v[lo:hi], lstream.values), K_local))
+    return sc.tables_counts(state)
+
+
+def _sort_range_fold(app, spec, lstream: col.PairStream, lo: int, *,
+                     device, use_kernels: bool, chunk_pairs: int,
+                     bucket_size=None, level_fanouts=None, hot_patch=None):
+    """The sort flow's tail for one key range: fold, patch the merged hot
+    rows (``hot_patch``), finalize."""
+    tables, counts = _sort_range_tables(
+        app, spec, lstream, device=device, use_kernels=use_kernels,
+        chunk_pairs=chunk_pairs, bucket_size=bucket_size,
+        level_fanouts=level_fanouts)
+    if hot_patch is not None:
+        tables, counts = hot_patch(tables, counts)
+    return _finalize_rows(spec, tables, counts, lo)
+
+
+def _distributed_tiling(app, plan, *, device, use_kernels: bool,
+                        chunk_pairs, key_block):
+    """The per-shard tiling: the given knobs, else the flow's tiling on
+    ``device`` (the port's chunk does not depend on the item count)."""
+    from repro_torch.core import autotune as at
+
+    if plan.flow == "stream" and chunk_pairs is None:
+        t = at.autotune_stream(app, plan.spec, device=device,
+                               use_kernels=use_kernels)
+        chunk_pairs = t.chunk_pairs
+        if key_block is None and t.blocked:
+            key_block = t.key_block
+    if plan.flow == "sort" and chunk_pairs is None:
+        chunk_pairs = at.autotune_sort(app, plan.spec, device=device,
+                                       use_kernels=use_kernels).chunk_pairs
+    return chunk_pairs, key_block
+
+
+def _densify_ranges(keys, values, counts, shuffle_plan):
+    """Scatter the concatenated boundary-range outputs into the dense
+    ``keys == arange(K)`` layout: shard ``s``'s row ``i`` is authoritative
+    iff ``i`` lies inside its boundary span (the rows past it pad to the
+    widest span)."""
+    K = shuffle_plan.key_space
+    b = shuffle_plan.boundaries
+    W = shuffle_plan.width
+    spans = torch.tensor([b[s + 1] - b[s]
+                          for s in range(shuffle_plan.num_shards)],
+                         device=counts.device)
+    auth = (torch.arange(W, device=counts.device)[None, :]
+            < spans[:, None]).reshape(-1)
+    slot = torch.where(auth, keys.to(torch.int64), K)
+    dcounts = torch.zeros((K + 1,), dtype=counts.dtype, device=counts.device)
+    dcounts[slot] = torch.where(auth, counts, 0)
+
+    def dense(v):
+        out = torch.zeros((K + 1,) + tuple(v.shape[1:]), dtype=v.dtype,
+                          device=v.device)
+        m = auth.reshape((-1,) + (1,) * (v.ndim - 1))
+        out[slot] = torch.where(m, v, torch.zeros((), dtype=v.dtype,
+                                                  device=v.device))
+        return out[:K]
+
+    return (torch.arange(K, dtype=torch.int32, device=counts.device),
+            pytree.tree_map(dense, values), dcounts[:K])
+
+
+def _surface_overflow(sinks, overflow, *, strict: bool,
+                      shuffle_capacity) -> None:
+    """Report shuffle overflow (``overflow``: the per-source-shard counts):
+    ``ValueError`` under ``strict``, else a ``LoweringFallbackWarning`` on
+    every call (an overflow makes the output wrong; it is not a lowering
+    fallback to warn about once) and the message in each plan's
+    ``diagnostics``."""
+    counts = [int(x) for x in overflow.reshape(-1).tolist()]
+    total = sum(counts)
+    if total == 0:
+        return
+    msg = (f"distributed shuffle overflow: {total} pairs exceeded the "
+           f"per-destination capacity "
+           f"(shuffle_capacity={shuffle_capacity or 'auto(2x uniform)'}; "
+           f"per-shard counts {counts}) and were dropped — the key "
+           f"distribution is skewed past the bucket envelope; raise "
+           f"shuffle_capacity (or rebalance the key ranges)")
+    if strict:
+        raise ValueError(msg)
+    warnings.warn(msg, col.LoweringFallbackWarning, stacklevel=3)
+    for plan in sinks:
+        if msg not in plan.diagnostics:
+            plan.diagnostics += (msg,)
+
+
+class ShardedResult:
+    """Where a distributed result's rows live: ``sharded`` rows are one
+    block a shard (a ProcessGroupMesh rank holds its own), otherwise every
+    shard holds them all.  :meth:`gather` assembles the global layout (a
+    collective: every rank calls it)."""
+
+    def __init__(self, mesh, sharded: bool):
+        self.mesh = mesh
+        self.sharded = sharded
+
+    @property
+    def local(self) -> bool:
+        """True when the rows this process holds are only its own block."""
+        return self.sharded and self.mesh.kind != "local"
+
+    def gather(self, keys, values, counts):
+        if not self.local:
+            return keys, values, counts
+
+        def g(x):
+            got = self.mesh.all_gather([x])[0]
+            return got.reshape((-1,) + tuple(x.shape[1:]))
+
+        return g(keys), pytree.tree_map(g, values), g(counts)
+
+
+class DistributedRun:
+    """One flow of one plan over a shard mesh, prepared to dispatch (what
+    the staged API's ``compile()`` caches in distributed mode).  Calling it
+    with the global items runs the flow's stages and returns the raw
+    per-shard outputs; :meth:`postprocess` reports overflow and assembles
+    ``(keys, values, counts, layout)``.
+
+    ``last_exchange`` records the last call's all-to-all: the wire format
+    and the encoded bytes one shard sent; with ``time_exchange`` set, also
+    the seconds of its stages on the host's clock (bucketize and encode,
+    the all-to-all, decode), each closed by a device synchronization."""
+
+    time_exchange = False
+
+    def __init__(self, app, plan, *, mesh, combine_impl: str = "auto",
+                 use_kernels: bool = False, scatter_output: bool = False,
+                 shuffle_capacity: int | None = None,
+                 chunk_pairs: int | None = None,
+                 key_block: int | None = None,
+                 bucket_size: int | None = None,
+                 level_fanouts: tuple[int, ...] | None = None,
+                 shuffle_plan=None, wire: str = "raw"):
+        S = mesh.size
+        if (shuffle_plan is not None and plan.flow in ("reduce", "sort")
+                and shuffle_plan.num_shards != S):
+            raise ValueError(
+                f"shuffle_plan was derived for {shuffle_plan.num_shards} "
+                f"shards but the mesh data axis has {S}")
+        if (plan.flow == "reduce" and shuffle_plan is not None
+                and shuffle_plan.hot_keys):
+            raise ValueError(
+                "hot-key splitting needs the sort flow's monoid tables; "
+                "the reduce flow takes boundary rebalancing only")
+        if plan.flow in ("stream", "sort") and chunk_pairs is None:
+            raise ValueError(f"the distributed {plan.flow} flow needs its "
+                             f"per-shard chunk_pairs (_distributed_tiling)")
+        self.app = app
+        self.plan = plan
+        self.flow = plan.flow
+        self.spec = plan.spec
+        self.mesh = mesh
+        self.device = mesh.device
+        self.combine_impl = combine_impl
+        self.use_kernels = use_kernels
+        self.scatter_output = scatter_output
+        self.shuffle_capacity = shuffle_capacity
+        self.chunk_pairs = chunk_pairs
+        self.key_block = key_block
+        self.bucket_size = bucket_size
+        self.level_fanouts = level_fanouts
+        self.shuffle_plan = shuffle_plan
+        self.wire = wire
+        self.local_run = None
+        if plan.flow == "stream":
+            self.local_run = LocalRun(app, "stream", plan.spec,
+                                      device=self.device,
+                                      use_kernels=use_kernels,
+                                      chunk_pairs=chunk_pairs,
+                                      key_block=key_block)
+        self.last_exchange: dict | None = None
+        self._routes: list[str] = []
+
+    # -- the flows' stages ---------------------------------------------------
+
+    def shard_tables(self, items) -> list:
+        """The stream or combine flow's per-shard partial ``(tables,
+        counts)`` before any collective (the shards of ``mesh.shards()``)."""
+        blocks = shard_items(items, self.mesh.size)
+        out = []
+        for s in self.mesh.shards():
+            if self.flow == "stream":
+                out.append(self.local_run.tables(blocks[s])[1:])
+            else:
+                stream = map_phase(self.app, blocks[s], self.device)
+                out.append(_combine_local_tables(
+                    self.app, self.spec, stream,
+                    combine_impl=self.combine_impl,
+                    use_kernels=self.use_kernels, routes=self._routes))
+        return out
+
+    def _merge_flow(self, items):
+        parts = self.shard_tables(items)
+        return _merge_shard_tables(
+            self.app, self.spec, [p[0] for p in parts], [p[1] for p in parts],
+            self.mesh, scatter=self.scatter_output), None
+
+    def _shuffle_flow(self, items):
+        import time
+
+        mesh, app = self.mesh, self.app
+        blocks = shard_items(items, mesh.size)
+        streams = [map_phase(app, blocks[s], self.device)
+                   for s in mesh.shards()]
+        stamps: dict[str, float] = {}
+        clock = None
+        if self.time_exchange:
+            def clock(stage, last=[None]):
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                now = time.perf_counter()
+                if last[0] is not None:
+                    stamps[stage] = now - last[0]
+                last[0] = now
+
+            clock("start")
+        recv, fmt, sent = _shuffle_pairs(
+            app, streams, mesh, shuffle_capacity=self.shuffle_capacity,
+            shuffle_plan=self.shuffle_plan, wire=self.wire, clock=clock)
+        self.last_exchange = {"format": fmt, "sent_bytes": sent,
+                              "seconds": stamps}
+        overflow = mesh.all_gather([r[2].reshape(1) for r in recv])[0]
+        if self.flow == "reduce":
+            outs = [_reduce_range(app, ls, lo) for ls, lo, _, _ in recv]
+            return outs, overflow
+        splan = self.shuffle_plan
+        hot = None
+        if splan is not None and splan.hot_keys:
+            parts = [_fold_hot_tables(app, self.spec, fk, fv, splan,
+                                      device=self.device,
+                                      use_kernels=self.use_kernels)
+                     for _, _, _, (fk, fv) in recv]
+            hot = merge_tables_collective(
+                self.spec, [p[0] for p in parts], [p[1] for p in parts],
+                mesh)
+        outs = []
+        for j, (s, (ls, lo, _, _)) in enumerate(zip(mesh.shards(), recv)):
+            patch = None
+            if hot is not None:
+                def patch(t, c, j=j, s=s):
+                    return _patch_hot_rows(t, c, hot[0][j], hot[1][j],
+                                           splan, s)
+            outs.append(_sort_range_fold(
+                app, self.spec, ls, lo, device=self.device,
+                use_kernels=self.use_kernels, chunk_pairs=self.chunk_pairs,
+                bucket_size=self.bucket_size,
+                level_fanouts=self.level_fanouts, hot_patch=patch))
+        return outs, overflow
+
+    def __call__(self, items, *, sinks=()):
+        """The per-shard outputs ``(keys, values, counts)`` of
+        ``mesh.shards()`` and the all-gathered overflow counts (None for
+        the stream and combine flows).  ``sinks``: the plans a combine run
+        records its lowering on."""
+        self._routes: list[str] = []
+        if self.flow in ("stream", "combine"):
+            outs, overflow = self._merge_flow(items)
+        else:
+            outs, overflow = self._shuffle_flow(items)
+        if self.flow == "combine" and self._routes:
+            for plan in sinks:
+                plan.lowering = (f"distributed over {self.mesh.size} shards: "
+                                 f"{self._routes[0]}")
+        return outs, overflow
+
+    @property
+    def sharded(self) -> bool:
+        return self.flow in ("reduce", "sort") or self.scatter_output
+
+    def postprocess(self, out, *, strict_shuffle: bool = False, sinks=()):
+        """Report overflow, then assemble the global layout: stream and
+        combine results replicated ``[K]`` (key-sharded with
+        ``scatter_output``), reduce and sort results key-sharded
+        ``[S·K_local]``, densified to ``[K]`` under a skew plan.  On a
+        LocalMesh the rows are global; a ProcessGroupMesh rank keeps its
+        own block (``ShardedResult.gather``), except under a skew plan,
+        whose densified rows every rank gathers.  Returns ``(keys, values,
+        counts, layout)``."""
+        outs, overflow = out
+        if overflow is not None:
+            _surface_overflow(sinks, overflow, strict=strict_shuffle,
+                              shuffle_capacity=self.shuffle_capacity)
+        layout = ShardedResult(self.mesh, self.sharded)
+        if not self.sharded:
+            keys, values, counts = outs[0]
+            return keys, values, counts, layout
+        keys = torch.cat([o[0] for o in outs])
+        values = pytree.tree_map(lambda *vs: torch.cat(vs),
+                                 *[o[1] for o in outs])
+        counts = torch.cat([o[2] for o in outs])
+        if self.shuffle_plan is not None and self.flow in ("reduce", "sort"):
+            keys, values, counts = layout.gather(keys, values, counts)
+            layout = ShardedResult(self.mesh, False)
+            keys, values, counts = _densify_ranges(keys, values, counts,
+                                                   self.shuffle_plan)
+        return keys, values, counts, layout
+
+    def launch_plan(self, n_items: int) -> str:
+        """The shard bodies' launches and the mesh's collectives."""
+        S = self.mesh.size
+        per = n_items // S if S else n_items
+        lines = [f"distributed {self.flow} over {self.mesh.signature()}: "
+                 f"{S} shards of {per} items"]
+        if self.flow == "stream":
+            lines.append("per shard: " + self.local_run.launch_plan(per)
+                         .replace("\n", "\n  "))
+            lines.append("merge: counts and integer leaves psum; float "
+                         "leaves all-gathered, reduced in shard order")
+        elif self.flow == "combine":
+            lines.append(f"per shard: map, then the combine lowering by "
+                         f"combine_impl={self.combine_impl!r}; merge as the "
+                         f"stream flow's")
+        else:
+            lines.append(f"per shard: map, bucketize, encode ({self.wire}), "
+                         f"all-to-all of every encoded leaf, decode, then "
+                         + ("the reduce flow over the shard's key range"
+                            if self.flow == "reduce" else
+                            "the sort collector over the shard's key range "
+                            "(its own radix plan)"))
+        return "\n".join(lines)
+
+
+def build_distributed_fn(app, plan, *, mesh, **knobs):
+    """The distributed run of ``plan`` over ``mesh``: ``(run,
+    postprocess)``, the reference's pair.  ``run(items)`` gives the raw
+    per-shard outputs; ``postprocess(out, strict_shuffle=..., sinks=...)``
+    reports overflow and returns ``(keys, values, counts, layout)``.
+    ``chunk_pairs`` / ``key_block`` are the per-shard tiling
+    (:func:`_distributed_tiling`)."""
+    run = DistributedRun(app, plan, mesh=mesh, **knobs)
+    return run, run.postprocess
+
+
+def run_distributed(app, plan, items, *, mesh, combine_impl: str = "auto",
+                    use_kernels: bool = False, scatter_output: bool = False,
+                    shuffle_capacity: int | None = None,
+                    chunk_pairs: int | None = None,
+                    key_block: int | None = None,
+                    bucket_size: int | None = None,
+                    level_fanouts: tuple[int, ...] | None = None,
+                    strict_shuffle: bool = False, shuffle_plan=None,
+                    wire: str = "raw", sinks=None):
+    """Run the planned flow over the shards of ``mesh`` (the engine layer;
+    ``MapReduce.run_distributed`` is the user's).  Returns ``(keys, values,
+    counts)`` in the global layout on a LocalMesh, and each rank's rows on
+    a ProcessGroupMesh (see :meth:`DistributedRun.postprocess`).
+
+    The reduce and sort flows' all-to-all counts the pairs past the
+    per-destination capacity: a nonzero count warns
+    (``LoweringFallbackWarning``) and lands in ``plan.diagnostics``, or
+    raises ``ValueError`` under ``strict_shuffle``."""
+    chunk_pairs, key_block = _distributed_tiling(
+        app, plan, device=mesh.device, use_kernels=use_kernels,
+        chunk_pairs=chunk_pairs, key_block=key_block)
+    run, post = build_distributed_fn(
+        app, plan, mesh=mesh, combine_impl=combine_impl,
+        use_kernels=use_kernels, scatter_output=scatter_output,
+        shuffle_capacity=shuffle_capacity, chunk_pairs=chunk_pairs,
+        key_block=key_block, bucket_size=bucket_size,
+        level_fanouts=level_fanouts, shuffle_plan=shuffle_plan, wire=wire)
+    sinks = (plan,) if sinks is None else tuple(sinks)
+    items = pytree.tree_map(lambda a: torch.as_tensor(a).to(mesh.device),
+                            items)
+    with torch.no_grad():
+        keys, values, counts, _ = post(run(items, sinks=sinks),
+                                       strict_shuffle=strict_shuffle,
+                                       sinks=sinks)
+    return keys, values, counts

@@ -49,6 +49,12 @@ class ExecutionPlan:
     cache_event: str = ""
     #: pipeline fusion decisions (``core/pipeline.py``), one line each
     fusion: tuple[str, ...] = ()
+    #: the skew planner's provenance (``core/skew.py``): the sampled
+    #: histogram, the balanced boundaries and the hot-key splits
+    skew: tuple[str, ...] = ()
+    #: the shuffle codec's provenance (``distributed/wire.py``): the codec
+    #: and its modelled encoded and raw bytes a shard
+    wire: tuple[str, ...] = ()
 
     @property
     def optimized(self) -> bool:
@@ -89,6 +95,10 @@ class ExecutionPlan:
             lines.append(f"lowering: {self.lowering}")
         for decision in self.fusion:
             lines.append(f"fusion: {decision}")
+        for line in self.skew:
+            lines.append(f"skew: {line}")
+        for line in self.wire:
+            lines.append(f"wire: {line}")
         for diag in self.diagnostics:
             lines.append(f"diagnostic: {diag}")
         return "\n".join(lines)
@@ -115,12 +125,18 @@ def _model_holder_bytes(spec: C.CombinerSpec, value_spec: C.ValueSpec) -> int:
 
 
 def flow_cost_report(app, spec: C.CombinerSpec, n_pairs_hint: int, *,
-                     device, skew_factor: float = 1.0) -> cm.CostReport:
+                     device, skew_factor: float = 1.0, num_shards: int = 1,
+                     wire: str = "raw",
+                     shuffle_capacity: int | None = None) -> cm.CostReport:
     """Rank the eligible flows for ``app``/``spec`` at a workload size, in
     the profile of ``device`` (``cost_model.default_backend``).
 
     The planner calls this under ``flow="auto"``; ``chip_smoke.py`` uses it
-    directly to hold the model's verdict against measured winners."""
+    directly to hold the model's verdict against measured winners.
+    ``num_shards > 1`` prices the shuffled flows' all-to-all under the
+    ``wire`` codec."""
+    from repro_torch.distributed.wire import dtype_name
+
     vs = app.value_spec
     value_bytes = vs.dtype.itemsize * max(1, int(np.prod(vs.shape)))
     d, _ = spec.holder_width(vs)
@@ -131,7 +147,9 @@ def flow_cost_report(app, spec: C.CombinerSpec, n_pairs_hint: int, *,
         max_values_per_key=getattr(app, "max_values_per_key", None),
         candidates=_cost_candidates(spec),
         backend=cm.default_backend(device), skew_factor=skew_factor,
-        fold_op="add" if spec.sum_lowerable else "max")
+        fold_op="add" if spec.sum_lowerable else "max",
+        num_shards=num_shards, wire=wire, shuffle_capacity=shuffle_capacity,
+        value_dtype=dtype_name(vs.dtype))
 
 
 def plan_execution(app, *, flow: str = "auto",

@@ -312,19 +312,22 @@ def plan_key(app, *, flow: str, trust_semantics: bool,
 
 
 def compiled_key(app, items_spec, *, plan_key: str, flow: str,
-                 n_bucket: int, device, mode: str = "local",
+                 n_bucket: int, device, mode: str = "local", mesh=None,
                  extra: tuple = ()) -> str:
     """Key of the compiled stage: the plan key x the map graph over the item
-    spec x the (bucketed) batch shape x the device (``cuda:0``) x the mode
-    and the resolved lowering knobs."""
+    spec x the (bucketed) batch shape x the device (``cuda:0``) x the mesh
+    (its kind, size, axis and backend) x the mode and the resolved lowering
+    knobs."""
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
+    mesh_sig = "none" if mesh is None else mesh.signature()
     return _digest(
         "compiled", plan_key,
         map_fingerprint(app, item_spec_of(items_spec)),
         spec_sig_of(items_spec), f"N={n_bucket}", f"flow={flow}",
-        f"device={dev}", f"mode={mode}", *[str(x) for x in extra])
+        f"device={dev}", f"mesh={mesh_sig}", f"mode={mode}",
+        *[str(x) for x in extra])
 
 
 # ---------------------------------------------------------------------------
@@ -343,12 +346,12 @@ class PlanEntry:
 @dataclasses.dataclass
 class CompiledEntry:
     """The cached compile stage: the prepared run (mode "local" and
-    "pipeline") or the ingest (mode "streaming", an
-    ``engine.StreamIngest``, whose ``combiner`` is the reference's
-    ``aux``)."""
+    "pipeline"; mode "distributed", an ``engine.DistributedRun``) or the
+    ingest (mode "streaming", an ``engine.StreamIngest``, whose
+    ``combiner`` is the reference's ``aux``)."""
 
     executable: Any
-    mode: str  # "local" | "pipeline" | "streaming"
+    mode: str  # "local" | "pipeline" | "streaming" | "distributed"
     #: the warm-up call's ``torch.cuda.max_memory_allocated`` (card only)
     warmup_peak_bytes: int | None = None
 

@@ -27,6 +27,11 @@ For the models, :func:`params_from_repro` turns the reference's parameter
 pytree (numpy leaves, layers stacked ``[L, ...]``) into the port's, key for
 key, and :func:`decode_state_from_repro` a reference decode state (its KV
 cache and ``pos``), so that both packages compute the same thing.
+
+For the shuffle, :func:`shuffle_plan_from_repro` and
+:func:`wire_format_from_repro` rebuild the port's ``ShufflePlan`` and
+``WireFormat`` from the reference's records (any object with their
+fields), so that both sides route and encode by one record.
 """
 
 from __future__ import annotations
@@ -152,3 +157,35 @@ def decode_state_from_repro(state_np, *, device=None):
     return {"cache": {name: _tensor_from_numpy(x, dev)
                       for name, x in state_np["cache"].items()},
             "pos": int(np.asarray(state_np["pos"]))}
+
+
+def shuffle_plan_from_repro(plan):
+    """The port's ``skew.ShufflePlan`` from a reference ``ShufflePlan``
+    (same fields; Python ints and floats)."""
+    from repro_torch.core import skew
+
+    if plan is None:
+        return None
+    return skew.ShufflePlan(
+        key_space=int(plan.key_space), num_shards=int(plan.num_shards),
+        boundaries=tuple(int(b) for b in plan.boundaries),
+        hot_keys=tuple(int(k) for k in plan.hot_keys),
+        hot_ways=tuple(int(w) for w in plan.hot_ways),
+        imbalance=(None if plan.imbalance is None
+                   else float(plan.imbalance)),
+        max_dest_frac=(None if plan.max_dest_frac is None
+                       else float(plan.max_dest_frac)))
+
+
+def wire_format_from_repro(fmt):
+    """The port's ``wire.WireFormat`` from a reference ``WireFormat``; its
+    ``epoch`` is the reference's."""
+    from repro_torch.distributed import wire
+
+    return wire.WireFormat(
+        codec=str(fmt.codec), num_shards=int(fmt.num_shards),
+        capacity=int(fmt.capacity), key_space=int(fmt.key_space),
+        lo=tuple(int(x) for x in fmt.lo), span=int(fmt.span),
+        hot_keys=tuple(int(k) for k in fmt.hot_keys),
+        plan_epoch=int(fmt.plan_epoch),
+        value_leaves=tuple((str(d), int(e)) for d, e in fmt.value_leaves))

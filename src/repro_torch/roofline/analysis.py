@@ -8,10 +8,12 @@ explicit ``chunk_pairs`` they return its numbers exactly.  With
 (``core/autotune.CUDA_CHUNK_PAIRS``), not the reference engine's
 defaults.
 
-:func:`pipeline_handoff_bytes` is the reference's too.  The HLO parser and
-the compiled-artifact roofline of the reference read XLA's output and
-have no counterpart here; the wire and model FLOP models come with the
-modules that need them.
+:func:`pipeline_handoff_bytes` and :func:`shuffle_wire_bytes` are the
+reference's too (the latter from the port's ``distributed/wire.py``,
+whose byte accounting equals the reference's).  The HLO parser and the
+compiled-artifact roofline of the reference read XLA's output and have no
+counterpart here; the model FLOP model comes with the module that needs
+it.
 """
 
 from __future__ import annotations
@@ -19,6 +21,12 @@ from __future__ import annotations
 #: HBM bandwidth of an H100 SXM (80 GB HBM3), bytes per second: the memory
 #: rate the ``cuda`` cost profile states its byte terms against
 H100_SXM_HBM_BYTES_PER_S = 3.35e12
+
+#: the link rate of the reference's roofline (``repro/roofline/analysis.py``
+#: ``LINK_BW``), which its ``cpu`` cost profile divides the wire bytes by:
+#: the reference's constant, kept so that the port's ``cpu`` plans equal
+#: the reference's; no measurement of any machine the port runs on
+REFERENCE_LINK_BYTES_PER_S = 50e9
 
 
 def _default_chunk() -> int:
@@ -140,3 +148,31 @@ def pipeline_handoff_bytes(key_space: int, *, value_bytes: int = 4,
     the table (``core/pipeline.py``, ROADMAP C.33)."""
     row = 4 + 4 + (0 if dead_value else int(value_bytes))
     return 2.0 * float(key_space) * row
+
+
+def shuffle_wire_bytes(codec: str = "raw", *, n_pairs: int, key_space: int,
+                       num_shards: int, value_bytes: int = 4,
+                       value_dtype: str = "int32",
+                       capacity: int | None = None, plan=None) -> float:
+    """Bytes a shard sends in one tiled all-to-all shuffle under a wire
+    codec: the encoded tree's bytes (``wire.encoded_nbytes``, equal to the
+    tree ``wire.encode`` makes) times ``(S - 1) / S``.  ``n_pairs`` is the
+    global pair count, split evenly over the shards; ``capacity`` and
+    ``plan`` follow the engine's capacity chain."""
+    from repro_torch.distributed import wire as wirelib
+
+    S = max(int(num_shards), 1)
+    if S <= 1:
+        return 0.0
+    per = -(-max(int(n_pairs), 1) // S)
+    itemsize = wirelib._itemsize(value_dtype)
+    elems = max(1, int(value_bytes) // itemsize)
+
+    class _Spec:  # one shard's value stream: [per, elems] of value_dtype
+        shape = (per, elems)
+        dtype = wirelib.dtype_name(value_dtype)
+
+    fmt = wirelib.wire_format(
+        key_space=int(key_space), num_shards=S, n_pairs=per,
+        value_avals=_Spec(), codec=codec, capacity=capacity, plan=plan)
+    return wirelib.wire_bytes_per_shard(fmt)

@@ -191,12 +191,32 @@ def test_unknown_backend_and_missing_coefficient_raise(monkeypatch):
 
 @pytest.mark.parametrize("backend", ["cpu", "cuda"])
 def test_num_shards_names_the_distribution_item(backend):
-    with pytest.raises(NotImplementedError, match="A11"):
-        tcm.estimate_flow_cost("sort", n_pairs=8, key_space=8,
-                               backend=backend, num_shards=4)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tcm.choose_flow(n_pairs=8, key_space=8, backend=backend,
-                        num_shards=2)
+    """Since A11 (distribution) ``num_shards > 1`` prices the shuffled
+    flows' all-to-all: a ``wire`` term, the roofline's bytes a shard over
+    the profile's link rate (the reference's constant on ``cpu``), none
+    for the table-merge flows; on ``cpu`` every estimate and term is the
+    reference's."""
+    for flow in FLOWS:
+        for codec in ("raw", "delta", "packed"):
+            kw = dict(n_pairs=1 << 16, key_space=1 << 12, num_shards=4,
+                      wire=codec, value_bytes=4, value_dtype="float32",
+                      skew_factor=1.5)
+            got = tcm.estimate_flow_cost(flow, backend=backend, **kw)
+            terms = dict(got.terms)
+            assert ("wire" in terms) == (flow in ("sort", "reduce"))
+            if flow in ("sort", "reduce"):
+                assert terms["wire"] == troof.shuffle_wire_bytes(
+                    codec, n_pairs=1 << 16, key_space=1 << 12, num_shards=4,
+                    value_bytes=4, value_dtype="float32") / \
+                    tcm.link_bytes_per_s(backend)
+            if backend == "cpu":
+                want = jcm.estimate_flow_cost(flow, backend="cpu", **kw)
+                assert got.est_s == want.est_s
+                assert got.terms == want.terms
+    rep = tcm.choose_flow(n_pairs=1 << 16, key_space=1 << 12,
+                          backend=backend, num_shards=2, wire="delta")
+    assert rep.chosen in ("stream", "sort")
+    assert tcm.link_bytes_per_s("cpu") == jroof.LINK_BW
 
 
 def test_skew_scales_the_shuffled_flows_only():

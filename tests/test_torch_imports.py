@@ -21,7 +21,7 @@ names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 32, names
+assert len(names) >= 37, names
 for name in ("repro_torch.core.cost_model", "repro_torch.core.plan_cache",
              "repro_torch.core.pipeline", "repro_torch.roofline",
              "repro_torch.roofline.analysis",
@@ -37,7 +37,11 @@ for name in ("repro_torch.core.cost_model", "repro_torch.core.plan_cache",
              "repro_torch.serving.serve_step", "repro_torch.launch.serve",
              "repro_torch.streaming", "repro_torch.streaming.service",
              "repro_torch.streaming.ingest", "repro_torch.streaming.windows",
-             "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt"):
+             "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
+             "repro_torch.distributed", "repro_torch.distributed.mesh",
+             "repro_torch.distributed.wire",
+             "repro_torch.distributed.compression",
+             "repro_torch.core.skew"):
     assert name in names, name
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -53,7 +57,7 @@ def test_every_module_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", PROBE], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 32
+    assert int(out.stdout.strip()) >= 37
 
 
 def _imported(path):

@@ -238,13 +238,23 @@ def test_calls_return_fresh_tensors(items):
 def test_other_modes_name_their_roadmap_item(mode, item, items):
     """The modes still to port raise naming their ROADMAP item; streaming
     (A13, ported) lowers and compiles an ingest, which refuses a batch
-    call."""
+    call; distributed (A11, ported) needs a mesh, and with one compiles
+    a distributed run."""
     mr = T.MapReduce(wc_app(), device="cpu")
     if mode == "streaming":
         comp = mr.lower(items, mode=mode).compile()
         assert comp.mode == "streaming"
         with pytest.raises(TypeError, match="MapReduceService"):
             comp(items)
+    elif mode == "distributed":
+        from repro_torch.distributed import LocalMesh
+
+        with pytest.raises(TypeError, match="requires a mesh"):
+            mr.lower(items, mode=mode)
+        comp = mr.lower(items, mode=mode, options=T.ExecutionOptions(
+            mesh=LocalMesh(2, "cpu"))).compile()
+        assert comp.mode == "distributed"
+        assert torch.equal(comp(items).counts, mr.run(items).counts)
     else:
         with pytest.raises(NotImplementedError, match=item):
             mr.lower(items, mode=mode)
