@@ -175,6 +175,30 @@ Phases (each raises on failure, and the script then exits non-zero):
    derive, tune or compile.  Each run's wall (median of 3), device time
    and launches a shard; B1-B7's rows of the ``kernels`` line name their
    launches a shard on this path (``distributed_launches``).
+13. resilience (``resilient_on_card``, the ``resilient`` line):
+   ``MapReduce(app).run_resilient(items, options=...)``, every shard in
+   this process on the card.  (a) Fault-free over 4 hosts, bit for bit
+   ``run_distributed(LocalMesh(S))`` at the same S: KMeans stream S = 4
+   and 8 (B1), BoundingBox S = 8 (B2), the KMeans combine flow one-hot
+   (B6) and scatter (B7) at S = 4, KeyedSum sort S = 4 at K = 2^20 (B3 +
+   B5) and 2^22 (B4 + B5), raw and delta, and WordCount on zipf text, sort,
+   S = 4, ``skew="auto"`` (the hot-split phase B); counts exact, max/min
+   bit for bit numpy's, sums within SUM_RTOL of float64 numpy.  (b) Drills
+   on KMeans stream and KeyedSum 2^20 sort, 8 shards over 4 hosts: host 2
+   dies; host 1 dies after one shard with ``ckpt_dir`` (restored [1]) and
+   with a dead disk; a straggler and an elastic 4 -> 3 at S = 4; a chaos
+   drill on a ``FileKVStore`` (the coordinator killed, one of eight
+   partials corrupt, two store timeouts, a partitioned host): each bit for
+   bit the fault-free run, its log the reference tests' values, and every
+   kernel's launches the partials the log accounts for (a partitioned
+   host's dropped ones too) times one partial's, plus phase B's.  A
+   partial checkpointed under delta is rejected by its wire epoch under
+   raw.  (c) Each run's wall beside ``run_distributed``'s (median of 3),
+   each drill's wall, device time and busy share, the time to recover one
+   shard (recompute it, or restore its checkpoint) and a checkpoint's ms
+   and bytes.  (d) A repeat call derives, tunes and compiles nothing.
+   B1-B7's rows of the ``kernels`` line name their launches on this path
+   (``resilient_launches``).
 
 ``run()`` prepares its run on its first call (the staged ``compile()``),
 and on the card that is one warm-up run on zeros, whose launches count:
@@ -612,8 +636,9 @@ def phoenix_on_card(flow: str = "auto") -> None:
         f"{', '.join(apps.ALL)}")
 
 
-def kernel_rows(rng, launches_add, launches_dense) -> list[dict]:
-    """Phase 8: kernel, plain and library times at the main path's shapes."""
+def kernel_rows(rng, launches_add, launches_dense, ops_count) -> list[dict]:
+    """Phase 8: kernel, plain and library times at the main path's shapes;
+    ``ops_count``: the device operations of phase 2b."""
     import torch
     from repro_torch.core.autotune import CUDA_CHUNK_PAIRS
     from repro_torch.kernels import ops
@@ -667,7 +692,7 @@ def kernel_rows(rng, launches_add, launches_dense) -> list[dict]:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": time_ms(lib, 20),
             "graph_ms": kern_graph_ms, "library_graph_ms": graph_ms(lib, 20),
-            "device_ops": device_ops(kern),
+            "device_ops": ops_count[name],
             "plan": ops.fold_plan(n, k, d, op).shape,
             "hot_half_graph_ms": hot_ms,
             "shape": {"n": n, "d": d, "k": k, "op": op},
@@ -840,9 +865,10 @@ def main_path_reduce(pts, assign, items):
     return mr
 
 
-def combine_kernel_rows(rng, launches) -> list[dict]:
+def combine_kernel_rows(rng, launches, ops_count) -> list[dict]:
     """Phase 8, combine flow: B6 and B7 at the combine main path's shapes
-    (2^24 pairs, D = 3, K = 100), and B7's additive fallback at K = 2^16."""
+    (2^24 pairs, D = 3, K = 100), and B7's additive fallback at K = 2^16;
+    ``ops_count``: the device operations of phase 2b."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.combine_scatter import combine_scatter_plain
@@ -886,7 +912,7 @@ def combine_kernel_rows(rng, launches) -> list[dict]:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": time_ms(lib, 10),
             "graph_ms": kern_graph_ms, "library_graph_ms": graph_ms(lib, 10),
-            "device_ops": device_ops(kern),
+            "device_ops": ops_count[name],
             "plan": ops.fold_plan(n, k, d, op).shape,
             "hot_half_graph_ms": hot_ms,
             "shape": {"n": n, "d": d, "k": k, "op": op},
@@ -1329,17 +1355,18 @@ def main_path_serve() -> dict:
     return out
 
 
-def flash_decode_rows(rng, launches) -> dict:
+def flash_decode_rows(rng, launches, ops_count) -> dict:
     """Phase 9, B8: the kernel, its plain version and SDPA (with GQA and
     the kv_len mask, a yardstick the port never calls) at llama3-8b's
     decode shape (bf16, every row at S = 2080) and, nested, at the bench
-    shape (f32, S = 8192)."""
+    shape (f32, S = 8192); ``ops_count``: the device operations of phase
+    2b."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_decode import flash_decode_plain
 
-    def row(shape, dtype):
+    def row(shape, dtype, label):
         b, h, hkv, d, s = shape
         q, k, v, kvl = decode_inputs(rng, *shape, dtype, [s] * b)
         qs = q[:, :, None, :]
@@ -1368,17 +1395,18 @@ def flash_decode_rows(rng, launches) -> dict:
                 "library_ms": time_ms(lib, 200),
                 "graph_ms": graph_ms(kern, 200),
                 "library_graph_ms": graph_ms(lib, 200),
-                "device_ops": device_ops(kern),
+                "device_ops": ops_count[label],
                 "library_max_abs_err": lib_err,
                 "shape": {"b": b, "h": h, "hkv": hkv, "d": d, "s": s,
                           "kv_len": s, "dtype": dtype}}
 
-    main = row(FD_LLAMA_SHAPE, "bf16")
+    main = row(FD_LLAMA_SHAPE, "bf16", "flash_decode")
     return {"name": "flash_decode", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
             "replaces": "src/repro/kernels/flash_decode.py:72",
             "launches": launches, **main,
-            "bench_shape": row(FD_BENCH_SHAPE, "f32")}
+            "bench_shape": row(FD_BENCH_SHAPE, "f32",
+                               "flash_decode/bench_shape")}
 
 
 #: the combine flow past the one-hot cutoff: KeyedSum at K = 2^16, 2^22 pairs
@@ -1670,28 +1698,116 @@ def main_path_sort(key_space: int):
     return mr, items, launches
 
 
-def device_ops(fn) -> int:
+def device_ops(fn) -> int | None:
     """Device operations (kernels, copies, memsets) one call of ``fn``
-    issues, counted by torch.profiler."""
+    issues, counted by torch.profiler (early in the script: see
+    :func:`early_device_ops`).  None, with a line naming the cause, when
+    the profiler recorded no device operation of a call that launched a
+    kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
+    from repro_torch.kernels import ops
+
     fn()
     torch.cuda.synchronize()
+    before = ops.launch_counts()
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA)
+    launched = sum(v - before[k] for k, v in ops.launch_counts().items())
+    count = sum(e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    if count == 0 and launched:
+        log(f"device_ops: torch.profiler recorded no device operation of a "
+            f"call that launched {launched} kernel(s); the row prints null")
+        return None
+    return count
 
 
-def partition_timing(n, d, k, bs, fan, pa, iters: int = 20,
+def partition_shapes() -> dict:
+    """(n, d, K, bucket, fan-outs) of each radix partition the kernels
+    line reports."""
+    from repro_torch.core.autotune import CUDA_CHUNK_PAIRS
+
+    n = CUDA_CHUNK_PAIRS
+    return {"radix_partition": (n, 2, 1 << 18, 8192, ()),
+            "radix_partition/bounding_box_combine": (N_POINTS, 3, 100, 100,
+                                                     ()),
+            "radix_partition/bounding_box_combine_d1": (N_POINTS, 1, 100,
+                                                        100, ()),
+            "radix_partition/keyed_sum_combine_k65536": (1 << 22, 1, 1 << 16,
+                                                         2048, ()),
+            "radix_partition_multi": (n, 2, 1 << 20, 16384, (8, 8)),
+            "radix_partition_multi/k33554432": (n, 2, 1 << 25, 16384,
+                                                (16, 16, 8))}
+
+
+def early_device_ops() -> dict:
+    """Phase 2b: the device operations one call of each kernel issues at
+    each shape the ``kernels`` line reports, counted right after phase 2
+    holds the kernels against their plain versions, and carried to the
+    line (phase 9).  A torch.profiler session late in this script loses
+    the device records at its end (torch 2.11 on an H100: after phase 13
+    a session of one B1 call recorded none of its 2 operations, a session
+    of 20 calls 35 of 40), so the line's counts are taken here, where a
+    session records them all.  A count is the same on any data: it follows the kernel's
+    plan, which follows the shape."""
+    import torch
+    from repro_torch.core.autotune import CUDA_CHUNK_PAIRS
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def pairs(n, d, k):
+        return (torch.randint(0, k, (n,), dtype=torch.int32, device="cuda",
+                              generator=gen),
+                torch.rand((n, d), device="cuda", generator=gen))
+
+    out = {}
+    n, k = CUDA_CHUNK_PAIRS, 100
+    for name, d in (("onehot_fold", 4), ("chunk_monoid_fold", 3)):
+        keys, vals = pairs(n, d, k)
+        acc = torch.rand((k, d), device="cuda", generator=gen)
+        out[name] = device_ops(
+            (lambda: ops.onehot_fold(keys, vals, acc)) if name == "onehot_fold"
+            else (lambda: ops.chunk_monoid_fold(keys, vals, acc, "max")))
+    pa = 256
+    for label, (m, d, kk, bs, fan) in partition_shapes().items():
+        keys, vals = pairs(m, d, kk)
+        out[label] = device_ops(lambda: ops.radix_partition(
+            keys, vals, kk, bucket_size=bs, fanouts=fan, pad_align=pa))
+    kk, bs = 1 << 18, 8192
+    keys, vals = pairs(n, 2, kk)
+    pk, pv, _ = ops.radix_partition(keys, vals, kk, bucket_size=bs,
+                                    pad_align=pa)
+    acc = torch.rand((kk, 2), device="cuda", generator=gen)
+    out["segment_reduce"] = device_ops(lambda: ops.segment_reduce(
+        pk, pv, kk, "add", tile_n=pa, block_k=bs, acc=acc))
+    keys, vals = pairs(N_POINTS, 3, k)
+    out["onehot_combine"] = device_ops(lambda: ops.onehot_combine(keys, vals,
+                                                                  k))
+    out["combine_scatter"] = device_ops(lambda: ops.combine_scatter(
+        keys, vals, k, "add"))
+    rng = np.random.default_rng(12)
+    for label, shape, dtype in (("flash_decode", FD_LLAMA_SHAPE, "bf16"),
+                                ("flash_decode/bench_shape", FD_BENCH_SHAPE,
+                                 "f32")):
+        q, kc, vc, kvl = decode_inputs(rng, *shape, dtype, [shape[4]]
+                                       * shape[0])
+        out[label] = device_ops(lambda: ops.flash_decode(q, kc, vc, kvl))
+    log(f"device operations a call (phase 2b): {out}")
+    return out
+
+
+def partition_timing(n, d, k, bs, fan, pa, n_ops, iters: int = 20,
                      seed: int = 6) -> dict:
     """B3 (no ``fan``) or B4 at one shape: kernel, plain and library times
     (eager and from a CUDA graph), its bound, passes and device operations
-    a call; the layout must equal the plain version's bit for bit."""
+    a call (``n_ops``, of phase 2b); the layout must equal the plain
+    version's bit for bit."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.radix_partition import (
@@ -1728,7 +1844,7 @@ def partition_timing(n, d, k, bs, fan, pa, iters: int = 20,
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": time_ms(lib, iters),
             "library_graph_ms": graph_ms(lib, iters),
-            "device_ops": device_ops(kern),
+            "device_ops": n_ops,
             "passes": [{"range": p.range_, "digits": p.digits,
                         "tile": p.tile, "grid": p.grid, "smem": p.smem,
                         "staged": p.staged} for p in plan.passes],
@@ -1736,11 +1852,12 @@ def partition_timing(n, d, k, bs, fan, pa, iters: int = 20,
                       "fanouts": list(fan), "pad_align": pa, "slots": np_}}
 
 
-def sort_kernel_rows(rng, launches) -> list[dict]:
+def sort_kernel_rows(rng, launches, ops_count) -> list[dict]:
     """Phase 8, sort flow: B3, B4 and B5 at the main paths' shapes; B3 also
     at the combine flow's sort-route shapes (BoundingBox: 2^24 pairs of
     D = 3 in one bucket, and at D = 1; KeyedSum K = 2^16: 2^22 pairs of
-    D = 1 in 32 buckets), B4 also at K = 2^25 (2048 leaves, two passes)."""
+    D = 1 in 32 buckets), B4 also at K = 2^25 (2048 leaves, two passes);
+    ``ops_count``: the device operations of phase 2b."""
     import torch
     from repro_torch.core.autotune import CUDA_CHUNK_PAIRS
     from repro_torch.kernels import ops
@@ -1748,23 +1865,27 @@ def sort_kernel_rows(rng, launches) -> list[dict]:
 
     n, d, pa = CUDA_CHUNK_PAIRS, 2, 256
     src = "src/repro_torch/kernels/csrc/"
+    shapes = partition_shapes()
     b3 = {"name": "radix_partition", "route": "cuda",
           "source": src + "radix_partition.cu",
           "replaces": "src/repro/kernels/radix_partition.py:189",
           "launches": launches["radix_partition"],
-          **partition_timing(n, d, 1 << 18, 8192, (), pa)}
-    b3["bounding_box_combine"] = partition_timing(N_POINTS, 3, 100, 100, (),
-                                                  pa, iters=10)
-    b3["bounding_box_combine_d1"] = partition_timing(N_POINTS, 1, 100, 100,
-                                                     (), pa, iters=10)
-    b3["keyed_sum_combine_k65536"] = partition_timing(
-        1 << 22, 1, 1 << 16, 2048, (), pa)
+          **partition_timing(*shapes["radix_partition"], pa,
+                             ops_count["radix_partition"])}
+    for label in ("bounding_box_combine", "bounding_box_combine_d1",
+                  "keyed_sum_combine_k65536"):
+        key = f"radix_partition/{label}"
+        b3[label] = partition_timing(*shapes[key], pa, ops_count[key],
+                                     iters=10 if "bounding" in label else 20)
     b4 = {"name": "radix_partition_multi", "route": "cuda",
           "source": src + "radix_partition.cu",
           "replaces": "src/repro/kernels/radix_partition.py:268",
           "launches": launches["radix_partition_multi"],
-          **partition_timing(n, d, 1 << 20, 16384, (8, 8), pa)}
-    b4["k33554432"] = partition_timing(n, d, 1 << 25, 16384, (16, 16, 8), pa)
+          **partition_timing(*shapes["radix_partition_multi"], pa,
+                             ops_count["radix_partition_multi"])}
+    b4["k33554432"] = partition_timing(
+        *shapes["radix_partition_multi/k33554432"], pa,
+        ops_count["radix_partition_multi/k33554432"])
     rows = [b3, b4]
     k, bs = 1 << 18, 8192
     keys = torch.randint(0, k, (n,), dtype=torch.int32, device="cuda")
@@ -1792,7 +1913,7 @@ def sort_kernel_rows(rng, launches) -> list[dict]:
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": time_ms(lib, 20),
         "graph_ms": graph_ms(kern, 20), "library_graph_ms": graph_ms(lib, 20),
-        "device_ops": device_ops(kern),
+        "device_ops": ops_count["segment_reduce"],
         "shape": {"slots": np_, "d": d, "k": k, "block_k": bs, "tile": pa,
                   "op": "add", "with_acc": True},
         "bounding_box_max": bbox,
@@ -3252,6 +3373,482 @@ def distributed_on_card(card: str, pts, assign, items) -> dict:
             "phase_wall_s": time.perf_counter() - t0}
 
 
+RES_HOSTS = 4
+RES_DRILL_SHARDS = 8
+RES_NOTE = ("run_resilient drives every shard in this process on the card "
+            "(C.48); a drill's hosts are ranks of the stateless assignment, "
+            "its clock synthetic: a wall here is the card's and the host's "
+            "work, with no network and no sleep")
+
+
+@contextlib.contextmanager
+def partial_launches():
+    """The kernel launches of each shard partial the block computes
+    (``DistributedRun.shard_partial``) and of each phase B of the reduce
+    and sort flows (``DistributedRun.shuffle_receive``), a dict of launch
+    deltas a call, in order."""
+    from repro_torch.core import engine as eng
+    from repro_torch.kernels import ops
+
+    rec: dict = {"partials": [], "phase_b": []}
+    cls = eng.DistributedRun
+    saved = {"partials": cls.shard_partial, "phase_b": cls.shuffle_receive}
+
+    def wrap(fn, key):
+        def call(self, *args, **kwargs):
+            before = ops.launch_counts()
+            out = fn(self, *args, **kwargs)
+            after = ops.launch_counts()
+            rec[key].append({k: after[k] - before[k] for k in after
+                             if after[k] != before[k]})
+            return out
+        return call
+
+    cls.shard_partial = wrap(saved["partials"], "partials")
+    cls.shuffle_receive = wrap(saved["phase_b"], "phase_b")
+    try:
+        yield rec
+    finally:
+        cls.shard_partial = saved["partials"]
+        cls.shuffle_receive = saved["phase_b"]
+
+
+def summed(dicts) -> dict:
+    out: dict = {}
+    for d in dicts:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def resilient_call(label, fn, kernels, *, dropped: int = 0,
+                   phase_b: dict | None = None):
+    """One resilient run ``fn()`` with its launches accounted: the shard
+    partials it computed must be the calls its log accounts for (computed,
+    recomputed, speculated, and ``dropped``, a partitioned host's work),
+    each with the same launches, and every launch of the run a partial's
+    or phase B's (``phase_b``: the fault-free run's, when given); each of
+    ``kernels`` launched.  Returns ``(result, record)``."""
+    import torch
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    with partial_launches() as rec:
+        ops.reset_launch_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        total = {k: v for k, v in ops.launch_counts().items() if v}
+    log = res.recovery
+    calls = (len(log.computed) + len(log.recomputed) + len(log.speculated)
+             + dropped)
+    parts = rec["partials"]
+    if len(parts) != calls:
+        raise AssertionError(f"resilient {label}: {len(parts)} shard partials "
+                             f"computed, the log accounts for {calls}")
+    per = parts[0] if parts else {}
+    if any(p != per for p in parts):
+        raise AssertionError(f"resilient {label}: partials launched "
+                             f"differently: {parts}")
+    got_b = summed(rec["phase_b"])
+    if phase_b is not None and got_b != phase_b:
+        raise AssertionError(f"resilient {label}: phase B launched {got_b}, "
+                             f"the fault-free run {phase_b}")
+    for name in set(total) | set(per) | set(got_b):
+        want = calls * per.get(name, 0) + got_b.get(name, 0)
+        if total.get(name, 0) != want:
+            raise AssertionError(
+                f"resilient {label}: {name} launched {total.get(name, 0)} "
+                f"times, {calls} partials x {per.get(name, 0)} + phase B "
+                f"{got_b.get(name, 0)} = {want}")
+    for name in kernels:
+        if total.get(name, 0) <= 0:
+            raise AssertionError(f"resilient {label}: {name} never launched")
+    return res, {"partial_calls": calls, "launches_per_partial": per,
+                 "phase_b_launches": got_b, "launches": total}
+
+
+def resilient_clean(label, make_mr, items, S, kernels, check, rows,
+                    launches, opts=None):
+    """(a) The fault-free ``run_resilient`` over ``RES_HOSTS`` hosts and S
+    shards: bit for bit ``run_distributed(LocalMesh(S))``, ``check``
+    (numpy's counts, max/min, sums), launches accounted, and both walls
+    (median of 3)."""
+    import dataclasses
+
+    import torch
+    from repro_torch import ExecutionOptions
+    from repro_torch.distributed import LocalMesh
+
+    base = opts or ExecutionOptions()
+    ropts = dataclasses.replace(base, num_hosts=RES_HOSTS, num_shards=S)
+    mr = make_mr()
+    res, rec = resilient_call(
+        label, lambda: mr.run_resilient(items, options=ropts), kernels)
+    dmr = make_mr()
+    dopts = dataclasses.replace(base, mesh=LocalMesh(S))
+    dist = dmr.run_distributed(items, options=dopts)
+    if not (same_bits(res, dist) and torch.equal(res.keys, dist.keys)):
+        raise AssertionError(f"resilient {label}: != run_distributed bits")
+    if len(res.recovery.computed) != S or res.recovery.recomputed:
+        raise AssertionError(f"resilient {label}: fault-free log "
+                             f"{res.recovery.summary()}")
+    check(res)
+    rec["wall_ms"] = wall_ms(lambda: mr.run_resilient(items, options=ropts))
+    rec["distributed_wall_ms"] = wall_ms(
+        lambda: dmr.run_distributed(items, options=dopts))
+    rec["over_distributed"] = rec["wall_ms"] / rec["distributed_wall_ms"]
+    rec["shards"], rec["hosts"] = S, RES_HOSTS
+    rows[label] = rec
+    launches[label] = rec["launches"]
+    log(f"resilient {label}: S={S} bit for bit run_distributed, launches "
+        f"{rec['launches']} ({rec['partial_calls']} partials x "
+        f"{rec['launches_per_partial']}), wall {rec['wall_ms']:.2f} ms vs "
+        f"distributed {rec['distributed_wall_ms']:.2f} ms")
+    return mr, res, rec
+
+
+def kmeans_checks(pts, assign):
+    """``check`` functions of the KMeans points: counts exact, centroids
+    within SUM_RTOL of float64 numpy; boxes bit for bit numpy's."""
+    want_counts, want = kmeans_centroids(pts, assign)
+    boxes = numpy_boxes(pts, assign)
+
+    def centroids(res):
+        np.testing.assert_array_equal(res.counts.cpu().numpy(), want_counts)
+        np.testing.assert_allclose(res.values.cpu().numpy(), want,
+                                   rtol=SUM_RTOL, atol=SUM_RTOL)
+
+    def bbox(res):
+        np.testing.assert_array_equal(res.counts.cpu().numpy(), want_counts)
+        if not np.array_equal(res.values.cpu().numpy().view(np.uint32),
+                              boxes.view(np.uint32)):
+            raise AssertionError("resilient BoundingBox != numpy max/min")
+
+    return centroids, bbox
+
+
+def keyed_sum_numpy_check(k, keys, weights):
+    counts = np.bincount(keys, minlength=k)
+    want = np.bincount(keys, weights=weights.astype(np.float64), minlength=k)
+
+    def check(res):
+        np.testing.assert_array_equal(res.counts[:k].cpu().numpy(), counts)
+        np.testing.assert_allclose(res.values[:k].cpu().numpy(), want,
+                                   rtol=SUM_RTOL, atol=SUM_RTOL)
+    return check
+
+
+def resilient_fault_free(pts, assign, items, rows, launches) -> None:
+    """(a): KMeans stream S = 4, 8 (B1); BoundingBox S = 8 (B2); the
+    KMeans combine flow one-hot (B6) and scatter (B7), S = 4; KeyedSum
+    sort S = 4 at K = 2^20 (B3 + B5) and 2^22 (B4 + B5), raw and delta;
+    WordCount on zipf text, sort, S = 4, skew="auto" (hot split)."""
+    import torch
+    from repro_torch import ExecutionOptions, MapReduce, ShuffleOptions, apps
+    from repro_torch.data import datasets
+
+    centroids, bbox = kmeans_checks(pts, assign)
+    for S in (4, RES_DRILL_SHARDS):
+        resilient_clean(f"kmeans_stream_S{S}", lambda: MapReduce(
+            apps.KMeans()), items, S, ["onehot_fold"], centroids, rows,
+            launches)
+    resilient_clean(f"bbox_stream_S{RES_DRILL_SHARDS}",
+                    lambda: MapReduce(apps.BoundingBox()), items,
+                    RES_DRILL_SHARDS, ["chunk_monoid_fold"], bbox, rows,
+                    launches)
+    for impl, kernel in (("onehot", "onehot_combine"),
+                         ("scatter", "combine_scatter")):
+        resilient_clean(f"kmeans_combine_{impl}_S4", lambda impl=impl:
+                        MapReduce(apps.KMeans(), flow="combine",
+                                  combine_impl=impl), items, 4, [kernel],
+                        centroids, rows, launches)
+    for k in DIST_KS_KEYS:
+        kitems, keys, weights = sort_items(k)
+        part = ("radix_partition" if k == DIST_KS_KEYS[0]
+                else "radix_partition_multi")
+        for codec in ("raw", "delta"):
+            resilient_clean(
+                f"keyed_sum_K{k}_sort_S4_{codec}",
+                lambda k=k: MapReduce(apps.KeyedSum(k), flow="sort"), kitems,
+                4, [part, "segment_reduce"],
+                keyed_sum_numpy_check(k, keys, weights), rows, launches,
+                ExecutionOptions(shuffle=ShuffleOptions(wire=codec,
+                                                        strict=True)))
+        del kitems
+        torch.cuda.empty_cache()
+    toks, vocab = datasets.wordcount_data(
+        np.random.default_rng(6), tokens=DIST_WC_TOKENS, vocab=DIST_WC_VOCAB)
+    witems = torch.from_numpy(toks.reshape(-1, 16)).cuda()
+    want = np.bincount(toks, minlength=vocab)
+
+    def wc_check(res):
+        np.testing.assert_array_equal(res.counts.cpu().numpy(), want)
+        np.testing.assert_array_equal(res.values.cpu().numpy(), want)
+        if not any("hot keys split" in x for x in res.recovery.skew_plan):
+            raise AssertionError("resilient WordCount: no hot-key split")
+
+    resilient_clean("wordcount_sort_S4_skew_auto", lambda: MapReduce(
+        apps.WordCount(vocab), flow="sort"), witems, 4, [], wc_check, rows,
+        launches, ExecutionOptions(shuffle=ShuffleOptions(skew="auto",
+                                                          strict=True)))
+
+
+def drill_scripts():
+    """(b): label -> (options of the drill, shards, the log's expected
+    values, partitioned hosts' dropped partials).  ``ckpt_dir`` and
+    ``coord`` are filled in a fresh temp dir each run."""
+    from repro_torch.distributed import (ChaosPlan, FaultInjection,
+                                         RetryPolicy)
+    S = RES_DRILL_SHARDS
+
+    def recomputed(log):
+        return [s for s, _ in log.recomputed]
+
+    return {
+        "kill_host": (dict(inject=FaultInjection(dead_hosts=(2,))), S,
+                      lambda log: log.recomputed == [(2, 3), (6, 3)], 0),
+        "ckpt_restore": (dict(ckpt=True, inject=FaultInjection(
+            dead_hosts=(1,), die_after_shards=1)), S,
+            lambda log: log.restored == [1] and log.recomputed == [(5, 2)],
+            0),
+        "dead_disk": (dict(ckpt=True, inject=FaultInjection(
+            dead_hosts=(1,), die_after_shards=1, checkpoint_survives=False)),
+            S, lambda log: not log.restored and recomputed(log) == [1, 5],
+            0),
+        "straggler_S4": (dict(inject=FaultInjection(straggler_hosts=(1,))),
+                         4, lambda log: log.speculated == [(1, 2)], 0),
+        "elastic_4_to_3": (dict(mesh=True, inject=FaultInjection(
+            resize_to=3)), 4, lambda log: (
+                recomputed(log) == [3] and log.resized == (4, 3)
+                and log.final_mesh.kind == "local"
+                and log.final_mesh.size == 3), 0),
+        "chaos": (dict(ckpt=True, coord=True, retry=RetryPolicy(
+            max_attempts=4, base_delay_s=0.01), chaos=ChaosPlan()
+            .kill_coordinator(after=1).corrupt_checkpoint(5).partition(3)
+            .delay_store(2)), S, lambda log: (
+                log.failover == (0, 1, 2) and log.corrupt == [5]
+                and log.partitioned == [3] and 3 in log.dead_hosts
+                and sum("backing off" in e for e in log.store_events) == 2),
+            2),
+    }
+
+
+def drill_fn(mr, items, script, S, tmp_root):
+    """``fn()`` that runs the drill in a fresh directory under
+    ``tmp_root``: its ``ckpt_dir`` and, for chaos, a ``FileKVStore``."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch import ExecutionOptions
+    from repro_torch.distributed import FileKVStore, LocalMesh
+
+    def fn(keep=None):
+        d = tempfile.mkdtemp(dir=tmp_root)
+        kw = {k: v for k, v in script.items()
+              if k not in ("ckpt", "coord", "mesh")}
+        if script.get("ckpt"):
+            kw["ckpt_dir"] = d
+        if script.get("coord"):
+            kw["coord"] = FileKVStore(os.path.join(d, "coord"))
+        mesh = LocalMesh(S) if script.get("mesh") else None
+        if mesh is None:
+            kw.update(num_hosts=RES_HOSTS, num_shards=S)
+        res = mr.run_resilient(items, mesh=mesh,
+                               options=ExecutionOptions(**kw))
+        if keep is not None:
+            keep.append(d)
+        else:
+            shutil.rmtree(d)
+        return res
+
+    return fn
+
+
+def resilient_drills(label, make_mr, items, kernels, clean_rows, rows,
+                     launches, tmp_root) -> None:
+    """(b) on one app: each drill bit for bit its fault-free run, the
+    log's expected values, launches accounted (phase B the fault-free
+    run's), a chaos drill's quarantined ``*.corrupt``; wall (median of 3),
+    device time and busy share."""
+    import os
+    import shutil
+
+    from repro_torch.checkpoint import ckpt
+
+    clean = {}
+    for name, (script, S, expect, dropped) in drill_scripts().items():
+        mr = make_mr()
+        fn = drill_fn(mr, items, script, S, tmp_root)
+        base_label = f"{label}_S{S}"
+        if S not in clean:
+            clean[S] = mr.run_resilient(items, options=_res_opts(S))
+        dirs: list = []
+        res, rec = resilient_call(
+            f"{base_label} {name}", lambda: fn(dirs), kernels,
+            dropped=dropped,
+            phase_b=clean_rows[base_label]["phase_b_launches"])
+        if not same_bits(res, clean[S]):
+            raise AssertionError(f"resilient {label} {name}: != fault-free")
+        if not expect(res.recovery):
+            raise AssertionError(f"resilient {label} {name}: log "
+                                 f"{res.recovery.summary()}")
+        if name == "chaos" and not os.path.isdir(os.path.join(
+                ckpt.shard_partial_dir(dirs[0], 5), "step_0.corrupt")):
+            raise AssertionError(f"resilient {label} chaos: no *.corrupt")
+        for d in dirs:
+            shutil.rmtree(d)
+        rec["wall_ms"] = wall_ms(fn)
+        prof = profile_fn(fn, rec["wall_ms"], top=4)
+        rec["device_ms"] = prof["device_ms"]
+        rec["busy_share"] = prof["busy_share"]
+        rec["summary"] = list(res.recovery.summary())
+        rows[f"{label}_{name}"] = rec
+        launches[f"{label}_{name}"] = rec["launches"]
+        log(f"resilient drill {label} {name}: bit for bit, "
+            f"{rec['partial_calls']} partials, wall {rec['wall_ms']:.2f} ms, "
+            f"device {rec['device_ms']:.2f} ms, busy "
+            f"{rec['busy_share']:.3f}")
+
+
+def _res_opts(S):
+    from repro_torch import ExecutionOptions
+    return ExecutionOptions(num_hosts=RES_HOSTS, num_shards=S)
+
+
+def recover_one_shard(label, mr, items, S, tmp_root) -> dict:
+    """(c) The time to recover one shard: recompute its partial, or
+    restore its checkpoint (read, verify, to the card); and a checkpoint's
+    ms and bytes."""
+    import os
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core import engine as eng
+    from repro_torch.distributed import wire as wirelib
+
+    comp = mr.lower(items, mode="resilient", options=_res_opts(S)).compile()
+    n = eng.items_length(items)
+    run = comp._entry.executable.prepared(n)
+    per = n // S
+    block = eng.shard_items(items, S)[1]
+    p = run.shard_partial(1, block)
+    d = tempfile.mkdtemp(dir=tmp_root)
+    save_ms = wall_ms(lambda: ckpt.save(d, 0, p))
+    disk = os.path.getsize(os.path.join(d, "step_0", "arrays.npz"))
+
+    def restore():
+        tree, _ = ckpt.restore(d, p, step=0, device="cpu")
+        return eng._partial_to(tree, torch.device("cuda"))
+
+    got = restore()
+    if not all(np.array_equal(a.cpu().numpy(), b.cpu().numpy()) for a, b in
+               zip(ckpt.flatten(got)[0], ckpt.flatten(p)[0])):
+        raise AssertionError(f"resilient {label}: restored partial differs")
+    out = {"shards": S, "items_per_shard": per,
+           "recompute_ms": wall_ms(lambda: run.shard_partial(1, block)),
+           "restore_ms": wall_ms(restore), "checkpoint_ms": save_ms,
+           "partial_bytes": wirelib.tree_nbytes(p), "checkpoint_bytes": disk}
+    log(f"resilient {label}: recover one shard of S={S}: recompute "
+        f"{out['recompute_ms']:.2f} ms, restore {out['restore_ms']:.2f} ms; "
+        f"checkpoint {save_ms:.2f} ms, {disk} B on disk")
+    return out
+
+
+def resilient_epoch_reject(kitems, tmp_root) -> dict:
+    """A partial checkpointed under the delta codec is rejected by its wire
+    epoch under raw and recomputed, bit for bit the fault-free run."""
+    import tempfile
+
+    from repro_torch import ExecutionOptions, MapReduce, ShuffleOptions, apps
+    from repro_torch.distributed import FaultInjection
+
+    k = DIST_KS_KEYS[0]
+    d = tempfile.mkdtemp(dir=tmp_root)
+    S = RES_DRILL_SHARDS
+    mr = MapReduce(apps.KeyedSum(k), flow="sort")
+    mr.run_resilient(kitems, options=ExecutionOptions(
+        num_hosts=RES_HOSTS, num_shards=S, ckpt_dir=d,
+        shuffle=ShuffleOptions(wire="delta")))
+    res = mr.run_resilient(kitems, options=ExecutionOptions(
+        num_hosts=RES_HOSTS, num_shards=S, ckpt_dir=d,
+        inject=FaultInjection(dead_hosts=(3,))))
+    log_ = res.recovery
+    if log_.epoch_rejects != [3, 7] or log_.restored:
+        raise AssertionError(f"resilient epoch reject: {log_.summary()}")
+    if not same_bits(res, mr.run_resilient(kitems, options=_res_opts(S))):
+        raise AssertionError("resilient epoch reject: != fault-free")
+    return {"epoch_rejects": log_.epoch_rejects,
+            "recomputed": log_.recomputed}
+
+
+def resilient_repeat(items) -> dict:
+    """(d) A repeat ``run_resilient`` derives, tunes and compiles
+    nothing."""
+    from repro_torch import MapReduce, apps
+    from repro_torch.core import plan_cache as pc
+
+    mr = MapReduce(apps.KMeans())
+    mr.run_resilient(items, options=_res_opts(4))
+    before = pc.stats_snapshot()
+    mr.run_resilient(items, options=_res_opts(4))
+    delta = {k: v - before[k] for k, v in pc.stats_snapshot().items()}
+    if any(delta[k] for k in ("derives", "autotunes", "compiles")):
+        raise AssertionError(f"resilient repeat: deltas {delta}")
+    return {"deltas": delta}
+
+
+def resilient_on_card(card: str, pts, assign, items) -> dict:
+    """Phase 13: resilience on the card (see the module docstring).
+    Returns the ``resilient`` line's record; its ``launches`` map each run
+    to its kernel launches."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch import MapReduce, apps
+
+    t0 = time.perf_counter()
+    rows: dict = {}
+    launches: dict = {}
+    tmp_root = tempfile.mkdtemp(prefix="resilient_")
+    try:
+        resilient_fault_free(pts, assign, items, rows, launches)
+        drills: dict = {}
+        kitems = sort_items(DIST_KS_KEYS[0])[0]
+        k = DIST_KS_KEYS[0]
+        apps_ = (("kmeans", lambda: MapReduce(apps.KMeans()), items,
+                  ["onehot_fold"]),
+                 (f"keyed_sum_K{k}_sort", lambda: MapReduce(
+                     apps.KeyedSum(k), flow="sort"), kitems,
+                  ["radix_partition", "segment_reduce"]))
+        for label, make, its, kernels in apps_:
+            clean_rows: dict = {}
+            for S in (4, RES_DRILL_SHARDS):
+                resilient_clean(f"{label}_S{S}", make, its, S, kernels,
+                                lambda res: None, clean_rows, {})
+            resilient_drills(label, make, its, kernels, clean_rows, drills,
+                             launches, tmp_root)
+        recover = {
+            "kmeans": recover_one_shard("kmeans", MapReduce(apps.KMeans()),
+                                        items, RES_DRILL_SHARDS, tmp_root),
+            f"keyed_sum_K{k}_sort": recover_one_shard(
+                f"keyed_sum_K{k}_sort", MapReduce(apps.KeyedSum(k),
+                                                  flow="sort"),
+                kitems, RES_DRILL_SHARDS, tmp_root)}
+        epoch = resilient_epoch_reject(kitems, tmp_root)
+        del kitems
+        torch.cuda.empty_cache()
+        repeat = resilient_repeat(items)
+    finally:
+        shutil.rmtree(tmp_root, ignore_errors=True)
+    return {"card": card, "note": RES_NOTE, "fault_free": rows,
+            "drills": drills, "recover_one_shard": recover,
+            "epoch_reject": epoch, "repeat": repeat, "launches": launches,
+            "phase_wall_s": time.perf_counter() - t0}
+
+
 def main() -> int:
     import torch
 
@@ -3289,6 +3886,7 @@ def main() -> int:
     check_combine_kernels(rng)
     check_lane_folds(rng)
     check_flash_decode(rng)
+    ops_count = early_device_ops()
 
     pts, assign, clusters = datasets.kmeans_data(
         np.random.default_rng(1), points=N_POINTS)
@@ -3310,8 +3908,10 @@ def main() -> int:
     streaming = streaming_on_card(card, pts, assign, items)
     distributed = distributed_on_card(card, pts, assign, items)
     log(json.dumps({"distributed": distributed}))
+    resilient = resilient_on_card(card, pts, assign, items)
+    log(json.dumps({"resilient": resilient}))
 
-    rows = kernel_rows(rng, launches_add, launches_dense)
+    rows = kernel_rows(rng, launches_add, launches_dense, ops_count)
     for row in rows:  # B1, B2: their launches on the streaming path too
         row["streaming_launches"] = {
             label: run["launches"]
@@ -3321,17 +3921,23 @@ def main() -> int:
     launches_sort = {name: sum(run[2][name] for run in sort_runs.values())
                      for name in ("radix_partition", "radix_partition_multi",
                                   "segment_reduce")}
-    rows += sort_kernel_rows(rng, launches_sort)
+    rows += sort_kernel_rows(rng, launches_sort, ops_count)
     rows += combine_kernel_rows(rng, {
         "onehot_combine": combine_runs["kmeans"][1]["onehot_combine"],
         "combine_scatter":
-            combine_runs["kmeans_scatter"][1]["combine_scatter"]})
+            combine_runs["kmeans_scatter"][1]["combine_scatter"]},
+        ops_count)
     for row in rows:  # B1-B7: their launches a shard on the distributed path
         row["distributed_launches"] = {
             label: [s.get(row["name"], 0) for s in shards]
             for label, shards in distributed["launches"].items()
             if any(s.get(row["name"], 0) for s in shards)}
-    rows.append(flash_decode_rows(rng, serve["launches"]))
+    for row in rows:  # B1-B7: their launches on the resilient path
+        row["resilient_launches"] = {
+            label: total[row["name"]]
+            for label, total in resilient["launches"].items()
+            if total.get(row["name"], 0)}
+    rows.append(flash_decode_rows(rng, serve["launches"], ops_count))
     log(json.dumps({"combine_route_sweep": {"card": card,
                                             **combine_route_sweep(rng)}}))
     log(json.dumps({"keyed_fold_sweep": {"card": card,

@@ -362,13 +362,14 @@ def restore(ckpt_dir: str, example_tree: Any, *, step: int | None = None,
     corrupt ones are quarantined with a ``RuntimeWarning`` and skipped, so
     a torn newest write degrades to the previous checkpoint.
 
-    ``shardings`` (the reference's resharding restore of a resilient
-    run's partials) comes with the resilient driver (ROADMAP A12)."""
+    ``shardings`` (the reference's restore resharded onto a mesh, which
+    ``elastic_restore`` uses for FSDP parameters) comes with the
+    parameter sharding rules (ROADMAP A14b)."""
     if shardings is not None:
         raise NotImplementedError(
-            "restore(shardings=...) reshards a resilient run's partials, "
-            "which is not ported to repro_torch yet (ROADMAP A12 "
-            "(resilience)); restore onto one device with device=")
+            "restore(shardings=...) reshards FSDP parameters through "
+            "distributed/sharding.py, which is not ported to repro_torch "
+            "yet (ROADMAP A14b); restore onto one device with device=")
     dev = resolve_device(device)
     if step is not None:
         try:

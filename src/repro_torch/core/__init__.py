@@ -1,7 +1,7 @@
 """The port's core: combiner derivation, planning, tiling, the four flows
 (stream, sort, combine and reduce) on one device and over a shard mesh,
-the skew planner of the shuffle, the staged API with its plan cache, and
-multi-job pipelines."""
+the resilient driver over the shards, the skew planner of the shuffle,
+the staged API with its plan cache, and multi-job pipelines."""
 
 from repro_torch.core.api import (Compiled, ExecutionOptions, Lowered,
                                   MapReduce, MapReduceApp, MapReduceResult,
@@ -15,7 +15,7 @@ from repro_torch.core.combiner import (CombinerSpec, Monoid, ValueSpec,
                                        product_spec, sum_spec)
 from repro_torch.core.cost_model import (CostReport, FlowCost, choose_flow,
                                          estimate_flow_cost)
-from repro_torch.core.engine import Emitter
+from repro_torch.core.engine import Emitter, run_resilient
 from repro_torch.core.optimizer import Derivation, derive_combiner
 from repro_torch.core.pipeline import (Pipeline, StageSemantics,
                                        extract_semantics)
@@ -33,5 +33,5 @@ __all__ = [
     "autotune_stream", "choose_flow", "count_spec", "derive_combiner",
     "estimate_flow_cost", "extract_semantics", "logsumexp_spec", "make_app",
     "max_spec", "mean_spec", "min_spec", "monoid_spec", "plan_execution",
-    "product_spec", "stats_snapshot", "sum_spec",
+    "product_spec", "run_resilient", "stats_snapshot", "sum_spec",
 ]

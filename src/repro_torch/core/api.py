@@ -124,7 +124,7 @@ def make_app(map_fn: Callable, reduce_fn: Callable, **attrs) -> MapReduceApp:
 Emitter = eng.Emitter
 
 #: the ROADMAP item that ports each mode not ported yet
-MODE_ITEMS = {"resilient": "A12 (resilience)"}
+MODE_ITEMS: dict[str, str] = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,7 +145,15 @@ class ExecutionOptions:
     planner and wire codec.  The flat ``shuffle_capacity`` /
     ``strict_shuffle`` are its deprecated spelling: set without
     ``shuffle`` they forward into one with a ``DeprecationWarning``; with
-    ``shuffle`` set they mirror it."""
+    ``shuffle`` set they mirror it.
+
+    Resilience (``run_resilient``): ``num_hosts`` / ``num_shards`` (default:
+    the mesh's size), ``ckpt_dir`` / ``step`` (the shard partials'
+    checkpoints), ``inject`` (a ``fault.FaultInjection``), ``timeout_s`` /
+    ``straggler_lag`` (the heartbeat monitor's), and the durable control
+    plane: ``coord`` (a ``coordination.CoordinationStore``, ``KVStore`` or
+    directory), ``retry`` (a ``coordination.RetryPolicy``) and ``chaos``
+    (a ``chaos.ChaosPlan``)."""
 
     mesh: Any = None
     data_axis: str = "data"
@@ -153,6 +161,16 @@ class ExecutionOptions:
     shuffle_capacity: int | None = None
     strict_shuffle: bool = False
     shuffle: sk.ShuffleOptions | None = None
+    num_hosts: int | None = None
+    num_shards: int | None = None
+    ckpt_dir: str | None = None
+    step: int = 0
+    inject: Any = None
+    timeout_s: float = 60.0
+    straggler_lag: int = 1
+    coord: Any = None
+    retry: Any = None
+    chaos: Any = None
     combine_impl: str | None = None
     use_kernels: bool | None = None
     chunk_pairs: int | None = None
@@ -210,8 +228,9 @@ def _resolve_options(options: ExecutionOptions | None, legacy: dict, *,
 @dataclasses.dataclass
 class MapReduceResult:
     """The result record of every entry point: ``run()``,
-    ``run_distributed()``, a compiled call and
-    ``MapReduceService.snapshot()``, which also sets ``batch_id``."""
+    ``run_distributed()``, ``run_resilient()``, which also sets
+    ``recovery``, a compiled call and ``MapReduceService.snapshot()``,
+    which also sets ``batch_id``."""
 
     keys: torch.Tensor  # [K] = arange(K)
     values: Any  # [K, ...]
@@ -221,6 +240,8 @@ class MapReduceResult:
     batch_id: int | None = None
     #: where a distributed result's rows live (``engine.ShardedResult``)
     layout: Any = None
+    #: the ``fault.RecoveryLog`` of a resilient run
+    recovery: Any = None
 
     def gather_result(self) -> "MapReduceResult":
         """The global layout of a distributed result: a ProcessGroupMesh
@@ -410,24 +431,24 @@ class MapReduce:
         that ports them."""
         opts = options if options is not None else ExecutionOptions()
         rmode = _infer_mode(mode, opts)
-        if rmode == "distributed":
-            opts = self._resolve_shuffle(opts, items)
+        if rmode in ("distributed", "resilient"):
+            opts = self._resolve_shuffle(opts, items, rmode)
         return Lowered(self, pc.items_spec_of(items), opts, mode=rmode)
 
-    def _resolve_shuffle(self, opts: ExecutionOptions,
-                         items) -> ExecutionOptions:
+    def _resolve_shuffle(self, opts: ExecutionOptions, items,
+                         mode: str) -> ExecutionOptions:
         """lower()-time skew resolution: sample (or recall) the key
         histogram and return options whose ``shuffle`` holds the decision;
         its provenance lands on ``plan.skew``.  A codec other than raw puts
         its modelled bytes on ``plan.wire``."""
         sh = opts.shuffle
         if sh is not None and sh.wire != "raw":
-            self.plan.wire = self._wire_provenance(opts, items)
+            self.plan.wire = self._wire_provenance(opts, items, mode)
         if sh is None or (sh.skew != "auto" and sh.boundaries is None):
             return opts
         if _spec_only(items):
             return opts  # nothing to sample
-        S = _shard_count(opts)
+        S = _shard_count(opts, mode)
         if S <= 1:
             return opts
         resolved, profile = sk.resolve_shuffle_options(
@@ -451,8 +472,8 @@ class MapReduce:
             return opts
         return dataclasses.replace(opts, shuffle=resolved)
 
-    def _wire_provenance(self, opts: ExecutionOptions,
-                         items) -> tuple[str, ...]:
+    def _wire_provenance(self, opts: ExecutionOptions, items,
+                         mode: str) -> tuple[str, ...]:
         """``explain()`` lines for a codec other than raw: the codec, and
         the modelled encoded and raw bytes a shard when the item count is
         known."""
@@ -461,7 +482,7 @@ class MapReduce:
         sh = opts.shuffle
         lines = [f"codec {sh.wire} on the all-to-all "
                  f"(repro_torch/distributed/wire.py)"]
-        S = _shard_count(opts)
+        S = _shard_count(opts, mode)
         leaves = pytree.tree_leaves(items)
         if S > 1 and leaves:
             vs = self.app.value_spec
@@ -505,6 +526,22 @@ class MapReduce:
         return self.lower(items, options=opts, mode="distributed"
                           ).optimize().compile()(items)
 
+    def run_resilient(self, items, *, mesh=None,
+                      options: ExecutionOptions | None = None,
+                      **legacy) -> MapReduceResult:
+        """Fault-tolerant distributed run (``engine.run_resilient``):
+        deterministic re-execution of lost shards, checkpointed partial
+        recovery (``ckpt_dir``), straggler speculation and elastic remesh,
+        scripted by the options.  The result is the fault-free
+        :meth:`run_distributed` answer bit for bit; the recovery ledger is
+        ``result.recovery`` and, summarized, in :meth:`explain`.  Every
+        shard runs in this process on the mesh's device (a LocalMesh, or
+        a ProcessGroupMesh at world size 1; C.48)."""
+        opts = _resolve_options(options, legacy, method="run_resilient",
+                                mesh=mesh)
+        return self.lower(items, options=opts, mode="resilient"
+                          ).optimize().compile()(items)
+
     def serve(self, *, batch_capacity: int, window=None,
               options: ExecutionOptions | None = None, item_spec=None,
               ckpt_dir: str | None = None, ckpt_every: int = 0,
@@ -539,9 +576,17 @@ def _spec_only(items) -> bool:
                for a in pytree.tree_leaves(items))
 
 
-def _shard_count(opts: ExecutionOptions) -> int:
-    """The shards a distributed run sees: the mesh's size."""
-    return int(opts.mesh.size) if opts.mesh is not None else 1
+def _shard_count(opts: ExecutionOptions, mode: str) -> int:
+    """The shards a run in ``mode`` sees: a distributed run's, the mesh's
+    size; a resilient run's, as ``engine.run_resilient`` resolves them
+    (``num_shards``, else the mesh's size, else ``num_hosts``)."""
+    mesh_hosts = int(opts.mesh.size) if opts.mesh is not None else None
+    if mode != "resilient":
+        return mesh_hosts or 1
+    hosts = opts.num_hosts if opts.num_hosts is not None else (mesh_hosts
+                                                               or 1)
+    return int(opts.num_shards if opts.num_shards is not None
+               else (mesh_hosts or hosts))
 
 
 def _infer_mode(mode: str | None, opts: ExecutionOptions | None = None
@@ -562,7 +607,7 @@ def _infer_mode(mode: str | None, opts: ExecutionOptions | None = None
                 f"the mesh has no data axis {opts.data_axis!r} (its axis is "
                 f"{opts.mesh.axis_name!r})")
         return mode
-    if mode in ("local", "streaming"):
+    if mode in ("local", "streaming", "resilient"):
         return mode
     if mode in MODE_ITEMS:
         raise NotImplementedError(
@@ -618,7 +663,7 @@ class Optimized:
         self.options = options
         self.mode = mode
         self.n_items = int(pytree.tree_leaves(items_spec)[0].shape[0])
-        if mode == "distributed":
+        if mode in ("distributed", "resilient"):
             # the shards split the exact batch: no padded buckets
             self.n_bucket = self.n_items
         else:
@@ -626,7 +671,9 @@ class Optimized:
                                             options.items_bucket)
         self.cache_key = self._cache_key()
 
-    def _cache_key(self) -> str:
+    def _cache_key(self) -> str | None:
+        if self.mode == "resilient":
+            return None  # a drill a call: its driver is never cached
         opts = self.options
         knobs = self.mr._knobs(opts)
         spec = self.items_spec
@@ -653,7 +700,7 @@ class Optimized:
     def compile(self) -> "Compiled":
         """Stage 3: the prepared run.  A warm hit in the compiled cache
         prepares nothing: no derivation, tuning or warm-up."""
-        use_cache = self.options.cache
+        use_cache = self.options.cache and self.cache_key is not None
         if use_cache:
             ent = pc.compiled_get(self.cache_key)
             if ent is not None:
@@ -669,6 +716,8 @@ class Optimized:
             return self._build_streaming()
         if self.mode == "distributed":
             return self._build_distributed()
+        if self.mode == "resilient":
+            return self._build_resilient()
         pc.STATS.compiles += 1
         run = eng.LocalRun(mr.app, mr.plan.flow, mr.plan.spec,
                            device=mr.device, plan=mr.plan,
@@ -697,11 +746,7 @@ class Optimized:
         load at the first call."""
         mr, opts = self.mr, self.options
         mesh = opts.mesh
-        if mesh.device.type != mr.device.type:
-            raise ValueError(
-                f"the mesh runs on {mesh.device} but this MapReduce on "
-                f"{mr.device}; construct MapReduce(app, device=...) on the "
-                f"mesh's device")
+        self._check_mesh_device()
         knobs = mr._knobs(opts)
         plan = mr.plan
         chunk_pairs, key_block = eng._distributed_tiling(
@@ -726,6 +771,31 @@ class Optimized:
             wire=opts.shuffle.wire if opts.shuffle is not None else "raw")
         pc.STATS.compiles += 1
         return pc.CompiledEntry(executable=run, mode="distributed")
+
+    def _check_mesh_device(self) -> None:
+        mesh, mr = self.options.mesh, self.mr
+        if mesh is not None and mesh.device.type != mr.device.type:
+            raise ValueError(
+                f"the mesh runs on {mesh.device} but this MapReduce on "
+                f"{mr.device}; construct MapReduce(app, device=...) on the "
+                f"mesh's device")
+
+    def _build_resilient(self) -> pc.CompiledEntry:
+        """The resilient driver (:class:`ResilientDriver`) with this plan's
+        knobs and the resolved shuffle plan.  It is built on every
+        ``compile()`` and never cached by content; what it prepares (the
+        per-shard run, its wire format and tiling) is kept on the
+        MapReduce, so a repeat call derives, tunes and compiles
+        nothing."""
+        mr, opts = self.mr, self.options
+        self._check_mesh_device()
+        shuffle_plan = sk.plan_from_options(
+            mr.app.key_space, _shard_count(opts, "resilient"), opts.shuffle,
+            flow=mr.plan.flow, spec=mr.plan.spec,
+            value_spec=mr.app.value_spec)
+        return pc.CompiledEntry(
+            executable=ResilientDriver(mr, opts, shuffle_plan),
+            mode="resilient")
 
     def _build_streaming(self) -> pc.CompiledEntry:
         """The ingest of micro-batches of up to ``n_bucket`` items
@@ -760,11 +830,85 @@ class Optimized:
 
     def explain(self) -> str:
         plan = dataclasses.replace(self.mr.plan, stage="optimized")
-        return "\n".join([
+        lines = [
             plan.explain(), f"mode: {self.mode}",
             f"items: {pc.spec_sig_of(self.items_spec)} (N={self.n_items} "
-            f"bucket={self.n_bucket} policy={self.options.items_bucket})",
-            f"compiled-cache key: {self.cache_key}"])
+            f"bucket={self.n_bucket} policy={self.options.items_bucket})"]
+        if self.cache_key is not None:
+            lines.append(f"compiled-cache key: {self.cache_key}")
+        return "\n".join(lines)
+
+
+class ResilientDriver:
+    """A resilient-mode ``Compiled``'s executable: ``engine.run_resilient``
+    bound to a MapReduce's knobs, the options' script and the resolved
+    shuffle plan.  The prepared per-shard run
+    (``engine.resilient_run``) is kept on the MapReduce across calls
+    (the reference's ``_resilient_jits``); preparing one counts a
+    compile."""
+
+    def __init__(self, mr: "MapReduce", opts: ExecutionOptions,
+                 shuffle_plan):
+        self.mr = mr
+        self.options = opts
+        self.shuffle_plan = shuffle_plan
+        self.runs = mr.__dict__.setdefault("_resilient_runs", {})
+        knobs = mr._knobs(opts)
+        # the knobs of the distributed run over the same shards
+        # (``Optimized._build_distributed``): its tiling, hence its bits
+        self.knobs = dict(
+            combine_impl=knobs["combine_impl"],
+            use_kernels=knobs["use_kernels"],
+            shuffle_capacity=opts.shuffle_capacity,
+            chunk_pairs=knobs["chunk_pairs"], key_block=knobs["key_block"],
+            bucket_size=opts.bucket_size,
+            level_fanouts=(tuple(opts.level_fanouts)
+                           if opts.level_fanouts is not None else None),
+            wire=opts.shuffle.wire if opts.shuffle is not None else "raw")
+
+    @property
+    def device(self) -> torch.device:
+        mesh = self.options.mesh
+        return mesh.device if mesh is not None else self.mr.device
+
+    def prepared(self, n_items: int):
+        """The per-shard run (``engine.resilient_run``) for ``n_items``
+        items; None for shard counts ``engine.run_resilient`` refuses."""
+        S = _shard_count(self.options, "resilient")
+        if S <= 0 or n_items % S:
+            return None
+        before = len(self.runs)
+        run = eng.resilient_run(
+            self.mr.app, self.mr.plan, num_shards=S,
+            shard_items_n=n_items // S, device=self.device,
+            shuffle_plan=self.shuffle_plan, jit_cache=self.runs,
+            **self.knobs)
+        if len(self.runs) > before:
+            pc.STATS.compiles += 1
+        return run
+
+    def __call__(self, items, *, sinks=()):
+        opts = self.options
+        self.prepared(eng.items_length(items))
+        return eng.run_resilient(
+            self.mr.app, self.mr.plan, items, mesh=opts.mesh,
+            num_hosts=opts.num_hosts, num_shards=opts.num_shards,
+            data_axis=opts.data_axis, step=opts.step, ckpt_dir=opts.ckpt_dir,
+            inject=opts.inject, timeout_s=opts.timeout_s,
+            straggler_lag=opts.straggler_lag,
+            strict_shuffle=opts.strict_shuffle,
+            shuffle_plan=self.shuffle_plan, coord=opts.coord,
+            retry=opts.retry, chaos=opts.chaos, jit_cache=self.runs,
+            device=self.device, sinks=sinks, **self.knobs)
+
+    def launch_plan(self, n_items: int) -> str:
+        """The per-shard run's launches (the distributed run's over the
+        same shards); phase A runs a shard partial a shard the drill
+        computes, phase B merges or folds the key ranges."""
+        S = _shard_count(self.options, "resilient")
+        return (f"resilient driver: {S} shards in one process, a partial a "
+                f"shard the drill computes, then phase B\n"
+                + self.prepared(n_items).launch_plan(n_items))
 
 
 class Compiled:
@@ -801,6 +945,11 @@ class Compiled:
                 "(MapReduce.serve(...)) or via init_state()/ingest_state()")
         items = to_device(items, self._mr.device)
         n = eng.items_length(items)
+        if self.mode == "resilient":
+            keys, values, counts, log = self._entry.executable(
+                items, sinks=(self._mr.plan, self.plan))
+            return MapReduceResult(keys, values, counts, plan=self.plan,
+                                   recovery=log)
         if self.mode == "distributed":
             if n != self.n_items:
                 raise ValueError(
@@ -861,7 +1010,9 @@ class Compiled:
 
     @property
     def num_shards(self) -> int:
-        return _shard_count(self.options) if self.mode == "distributed" else 1
+        if self.mode in ("distributed", "resilient"):
+            return _shard_count(self.options, self.mode)
+        return 1
 
     def _shape(self) -> dict:
         app, t, spec = self._mr.app, self._mr.tiling, self._mr.plan.spec
@@ -918,9 +1069,10 @@ class Compiled:
                 "est_s": fc.est_s, "terms": dict(fc.terms)}
 
     def explain(self) -> str:
-        lines = [self.plan.explain(), f"mode: {self.mode}",
-                 f"compiled-cache: {self.cache_event or 'off'} "
-                 f"key={self.cache_key}"]
+        lines = [self.plan.explain(), f"mode: {self.mode}"]
+        if self.cache_key is not None:
+            lines.append(f"compiled-cache: {self.cache_event or 'off'} "
+                         f"key={self.cache_key}")
         if self.n_bucket != self.n_items:
             lines.append(f"items: N={self.n_items} in bucket={self.n_bucket} "
                          f"(rows past N are never folded)")

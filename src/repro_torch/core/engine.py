@@ -2,12 +2,12 @@
 fold, the single-shot combine and reduce flows, and the four flows over a
 shard mesh.
 
-Counterpart of ``repro/core/engine.py`` up to the resilient driver:
-``Emitter``, ``map_phase``, ``_fold_items_chunked``,
-``stream_local_tables``, ``sort_local_tables``, ``run_local``,
-``build_stream_ingest``, ``merge_partial_tables``, and the distributed
-half (``merge_tables_collective``, the shuffle, ``run_distributed``,
-``build_distributed_fn``).  The reference scans the chunks
+Counterpart of ``repro/core/engine.py``: ``Emitter``, ``map_phase``,
+``_fold_items_chunked``, ``stream_local_tables``, ``sort_local_tables``,
+``run_local``, ``build_stream_ingest``, ``merge_partial_tables``, the
+distributed half (``merge_tables_collective``, the shuffle's send and
+receive sides, ``run_distributed``, ``build_distributed_fn``) and the
+resilient driver (``run_resilient`` over ``resilient_run``).  The reference scans the chunks
 with ``lax.scan``; here the chunk loop is a Python loop, so chunks are
 large (see ``autotune``) and each one is a handful of launches.  The
 combine and reduce flows map every item at once and hand the whole pair
@@ -840,17 +840,6 @@ def _combine_local_tables(app, spec, stream: col.PairStream, *,
     return col.combine_segment(spec, stream)
 
 
-def _wire_format_for(app, stream: col.PairStream, *, num_shards: int,
-                     shuffle_capacity, shuffle_plan=None, wire="raw"):
-    """The shuffle's ``wire.WireFormat`` for one shard's pair stream."""
-    from repro_torch.distributed import wire as wirelib
-
-    return wirelib.wire_format(
-        key_space=app.key_space, num_shards=num_shards,
-        n_pairs=stream.keys.shape[0], value_avals=stream.values,
-        codec=wire, capacity=shuffle_capacity, plan=shuffle_plan)
-
-
 def _localize_recv(app, recv_keys, recv_vals, *, num_shards: int,
                    shard_index: int, shuffle_plan=None):
     """Rebase a received ``[S, B]`` bucket stack into the shard's key range
@@ -880,49 +869,39 @@ def _localize_recv(app, recv_keys, recv_vals, *, num_shards: int,
     return lstream, int(lo)
 
 
-def _shuffle_pairs(app, streams, mesh, *, shuffle_capacity,
-                   shuffle_plan=None, wire="raw", clock=None):
-    """The key-partitioned all-to-all of the shards' pair streams, under
-    the ``wire`` codec: bucketize and encode (a stage), the all-to-all of
-    every encoded leaf, then decode.  Returns, a shard, the received local
-    stream, its key offset, the overflow count and the decoded flat
-    ``(keys, values)`` (the hot-split path folds its tables from them),
-    and the wire format with the encoded bytes one shard sent.
-    ``clock``, when given, is called between the stages (it synchronizes
-    and stamps: ``DistributedRun.time_exchange``)."""
+def _send_partial(stream: col.PairStream, fmt, shuffle_plan=None):
+    """The shuffle's send side for one shard: its pairs bucketized by
+    destination and encoded under ``fmt``, and the count of pairs past a
+    destination's capacity.  This is the reduce and sort flows'
+    checkpointable shard partial, the reference's tree ``{"wire",
+    "overflow", "wire_epoch"}``: the overflow an int32 scalar, the epoch
+    ``fmt.epoch`` as a ``[1]`` uint32 on the host (C.47: torch has few
+    uint32 kernels, so it is only stored and read back as an int)."""
     from repro_torch.distributed import wire as wirelib
 
-    tick = clock if clock is not None else (lambda stage: None)
-    S = mesh.size
-    fmt = _wire_format_for(app, streams[0], num_shards=S,
-                           shuffle_capacity=shuffle_capacity,
-                           shuffle_plan=shuffle_plan, wire=wire)
-    encs, overflows = [], []
-    for stream in streams:
-        sk, sv, ovf = wirelib.bucketize(fmt, stream, shuffle_plan)
-        encs.append(wirelib.encode(fmt, sk, sv))
-        overflows.append(ovf)
-    sent_bytes = wirelib.tree_nbytes(encs[0])
-    leaves = _stack_leaves(encs)
-    treedef = pytree.tree_structure(encs[0])
-    tick("encode")
-    recv_leaves = [mesh.all_to_all([ls[i] for ls in leaves])
-                   for i in range(len(leaves[0]))]
-    tick("all_to_all")
-    out = []
-    for j, d in enumerate(mesh.shards()):
-        recv_enc = pytree.tree_unflatten([r[j] for r in recv_leaves],
-                                         treedef)
-        recv_keys, recv_vals = wirelib.decode(fmt, recv_enc, d)
-        lstream, lo = _localize_recv(app, recv_keys, recv_vals,
-                                     num_shards=S, shard_index=d,
-                                     shuffle_plan=shuffle_plan)
-        flat = (recv_keys.reshape(-1),
-                pytree.tree_map(lambda v: v.reshape((-1,) + tuple(v.shape[2:])),
-                                recv_vals))
-        out.append((lstream, lo, overflows[j], flat))
-    tick("decode")
-    return out, fmt, sent_bytes
+    sk, sv, overflow = wirelib.bucketize(fmt, stream, shuffle_plan)
+    return {"wire": wirelib.encode(fmt, sk, sv),
+            "overflow": overflow.to(torch.int32),
+            "wire_epoch": torch.tensor([fmt.epoch], dtype=torch.uint32)}
+
+
+def _recv_range(app, fmt, recv_enc, r: int, *, num_shards: int,
+                shuffle_plan=None):
+    """The shuffle's receive side for key range ``r``: ``recv_enc`` holds
+    every source's ``r``-th encoded row, in source order; decode it and
+    rebase it into the range (:func:`_localize_recv`).  Returns the local
+    stream, its key offset and the decoded flat ``(keys, values)`` (the
+    hot-split path folds its tables from them)."""
+    from repro_torch.distributed import wire as wirelib
+
+    recv_keys, recv_vals = wirelib.decode(fmt, recv_enc, r)
+    lstream, lo = _localize_recv(app, recv_keys, recv_vals,
+                                 num_shards=num_shards, shard_index=r,
+                                 shuffle_plan=shuffle_plan)
+    flat = (recv_keys.reshape(-1),
+            pytree.tree_map(lambda v: v.reshape((-1,) + tuple(v.shape[2:])),
+                            recv_vals))
+    return lstream, lo, flat
 
 
 def _reduce_range(app, lstream: col.PairStream, lo: int):
@@ -1167,24 +1146,58 @@ class DistributedRun:
                                       key_block=key_block)
         self.last_exchange: dict | None = None
         self._routes: list[str] = []
+        self._formats: dict = {}
+        #: a shard partial's layout (meta tensors), which the resilient
+        #: driver holds a restored checkpoint to
+        self.partial_example = None
 
     # -- the flows' stages ---------------------------------------------------
+
+    def wire_format(self, shard_items_n: int):
+        """The shuffle's ``wire.WireFormat`` for shards of
+        ``shard_items_n`` items (``emit_capacity`` pairs each)."""
+        fmt = self._formats.get(shard_items_n)
+        if fmt is None:
+            from repro_torch.distributed import wire as wirelib
+
+            vs = self.app.value_spec
+            n_pairs = shard_items_n * self.app.emit_capacity
+            fmt = wirelib.wire_format(
+                key_space=self.app.key_space, num_shards=self.mesh.size,
+                n_pairs=n_pairs,
+                value_avals=torch.empty((n_pairs,) + tuple(vs.shape),
+                                        dtype=vs.dtype, device="meta"),
+                codec=self.wire, capacity=self.shuffle_capacity,
+                plan=self.shuffle_plan)
+            self._formats[shard_items_n] = fmt
+        return fmt
+
+    def shard_partial(self, s: int, block):
+        """Shard ``s``'s partial over its items ``block``, before any
+        collective: ``{"tables", "counts"}`` for the stream flow
+        (``LocalRun.tables`` at the run's tiling) and the combine flow
+        (``_combine_local_tables``), the send side
+        (:func:`_send_partial`) for the reduce and sort flows.  A pure
+        function of the block: the resilient driver recomputes a lost
+        shard with it, or restores it from a checkpoint."""
+        if self.flow == "stream":
+            tables, counts = self.local_run.tables(block)[1:]
+            return {"tables": tables, "counts": counts}
+        stream = map_phase(self.app, block, self.device)
+        if self.flow == "combine":
+            tables, counts = _combine_local_tables(
+                self.app, self.spec, stream, combine_impl=self.combine_impl,
+                use_kernels=self.use_kernels, routes=self._routes)
+            return {"tables": tables, "counts": counts}
+        return _send_partial(stream, self.wire_format(items_length(block)),
+                             self.shuffle_plan)
 
     def shard_tables(self, items) -> list:
         """The stream or combine flow's per-shard partial ``(tables,
         counts)`` before any collective (the shards of ``mesh.shards()``)."""
         blocks = shard_items(items, self.mesh.size)
-        out = []
-        for s in self.mesh.shards():
-            if self.flow == "stream":
-                out.append(self.local_run.tables(blocks[s])[1:])
-            else:
-                stream = map_phase(self.app, blocks[s], self.device)
-                out.append(_combine_local_tables(
-                    self.app, self.spec, stream,
-                    combine_impl=self.combine_impl,
-                    use_kernels=self.use_kernels, routes=self._routes))
-        return out
+        parts = [self.shard_partial(s, blocks[s]) for s in self.mesh.shards()]
+        return [(p["tables"], p["counts"]) for p in parts]
 
     def _merge_flow(self, items):
         parts = self.shard_tables(items)
@@ -1197,6 +1210,7 @@ class DistributedRun:
 
         mesh, app = self.mesh, self.app
         blocks = shard_items(items, mesh.size)
+        fmt = self.wire_format(items_length(blocks[0]))
         streams = [map_phase(app, blocks[s], self.device)
                    for s in mesh.shards()]
         stamps: dict[str, float] = {}
@@ -1211,27 +1225,55 @@ class DistributedRun:
                 last[0] = now
 
             clock("start")
-        recv, fmt, sent = _shuffle_pairs(
-            app, streams, mesh, shuffle_capacity=self.shuffle_capacity,
-            shuffle_plan=self.shuffle_plan, wire=self.wire, clock=clock)
-        self.last_exchange = {"format": fmt, "sent_bytes": sent,
-                              "seconds": stamps}
-        overflow = mesh.all_gather([r[2].reshape(1) for r in recv])[0]
+        sends = [_send_partial(st, fmt, self.shuffle_plan) for st in streams]
+        if clock is not None:
+            clock("encode")
+        return self.shuffle_receive(sends, fmt, clock=clock, stamps=stamps)
+
+    def shuffle_receive(self, sends, fmt, *, clock=None, stamps=None):
+        """The reduce and sort flows after the send side: ``sends`` holds
+        the send partials (:meth:`shard_partial`) of ``mesh.shards()``.
+        The all-to-all of every encoded leaf, the receive side of each
+        range (:func:`_recv_range`), then the range folds (the hot-split
+        merge and patch under a skew plan with hot keys).  Returns the
+        per-shard outputs and the all-gathered overflow counts.
+        ``clock``, when given, is called after the all-to-all and the
+        decode (``DistributedRun.time_exchange``)."""
+        from repro_torch.distributed import wire as wirelib
+
+        tick = clock if clock is not None else (lambda stage: None)
+        mesh, app, S = self.mesh, self.app, self.mesh.size
+        encs = [p["wire"] for p in sends]
+        leaves = _stack_leaves(encs)
+        treedef = pytree.tree_structure(encs[0])
+        recv_leaves = [mesh.all_to_all([ls[i] for ls in leaves])
+                       for i in range(len(leaves[0]))]
+        tick("all_to_all")
+        recv = [_recv_range(app, fmt,
+                            pytree.tree_unflatten([r[j] for r in recv_leaves],
+                                                  treedef),
+                            d, num_shards=S, shuffle_plan=self.shuffle_plan)
+                for j, d in enumerate(mesh.shards())]
+        tick("decode")
+        self.last_exchange = {"format": fmt,
+                              "sent_bytes": wirelib.tree_nbytes(encs[0]),
+                              "seconds": stamps if stamps is not None else {}}
+        overflow = mesh.all_gather([p["overflow"].reshape(1)
+                                    for p in sends])[0]
         if self.flow == "reduce":
-            outs = [_reduce_range(app, ls, lo) for ls, lo, _, _ in recv]
-            return outs, overflow
+            return [_reduce_range(app, ls, lo) for ls, lo, _ in recv], overflow
         splan = self.shuffle_plan
         hot = None
         if splan is not None and splan.hot_keys:
             parts = [_fold_hot_tables(app, self.spec, fk, fv, splan,
                                       device=self.device,
                                       use_kernels=self.use_kernels)
-                     for _, _, _, (fk, fv) in recv]
+                     for _, _, (fk, fv) in recv]
             hot = merge_tables_collective(
                 self.spec, [p[0] for p in parts], [p[1] for p in parts],
                 mesh)
         outs = []
-        for j, (s, (ls, lo, _, _)) in enumerate(zip(mesh.shards(), recv)):
+        for j, (s, (ls, lo, _)) in enumerate(zip(mesh.shards(), recv)):
             patch = None
             if hot is not None:
                 def patch(t, c, j=j, s=s):
@@ -1363,3 +1405,489 @@ def run_distributed(app, plan, items, *, mesh, combine_impl: str = "auto",
                                        strict_shuffle=strict_shuffle,
                                        sinks=sinks)
     return keys, values, counts
+
+
+# ---------------------------------------------------------------------------
+# Resilience (A12): the fault-tolerant driver over the shards
+# ---------------------------------------------------------------------------
+
+
+def _leaf_sig(tree) -> list:
+    """(shape, dtype) of each leaf, in the checkpoint's leaf order."""
+    from repro_torch.checkpoint import ckpt
+
+    return [(tuple(x.shape), x.dtype) for x in ckpt.flatten(tree)[0]]
+
+
+def _partial_to(tree, device):
+    """A restored partial's leaves on ``device``; the uint32 wire epoch
+    stays on the host (C.47)."""
+    return pytree.tree_map(
+        lambda x: x if x.dtype == torch.uint32 else x.to(device), tree)
+
+
+def resilient_run(app, plan, *, num_shards: int, shard_items_n: int, device,
+                  combine_impl: str = "auto", use_kernels: bool = False,
+                  shuffle_capacity=None, chunk_pairs=None, key_block=None,
+                  bucket_size=None, level_fanouts=None, shuffle_plan=None,
+                  wire: str = "raw", jit_cache: dict | None = None):
+    """The prepared per-shard run of a resilient drill: a
+    :class:`DistributedRun` over ``LocalMesh(num_shards, device)``, whose
+    :meth:`~DistributedRun.shard_partial` computes a shard's partial and
+    whose receive side (:meth:`~DistributedRun.shuffle_receive`) is phase
+    B of the reduce and sort flows, with the tiling of
+    :func:`_distributed_tiling`: the code and the tiling of
+    ``run_distributed`` over the same shards.  ``jit_cache`` (held by the
+    caller, e.g. a ``MapReduce``) keeps it across calls, keyed by every
+    knob it binds."""
+    from repro_torch.distributed.mesh import LocalMesh
+
+    if plan.flow not in ("reduce", "sort"):
+        shuffle_plan = None  # the stream and combine flows route nothing
+    chunk_pairs, key_block = _distributed_tiling(
+        app, plan, device=device, use_kernels=use_kernels,
+        chunk_pairs=chunk_pairs, key_block=key_block)
+    cache = jit_cache if jit_cache is not None else {}
+    key = ("run", plan.flow, num_shards, shard_items_n, chunk_pairs,
+           key_block, use_kernels, combine_impl, shuffle_capacity,
+           bucket_size, level_fanouts, wire,
+           shuffle_plan.epoch if shuffle_plan is not None else None,
+           str(device))
+    run = cache.get(key)
+    if run is None:
+        run = cache[key] = DistributedRun(
+            app, plan, mesh=LocalMesh(num_shards, device),
+            combine_impl=combine_impl, use_kernels=use_kernels,
+            shuffle_capacity=shuffle_capacity, chunk_pairs=chunk_pairs,
+            key_block=key_block, bucket_size=bucket_size,
+            level_fanouts=level_fanouts, shuffle_plan=shuffle_plan,
+            wire=wire)
+    return run
+
+
+def run_resilient(app, plan, items, *, mesh=None,
+                  num_hosts: int | None = None,
+                  num_shards: int | None = None, data_axis: str = "data",
+                  step: int = 0, ckpt_dir: str | None = None, inject=None,
+                  timeout_s: float = 60.0, straggler_lag: int = 1,
+                  combine_impl: str = "auto", use_kernels: bool = False,
+                  shuffle_capacity: int | None = None,
+                  chunk_pairs: int | None = None,
+                  key_block: int | None = None,
+                  bucket_size: int | None = None,
+                  level_fanouts: tuple[int, ...] | None = None,
+                  strict_shuffle: bool = False, shuffle_plan=None,
+                  wire: str = "raw", coord=None, retry=None, chaos=None,
+                  jit_cache: dict | None = None, device=None, sinks=None):
+    """Fault-tolerant distributed MapReduce driver, the counterpart of the
+    reference's ``engine.run_resilient`` step for step.
+
+    Runs ``plan.flow`` over ``items`` split into ``num_shards`` shards,
+    assigned to ``num_hosts`` hosts by ``fault.shard_for``, and survives:
+
+    * **shard loss**: a shard's partial (its holder tables in the stream
+      and combine flows, its encoded all-to-all sends in the reduce and
+      sort flows) is a pure function of its items, so a lost shard is
+      recomputed on the deterministic backup rank
+      (``fault.backup_assignment``) with the same bits;
+    * **partial recovery**: with ``ckpt_dir``, each partial lands in
+      ``ckpt.shard_partial_dir(ckpt_dir, shard)`` and recovery restores it
+      in preference to recomputing.  A restored tree must have the
+      partial's structure, leaf shapes and dtypes, and in the reduce and
+      sort flows this run's wire epoch; else it is rejected
+      (``log.epoch_rejects``) and the shard recomputed;
+    * **stragglers**: a lagging host's shards are re-executed on the
+      backup rank;
+    * **elastic resize** (``inject.resize_to``): the mesh continues on
+      ``elastic.best_mesh`` and only the partials lost with the removed
+      hosts are rerun; the shard count, and so the key ranges, is fixed.
+
+    Detection runs a ``fault.HeartbeatMonitor`` on a synthetic clock.
+    With ``coord`` (a ``coordination.CoordinationStore``, a ``KVStore`` or
+    a directory), ``retry`` or ``chaos`` the control plane moves onto a
+    durable store: heartbeat records, a coordinator lease, the ledger of
+    completed shards, a bounded retry for every store operation, and the
+    ``chaos.ChaosPlan`` drills.  Nothing sleeps for real: the store's
+    sleep advances the synthetic clock.
+
+    Every shard runs in this process on ``device`` (``mesh.device``, else
+    ``device``; ``None``: the card), as the reference's mesh-less driver
+    runs them; a ``ProcessGroupMesh`` of more than one rank raises (C.48).
+    A shard's partial and phase B are the code of ``run_distributed`` over
+    ``LocalMesh(num_shards)`` (:func:`resilient_run`), so the result is
+    that run's, bit for bit.  Returns ``(keys, values, counts, log)``,
+    the log a ``fault.RecoveryLog`` whose summary lands on the
+    ``recovery`` of each plan of ``sinks`` (default: ``plan``)."""
+    import os
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.device import resolve_device
+    from repro_torch.distributed import chaos as chaoslib
+    from repro_torch.distributed import coordination as coordlib
+    from repro_torch.distributed import fault as flt
+
+    inject = inject if inject is not None else flt.FaultInjection()
+    mesh_hosts = None
+    if mesh is not None:
+        if mesh.kind != "local" and mesh.size > 1:
+            raise NotImplementedError(
+                f"run_resilient drives every shard in one process (ROADMAP "
+                f"C.48); a ProcessGroupMesh of {mesh.size} ranks would run "
+                f"the whole drill on each rank.  Use LocalMesh(S) or world "
+                f"size 1")
+        if mesh.axis_name != data_axis:
+            raise ValueError(f"the mesh has no data axis {data_axis!r} (its "
+                             f"axis is {mesh.axis_name!r})")
+        mesh_hosts = mesh.size
+        dev = mesh.device
+    else:
+        dev = resolve_device(device)
+    H = num_hosts if num_hosts is not None else (mesh_hosts or 1)
+    S = num_shards if num_shards is not None else (mesh_hosts or H)
+    if H <= 0 or S <= 0:
+        raise ValueError(f"need positive host/shard counts, got {H}/{S}")
+    n_items = items_length(items)
+    if n_items % S:
+        raise ValueError(
+            f"n_items={n_items} must divide into num_shards={S} (the same "
+            f"contract as the mesh's data-axis split)")
+    per = n_items // S
+    spec, flow = plan.spec, plan.flow
+    sinks = (plan,) if sinks is None else tuple(sinks)
+    if flow in ("stream", "sort", "combine") and spec is None:
+        raise ValueError(f"{flow} flow needs a derived combiner spec")
+    if flow in ("reduce", "sort"):
+        if (shuffle_plan is not None and shuffle_plan.hot_keys
+                and flow != "sort"):
+            raise ValueError(
+                "hot-key splitting needs the sort flow's monoid tables; "
+                "the reduce flow takes boundary rebalancing only")
+        if shuffle_plan is not None and shuffle_plan.num_shards != S:
+            raise ValueError(
+                f"shuffle_plan was derived for {shuffle_plan.num_shards} "
+                f"shards but run_resilient partitions into {S}")
+    run = resilient_run(
+        app, plan, num_shards=S, shard_items_n=per, device=dev,
+        combine_impl=combine_impl, use_kernels=use_kernels,
+        shuffle_capacity=shuffle_capacity, chunk_pairs=chunk_pairs,
+        key_block=key_block, bucket_size=bucket_size,
+        level_fanouts=level_fanouts, shuffle_plan=shuffle_plan, wire=wire,
+        jit_cache=jit_cache)
+    run._routes = []
+    fmt = run.wire_format(per) if flow in ("reduce", "sort") else None
+    items = pytree.tree_map(lambda a: torch.as_tensor(a).to(dev), items)
+
+    def shard_slice(s: int):
+        return pytree.tree_map(lambda a: a[s * per:(s + 1) * per], items)
+
+    def remember(p) -> None:
+        # the partial's layout, as meta tensors: what a restore is held to
+        run.partial_example = pytree.tree_map(
+            lambda x: torch.empty(tuple(x.shape), dtype=x.dtype,
+                                  device="meta"), p)
+
+    def partial_fn(s: int):
+        p = run.shard_partial(s, shard_slice(s))
+        if run.partial_example is None:
+            remember(p)
+        return p
+
+    def save_partial(s: int, p) -> None:
+        if ckpt_dir is None:
+            return
+
+        def _save():
+            ckpt.save(ckpt.shard_partial_dir(ckpt_dir, s), step, p)
+
+        if coord is not None:
+            coord.retried(f"save shard {s} partial", _save, kind="ckpt")
+        else:
+            _save()
+
+    def layout_reject(s: int):
+        log.epoch_rejects.append(s)
+        events.append(
+            f"checkpoint: shard {s} partial has a different wire layout "
+            f"than this run (codec/shape mismatch); discarded and the "
+            f"deterministic recompute takes over")
+
+    def try_restore(s: int):
+        """Restore a shard's durable partial; a checksum failure is
+        quarantined and logged, a partial of another layout or wire epoch
+        rejected, and the caller recomputes the shard (the same bits)."""
+        if ckpt_dir is None:
+            return None
+        d = ckpt.shard_partial_dir(ckpt_dir, s)
+        if not ckpt.has_step(d, step):
+            return None
+        if run.partial_example is None:
+            # nothing computed yet in this process: the layout to hold
+            # the checkpoint to is that of a partial of this run
+            remember(run.shard_partial(s, shard_slice(s)))
+        example = run.partial_example
+
+        def _load():
+            return ckpt.restore(d, example, step=step, device="cpu")
+
+        try:
+            if coord is not None:
+                tree, _ = coord.retried(f"restore shard {s} partial", _load,
+                                        kind="ckpt")
+            else:
+                tree, _ = _load()
+        except ckpt.CheckpointCorruptError as e:
+            log.corrupt.append(s)
+            events.append(
+                f"checkpoint: shard {s} partial failed verification "
+                f"({e.reason}); quarantined, falling back to "
+                f"deterministic recompute")
+            return None
+        except (ValueError, KeyError):
+            layout_reject(s)
+            return None
+        if flow in ("reduce", "sort"):
+            got = int(tree["wire_epoch"].reshape(-1)[0])
+            if got != fmt.epoch:
+                log.epoch_rejects.append(s)
+                events.append(
+                    f"checkpoint: shard {s} partial carries wire epoch "
+                    f"{got} != this run's {fmt.epoch} (the skew "
+                    f"boundaries or wire codec changed between runs); "
+                    f"discarded — its send buckets mean different key "
+                    f"ranges or bits — and the deterministic recompute "
+                    f"takes over")
+                return None
+        if _leaf_sig(tree) != _leaf_sig(example):
+            layout_reject(s)
+            return None
+        return _partial_to(tree, dev)
+
+    # -- durable control plane: coordination store + chaos resolution -------
+    log = flt.RecoveryLog(num_hosts=H, num_shards=S, step=step)
+    clock = flt.StepClock()
+    coordinated = coord is not None or chaos is not None or retry is not None
+    lease = None
+    partitioned: set[int] = set()
+    if coordinated:
+        if isinstance(coord, coordlib.CoordinationStore):
+            coord.clock = clock  # rebind onto the drill's synthetic clock
+            coord.sleep = clock.advance
+            if retry is not None:
+                coord.retry = retry
+        else:
+            if isinstance(coord, coordlib.KVStore):
+                kv = coord
+            elif isinstance(coord, str):
+                kv = coordlib.FileKVStore(coord)
+            elif ckpt_dir is not None:
+                kv = coordlib.FileKVStore(os.path.join(ckpt_dir, "coord"))
+            else:
+                kv = coordlib.MemKVStore()
+            coord = coordlib.CoordinationStore(
+                kv, retry=retry, lease_ttl_s=timeout_s, clock=clock,
+                sleep=clock.advance)
+        events = coord.events
+        coordinator = coordlib.elect(range(H))
+        if chaos is not None:
+            inject = chaos.resolve_injection(inject, coordinator)
+            partitioned = set(chaos.partition_hosts)
+            if chaos.store_fail_ops:
+                coord.inject_store_faults(chaos.store_fail_ops,
+                                          chaos.store_fail_kinds)
+            for line in chaos.describe():
+                events.append(f"chaos: {line}")
+        mon = coordlib.DurableHeartbeatMonitor(coord, H, timeout_s=timeout_s,
+                                               clock=clock)
+        for ph in partitioned:
+            mon.partition(ph)
+        lease = coord.adopt(coordinator, range(H))
+        log.coordinator = coordinator
+    else:
+        coord = None
+        events = []
+        mon = flt.HeartbeatMonitor(H, timeout_s=timeout_s, clock=clock)
+
+    with torch.no_grad():
+        # -- phase A: primary execution under the stateless assignment ------
+        dead_script = set(inject.dead_hosts)
+        strag_script = set(inject.straggler_hosts)
+        owner = {s: h for h in range(H) for s in flt.shard_for(step, h, H, S)}
+        partials: dict = {}
+        computed_by: dict[int, int] = {}
+        progress = {h: 0 for h in range(H)}
+        for h in range(H):
+            for j, s in enumerate(flt.shard_for(step, h, H, S)):
+                clock.advance(1.0)
+                if h in dead_script and j >= inject.die_after_shards:
+                    break  # the host crashes: no more work, no more beats
+                if h in strag_script:
+                    mon.beat(h, step=0)  # alive, but no progress this round
+                    continue
+                if h in partitioned:
+                    # the host computes, but nothing it does reaches the
+                    # cluster: beats, checkpoints and partials are dropped
+                    partial_fn(s)
+                    progress[h] = j + 1
+                    mon.beat(h, step=progress[h])  # dropped by the monitor
+                    continue
+                p = partial_fn(s)
+                if h not in dead_script or inject.checkpoint_survives:
+                    save_partial(s, p)
+                if h not in dead_script:
+                    # a dying host's in-memory partial dies with it; only
+                    # its checkpoint (if any) outlives the crash
+                    partials[s] = p
+                if coord is not None:
+                    # the worker writes its ledger record itself, so the
+                    # ledger survives a coordinator death
+                    coord.record_shard(s, h, step)
+                computed_by[s] = h
+                log.computed.append((s, h))
+                progress[h] = j + 1
+                mon.beat(h, step=progress[h])
+
+        # -- chaos: corrupt durable partials (and the memory that held them)
+        if chaos is not None and chaos.corrupt_shards:
+            for s in chaos.corrupt_shards:
+                partials.pop(s, None)  # the holder's memory died with it
+                if ckpt_dir is None:
+                    continue
+                if chaoslib.corrupt_shard_partial(ckpt_dir, s, step) is None:
+                    continue
+                d = ckpt.shard_partial_dir(ckpt_dir, s)
+                try:
+                    ckpt.verify_step(d, step)
+                except ckpt.CheckpointCorruptError as e:
+                    ckpt.quarantine_step(d, step)
+                    log.corrupt.append(s)
+                    events.append(
+                        f"checkpoint: shard {s} partial failed verification "
+                        f"({e.reason}); quarantined to *.corrupt, "
+                        f"deterministic recompute scheduled")
+
+        # -- failure detection: healthy hosts keep beating while the
+        # coordinator waits out the timeout; crashed hosts stay silent.  A
+        # host that finished its whole assignment beats step S: under an
+        # uneven split it owns fewer shards, and is no straggler for it
+        clock.advance(mon.timeout_s + mon.grace_s + 1.0)
+        for h in range(H):
+            if h not in dead_script:
+                owned = len(flt.shard_for(step, h, H, S))
+                mon.beat(h, step=(S if progress[h] >= owned else progress[h]))
+                if (lease is not None and h == lease.holder
+                        and h not in partitioned):
+                    lease = coord.renew(lease)  # a healthy coordinator
+        detected_dead = mon.dead_hosts()
+        detected_strag = mon.stragglers(lag=straggler_lag)
+        log.dead_hosts = list(detected_dead)
+        log.straggler_hosts = list(detected_strag)
+        alive = mon.alive_hosts()
+        backup_pool = [a for a in alive if a not in set(detected_strag)] or alive
+
+        # -- lease failover: when the coordinator's lease lapsed (holder
+        # dead or partitioned), the lowest live rank adopts the lease and
+        # the durable ledger and resumes phase B from the store's partials
+        if coord is not None and alive:
+            cur = coord.lease()
+            now = clock()
+            if cur is not None and (cur.holder not in alive
+                                    or cur.expires_at <= now):
+                new_holder = coordlib.elect(alive)
+                lease = coord.adopt(new_holder, alive)
+                ledger = coord.load_ledger(step)
+                log.failover = (cur.holder, new_holder, lease.epoch)
+                events.append(
+                    f"failover: host {new_holder} adopted the recovery "
+                    f"ledger ({len(ledger)} durable shard records) at epoch "
+                    f"{lease.epoch}; resuming phase B from durable partials")
+
+        def recover(s: int, failed_host: int, ledger: list) -> None:
+            backup, _ = flt.backup_assignment(step, failed_host, H, S,
+                                              alive=backup_pool)
+            restored = try_restore(s)
+            if restored is not None:
+                partials[s] = restored
+                computed_by[s] = backup  # the restoring rank holds it now
+                log.restored.append(s)
+                return
+            p = partial_fn(s)  # deterministic re-execution
+            partials[s] = p
+            computed_by[s] = backup
+            save_partial(s, p)
+            ledger.append((s, backup))
+
+        for h in detected_dead:
+            for s in flt.shard_for(step, h, H, S):
+                if s not in partials:
+                    recover(s, h, log.recomputed)
+        for h in detected_strag:
+            for s in flt.shard_for(step, h, H, S):
+                if s not in partials:
+                    recover(s, h, log.speculated)
+
+        # -- elastic host-count change: remesh, rerun only what was lost ---
+        final_mesh = mesh
+        if inject.resize_to is not None and inject.resize_to != H:
+            new_H = inject.resize_to
+            if new_H <= 0:
+                raise ValueError(f"resize_to must be positive, got {new_H}")
+            if mesh is not None:
+                from repro_torch.distributed import elastic
+
+                final_mesh = elastic.best_mesh(mesh, new_H)
+            new_owner = {s: h for h in range(new_H)
+                         for s in flt.shard_for(step, h, new_H, S)}
+            log.moved = sorted(s for s in range(S)
+                               if new_owner[s] != owner[s])
+            removed = set(range(new_H, H))
+            for s in list(partials):
+                if computed_by.get(s) in removed:
+                    del partials[s]  # left with the departing host's memory
+            for s in range(S):
+                if s in partials:
+                    continue
+                restored = try_restore(s)
+                if restored is not None:
+                    partials[s] = restored
+                    computed_by[s] = new_owner[s]
+                    log.restored.append(s)
+                else:
+                    partials[s] = partial_fn(s)
+                    computed_by[s] = new_owner[s]
+                    save_partial(s, partials[s])
+                    log.recomputed.append((s, new_owner[s]))
+            log.resized = (H, new_H)
+            H = new_H
+            owner = new_owner
+
+        # -- completeness sweep: a shard still missing (an undetected loss)
+        # is re-executed by its owner; no shard is ever silently absent --
+        for s in range(S):
+            if s not in partials:
+                partials[s] = partial_fn(s)
+                computed_by[s] = owner[s]
+                save_partial(s, partials[s])
+                log.recomputed.append((s, owner[s]))
+
+        # -- phase B: monoid merge (tables) or the key-range folds ---------
+        ordered = [partials[s] for s in range(S)]
+        if flow in ("stream", "combine"):
+            keys, values, counts = merge_partial_tables(
+                app, spec, [p["tables"] for p in ordered],
+                [p["counts"] for p in ordered])
+        else:
+            log.shuffle_overflow = tuple(int(p["overflow"]) for p in ordered)
+            keys, values, counts, _ = run.postprocess(
+                run.shuffle_receive(ordered, fmt),
+                strict_shuffle=strict_shuffle, sinks=sinks)
+
+    if shuffle_plan is not None and flow in ("reduce", "sort"):
+        log.skew_plan = shuffle_plan.describe()
+        log.boundary_epoch = int(shuffle_plan.epoch)
+    log.final_mesh = final_mesh
+    log.partitioned = sorted(partitioned)
+    log.store_events = tuple(events)
+    summary = tuple(log.summary())
+    for p in sinks:
+        p.recovery += summary
+    return keys, values, counts, log

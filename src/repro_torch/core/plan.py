@@ -55,6 +55,10 @@ class ExecutionPlan:
     #: the shuffle codec's provenance (``distributed/wire.py``): the codec
     #: and its modelled encoded and raw bytes a shard
     wire: tuple[str, ...] = ()
+    #: what a resilient run did to produce its answer
+    #: (``fault.RecoveryLog.summary``): restores, recomputes, speculation,
+    #: resizes and the control plane's events, one line each
+    recovery: tuple[str, ...] = ()
 
     @property
     def optimized(self) -> bool:
@@ -65,7 +69,7 @@ class ExecutionPlan:
     def explain(self) -> str:
         """What the optimizer decided and why: flow, the staged path's
         stage and plan-cache outcome, combiner, the cost model's ranking,
-        tiling, pipeline fusion."""
+        tiling, pipeline fusion; after a resilient run, its recovery."""
         lines = [f"flow: {self.flow} ({self.reason})"]
         if self.stage:
             lines.append(f"stage: {self.stage}")
@@ -101,6 +105,8 @@ class ExecutionPlan:
             lines.append(f"wire: {line}")
         for diag in self.diagnostics:
             lines.append(f"diagnostic: {diag}")
+        for event in self.recovery:
+            lines.append(f"recovery: {event}")
         return "\n".join(lines)
 
 

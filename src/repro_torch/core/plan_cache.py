@@ -348,10 +348,11 @@ class CompiledEntry:
     """The cached compile stage: the prepared run (mode "local" and
     "pipeline"; mode "distributed", an ``engine.DistributedRun``) or the
     ingest (mode "streaming", an ``engine.StreamIngest``, whose
-    ``combiner`` is the reference's ``aux``)."""
+    ``combiner`` is the reference's ``aux``).  Mode "resilient" builds one
+    (its driver) but never caches it."""
 
     executable: Any
-    mode: str  # "local" | "pipeline" | "streaming" | "distributed"
+    mode: str  # "local" | "pipeline" | "streaming" | "distributed" | ...
     #: the warm-up call's ``torch.cuda.max_memory_allocated`` (card only)
     warmup_peak_bytes: int | None = None
 

@@ -18,7 +18,8 @@ port's state for a given combiner, converting between the fused and the
 per-leaf layouts when the two sides chose differently; a fold seeded with
 it continues exactly as the reference's next fold would.
 :func:`state_to_repro` goes back.  :func:`service_state_from_repro`
-carries a streaming service's checkpoint tree, slot by slot.  Holder
+carries a streaming service's checkpoint tree, slot by slot, and
+:func:`shard_partial_from_repro` a resilient run's shard partial.  Holder
 dtypes follow the port's combiner (torch sums integers into int64, the
 reference into int32).  The combine and reduce flows keep no state
 between runs, so there is nothing of theirs to carry.
@@ -121,6 +122,39 @@ def service_state_from_repro(svc, tree) -> dict:
                          f"slots, the service {svc.n_slots}")
     return {"slots": [state_from_repro(comb, s) for s in host["slots"]],
             "meta": np.asarray(host["meta"], np.int64)}
+
+
+def shard_partial_from_repro(run, tree) -> dict:
+    """The port's shard partial from a reference resilient run's (its
+    checkpoint tree, given as numpy arrays or tensors), for ``run``, the
+    prepared per-shard run (``engine.resilient_run``, or a resilient
+    ``Compiled``'s ``executable.prepared(n_items)``).
+
+    A stream or combine partial ``{"tables", "counts"}`` crosses through
+    :func:`state_from_repro` (per leaf, or fused where the reference fused
+    it; int32 tables widened to the port's int64).  A reduce or sort
+    partial ``{"wire", "overflow", "wire_epoch"}`` is the reference's
+    tree bit for bit and passes through unchanged.  Save the result with
+    ``ckpt.save(ckpt.shard_partial_dir(d, s), step, tree)``; a run that
+    restores it recovers the shard from it."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core.collector import StreamCombiner
+
+    leaves, _ = ckpt.flatten(tree)
+    host = ckpt.unflatten(tree, [
+        x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+        for x in leaves])
+    if run.flow in ("reduce", "sort"):
+        return pytree.tree_map(
+            lambda a: torch.from_numpy(np.array(a)).to(
+                "cpu" if a.dtype == np.uint32 else run.device), host)
+    comb = StreamCombiner(run.spec, run.app.key_space, run.app.value_spec,
+                          device=run.device)
+    counts = host["counts"]
+    state = state_from_repro(comb, counts if comb.mode == "size"
+                             else (host["tables"], counts))
+    tables, counts = comb.tables_counts(state)
+    return {"tables": tables, "counts": counts}
 
 
 def _tensor_from_numpy(x, device) -> torch.Tensor:

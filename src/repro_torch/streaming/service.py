@@ -170,8 +170,9 @@ class MapReduceService:
 
     def _retried(self, op: str, fn):
         """``fn()``, through ``retry_policy.call(fn, op=, on_event=)`` when
-        the service has a retry policy (ROADMAP A12 ports the
-        reference's ``RetryPolicy``; any object with that method works)."""
+        the service has a retry policy (a
+        ``distributed.coordination.RetryPolicy``; any object with that
+        method works)."""
         if self.retry_policy is None:
             return fn()
         return self.retry_policy.call(fn, op=op, on_event=self._record)

@@ -21,7 +21,7 @@ names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 37, names
+assert len(names) >= 41, names
 for name in ("repro_torch.core.cost_model", "repro_torch.core.plan_cache",
              "repro_torch.core.pipeline", "repro_torch.roofline",
              "repro_torch.roofline.analysis",
@@ -41,7 +41,10 @@ for name in ("repro_torch.core.cost_model", "repro_torch.core.plan_cache",
              "repro_torch.distributed", "repro_torch.distributed.mesh",
              "repro_torch.distributed.wire",
              "repro_torch.distributed.compression",
-             "repro_torch.core.skew"):
+             "repro_torch.core.skew", "repro_torch.distributed.fault",
+             "repro_torch.distributed.coordination",
+             "repro_torch.distributed.chaos",
+             "repro_torch.distributed.elastic"):
     assert name in names, name
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -57,7 +60,7 @@ def test_every_module_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", PROBE], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 37
+    assert int(out.stdout.strip()) >= 41
 
 
 def _imported(path):

@@ -236,10 +236,11 @@ def test_calls_return_fresh_tensors(items):
                                        ("distributed", "A11"),
                                        ("resilient", "A12")])
 def test_other_modes_name_their_roadmap_item(mode, item, items):
-    """The modes still to port raise naming their ROADMAP item; streaming
-    (A13, ported) lowers and compiles an ingest, which refuses a batch
-    call; distributed (A11, ported) needs a mesh, and with one compiles
-    a distributed run."""
+    """Each mode of the reference lowers (the ROADMAP item that ported it
+    in the id): streaming (A13) compiles an ingest, which refuses a batch
+    call; distributed (A11) needs a mesh, and with one compiles a
+    distributed run; resilient (A12) compiles its driver, uncached, whose
+    call equals the local run and carries its recovery log."""
     mr = T.MapReduce(wc_app(), device="cpu")
     if mode == "streaming":
         comp = mr.lower(items, mode=mode).compile()
@@ -256,8 +257,13 @@ def test_other_modes_name_their_roadmap_item(mode, item, items):
         assert comp.mode == "distributed"
         assert torch.equal(comp(items).counts, mr.run(items).counts)
     else:
-        with pytest.raises(NotImplementedError, match=item):
-            mr.lower(items, mode=mode)
+        comp = mr.lower(items, mode=mode, options=T.ExecutionOptions(
+            num_hosts=2, num_shards=2)).compile()
+        assert comp.mode == "resilient" and comp.cache_key is None
+        res = comp(items)
+        assert torch.equal(res.counts, mr.run(items).counts)
+        assert res.recovery.num_shards == 2 and len(res.recovery.computed) == 2
+    assert T.core.api.MODE_ITEMS == {}
     with pytest.raises(ValueError, match="unknown execution mode"):
         mr.lower(items, mode="warp")
 
