@@ -199,6 +199,25 @@ Phases (each raises on failure, and the script then exits non-zero):
    and bytes.  (d) A repeat call derives, tunes and compiles nothing.
    B1-B7's rows of the ``kernels`` line name their launches on this path
    (``resilient_launches``).
+14. dense-family training (``train_on_card``, the ``train`` line), after
+   the earlier phases' memory is released: ``training.train_step`` at
+   full model width with two layers, random weights from seed 0 on the
+   card, batches from ``data.pipeline.global_batch`` (1024 tokens a row),
+   the chunked loss (vocab chunks of 8192), one warm-up step of the
+   schedule and a peak rate of 3e-5 (``TRAIN_LR``).  (a) llama3-8b (32 -> 2 layers), batch 8, 4 microbatches:
+   four steps in the ``combiner`` accumulation mode, then four in
+   ``materialize``, each from a fresh copy of one initial state kept on
+   the host; each mode's step ms (after the warm step), tokens/s and peak
+   device memory; the losses finite and falling, the modes' first losses
+   within 1e-5, two combiner steps from the cloned state bit for bit
+   (losses and a digest of every bit of the state), and the materialize
+   peak above the combiner's by at least 2 x 4P bytes (P parameters);
+   then the loss alone (forward and backward of one microbatch), chunked
+   against materialized: within 1e-4, the chunked peak at least half an
+   f32 logits tensor below.  (b) gemma2-27b (46 -> 2 layers, one local,
+   one global), batch 2, 2 microbatches, the ``combiner`` mode: the same
+   readings and gates but the materialize ones.  No kernel runs here:
+   the reference's training path has no Pallas kernel.
 
 ``run()`` prepares its run on its first call (the staged ``compile()``),
 and on the card that is one warm-up run on zeros, whose launches count:
@@ -3849,6 +3868,265 @@ def resilient_on_card(card: str, pts, assign, items) -> dict:
             "phase_wall_s": time.perf_counter() - t0}
 
 
+# -- phase 14: dense-family training (A14b-1) ---------------------------------
+
+TRAIN_SEQ = 1024
+TRAIN_STEPS = 4
+TRAIN_CHUNK = 8192
+#: (arch, global batch, microbatches, accumulation modes): full width, two
+#: layers (llama3-8b: 32 -> 2; gemma2-27b: 46 -> 2, one local, one global)
+TRAIN_CELLS = (("llama3-8b", 8, 4, ("combiner", "materialize")),
+               ("gemma2-27b", 2, 2, ("combiner",)))
+TRAIN_LAYERS = 2
+#: AdamW's peak rate: at full width the default 3e-4 with one warm-up step
+#: overshoots (llama3-8b at 2 layers, bf16 and f32 alike: losses 12.26,
+#: 12.22, 22.1, 15.2), 3e-5 falls (12.26, 12.22, 10.67, 9.86)
+TRAIN_LR = 3e-5
+LOSS_RTOL = 1e-5  # the two accumulation modes' first loss
+XENT_MODES_RTOL = 1e-4  # chunked against materialized loss
+BF16_OPS_PER_S = 989e12  # H100 SXM, dense bf16 on the tensor cores
+
+
+def tree_to(tree, device):
+    """A copy of a tensor tree on ``device`` (new tensors)."""
+    from repro_torch.training import optim
+    return optim.tree_map(lambda x: x.detach().to(device, copy=True), tree)
+
+
+def state_digest(state) -> list:
+    """A fingerprint of every bit of a train state: per leaf, the sum of
+    its 32-bit words and of the words weighted by their position mod
+    65521, in int64 (wrapping, so equal bits give equal digests)."""
+    import torch
+    from repro_torch.checkpoint.ckpt import flatten
+    out = []
+    for x in flatten(state)[0]:
+        words = x.detach().reshape(-1).view(torch.int32)
+        s = w = 0
+        for lo in range(0, words.numel(), 1 << 26):
+            c = words[lo:lo + (1 << 26)].to(torch.int64)
+            pos = torch.arange(lo, lo + c.numel(), device=c.device) % 65521
+            s += int(c.sum())
+            w += int((c * pos).sum())
+            del c, pos
+        out.append((s, w))
+    return out
+
+
+def train_flops(cfg, tokens: int) -> dict:
+    """Operations a step needs (counted from the shapes): the chunked
+    loss's four f32 GEMMs over the vocabulary (forward, the backward's
+    recompute, d_hidden and d_unembed), and the layers' bf16 matmuls with
+    remat (forward twice, backward twice)."""
+    E, V = cfg.d_model, cfg.vocab_size
+    layer = (E * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * E
+             + 3 * E * cfg.d_ff)
+    return {"xent_f32": 4 * 2 * tokens * V * E,
+            "layers_bf16": 4 * 2 * tokens * layer * cfg.num_layers}
+
+
+def train_mode_run(model, host_state, tc, batches, *,
+                   must_fall: bool = True) -> dict:
+    """One accumulation mode: a fresh device copy of ``host_state``, the
+    steps over ``batches`` with the first as the warm step; each step's
+    loss, grad_norm and ms (host clock, ended by a synchronize), the
+    digest of the state after step 2 (step 1 runs at learning rate 0, the
+    schedule's first warm-up step), and the peak device memory above what
+    was allocated before."""
+    import torch
+    from repro_torch.training.train_step import make_train_step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state = tree_to(host_state, "cuda")
+    resident = [torch.cuda.memory_allocated() - base]
+    step = make_train_step(model, tc)
+    losses, gnorms, ms, digest = [], [], [], None
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        resident.append(torch.cuda.memory_allocated() - base)
+        if i == 1:
+            digest = state_digest(state)
+    peak = torch.cuda.max_memory_allocated()
+    del state, m
+    torch.cuda.empty_cache()
+    if not np.isfinite(losses).all() or not np.isfinite(gnorms).all():
+        raise AssertionError(f"train: losses {losses}, grad norms {gnorms}")
+    if must_fall and not losses[-1] < losses[0]:
+        raise AssertionError(f"train: the loss did not fall: {losses}")
+    timed = ms[1:]
+    return {"losses": losses, "grad_norms": gnorms, "step_ms": ms,
+            "step_ms_warm_mean": sum(timed) / len(timed),
+            "step_ms_warm_median": float(np.median(timed)),
+            "peak_bytes": peak - base, "base_bytes": base,
+            "resident_bytes": resident, "digest": digest}
+
+
+def loss_alone(model, params, batch, mode: str, chunk: int) -> dict:
+    """The loss function alone, forward plus backward, on one
+    microbatch's final hidden states (the model's forward run without
+    gradients): ``losses.xent_chunked`` or ``xent_materialize`` with
+    respect to the hidden states and the unembedding.  The loss, ms (CUDA
+    events, after a warm call) and the peak device memory above what was
+    allocated before."""
+    import torch
+    from repro_torch.training import losses
+
+    with torch.no_grad():
+        hidden, _ = model.forward(params, batch)
+    w = model.unembed_matrix(params)
+    labels = batch["labels"]
+
+    def once():
+        h = hidden.detach().requires_grad_(True)
+        u = w.detach().requires_grad_(True)
+        if mode == "chunked":
+            loss = losses.xent_chunked(h, u, labels, chunk=chunk,
+                                       softcap=model.logit_softcap)
+        else:
+            loss = losses.xent_materialize(h, u, labels,
+                                           softcap=model.logit_softcap)
+        torch.autograd.grad(loss, (h, u))
+        return loss.detach()
+
+    once()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    loss = once()
+    stop.record()
+    torch.cuda.synchronize()
+    return {"loss": float(loss), "ms": start.elapsed_time(stop),
+            "peak_bytes": torch.cuda.max_memory_allocated() - base}
+
+
+def train_on_card(card: str) -> dict:
+    """Phase 14: ``training.train_step`` at full model width, two layers,
+    random weights from seed 0 on the card, batches from
+    ``data.pipeline.global_batch``."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, global_batch
+    from repro_torch.models.registry import get_model, param_count
+    from repro_torch.training import optim
+    from repro_torch.training.train_step import (TrainConfig, batch_to,
+                                                 init_train_state)
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"card": card, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+           "vocab_chunk": TRAIN_CHUNK, "lr": TRAIN_LR,
+           "resident_bytes_at_start": torch.cuda.memory_allocated()}
+    for arch, gbatch, mbs, modes in TRAIN_CELLS:
+        cfg = dataclasses.replace(get_config(arch), num_layers=TRAIN_LAYERS)
+        model = get_model(cfg)
+        tc = TrainConfig(adam=optim.AdamWConfig(lr=TRAIN_LR),
+                         num_microbatches=mbs, warmup_steps=1,
+                         total_steps=50, vocab_chunk=TRAIN_CHUNK)
+        dc = DataConfig(seed=0, vocab_size=cfg.vocab_size,
+                        seq_len=TRAIN_SEQ, global_batch=gbatch)
+        batches = [global_batch(dc, i) for i in range(TRAIN_STEPS)]
+        t0 = time.perf_counter()
+        state = init_train_state(model, torch.Generator("cuda").manual_seed(0))
+        P = param_count(state["master"])
+        host = tree_to(state, "cpu")
+        del state
+        torch.cuda.empty_cache()
+        init_s = time.perf_counter() - t0
+        tokens = gbatch * TRAIN_SEQ
+        row = {"arch": arch, "layers": cfg.num_layers,
+               "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+               "params": P, "batch": gbatch, "microbatches": mbs,
+               "tokens_per_step": tokens, "init_s": init_s, "modes": {}}
+        flops = train_flops(cfg, tokens)
+        row["step_flops"] = flops
+        row["step_bound_ms"] = (flops["xent_f32"] / F32_OPS_PER_S
+                                + flops["layers_bf16"] / BF16_OPS_PER_S
+                                ) * 1e3
+        for mode in modes:
+            r = train_mode_run(model, host, dataclasses.replace(
+                tc, accum_mode=mode), batches)
+            r["tokens_per_s"] = tokens * 1e3 / r["step_ms_warm_median"]
+            r["peak_over_4P"] = r["peak_bytes"] / (4 * P)
+            row["modes"][mode] = r
+            log(f"train: {arch} {cfg.num_layers} layers {mode}: losses "
+                f"{r['losses']}, step {r['step_ms_warm_median']:.1f} ms "
+                f"({r['tokens_per_s']:.0f} tokens/s), peak "
+                f"{r['peak_bytes'] / 2**30:.2f} GiB ({r['peak_over_4P']:.2f}"
+                f" x 4P; resident before {r['base_bytes']} B, after the "
+                f"copy and each step {r['resident_bytes']} B) [{card}]")
+        comb = row["modes"]["combiner"]
+        # combiner steps from one cloned state repeat bit for bit
+        again = train_mode_run(model, host, tc, batches[:2], must_fall=False)
+        row["repeat_bit_for_bit"] = (again["losses"] == comb["losses"][:2]
+                                     and again["digest"] == comb["digest"])
+        if not row["repeat_bit_for_bit"]:
+            raise AssertionError(
+                f"train: {arch}: two combiner steps from one cloned state "
+                f"gave other losses or state ({again['losses']!r} against "
+                f"{comb['losses'][:2]!r}; digests equal: "
+                f"{again['digest'] == comb['digest']})")
+        if "materialize" in row["modes"]:
+            mat = row["modes"]["materialize"]
+            l1, l2 = comb["losses"][0], mat["losses"][0]
+            if abs(l1 - l2) > LOSS_RTOL * abs(l2):
+                raise AssertionError(f"train: {arch}: step-1 losses "
+                                     f"combiner {l1} materialize {l2}")
+            diff = mat["peak_bytes"] - comb["peak_bytes"]
+            row["materialize_minus_combiner_peak_bytes"] = diff
+            row["materialize_minus_combiner_over_4P"] = diff / (4 * P)
+            log(f"train: {arch}: materialize peak - combiner peak = "
+                f"{diff / 2**30:.2f} GiB = {diff / (4 * P):.2f} x 4P "
+                f"[{card}]")
+            if diff < 2 * 4 * P:
+                raise AssertionError(
+                    f"train: {arch}: materialize peak exceeds the "
+                    f"combiner's by {diff} B, under 2 x 4P = {8 * P} B")
+            # the loss alone: chunked against materialized xent
+            params = optim.model_params(
+                {"master": tree_to(host["master"], "cuda")}, cfg.dtype)
+            mb = batch_to({k: v[:gbatch // mbs]
+                           for k, v in batches[0].items()}, "cuda")
+            la = {mode: loss_alone(model, params, mb, mode, TRAIN_CHUNK)
+                  for mode in ("chunked", "materialize")}
+            del params
+            torch.cuda.empty_cache()
+            row["loss_alone"] = la
+            ch, ma = la["chunked"], la["materialize"]
+            logits = mb["labels"].numel() * cfg.vocab_size * 4
+            row["loss_alone"]["logits_f32_bytes"] = logits
+            log(f"train: {arch} loss alone (one microbatch): {la} [{card}]")
+            if abs(ch["loss"] - ma["loss"]) > XENT_MODES_RTOL * abs(
+                    ma["loss"]):
+                raise AssertionError(f"train: {arch}: chunked loss "
+                                     f"{ch['loss']}, materialized "
+                                     f"{ma['loss']}")
+            if ma["peak_bytes"] - ch["peak_bytes"] < logits / 2:
+                raise AssertionError(
+                    f"train: {arch}: chunked peak {ch['peak_bytes']} B is "
+                    f"not half a logits tensor ({logits} B) below the "
+                    f"materialized {ma['peak_bytes']} B")
+        for r in row["modes"].values():
+            del r["digest"]
+        out[arch] = row
+        del host
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3910,6 +4188,7 @@ def main() -> int:
     log(json.dumps({"distributed": distributed}))
     resilient = resilient_on_card(card, pts, assign, items)
     log(json.dumps({"resilient": resilient}))
+    log(json.dumps({"train": train_on_card(card)}))
 
     rows = kernel_rows(rng, launches_add, launches_dense, ops_count)
     for row in rows:  # B1, B2: their launches on the streaming path too

@@ -102,48 +102,51 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
+def _walk(x, leaves: list) -> str:
+    if x is None:
+        return "None"
+    if isinstance(x, dict):
+        return "{" + ", ".join(f"{k!r}: {_walk(x[k], leaves)}"
+                               for k in sorted(x)) + "}"
+    if isinstance(x, list):
+        return "[" + ", ".join(_walk(v, leaves) for v in x) + "]"
+    if isinstance(x, tuple):
+        inner = [_walk(v, leaves) for v in x]
+        return "(" + ", ".join(inner) + ("," if len(inner) == 1
+                                          else "") + ")"
+    leaves.append(x)
+    return "*"
+
+
 def flatten(tree) -> tuple[list, str]:
     """``(leaves, treedef)`` in JAX's order (dict keys sorted, ``None``
-    empty); ``treedef`` is the structure written as JAX prints it."""
+    empty); ``treedef`` is the structure written as JAX prints it.  The
+    walkers are module functions, not recursive closures: a closure that
+    calls itself is a reference cycle, which would keep the leaves (device
+    tensors in a train step) alive until the garbage collector runs."""
     leaves: list = []
+    treedef = _walk(tree, leaves)
+    return leaves, f"PyTreeDef({treedef})"
 
-    def walk(x) -> str:
-        if x is None:
-            return "None"
-        if isinstance(x, dict):
-            return "{" + ", ".join(f"{k!r}: {walk(x[k])}"
-                                   for k in sorted(x)) + "}"
-        if isinstance(x, list):
-            return "[" + ", ".join(walk(v) for v in x) + "]"
-        if isinstance(x, tuple):
-            inner = [walk(v) for v in x]
-            return "(" + ", ".join(inner) + ("," if len(inner) == 1
-                                              else "") + ")"
-        leaves.append(x)
-        return "*"
 
-    return leaves, f"PyTreeDef({walk(tree)})"
+def _build(x, it):
+    if x is None:
+        return None
+    if isinstance(x, dict):
+        got = {k: _build(x[k], it) for k in sorted(x)}
+        return {k: got[k] for k in x}
+    if isinstance(x, list):
+        return [_build(v, it) for v in x]
+    if _is_namedtuple(x):
+        return type(x)(*[_build(v, it) for v in x])
+    if isinstance(x, tuple):
+        return tuple(_build(v, it) for v in x)
+    return next(it)
 
 
 def unflatten(example, leaves: list):
     """``leaves`` (JAX's order) in the structure of ``example``."""
-    it = iter(leaves)
-
-    def build(x):
-        if x is None:
-            return None
-        if isinstance(x, dict):
-            got = {k: build(x[k]) for k in sorted(x)}
-            return {k: got[k] for k in x}
-        if isinstance(x, list):
-            return [build(v) for v in x]
-        if _is_namedtuple(x):
-            return type(x)(*[build(v) for v in x])
-        if isinstance(x, tuple):
-            return tuple(build(v) for v in x)
-        return next(it)
-
-    return build(example)
+    return _build(example, iter(leaves))
 
 
 def _to_numpy(x) -> tuple[np.ndarray, str]:

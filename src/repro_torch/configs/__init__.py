@@ -1,11 +1,11 @@
 """Published model configurations, as shapes (no weights).
 
 Counterpart of ``repro/configs/__init__.py``.  ``get_config(name)`` returns
-the exact published :class:`~repro_torch.models.common.ModelConfig`.  Only
-llama3-8b, the dense model of the serving slice, is ported; the other
-architectures of the reference, and its dry-run helpers (``ShapeSpec``,
-``input_specs``, ``state_specs``, built on ``jax.ShapeDtypeStruct``), wait
-for ROADMAP A14b.
+the exact published :class:`~repro_torch.models.common.ModelConfig`.  The
+dense family is ported (llama3-8b, qwen1.5-32b, qwen2.5-14b, gemma2-27b);
+the other architectures of the reference wait for ROADMAP A14b-2..4, and
+its dry-run helpers (``ShapeSpec``, ``input_specs``, ``state_specs``,
+built on ``jax.ShapeDtypeStruct``) for A14b-5.
 """
 
 from __future__ import annotations
@@ -15,7 +15,10 @@ import importlib
 from repro_torch.models.common import ModelConfig
 
 _MODULES = {
+    "qwen1.5-32b": "qwen1p5_32b",
     "llama3-8b": "llama3_8b",
+    "qwen2.5-14b": "qwen2p5_14b",
+    "gemma2-27b": "gemma2_27b",
 }
 
 #: the ROADMAP item that ports the other architectures

@@ -399,6 +399,10 @@ def build_premap(an: Analysis) -> Callable:
                 if f.extra_dims:
                     x = f.monoid.dense_reduce(x, f.extra_dims)
             out.append(x)
+        # ``read`` calls itself, so it and ``env`` form a reference cycle:
+        # emptied here, env's tensors go with this call, not at the next
+        # garbage collection (device memory on the card)
+        env.clear()
         return tuple(out)
 
     return premap

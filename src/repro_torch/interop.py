@@ -27,7 +27,9 @@ between runs, so there is nothing of theirs to carry.
 For the models, :func:`params_from_repro` turns the reference's parameter
 pytree (numpy leaves, layers stacked ``[L, ...]``) into the port's, key for
 key, and :func:`decode_state_from_repro` a reference decode state (its KV
-cache and ``pos``), so that both packages compute the same thing.
+cache and ``pos``), so that both packages compute the same thing;
+:func:`train_state_from_repro` a reference AdamW state (``{"step",
+"master", "m", "v"}``).
 
 For the shuffle, :func:`shuffle_plan_from_repro` and
 :func:`wire_format_from_repro` rebuild the port's ``ShufflePlan`` and
@@ -181,6 +183,19 @@ def params_from_repro(cfg, params_np, *, device=None):
     if out["layers"]["attn"]["wq"].shape[0] != cfg.num_layers:
         raise ValueError(f"{cfg.name}: {cfg.num_layers} layers expected, "
                          f"got {out['layers']['attn']['wq'].shape[0]}")
+    return out
+
+
+def train_state_from_repro(cfg, opt_state_np, *, device=None):
+    """The port's train state from a reference AdamW state given as numpy
+    (``jax.tree.map(np.asarray, opt_state)``): ``master``, ``m`` and ``v``
+    in :func:`params_from_repro`'s layout (f32), ``step`` a 0-d int32
+    tensor."""
+    dev = resolve_device(device)
+    out = {name: params_from_repro(cfg, opt_state_np[name], device=dev)
+           for name in ("master", "m", "v")}
+    out["step"] = torch.tensor(int(np.asarray(opt_state_np["step"])),
+                               dtype=torch.int32, device=dev)
     return out
 
 

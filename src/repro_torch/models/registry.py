@@ -1,7 +1,8 @@
 """Model registry: family -> implementation module, plus a uniform facade.
 
 Counterpart of ``repro/models/registry.py``.  Only the dense family is
-ported; the others raise ``NotImplementedError`` naming ROADMAP A14b.
+ported; the others raise ``NotImplementedError`` naming their ROADMAP
+items (A14b-2 to A14b-4).
 The reference's ``abstract_params`` (a ``jax.eval_shape`` dry run) has no
 counterpart here.
 """
@@ -32,8 +33,8 @@ class Model:
     def init_params(self, rng: torch.Generator):
         return self.module.init_params(self.cfg, rng)
 
-    def forward(self, params, batch):
-        return self.module.forward(self.cfg, params, batch)
+    def forward(self, params, batch, **kw):
+        return self.module.forward(self.cfg, params, batch, **kw)
 
     def logits_of_hidden(self, params, hidden):
         return self.module.logits_of_hidden(self.cfg, params, hidden)
@@ -63,7 +64,7 @@ def get_model(cfg: ModelConfig) -> Model:
                                      and cfg.num_experts):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported to "
-            f"repro_torch yet (ROADMAP {transformer.OTHER_FAMILIES_ITEM})")
+            f"repro_torch yet (ROADMAP {transformer.family_item(cfg)})")
     if cfg.family not in _FAMILY_MODULES:
         raise KeyError(f"unknown family {cfg.family}")
     return Model(cfg, _FAMILY_MODULES[cfg.family])

@@ -3,7 +3,7 @@
 Counterpart of ``repro/models/transformer.py`` for ``family == "dense"``
 (llama3, qwen, gemma2-style options: QKV bias, softcaps, local/global
 windows, post-norms).  The MoE and VLM branches raise
-``NotImplementedError`` naming ROADMAP A14b.
+``NotImplementedError`` naming their ROADMAP items (A14b-2, A14b-4).
 
 Parameters are the reference's pytree, key for key, as dicts of tensors:
 ``{"embed": {"table"}, "layers": {...}, "ln_f": {"scale"}, "head": {"w"}}``,
@@ -26,6 +26,7 @@ Python int.
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models.common import ModelConfig
@@ -34,15 +35,24 @@ from repro_torch.models.layers import (apply_rope, embed, init_embed,
                                        init_unembed, rmsnorm, rope_table,
                                        swiglu)
 
-#: the ROADMAP item that ports the other families' branches
-OTHER_FAMILIES_ITEM = "A14b (MoE, VLM and the other model families)"
+#: the ROADMAP items that port the other families' branches
+FAMILY_ITEMS = {"moe": "A14b-2 (MoE)", "ssm": "A14b-3 (SSM and hybrid)",
+                "hybrid": "A14b-3 (SSM and hybrid)",
+                "audio": "A14b-4 (whisper and VLM)",
+                "vlm": "A14b-4 (whisper and VLM)"}
+
+
+def family_item(cfg: ModelConfig) -> str:
+    """The ROADMAP item that ports ``cfg``'s family."""
+    family = "moe" if cfg.num_experts else cfg.family
+    return FAMILY_ITEMS.get(family, "A14b (the other model families)")
 
 
 def _dense_only(cfg: ModelConfig) -> None:
     if cfg.family != "dense" or cfg.num_experts:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported to "
-            f"repro_torch yet (ROADMAP {OTHER_FAMILIES_ITEM})")
+            f"repro_torch yet (ROADMAP {family_item(cfg)})")
 
 
 def _layer_windows(cfg: ModelConfig):
@@ -125,21 +135,34 @@ def _ffn(cfg: ModelConfig, p, x):
     return x + f
 
 
-def forward(cfg: ModelConfig, params, batch):
+def _block_train(cfg: ModelConfig, p, x, window: int):
+    h = rmsnorm(p["ln_attn"], x, cfg.norm_eps)
+    a = attn.attn_train(cfg, p["attn"], h, window=window)
+    if cfg.post_norms:
+        a = rmsnorm(p["ln_post_attn"], a, cfg.norm_eps)
+    return _ffn(cfg, p, x + a)
+
+
+def forward(cfg: ModelConfig, params, batch, *, moe_mode: str = "combiner",
+            remat: bool = True):
     """The training forward of the dense family. batch: {"tokens": [B,S]}.
 
-    Returns (hidden [B,S,E], aux dict), as the reference (its ``moe_mode``
-    and ``remat`` options belong to the MoE family and to training, which
-    wait for ROADMAP A14b)."""
+    Returns (hidden [B,S,E], aux dict), as the reference.  ``remat`` runs
+    each layer under ``torch.utils.checkpoint`` (non-reentrant) when
+    gradients are recorded, so that only the layers' inputs are kept for
+    the backward, as the reference's per-layer ``jax.checkpoint``.
+    ``moe_mode`` selects the MoE combine-back, which waits for ROADMAP
+    A14b-2; the dense family ignores it, as the reference does."""
     _dense_only(cfg)
     x = _embed_in(cfg, params, batch["tokens"])
+    remat = remat and torch.is_grad_enabled()
     for i, window in enumerate(_layer_windows(cfg)):
         p = layer_params(params, i)
-        h = rmsnorm(p["ln_attn"], x, cfg.norm_eps)
-        a = attn.attn_train(cfg, p["attn"], h, window=window)
-        if cfg.post_norms:
-            a = rmsnorm(p["ln_post_attn"], a, cfg.norm_eps)
-        x = _ffn(cfg, p, x + a)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                _block_train, cfg, p, x, window, use_reentrant=False)
+        else:
+            x = _block_train(cfg, p, x, window)
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
     return x, {"load_balance_loss": 0.0}
 
