@@ -36,10 +36,12 @@ Phases (each raises on failure, and the script then exits non-zero):
    flow's kernels too, by the same rules: K = 1 to 2^16, D = 1 to 128,
    bf16 values, sentinel and out-of-range keys, NaN and signed zeros.
    And flash_decode, f32 and bf16, at the reference kernel test's shapes,
-   the bench shape and llama3-8b's decode shape, with ragged kv_len (0, 1,
-   S and lengths that are no multiple of a tile), within 1e-5 (both sides
-   fold the same inputs in f32), two runs bit for bit, and three planted
-   faults (a position, a head map, a tile) must each miss that tolerance;
+   the bench shape, llama3-8b's decode shape and phase 15's (G = H / Hkv
+   = 8, 5 and 6: a full head block of 8 and two partial ones), with
+   ragged kv_len (0, 1, S and lengths that are no multiple of a tile),
+   within 1e-5 (both sides fold the same inputs in f32), two runs bit for
+   bit, and three planted faults (a position, a head map, a tile) must
+   each miss that tolerance at the llama and phase 15 shapes;
 3. main path, additive: ``MapReduce(KMeans()).run`` on 2^24 points of the
    Phoenix kmeans shape (3 dimensions, 100 means); the plan must be the
    stream flow with a derived monoid, ``onehot_fold`` must have launched,
@@ -89,17 +91,23 @@ Phases (each raises on failure, and the script then exits non-zero):
    full width and depth (32 layers, bf16, random weights from a seeded
    generator), batch 4, a 2048-token prompt, 32 greedy tokens;
    flash_decode must launch 32 x 31 times, a second run must give the same
-   tokens, the teacher-forced logits must repeat bit for bit and agree
-   with the plain decode on the card within SERVE_RMS_TOL / SERVE_MAX_TOL,
-   and three planted faults must each fall outside them; prefill ms,
+   tokens, the teacher-forced logits must repeat bit for bit, each
+   flash_decode call of the decode must agree with its plain version on
+   its own inputs within 1e-5, the logits must agree with the plain
+   decode on the card and with the decode through the kernel's plain
+   version within SERVE_RMS_TOL / SERVE_MAX_TOL, and three planted faults
+   must each miss 1e-5 in the decode and fall outside the gate against
+   the plain decode; prefill ms,
    decode ms per token and tokens/s over the whole decode loop (one
    synchronisation at its end; the median of three runs), the median step
    (CUDA events), and a profile of one decode step (flash_decode against
-   the matmuls);
+   the matmuls) (``serve_setup`` and ``serve_run`` take any transformer
+   config: phase 15 runs them too);
 9. time each kernel, its plain version and one PyTorch library call at the
    main path's shapes (CUDA events, and replayed from a CUDA graph, without
    the host's per-call work; the device operations of a call; flash_decode
-   at llama3-8b's decode shape and the bench shape, against SDPA;
+   at llama3-8b's decode shape, the bench shape and phase 15's three
+   decode shapes, against SDPA;
    segment_reduce's max at the BoundingBox combine shape against
    scatter_reduce_; the radix partitions also at the combine flow's
    sort-route shapes and at 2048 leaves; the keyed folds' rows name their
@@ -218,6 +226,36 @@ Phases (each raises on failure, and the script then exits non-zero):
    one global), batch 2, 2 microbatches, the ``combiner`` mode: the same
    readings and gates but the materialize ones.  No kernel runs here:
    the reference's training path has no Pallas kernel.
+15. the transformer's MoE and VLM branches (``moe_on_card``, the ``moe``
+   line), after phase 14's memory is released, random weights from seed
+   0, the peak-memory counter reset before each model.  Served through
+   ``generate`` as phase 8 (batch 4, a 2048-token prompt, 32 greedy
+   tokens; ``serve_run`` with the same checks, but for one: the logits
+   are gated against the decode through the kernel's plain version, and
+   those against the model's plain decode, whose attention rounds its
+   weights to bf16 (C.22), and the planted faults' there, are read and
+   printed: at 48 layers that rounding alone reaches the gate, and the
+   newest-position fault moves qwen3-moe's logits by less than it; every
+   fault must miss 1e-5 in the decode's own flash_decode calls): (a)
+   qwen3-moe-30b-a3b at full width and depth (48 layers, 128 experts
+   top-8; flash_decode 48 x 31 times at G = 8), (b)
+   llama4-scout-17b-a16e at full width, 48 -> 4 layers (16 experts top-1;
+   4 x 31 at G = 5), (c) internvl2-26b at full width and depth, 256 random
+   patch embeddings in front of the prompt (48 x 31 at G = 6, S = 2336).
+   The compared and faulty decodes replay the kernel decode's routing,
+   and the routing flips the plain decode would have taken are counted
+   and printed; one decode step of each model is profiled.  For
+   MoE, prefill alone in the ``combiner`` and ``materialize`` modes (ms,
+   the two modes' logits and routings against each other) and, at every
+   layer of a prefill, both modes on the same input within the serve
+   gate, the combiner bit for bit on a repeat.  Then ``train_step`` at
+   full width, 48 -> 2 layers, the launcher's batches, combiner
+   accumulation: (d) qwen3-moe-30b-a3b, 8 x 1024, 4 microbatches, four
+   steps in each MoE mode; (e) internvl2-26b, 2 x (256 + 1024), 2
+   microbatches, the combiner.  Step ms, tokens/s, peak memory and the
+   load-balance loss per mode; losses finite and falling, two steps from
+   one cloned state bit for bit in each mode, the modes' first losses
+   within MOE_LOSS_RTOL.
 
 ``run()`` prepares its run on its first call (the staged ``compile()``),
 and on the card that is one warm-up run on zeros, whose launches count:
@@ -1083,6 +1121,13 @@ FD_TEST_SHAPES = ((2, 8, 2, 64, 300), (1, 4, 4, 32, 128),
                   (3, 16, 4, 128, 1000), (1, 8, 1, 64, 256))
 FD_BENCH_SHAPE = (1, 8, 2, 64, 8192)
 FD_LLAMA_SHAPE = (4, 32, 8, 128, 2080)
+#: phase 15's decode shapes (batch 4, a 2048-token prompt, 32 new tokens):
+#: qwen3-moe-30b-a3b at G = H / Hkv = 8 (a full head block of 8),
+#: llama4-scout-17b-a16e at G = 5 and internvl2-26b at G = 6 (256 patches
+#: in front of the prompt), whose head blocks of 8 leave 3 and 2 heads empty
+FD_SLICE_SHAPES = {"qwen3-moe-30b-a3b": (4, 32, 4, 128, 2080),
+                   "llama4-scout-17b-a16e": (4, 40, 8, 128, 2080),
+                   "internvl2-26b": (4, 48, 8, 128, 2336)}
 #: flash_decode against its plain version on the card (rtol = atol), f32
 #: and bf16 alike: both read the same inputs, widen them to f32 and fold in
 #: f32, and differ only in the order of the sums (the reference kernel
@@ -1137,11 +1182,12 @@ def fd_kv_lens(b: int, s: int) -> list[list[int]]:
 
 def check_flash_decode(rng) -> None:
     """Phase 2, decode attention: flash_decode against its plain version on
-    the card, f32 and bf16, at the reference test's, the bench and the
-    llama3-8b decode shapes, with ragged ``kv_len`` (0, which gives zeros,
-    1, S and lengths that are no multiple of a tile), within FD_TOL, and two
-    runs bit for bit; each planted fault of :func:`fd_faults` at the llama
-    shape must miss FD_TOL."""
+    the card, f32 and bf16, at the reference test's, the bench, the
+    llama3-8b and phase 15's decode shapes, with ragged ``kv_len`` (0,
+    which gives zeros, 1, S and lengths that are no multiple of a tile),
+    within FD_TOL, and two runs bit for bit; each planted fault of
+    :func:`fd_faults` at the llama shape and at phase 15's must miss
+    FD_TOL."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_decode import flash_decode_plain
@@ -1151,7 +1197,8 @@ def check_flash_decode(rng) -> None:
         return bool((err <= FD_TOL + FD_TOL * want.abs()).all()), float(
             err.max())
 
-    for shape in FD_TEST_SHAPES + (FD_BENCH_SHAPE, FD_LLAMA_SHAPE):
+    for shape in FD_TEST_SHAPES + (FD_BENCH_SHAPE, FD_LLAMA_SHAPE,
+                                   *FD_SLICE_SHAPES.values()):
         b, h, hkv, d, s = shape
         runs = fd_kv_lens(b, s)
         for kv_len in runs:
@@ -1181,17 +1228,21 @@ def check_flash_decode(rng) -> None:
             raise AssertionError(f"flash_decode tile_s={tile_s}: max abs err "
                                  f"{err}")
     log(f"flash_decode == plain within {FD_TOL} at tile_s 64, 128 and 8192")
-    b, _, _, _, s = FD_LLAMA_SHAPE
-    q, k, v, kvl = decode_inputs(rng, *FD_LLAMA_SHAPE, "bf16", [s - 32] * b)
-    want = flash_decode_plain(q, k, v, kvl)
-    seen = {}
-    for name, fault in fd_faults().items():
-        ok, seen[name] = agree(fault(ops.flash_decode, q, k, v, kvl), want)
-        if ok:
-            raise AssertionError(f"flash_decode check blind to the planted "
-                                 f"fault {name}: max abs err {seen[name]}")
-    log(f"flash_decode check catches each planted fault at the llama shape "
-        f"(bf16, kv_len {s - 32}): max abs err {seen}")
+    for shape in (FD_LLAMA_SHAPE, *FD_SLICE_SHAPES.values()):
+        b, _, _, _, s = shape
+        q, k, v, kvl = decode_inputs(rng, *shape, "bf16", [s - 32] * b)
+        want = flash_decode_plain(q, k, v, kvl)
+        seen = {}
+        for name, fault in fd_faults().items():
+            ok, seen[name] = agree(fault(ops.flash_decode, q, k, v, kvl),
+                                   want)
+            if ok:
+                raise AssertionError(
+                    f"flash_decode check blind to the planted fault {name} "
+                    f"at {shape}: max abs err {seen[name]}")
+        log(f"flash_decode check catches each planted fault at "
+            f"B,H,Hkv,D,S={shape} (bf16, kv_len {s - 32}): max abs err "
+            f"{seen}")
 
 
 #: the serve main path: llama3-8b at full width and depth, bf16; its
@@ -1213,37 +1264,153 @@ SERVE_TIMED_RUNS = 3
 SERVE_RMS_TOL, SERVE_MAX_TOL = 2.0 ** -5, 2.0 ** -5
 
 
-def serve_setup():
-    """(model, params, prompts): llama3-8b with random bf16 weights from a
-    seeded generator on the card, and random prompts."""
+def serve_setup(cfg, seed: int = 0):
+    """(model, params, prompts, extra): ``cfg`` with random weights from a
+    seeded generator on the card, random prompts [SERVE_BATCH,
+    SERVE_PROMPT] and, for vlm, random patch embeddings in the model
+    dtype (the stub frontend's output; ``extra`` is None otherwise)."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.models.registry import get_model
 
-    cfg = get_config("llama3-8b")
     model = get_model(cfg)
-    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    params = model.init_params(
+        torch.Generator(device="cuda").manual_seed(seed))
     prompts = torch.randint(
         0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), dtype=torch.int32,
-        device="cuda", generator=torch.Generator(device="cuda").manual_seed(1))
-    return model, params, prompts
+        device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(seed + 1))
+    extra = None
+    if cfg.family == "vlm":
+        extra = {"patches": torch.randn(
+            (SERVE_BATCH, cfg.num_patches, cfg.d_model), device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(seed + 3)
+        ).to(cfg.dtype)}
+    return model, params, prompts, extra
 
 
-def teacher_forced(model, params, prompts, tokens, use_kernels):
+def teacher_forced(model, params, prompts, tokens, use_kernels, extra=None):
     """Per-step logits [B, n, V] of prefill and of decode steps fed
-    ``tokens[:, :n - 1]`` (n = tokens' length), as generate computes them."""
+    ``tokens[:, :n - 1]`` (n = tokens' length), as generate computes them
+    (``extra``: generate's ``extra_batch``)."""
     import torch
     b, s = prompts.shape
     n = tokens.shape[1]
+    pn = extra["patches"].shape[1] if extra else 0
     with torch.inference_mode():
-        st = model.init_decode_state(b, s + n, device=prompts.device)
-        lg, st = model.prefill(params, {"tokens": prompts}, st)
+        st = model.init_decode_state(b, s + n + pn, device=prompts.device)
+        lg, st = model.prefill(params, {"tokens": prompts, **(extra or {})},
+                               st)
         out = [lg]
         for i in range(n - 1):
             lg, st = model.decode_step(params, st, tokens[:, i],
                                        use_kernels=use_kernels)
             out.append(lg)
         return torch.stack(out, dim=1)
+
+
+@contextlib.contextmanager
+def routing_recorded():
+    """Records every MoE routing while open: a list with one entry a
+    ``moe._route`` call, its top-k expert ids ([..., K], in top-k
+    order)."""
+    from repro_torch.models import moe
+
+    real, seen = moe._route, []
+
+    def route(p, tokens, k):
+        out = real(p, tokens, k)
+        seen.append(out[2])
+        return out
+
+    moe._route = route
+    try:
+        yield seen
+    finally:
+        moe._route = real
+
+
+@contextlib.contextmanager
+def routing_replayed(records):
+    """Replays recorded routings (:func:`routing_recorded`): the n-th
+    ``moe._route`` call while open takes the n-th record's expert ids and
+    this run's probabilities at them (renormalized, as ``_route`` does), so
+    two runs whose hidden states differ by rounding route alike.  Yields a
+    list that receives, a call, which tokens' own top-k set differed from
+    the record's (a flip the run would have taken)."""
+    import torch
+    from repro_torch.models import moe
+
+    real, flips, it = moe._route, [], iter(records)
+
+    def route(p, tokens, k):
+        probs, _, own = real(p, tokens, k)
+        idx = next(it)
+        flips.append((torch.sort(own, dim=-1).values
+                      != torch.sort(idx, dim=-1).values).any(-1))
+        gates = torch.gather(probs, -1, idx)
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        return probs, gates, idx
+
+    moe._route = route
+    try:
+        yield flips
+    finally:
+        moe._route = real
+
+
+@contextlib.contextmanager
+def decode_attention_held(fault=None):
+    """While open, ``ops.flash_decode`` as the decode calls it (with the
+    planted ``fault`` of :func:`fd_faults`, if given), each call's output
+    held against ``flash_decode_plain`` on the call's own inputs.  Yields a
+    list that receives, a call, [max(|Δ| - FD_TOL (1 + |want|)), max|Δ|] on
+    the card (:func:`held_summary` reads it)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_decode import flash_decode_plain
+
+    real, seen = ops.flash_decode, []
+
+    def fd(q, k, v, n, **kw):
+        out = (fault(real, q, k, v, n, **kw) if fault
+               else real(q, k, v, n, **kw))
+        want = flash_decode_plain(q, k, v, n)
+        err = (out - want).abs()
+        seen.append(torch.stack([(err - FD_TOL * (1 + want.abs())).amax(),
+                                 err.amax()]))
+        return out
+
+    ops.flash_decode = fd
+    try:
+        yield seen
+    finally:
+        ops.flash_decode = real
+
+
+@contextlib.contextmanager
+def decode_attention_plain():
+    """While open, ``ops.flash_decode`` is the kernel's plain version
+    (``flash_decode_plain``: the same function, f32 weights, unfused), so a
+    decode run computes what the kernel decode computes, up to the order
+    of the f32 sums."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_decode import flash_decode_plain
+
+    real = ops.flash_decode
+    ops.flash_decode = lambda q, k, v, n, **kw: flash_decode_plain(q, k, v,
+                                                                   n)
+    try:
+        yield
+    finally:
+        ops.flash_decode = real
+
+
+def held_summary(seen) -> dict:
+    """The calls of :func:`decode_attention_held`, the largest error and
+    whether any call missed FD_TOL."""
+    import torch
+    excess, err = torch.stack(seen).amax(0).tolist()
+    return {"calls": len(seen), "max_abs_err": err, "past_tol": excess > 0}
 
 
 def decode_gap(lk, lp) -> dict:
@@ -1265,15 +1432,32 @@ def within_gate(gap: dict) -> bool:
             and gap["max_rel_max"] <= SERVE_MAX_TOL)
 
 
-def main_path_serve() -> dict:
-    """Phase 8: ``serving.serve_step.generate`` on llama3-8b at full width
-    and depth (bf16, random weights), batch 4, a 2048-token prompt, 32 new
-    greedy tokens.  flash_decode must launch 32 x 31 times and no other
+def serve_run(model, params, prompts, extra=None, *,
+              gate_plain: bool = False) -> dict:
+    """``serving.serve_step.generate`` on ``model``: batch SERVE_BATCH, the
+    prompts, SERVE_NEW new greedy tokens (``extra``: its extra_batch).
+    flash_decode must launch layers x (SERVE_NEW - 1) times and no other
     kernel; a second run gives the same tokens; the teacher-forced logits
-    with the kernels equal generate's tokens under argmax and repeat bit for
-    bit; the plain decode on the card agrees within SERVE_*_TOL, and each
-    planted fault of :func:`fd_faults`, run through the same decode, falls
-    outside them."""
+    with the kernels equal generate's tokens under argmax and repeat bit
+    for bit, and in the repeat every flash_decode call agrees with its
+    plain version on its own inputs within FD_TOL
+    (:func:`decode_attention_held`); each planted fault of
+    :func:`fd_faults`, run through the same decode, must miss FD_TOL in
+    some call.  Two logits comparisons, each read against SERVE_*_TOL:
+    ``plain``, the model's plain decode (its attention rounds the weights
+    to the model dtype, C.22), and ``kernel_plain``, the decode with the
+    kernel's plain version in its place (:func:`decode_attention_plain`).
+    The kernel decode must agree with ``kernel_plain`` within the gate;
+    with ``gate_plain`` it must agree with ``plain`` too and every fault
+    must fall outside the gate against ``plain`` (phase 8; at 48 layers
+    the C.22 rounding alone reaches the gate, and a fault whose effect is
+    below the gate's size cannot miss it: ROADMAP C.62).  MoE: the
+    compared and the faulty decodes route as the kernel decode did
+    (:func:`routing_replayed`), so a top-k near a tie that rounding tips
+    the other way (a routing flip, which moves the logits for reasons
+    that are not the attention's) does not enter the comparison; the
+    flips the plain decode would have taken are counted by (row, layer,
+    step) and printed."""
     import functools
     import statistics
 
@@ -1282,90 +1466,144 @@ def main_path_serve() -> dict:
     from repro_torch.models.registry import param_count
     from repro_torch.serving.serve_step import generate
 
-    model, params, prompts = serve_setup()
     cfg = model.cfg
     log(f"serve: {cfg.name} {cfg.num_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.hd}, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}; "
-        f"{param_count(params)} parameters; batch {SERVE_BATCH}, prompt "
-        f"{SERVE_PROMPT}, {SERVE_NEW} new tokens")
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, experts "
+        f"{cfg.num_experts} top-{cfg.num_experts_per_tok}, "
+        f"{'patches ' + str(cfg.num_patches) if extra else 'no patches'}, "
+        f"{cfg.dtype}; {param_count(params)} parameters; batch "
+        f"{SERVE_BATCH}, prompt {SERVE_PROMPT}, {SERVE_NEW} new tokens")
     ops.reset_launch_counts()
-    toks = generate(model, params, prompts, max_new=SERVE_NEW)
+    toks = generate(model, params, prompts, max_new=SERVE_NEW,
+                    extra_batch=extra)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     want = {name: 0 for name in launches}
     want["flash_decode"] = cfg.num_layers * (SERVE_NEW - 1)
     if launches != want:
-        raise AssertionError(f"serve launches {launches}, want {want}")
+        raise AssertionError(f"serve {cfg.name}: launches {launches}, want "
+                             f"{want}")
     if toks.shape != (SERVE_BATCH, SERVE_NEW) or int(toks.min()) < 0 or int(
             toks.max()) >= cfg.vocab_size:
-        raise AssertionError(f"serve: bad tokens {toks.shape}")
+        raise AssertionError(f"serve {cfg.name}: bad tokens {toks.shape}")
     timed = []  # the decode loop is host-bound: its time varies by run
     for _ in range(SERVE_TIMED_RUNS):
         stats = {}
         again = generate(model, params, prompts, max_new=SERVE_NEW,
-                         stats=stats)
+                         stats=stats, extra_batch=extra)
         if not torch.equal(toks, again):
-            raise AssertionError("serve: a second run gave other tokens")
+            raise AssertionError(f"serve {cfg.name}: a second run gave "
+                                 f"other tokens")
         timed.append(stats)
     timed.sort(key=lambda st: st["decode_ms"])
     stats = timed[len(timed) // 2]
-    lk = teacher_forced(model, params, prompts, toks, True)
-    if not torch.equal(bits(lk), bits(teacher_forced(model, params, prompts,
-                                                     toks, True))):
-        raise AssertionError("serve: two kernel runs' logits differ")
+    forced = functools.partial(teacher_forced, model, params, prompts, toks,
+                               extra=extra)
+    with routing_recorded() as routes:
+        lk = forced(True)
+    with decode_attention_held() as seen:
+        again = forced(True)
+    held = held_summary(seen)
+    del seen
+    if not torch.equal(bits(lk), bits(again)):
+        raise AssertionError(f"serve {cfg.name}: two kernel runs' logits "
+                             f"differ")
+    if held["past_tol"] or held["calls"] != want["flash_decode"]:
+        raise AssertionError(f"serve {cfg.name}: flash_decode against its "
+                             f"plain version in the decode: {held}")
+    del again
     if not bool(torch.isfinite(lk).all()):
-        raise AssertionError("serve: logits are not finite")
+        raise AssertionError(f"serve {cfg.name}: logits are not finite")
     if not torch.equal(lk.argmax(-1).to(torch.int32), toks):
-        raise AssertionError("serve: teacher-forced logits != generate's "
-                             "tokens")
-    lp = teacher_forced(model, params, prompts, toks, False)
+        raise AssertionError(f"serve {cfg.name}: teacher-forced logits != "
+                             f"generate's tokens")
+    with routing_replayed(routes) as flipped:
+        lp = forced(False)
     if not torch.equal(bits(lp[:, 0]), bits(lk[:, 0])):
-        raise AssertionError("serve: prefill logits differ (no kernel there)")
-    gap = decode_gap(lk, lp)
+        raise AssertionError(f"serve {cfg.name}: prefill logits differ (no "
+                             f"kernel there)")
+    flips = {"prefill": sum(int(f.sum()) for f in flipped[:cfg.num_layers]),
+             "decode": 0, "decode_rows_steps": 0}
+    if flipped:  # the decode steps' calls: [step, layer, row]
+        per = torch.stack(flipped[cfg.num_layers:]).reshape(
+            SERVE_NEW - 1, cfg.num_layers, SERVE_BATCH)
+        flips["decode"] = int(per.sum())
+        flips["decode_rows_steps"] = int(per.any(1).sum())
+    del flipped
+    with decode_attention_plain(), routing_replayed(routes):
+        lq = forced(True)
+    gap = {"plain": decode_gap(lk, lp), "kernel_plain": decode_gap(lk, lq)}
+    for g in gap.values():
+        g["within_gate"] = within_gate(g)
     faults = {}
-    real = ops.flash_decode
     for name, fault in fd_faults().items():
-        try:
-            ops.flash_decode = functools.partial(fault, real)
-            lf = teacher_forced(model, params, prompts, toks, True)
-        finally:
-            ops.flash_decode = real
-        faults[name] = {**decode_gap(lf, lp), "caught": not within_gate(
-            decode_gap(lf, lp))}
-        del lf
-    log(f"serve: flash_decode x{launches['flash_decode']}, tokens and logits "
-        f"repeat bit for bit; kernel vs plain decode {gap}; planted faults "
-        f"{faults}")
-    if not within_gate(gap):
-        raise AssertionError(f"serve: kernel vs plain decode logits {gap} "
-                             f"past rms {SERVE_RMS_TOL}, max {SERVE_MAX_TOL}")
-    blind = [name for name, f in faults.items() if not f["caught"]]
+        with decode_attention_held(fault) as seen, routing_replayed(routes):
+            lf = forced(True)
+        faults[name] = {"in_decode": held_summary(seen)}
+        for label, base in (("plain", lp), ("kernel_plain", lq)):
+            fgap = decode_gap(lf, base)
+            faults[name][label] = {**fgap, "caught": not within_gate(fgap)}
+        del lf, seen
+    del routes, lq
+    log(f"serve {cfg.name}: flash_decode x{launches['flash_decode']}, tokens "
+        f"and logits repeat bit for bit; each call against its plain "
+        f"version {held}; routing flips the plain decode would have taken "
+        f"(it replays the kernel decode's) {flips}; kernel decode against "
+        f"{gap}; planted faults {faults}")
+    gated = ("plain", "kernel_plain") if gate_plain else ("kernel_plain",)
+    for label in gated:
+        if not gap[label]["within_gate"]:
+            raise AssertionError(
+                f"serve {cfg.name}: kernel decode vs {label} decode logits "
+                f"{gap[label]} past rms {SERVE_RMS_TOL}, max {SERVE_MAX_TOL}")
+    blind = [name for name, f in faults.items()
+             if not f["in_decode"]["past_tol"]
+             or (gate_plain and not f["plain"]["caught"])]
     if blind:
-        raise AssertionError(f"serve gate blind to the planted faults "
+        raise AssertionError(f"serve {cfg.name}: blind to the planted faults "
                              f"{blind}: {faults}")
     steps = stats["decode_steps"]
-    out = {"prefill_ms": stats["prefill_ms"],
-           "decode_ms_per_token": stats["decode_ms"] / steps,
-           "decode_window_ms": stats["decode_ms"], "decode_steps": steps,
-           "tokens_per_s": SERVE_BATCH * steps * 1e3 / stats["decode_ms"],
-           "decode_step_ms_median": statistics.median(stats["decode_step_ms"]),
-           "decode_ms_per_token_runs": [st["decode_ms"] / steps
-                                        for st in timed],
-           "prefill_ms_runs": [st["prefill_ms"] for st in timed],
-           "decode_step_ms": stats["decode_step_ms"],
-           "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "new": SERVE_NEW,
-           "kernel_vs_plain": gap, "planted_faults": faults,
-           "gate": {"rms_rel": SERVE_RMS_TOL, "max_rel": SERVE_MAX_TOL},
-           "launches": launches["flash_decode"],
-           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    return {"arch": cfg.name, "layers": cfg.num_layers,
+            "params": param_count(params),
+            "prefill_ms": stats["prefill_ms"],
+            "decode_ms_per_token": stats["decode_ms"] / steps,
+            "decode_window_ms": stats["decode_ms"], "decode_steps": steps,
+            "tokens_per_s": SERVE_BATCH * steps * 1e3 / stats["decode_ms"],
+            "decode_step_ms_median": statistics.median(
+                stats["decode_step_ms"]),
+            "decode_ms_per_token_runs": [st["decode_ms"] / steps
+                                         for st in timed],
+            "prefill_ms_runs": [st["prefill_ms"] for st in timed],
+            "decode_step_ms": stats["decode_step_ms"],
+            "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "new": SERVE_NEW,
+            "patches": extra["patches"].shape[1] if extra else 0,
+            "kernel_vs": gap, "kernel_vs_plain_in_decode": held,
+            "routing_flips": flips, "planted_faults": faults,
+            "gated": list(gated),
+            "gate": {"rms_rel": SERVE_RMS_TOL, "max_rel": SERVE_MAX_TOL},
+            "launches": launches["flash_decode"],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def main_path_serve() -> dict:
+    """Phase 8: :func:`serve_run` on llama3-8b at full width and depth
+    (bf16, random weights), batch 4, a 2048-token prompt, 32 new greedy
+    tokens (flash_decode 32 x 31 times), then one decode step under the
+    profiler."""
+    import torch
+    from repro_torch.configs import get_config
+
+    model, params, prompts, _ = serve_setup(get_config("llama3-8b"))
+    out = serve_run(model, params, prompts, gate_plain=True)
     # one decode step under the profiler: flash_decode against the matmuls
     with torch.inference_mode():
         st = model.init_decode_state(SERVE_BATCH, SERVE_PROMPT + SERVE_NEW,
                                      device=prompts.device)
-        _, st = model.prefill(params, {"tokens": prompts}, st)
+        lg, st = model.prefill(params, {"tokens": prompts}, st)
+        tok = lg.argmax(-1).to(torch.int32)
         out["profile_decode_step"] = profile_fn(
-            lambda: model.decode_step(params, st, toks[:, 0]),
+            lambda: model.decode_step(params, st, tok),
             out["decode_ms_per_token"], top=10,
             groups={"flash_decode": ("fold_chunks",),
                     "matmul": ("gemm", "cutlass", "xmma", "nvjet")})
@@ -1374,12 +1612,13 @@ def main_path_serve() -> dict:
     return out
 
 
-def flash_decode_rows(rng, launches, ops_count) -> dict:
+def flash_decode_rows(rng, launches, ops_count, slice_launches) -> dict:
     """Phase 9, B8: the kernel, its plain version and SDPA (with GQA and
     the kv_len mask, a yardstick the port never calls) at llama3-8b's
     decode shape (bf16, every row at S = 2080) and, nested, at the bench
-    shape (f32, S = 8192); ``ops_count``: the device operations of phase
-    2b."""
+    shape (f32, S = 8192) and phase 15's shapes (bf16, with their
+    launches a ``generate``, ``slice_launches``); ``ops_count``: the
+    device operations of phase 2b."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
@@ -1425,7 +1664,11 @@ def flash_decode_rows(rng, launches, ops_count) -> dict:
             "replaces": "src/repro/kernels/flash_decode.py:72",
             "launches": launches, **main,
             "bench_shape": row(FD_BENCH_SHAPE, "f32",
-                               "flash_decode/bench_shape")}
+                               "flash_decode/bench_shape"),
+            "phase15_shapes": {
+                arch: {**row(shape, "bf16", f"flash_decode/{arch}"),
+                       "launches": slice_launches[arch]}
+                for arch, shape in FD_SLICE_SHAPES.items()}}
 
 
 #: the combine flow past the one-hot cutoff: KeyedSum at K = 2^16, 2^22 pairs
@@ -1813,7 +2056,10 @@ def early_device_ops() -> dict:
     rng = np.random.default_rng(12)
     for label, shape, dtype in (("flash_decode", FD_LLAMA_SHAPE, "bf16"),
                                 ("flash_decode/bench_shape", FD_BENCH_SHAPE,
-                                 "f32")):
+                                 "f32"),
+                                *((f"flash_decode/{arch}", shape, "bf16")
+                                  for arch, shape
+                                  in FD_SLICE_SHAPES.items())):
         q, kc, vc, kvl = decode_inputs(rng, *shape, dtype, [shape[4]]
                                        * shape[0])
         out[label] = device_ops(lambda: ops.flash_decode(q, kc, vc, kvl))
@@ -3913,14 +4159,23 @@ def state_digest(state) -> list:
     return out
 
 
-def train_flops(cfg, tokens: int) -> dict:
-    """Operations a step needs (counted from the shapes): the chunked
-    loss's four f32 GEMMs over the vocabulary (forward, the backward's
-    recompute, d_hidden and d_unembed), and the layers' bf16 matmuls with
-    remat (forward twice, backward twice)."""
+def train_flops(cfg, tokens: int, group: int = 0) -> dict:
+    """Operations a step of ``tokens`` positions needs (counted from the
+    shapes; vlm: the patches too, whose -1 labels the loss masks after
+    computing them): the chunked loss's four f32 GEMMs over the vocabulary
+    (forward, the backward's recompute, d_hidden and d_unembed), and the
+    layers' bf16 matmuls with remat (forward twice, backward twice).  An
+    MoE layer's experts compute every slot of their capacity, padding too:
+    C slots an expert for each dispatch group of ``group`` tokens (a
+    row)."""
     E, V = cfg.d_model, cfg.vocab_size
-    layer = (E * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * E
-             + 3 * E * cfg.d_ff)
+    ffn = 3 * E * cfg.d_ff
+    if cfg.num_experts:
+        from repro_torch.models.moe import capacity
+        X = cfg.num_experts
+        C = capacity(group, cfg.num_experts_per_tok, X, 1.25)
+        ffn = E * X + ffn * X * C / group
+    layer = E * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * E + ffn
     return {"xent_f32": 4 * 2 * tokens * V * E,
             "layers_bf16": 4 * 2 * tokens * layer * cfg.num_layers}
 
@@ -3941,7 +4196,7 @@ def train_mode_run(model, host_state, tc, batches, *,
     state = tree_to(host_state, "cuda")
     resident = [torch.cuda.memory_allocated() - base]
     step = make_train_step(model, tc)
-    losses, gnorms, ms, digest = [], [], [], None
+    losses, gnorms, lbs, ms, digest = [], [], [], [], None
     for i, batch in enumerate(batches):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3950,6 +4205,7 @@ def train_mode_run(model, host_state, tc, batches, *,
         ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(m["loss"]))
         gnorms.append(float(m["grad_norm"]))
+        lbs.append(float(m["load_balance_loss"]))
         resident.append(torch.cuda.memory_allocated() - base)
         if i == 1:
             digest = state_digest(state)
@@ -3961,7 +4217,8 @@ def train_mode_run(model, host_state, tc, batches, *,
     if must_fall and not losses[-1] < losses[0]:
         raise AssertionError(f"train: the loss did not fall: {losses}")
     timed = ms[1:]
-    return {"losses": losses, "grad_norms": gnorms, "step_ms": ms,
+    return {"losses": losses, "grad_norms": gnorms,
+            "load_balance_losses": lbs, "step_ms": ms,
             "step_ms_warm_mean": sum(timed) / len(timed),
             "step_ms_warm_median": float(np.median(timed)),
             "peak_bytes": peak - base, "base_bytes": base,
@@ -4127,6 +4384,279 @@ def train_on_card(card: str) -> dict:
     return out
 
 
+# -- phase 15: the transformer's MoE and VLM branches (A14b-2, A14b-4) ------
+
+#: (arch, layers; None: full depth) served at full width, batch 4, a
+#: 2048-token prompt, 32 new tokens: llama4-scout-17b-a16e cut 48 -> 4
+#: layers (all 48 are 203 GB in bf16)
+MOE_SERVE = (("qwen3-moe-30b-a3b", None), ("llama4-scout-17b-a16e", 4),
+             ("internvl2-26b", None))
+#: (arch, global batch, microbatches, MoE modes) trained at full width,
+#: 48 -> 2 layers, 1024 tokens a row (internvl2: 256 patches in front)
+MOE_TRAIN = (("qwen3-moe-30b-a3b", 8, 4, ("combiner", "materialize")),
+             ("internvl2-26b", 2, 2, ("combiner",)))
+#: the MoE modes' first training losses, relative.  In bf16 the combiner
+#: adds a token's K expert outputs in bf16 and materialize sums them in
+#: f32 and rounds once, and the layer after may route a token near a tie
+#: differently; tests/test_torch_moe.py holds the two within this at
+#: reduced width in bf16 (top-8 of 16 experts: 1.7e-4)
+MOE_LOSS_RTOL = 1e-3
+MOE_PREFILL_RUNS = 3  # prefill timed per MoE mode, after one warm run
+
+
+@contextlib.contextmanager
+def moe_modes_compared():
+    """While open, each combiner call of ``moe.moe_ffn`` (a prefill's
+    layers) also runs ``materialize`` on the same input, so both modes
+    route alike.  Yields a list that receives, a call, rms(Δ)/rms(out)
+    and max|Δ|/max|out| of the two outputs and whether a second combiner
+    call repeats bit for bit."""
+    import torch
+    from repro_torch.models import moe
+
+    real, seen = moe.moe_ffn, []
+
+    def ffn(cfg, p, x, *, mode="combiner", **kw):
+        out, aux = real(cfg, p, x, mode=mode, **kw)
+        if mode == "combiner":
+            mat = real(cfg, p, x, mode="materialize", **kw)[0].float()
+            again = real(cfg, p, x, mode=mode, **kw)[0]
+            diff = out.float() - mat
+            seen.append((float(diff.pow(2).mean().sqrt()
+                               / mat.pow(2).mean().sqrt()),
+                         float(diff.abs().max() / mat.abs().max()),
+                         torch.equal(bits(out), bits(again))))
+        return out, aux
+
+    moe.moe_ffn = ffn
+    try:
+        yield seen
+    finally:
+        moe.moe_ffn = real
+
+
+def moe_prefill(model, params, prompts) -> dict:
+    """Prefill alone in each MoE mode: ms (host clock between
+    synchronizes, after a warm run), the two modes' last-position logits
+    against each other (each routing on its own: a reading, with the
+    routings that differ between them counted), and the two modes on the
+    same input at every layer (:func:`moe_modes_compared`): within the
+    serve gate (SERVE_*_TOL), and the combiner bit for bit on a repeat."""
+    import torch
+
+    cfg = model.cfg
+    b, s = prompts.shape
+    out, logits, routes = {}, {}, {}
+
+    def once(mode):
+        st = model.init_decode_state(b, s + 1, device=prompts.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, st = model.prefill(params, {"tokens": prompts}, st,
+                               moe_mode=mode)
+        torch.cuda.synchronize()
+        return lg, (time.perf_counter() - t0) * 1e3
+
+    with torch.inference_mode():
+        for mode in ("combiner", "materialize"):
+            with routing_recorded() as routes[mode]:
+                logits[mode], _ = once(mode)
+            ms = [once(mode)[1] for _ in range(MOE_PREFILL_RUNS)]
+            out[f"{mode}_ms"] = float(np.median(ms))
+            out[f"{mode}_ms_runs"] = ms
+        flips = [int((torch.sort(a, -1).values
+                      != torch.sort(c, -1).values).any(-1).sum())
+                 for a, c in zip(routes["combiner"], routes["materialize"])]
+        del routes
+        out["free_running_logits"] = {
+            **decode_gap(logits["materialize"][:, None],
+                         logits["combiner"][:, None]),
+            "routing_flips_per_layer": flips,
+            "token_layer_routings": cfg.num_layers * b * s}
+        with moe_modes_compared() as seen:
+            once("combiner")
+    rms = max(r for r, _, _ in seen)
+    mx = max(m for _, m, _ in seen)
+    out["same_input_layers"] = {"layers": len(seen), "rms_rel_max": rms,
+                                "max_rel_max": mx,
+                                "repeat_bit_for_bit": all(e for *_, e in seen)}
+    if len(seen) != cfg.num_layers or not out["same_input_layers"][
+            "repeat_bit_for_bit"]:
+        raise AssertionError(f"moe {cfg.name}: prefill modes {out}")
+    if rms > SERVE_RMS_TOL or mx > SERVE_MAX_TOL:
+        raise AssertionError(f"moe {cfg.name}: combiner vs materialize on "
+                             f"one input past the serve gate: {out}")
+    return out
+
+
+def moe_serve(card: str, arch: str, layers) -> dict:
+    """Phase 15 (a)-(c): :func:`serve_run` on ``arch`` at full width (and
+    ``layers`` deep, None for full depth), random weights from seed 0,
+    then for MoE the prefill modes (:func:`moe_prefill`); peak device
+    memory from a reset before the weights."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    t0 = time.perf_counter()
+    model, params, prompts, extra = serve_setup(cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = torch.cuda.memory_allocated() - base
+    out = {"card": card, **serve_run(model, params, prompts, extra),
+           "published_layers": get_config(arch).num_layers,
+           "init_s": init_s, "weight_bytes": weights}
+    out["serve_s"] = time.perf_counter() - t0 - init_s
+    # one decode step under the profiler: flash_decode, the matmuls (the
+    # experts' bmm among them) and the rest
+    with torch.inference_mode():
+        st = model.init_decode_state(
+            SERVE_BATCH, SERVE_PROMPT + SERVE_NEW + out["patches"],
+            device=prompts.device)
+        lg, st = model.prefill(params, {"tokens": prompts, **(extra or {})},
+                               st)
+        tok = lg.argmax(-1).to(torch.int32)
+        out["profile_decode_step"] = profile_fn(
+            lambda: model.decode_step(params, st, tok),
+            out["decode_ms_per_token"], top=10,
+            groups={"flash_decode": ("fold_chunks",),
+                    "matmul": ("gemm", "cutlass", "xmma", "nvjet"),
+                    "sort": ("sort", "radix")})
+        del st, lg
+    if cfg.num_experts:
+        out["prefill_modes"] = moe_prefill(model, params, prompts)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    out["wall_s"] = time.perf_counter() - t0
+    del params, prompts, extra, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"moe serve {arch} ({cfg.num_layers} of "
+        f"{out['published_layers']} layers): prefill "
+        f"{out['prefill_ms']:.1f} ms, decode "
+        f"{out['decode_ms_per_token']:.2f} ms a token "
+        f"({out['tokens_per_s']:.1f} tokens/s), peak "
+        f"{out['peak_bytes'] / 2**30:.2f} GiB; init {init_s:.1f} s, serve "
+        f"{out['serve_s']:.1f} s, all {out['wall_s']:.1f} s [{card}]")
+    return out
+
+
+def moe_train(card: str, arch: str, gbatch: int, mbs: int, modes) -> dict:
+    """Phase 15 (d)-(e): ``training.train_step`` at full width, 2 layers,
+    random weights from seed 0, the launcher's batches
+    (``launch.train.make_batch_fn``: vlm adds patches, -1 labels over
+    them), combiner accumulation, TRAIN_STEPS steps in each MoE mode from
+    a fresh copy of one initial state; each mode's step ms, tokens/s, peak
+    memory and load-balance loss; losses finite and falling, two steps
+    from the cloned state bit for bit in each mode, and the modes' first
+    losses within MOE_LOSS_RTOL."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models.registry import (active_param_count, get_model,
+                                             param_count)
+    from repro_torch.training import optim
+    from repro_torch.training.train_step import TrainConfig, init_train_state
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=TRAIN_LAYERS)
+    model = get_model(cfg)
+    tc = TrainConfig(adam=optim.AdamWConfig(lr=TRAIN_LR),
+                     num_microbatches=mbs, warmup_steps=1, total_steps=50,
+                     vocab_chunk=TRAIN_CHUNK)
+    batch_fn = make_batch_fn(cfg, DataConfig(
+        seed=0, vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=gbatch))
+    batches = [batch_fn(i) for i in range(TRAIN_STEPS)]
+    t0 = time.perf_counter()
+    state = init_train_state(model, torch.Generator("cuda").manual_seed(0))
+    P = param_count(state["master"])
+    active = active_param_count(cfg, state["master"])
+    host = tree_to(state, "cpu")
+    del state
+    torch.cuda.empty_cache()
+    pn = cfg.num_patches if cfg.family == "vlm" else 0
+    tokens = gbatch * TRAIN_SEQ
+    row = {"arch": arch, "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "experts": cfg.num_experts, "top_k": cfg.num_experts_per_tok,
+           "params": P, "active_params": active, "batch": gbatch,
+           "microbatches": mbs, "patches": pn, "tokens_per_step": tokens,
+           "positions_per_step": gbatch * (TRAIN_SEQ + pn),
+           "init_s": time.perf_counter() - t0, "modes": {}}
+    flops = train_flops(cfg, gbatch * (TRAIN_SEQ + pn), TRAIN_SEQ + pn)
+    row["step_flops"] = flops
+    row["step_bound_ms"] = (flops["xent_f32"] / F32_OPS_PER_S
+                            + flops["layers_bf16"] / BF16_OPS_PER_S) * 1e3
+    row["wall_s"] = {}
+    for mode in modes:
+        t0 = time.perf_counter()
+        mtc = dataclasses.replace(tc, moe_mode=mode)
+        r = train_mode_run(model, host, mtc, batches)
+        again = train_mode_run(model, host, mtc, batches[:2],
+                               must_fall=False)
+        r["repeat_bit_for_bit"] = (again["losses"] == r["losses"][:2]
+                                   and again["digest"] == r["digest"])
+        r["tokens_per_s"] = tokens * 1e3 / r["step_ms_warm_median"]
+        r["peak_over_4P"] = r["peak_bytes"] / (4 * P)
+        del r["digest"]
+        row["modes"][mode] = r
+        row["wall_s"][mode] = time.perf_counter() - t0
+        log(f"moe train: {arch} {cfg.num_layers} layers {mode}: losses "
+            f"{r['losses']}, load balance {r['load_balance_losses']}, step "
+            f"{r['step_ms_warm_median']:.1f} ms ({r['tokens_per_s']:.0f} "
+            f"tokens/s), peak {r['peak_bytes'] / 2**30:.2f} GiB, repeat bit "
+            f"for bit {r['repeat_bit_for_bit']} [{card}]")
+        if not r["repeat_bit_for_bit"]:
+            raise AssertionError(
+                f"moe train: {arch} {mode}: two steps from one cloned state "
+                f"gave other losses or state ({again['losses']!r} against "
+                f"{r['losses'][:2]!r})")
+    if len(modes) == 2:
+        l1, l2 = (row["modes"][m]["losses"][0] for m in modes)
+        row["first_loss_rel_diff"] = abs(l1 - l2) / abs(l2)
+        if row["first_loss_rel_diff"] > MOE_LOSS_RTOL:
+            raise AssertionError(f"moe train: {arch}: first losses {modes} "
+                                 f"{l1} {l2}, past {MOE_LOSS_RTOL}")
+    del host
+    torch.cuda.empty_cache()
+    return row
+
+
+def moe_on_card(card: str) -> dict:
+    """Phase 15, after phase 14 has released its memory: serve
+    qwen3-moe-30b-a3b (48 layers), llama4-scout-17b-a16e (4 of 48) and
+    internvl2-26b (48) at full width through ``generate``
+    (:func:`moe_serve`), then train qwen3-moe-30b-a3b in both MoE modes
+    and internvl2-26b with patches, 2 layers each (:func:`moe_train`)."""
+    import gc
+
+    import torch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"card": card, "resident_bytes_at_start":
+           torch.cuda.memory_allocated(), "serve": {}, "train": {}}
+    for arch, layers in MOE_SERVE:
+        out["serve"][arch] = moe_serve(card, arch, layers)
+    for arch, gbatch, mbs, modes in MOE_TRAIN:
+        out["train"][arch] = moe_train(card, arch, gbatch, mbs, modes)
+    out["launches"] = {arch: r["launches"]
+                       for arch, r in out["serve"].items()}
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4189,6 +4719,7 @@ def main() -> int:
     resilient = resilient_on_card(card, pts, assign, items)
     log(json.dumps({"resilient": resilient}))
     log(json.dumps({"train": train_on_card(card)}))
+    moe = moe_on_card(card)
 
     rows = kernel_rows(rng, launches_add, launches_dense, ops_count)
     for row in rows:  # B1, B2: their launches on the streaming path too
@@ -4216,7 +4747,8 @@ def main() -> int:
             label: total[row["name"]]
             for label, total in resilient["launches"].items()
             if total.get(row["name"], 0)}
-    rows.append(flash_decode_rows(rng, serve["launches"], ops_count))
+    rows.append(flash_decode_rows(rng, serve["launches"], ops_count,
+                                  moe["launches"]))
     log(json.dumps({"combine_route_sweep": {"card": card,
                                             **combine_route_sweep(rng)}}))
     log(json.dumps({"keyed_fold_sweep": {"card": card,
@@ -4250,6 +4782,7 @@ def main() -> int:
         main_ms[f"{label}_auto_hint_ms"] = run["wall_ms"]
     log(json.dumps({"main_path": main_ms}))
     log(json.dumps({"serve": {"card": card, **serve}}))
+    log(json.dumps({"moe": moe}))
     for label, mr in (("kmeans", mr_add), ("bounding_box", mr_dense),
                       *flows.items()):
         log(json.dumps({"profile": label,

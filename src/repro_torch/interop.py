@@ -173,13 +173,17 @@ def params_from_repro(cfg, params_np, *, device=None):
     """The port's model parameters from the reference's pytree of numpy
     leaves (``jax.tree.map(np.asarray, params)``) for config ``cfg``: the
     same nested dicts and the same stacked ``[L, ...]`` layer leaves, in the
-    reference's dtypes, on ``device`` (``None``: the card)."""
+    reference's dtypes (an MoE router stays f32 in a bf16 model), on
+    ``device`` (``None``: the card)."""
     dev = resolve_device(device)
     out = pytree.tree_map(lambda x: _tensor_from_numpy(x, dev),
                           dict(params_np))
     if set(out) != {"embed", "layers", "ln_f", "head"}:
-        raise ValueError(f"not a dense transformer's parameters: "
-                         f"{sorted(out)}")
+        raise ValueError(f"not a transformer's parameters: {sorted(out)}")
+    ffn, other = ("moe", "ffn") if cfg.num_experts else ("ffn", "moe")
+    if ffn not in out["layers"] or other in out["layers"]:
+        raise ValueError(f"{cfg.name}: layers with {ffn!r} expected, got "
+                         f"{sorted(out['layers'])}")
     if out["layers"]["attn"]["wq"].shape[0] != cfg.num_layers:
         raise ValueError(f"{cfg.name}: {cfg.num_layers} layers expected, "
                          f"got {out['layers']['attn']['wq'].shape[0]}")

@@ -4,13 +4,14 @@
       --batch 4 --prompt-len 2048 --max-new 32
 
 Counterpart of ``repro/launch/serve.py``.  Weights and prompts are random,
-drawn from seeded ``torch.Generator``s on the device.  ``--device``
-defaults to the card (``cuda``) and there is no fallback to the CPU:
-without a card it exits with an error unless ``--device cpu`` is given
-(with ``--reduced`` for a model the CPU can hold).  It reports the prefill
-time, the decode time per token and the tokens per second over the whole
-decode loop (one synchronisation at its end), and the median step, after
-one warm-up generation.
+drawn from seeded ``torch.Generator``s on the device, and so are a vlm's
+patch embeddings (the stub frontend's output, in the model dtype).
+``--device`` defaults to the card (``cuda``) and there is no fallback to
+the CPU: without a card it exits with an error unless ``--device cpu`` is
+given (with ``--reduced`` for a model the CPU can hold).  It reports the
+prefill time, the decode time per token and the tokens per second over
+the whole decode loop (one synchronisation at its end), and the median
+step, after one warm-up generation.
 """
 
 from __future__ import annotations
@@ -51,14 +52,20 @@ def main(argv=None):
         0, cfg.vocab_size, (args.batch, args.prompt_len),
         generator=torch.Generator(device=dev).manual_seed(args.seed + 1),
         device=dev, dtype=torch.int32)
+    extra = None
+    if cfg.family == "vlm":  # frontend stub: precomputed patch embeddings
+        extra = {"patches": torch.randn(
+            (args.batch, cfg.num_patches, cfg.d_model), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(args.seed + 3)
+        ).to(cfg.dtype)}
     sc = ServeConfig(temperature=args.temperature, kv_dtype=args.kv_dtype)
     gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
 
     generate(model, params, prompts, max_new=args.max_new, sc=sc,
-             generator=gen)  # warm-up: kernel builds, allocator
+             generator=gen, extra_batch=extra)  # warm-up: builds, allocator
     stats = {}
     out = generate(model, params, prompts, max_new=args.max_new, sc=sc,
-                   generator=gen, stats=stats)
+                   generator=gen, stats=stats, extra_batch=extra)
     where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
              else "cpu")
     steps = stats["decode_steps"]

@@ -18,6 +18,7 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import ckpt
@@ -32,15 +33,29 @@ from repro_torch.training.train_step import (TrainConfig, init_train_state,
 
 
 def make_batch_fn(cfg, dc: DataConfig):
-    """``step -> batch`` (numpy) for ``cfg``'s family: the dense family's
-    token batches; audio frames and vlm patches wait for their models."""
-    if cfg.family in ("audio", "vlm"):
+    """``step -> batch`` (numpy) for ``cfg``'s family, bit for bit the
+    reference's: token batches; for vlm also the step's patch embeddings
+    (``default_rng(step)``) and -1 labels over them.  Audio frames wait for
+    whisper."""
+    if cfg.family == "audio":
         raise NotImplementedError(
             f"{cfg.name}: {cfg.family} batches come with their models "
             f"(ROADMAP {family_item(cfg)})")
 
     def fn(step: int):
-        return global_batch(dc, step)
+        b = global_batch(dc, step)
+        if cfg.family == "vlm":
+            rng = np.random.default_rng(step)
+            pn = cfg.num_patches
+            return {
+                "tokens": b["tokens"],
+                "patches": rng.standard_normal(
+                    (dc.global_batch, pn, cfg.d_model)).astype(np.float32),
+                "labels": np.concatenate(
+                    [np.full((dc.global_batch, pn), -1, np.int32),
+                     b["labels"]], axis=1),
+            }
+        return b
 
     return fn
 

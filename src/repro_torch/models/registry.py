@@ -1,8 +1,8 @@
 """Model registry: family -> implementation module, plus a uniform facade.
 
-Counterpart of ``repro/models/registry.py``.  Only the dense family is
-ported; the others raise ``NotImplementedError`` naming their ROADMAP
-items (A14b-2 to A14b-4).
+Counterpart of ``repro/models/registry.py``.  The transformer's families
+(dense, moe, vlm) are ported; the others raise ``NotImplementedError``
+naming their ROADMAP items (A14b-3, A14b-4).
 The reference's ``abstract_params`` (a ``jax.eval_shape`` dry run) has no
 counterpart here.
 """
@@ -17,10 +17,11 @@ import torch
 from repro_torch.models import transformer
 from repro_torch.models.common import ModelConfig
 
-_FAMILY_MODULES = {"dense": transformer}
+_FAMILY_MODULES = {"dense": transformer, "moe": transformer,
+                   "vlm": transformer}
 
 #: the reference's other families, which wait for ROADMAP A14b
-_NOT_PORTED = ("moe", "vlm", "ssm", "hybrid", "audio")
+_NOT_PORTED = ("ssm", "hybrid", "audio")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,8 +52,8 @@ class Model:
         return self.module.decode_step(self.cfg, params, state, tokens,
                                        use_kernels=use_kernels)
 
-    def prefill(self, params, batch, state):
-        return self.module.prefill(self.cfg, params, batch, state)
+    def prefill(self, params, batch, state, **kw):
+        return self.module.prefill(self.cfg, params, batch, state, **kw)
 
     @property
     def logit_softcap(self):
@@ -60,8 +61,7 @@ class Model:
 
 
 def get_model(cfg: ModelConfig) -> Model:
-    if cfg.family in _NOT_PORTED or (cfg.family == "dense"
-                                     and cfg.num_experts):
+    if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported to "
             f"repro_torch yet (ROADMAP {transformer.family_item(cfg)})")
@@ -74,3 +74,14 @@ def param_count(params) -> int:
     from torch.utils import _pytree as pytree
 
     return sum(t.numel() for t in pytree.tree_leaves(params))
+
+
+def active_param_count(cfg: ModelConfig, params) -> int:
+    """Active params per token (MoE: top-k of the expert pool)."""
+    total = param_count(params)
+    if not cfg.num_experts:
+        return total
+    expert = sum(params["layers"]["moe"][name].numel()
+                 for name in ("w_gate", "w_up", "w_down"))
+    frac = cfg.num_experts_per_tok / cfg.num_experts
+    return int(total - expert * (1 - frac))

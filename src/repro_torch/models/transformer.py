@@ -1,9 +1,12 @@
-"""Decoder-only transformer LM: the dense family.
+"""Decoder-only transformer LM covering the dense, moe and vlm families.
 
-Counterpart of ``repro/models/transformer.py`` for ``family == "dense"``
-(llama3, qwen, gemma2-style options: QKV bias, softcaps, local/global
-windows, post-norms).  The MoE and VLM branches raise
-``NotImplementedError`` naming their ROADMAP items (A14b-2, A14b-4).
+Counterpart of ``repro/models/transformer.py``: GQA with optional QKV
+bias (qwen), softcaps, local/global windows and post-norms (gemma2), the
+MoE FFN (llama4-scout 16e top-1, qwen3 128e top-8) with the combiner or
+materialize combine-back (``models/moe.py``), and the VLM stub
+(internvl2): precomputed patch embeddings are concatenated in front of
+the text embeddings.  The other families (ssm, hybrid, audio) raise
+``NotImplementedError`` naming their ROADMAP items (A14b-3, A14b-4).
 
 Parameters are the reference's pytree, key for key, as dicts of tensors:
 ``{"embed": {"table"}, "layers": {...}, "ln_f": {"scale"}, "head": {"w"}}``,
@@ -29,27 +32,28 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import (apply_rope, embed, init_embed,
                                        init_rmsnorm, init_swiglu,
                                        init_unembed, rmsnorm, rope_table,
                                        swiglu)
 
-#: the ROADMAP items that port the other families' branches
-FAMILY_ITEMS = {"moe": "A14b-2 (MoE)", "ssm": "A14b-3 (SSM and hybrid)",
+#: the families this module runs
+FAMILIES = ("dense", "moe", "vlm")
+#: the ROADMAP items that port the other families
+FAMILY_ITEMS = {"ssm": "A14b-3 (SSM and hybrid)",
                 "hybrid": "A14b-3 (SSM and hybrid)",
-                "audio": "A14b-4 (whisper and VLM)",
-                "vlm": "A14b-4 (whisper and VLM)"}
+                "audio": "A14b-4 (whisper)"}
 
 
 def family_item(cfg: ModelConfig) -> str:
     """The ROADMAP item that ports ``cfg``'s family."""
-    family = "moe" if cfg.num_experts else cfg.family
-    return FAMILY_ITEMS.get(family, "A14b (the other model families)")
+    return FAMILY_ITEMS.get(cfg.family, "A14b (the other model families)")
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.num_experts:
+def _transformer_only(cfg: ModelConfig) -> None:
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported to "
             f"repro_torch yet (ROADMAP {family_item(cfg)})")
@@ -66,14 +70,17 @@ def _layer_windows(cfg: ModelConfig):
 
 
 def init_layer(rng: torch.Generator, cfg: ModelConfig):
-    _dense_only(cfg)
+    _transformer_only(cfg)
     dev = rng.device
     p = {
         "ln_attn": init_rmsnorm(cfg.d_model, dev),
         "attn": attn.init_attn(rng, cfg),
         "ln_ffn": init_rmsnorm(cfg.d_model, dev),
-        "ffn": init_swiglu(rng, cfg.d_model, cfg.d_ff, cfg.dtype),
     }
+    if cfg.num_experts:
+        p["moe"] = moe_mod.init_moe(rng, cfg)
+    else:
+        p["ffn"] = init_swiglu(rng, cfg.d_model, cfg.d_ff, cfg.dtype)
     if cfg.post_norms:
         p["ln_post_attn"] = init_rmsnorm(cfg.d_model, dev)
         p["ln_post_ffn"] = init_rmsnorm(cfg.d_model, dev)
@@ -103,7 +110,7 @@ def _stack_layers(rng: torch.Generator, cfg: ModelConfig):
 
 def init_params(cfg: ModelConfig, rng: torch.Generator):
     """Random parameters drawn from ``rng``, on its device."""
-    _dense_only(cfg)
+    _transformer_only(cfg)
     return {
         "embed": init_embed(rng, cfg.vocab_size, cfg.d_model, cfg.dtype),
         "layers": _stack_layers(rng, cfg),  # stacked [L, ...]
@@ -119,52 +126,77 @@ def layer_params(params, i: int):
             for name, sub in params["layers"].items()}
 
 
-def _embed_in(cfg: ModelConfig, params, tokens):
+def _embed_in(cfg: ModelConfig, params, tokens, patches=None):
+    """The embedded tokens, behind ``patches`` (vlm: the stub frontend's
+    output) where given."""
     x = embed(params["embed"], tokens)
+    if patches is not None:
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
     if cfg.name.startswith("gemma"):
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
 
 
-def _ffn(cfg: ModelConfig, p, x):
-    """The block's second half: ``x + ffn(norm(x))`` (post-norm aside)."""
+def _patches(cfg: ModelConfig, batch):
+    return batch["patches"] if cfg.family == "vlm" else None
+
+
+def _ffn(cfg: ModelConfig, p, x, moe_mode: str | None):
+    """The block's second half: ``(x + ffn(norm(x)), load-balance loss)``
+    (post-norm aside).  An MoE layer runs ``moe_ffn`` in ``moe_mode``, or
+    ``moe_ffn_decode`` where ``moe_mode`` is ``None``; a dense layer's loss
+    is 0.0."""
     h = rmsnorm(p["ln_ffn"], x, cfg.norm_eps)
-    f = swiglu(p["ffn"], h, cfg.act)
+    lb = 0.0
+    if not cfg.num_experts:
+        f = swiglu(p["ffn"], h, cfg.act)
+    elif moe_mode is None:
+        f = moe_mod.moe_ffn_decode(cfg, p["moe"], h)
+    else:
+        f, aux = moe_mod.moe_ffn(cfg, p["moe"], h, mode=moe_mode)
+        lb = aux["load_balance_loss"]
     if cfg.post_norms:
         f = rmsnorm(p["ln_post_ffn"], f, cfg.norm_eps)
-    return x + f
+    return x + f, lb
 
 
-def _block_train(cfg: ModelConfig, p, x, window: int):
+def _block_train(cfg: ModelConfig, p, x, window: int, moe_mode: str):
     h = rmsnorm(p["ln_attn"], x, cfg.norm_eps)
     a = attn.attn_train(cfg, p["attn"], h, window=window)
     if cfg.post_norms:
         a = rmsnorm(p["ln_post_attn"], a, cfg.norm_eps)
-    return _ffn(cfg, p, x + a)
+    return _ffn(cfg, p, x + a, moe_mode)
 
 
 def forward(cfg: ModelConfig, params, batch, *, moe_mode: str = "combiner",
             remat: bool = True):
-    """The training forward of the dense family. batch: {"tokens": [B,S]}.
+    """The training forward. batch: {"tokens": [B,S]} (+ "patches":
+    [B,Pn,E] for vlm).
 
-    Returns (hidden [B,S,E], aux dict), as the reference.  ``remat`` runs
-    each layer under ``torch.utils.checkpoint`` (non-reentrant) when
-    gradients are recorded, so that only the layers' inputs are kept for
-    the backward, as the reference's per-layer ``jax.checkpoint``.
-    ``moe_mode`` selects the MoE combine-back, which waits for ROADMAP
-    A14b-2; the dense family ignores it, as the reference does."""
-    _dense_only(cfg)
-    x = _embed_in(cfg, params, batch["tokens"])
+    Returns (hidden [B,S,E], aux dict), as the reference (for vlm, S
+    counts the patches too); aux's load-balance loss is the mean over the
+    layers for MoE, 0.0 for the others.  ``remat`` runs each layer under
+    ``torch.utils.checkpoint`` (non-reentrant) when gradients are
+    recorded, so that only the layers' inputs are kept for the backward,
+    as the reference's per-layer ``jax.checkpoint``.  ``moe_mode`` selects
+    the MoE combine-back (``combiner`` or ``materialize``); the other
+    families ignore it, as the reference does."""
+    _transformer_only(cfg)
+    x = _embed_in(cfg, params, batch["tokens"], _patches(cfg, batch))
     remat = remat and torch.is_grad_enabled()
+    lbs = []
     for i, window in enumerate(_layer_windows(cfg)):
         p = layer_params(params, i)
         if remat:
-            x = torch.utils.checkpoint.checkpoint(
-                _block_train, cfg, p, x, window, use_reentrant=False)
+            x, lb = torch.utils.checkpoint.checkpoint(
+                _block_train, cfg, p, x, window, moe_mode,
+                use_reentrant=False)
         else:
-            x = _block_train(cfg, p, x, window)
+            x, lb = _block_train(cfg, p, x, window, moe_mode)
+        lbs.append(lb)
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
-    return x, {"load_balance_loss": 0.0}
+    lb = torch.stack(lbs).mean() if cfg.num_experts else 0.0
+    return x, {"load_balance_loss": lb}
 
 
 def unembed_matrix(cfg: ModelConfig, params):
@@ -203,7 +235,7 @@ def decode_step(cfg: ModelConfig, params, state, tokens, *,
     and attends over positions ``<= pos``; under ``use_kernels`` (``None``:
     on when the tokens lie on a CUDA device) that attention is the
     ``flash_decode`` kernel."""
-    _dense_only(cfg)
+    _transformer_only(cfg)
     if use_kernels is None:
         use_kernels = tokens.device.type == "cuda"
     pos = int(state["pos"])
@@ -217,25 +249,26 @@ def decode_step(cfg: ModelConfig, params, state, tokens, *,
                                 window=window, use_kernels=use_kernels)
         if cfg.post_norms:
             a = rmsnorm(p["ln_post_attn"], a, cfg.norm_eps)
-        x = _ffn(cfg, p, x + a)
+        x, _ = _ffn(cfg, p, x + a, None)
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
     logits = logits_of_hidden(cfg, params, x[:, 0])
     return logits, {"cache": cache, "pos": pos + 1}
 
 
-def prefill(cfg: ModelConfig, params, batch, state):
+def prefill(cfg: ModelConfig, params, batch, state, *,
+            moe_mode: str = "combiner"):
     """Teacher-forced prefill: run the train forward AND fill the KV cache.
 
     Returns (last-position logits [B,V], state).  Each layer's prompt K/V
     (rotated K) are written into the state's cache at positions ``[0, S)``,
-    in place."""
-    _dense_only(cfg)
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = _embed_in(cfg, params, tokens)
+    in place; for vlm S counts the patches in front of the tokens.  MoE
+    layers combine back in ``moe_mode``."""
+    _transformer_only(cfg)
+    x = _embed_in(cfg, params, batch["tokens"], _patches(cfg, batch))
+    S = x.shape[1]
     cache = state["cache"]
     quant = cache["k"].dtype == torch.int8
-    cos, sin = rope_table(torch.arange(S, device=tokens.device), cfg.hd,
+    cos, sin = rope_table(torch.arange(S, device=x.device), cfg.hd,
                           cfg.rope_theta)
     for i, window in enumerate(_layer_windows(cfg)):
         p = layer_params(params, i)
@@ -254,7 +287,7 @@ def prefill(cfg: ModelConfig, params, batch, state):
         a = attn.attn_train(cfg, p["attn"], h, window=window)
         if cfg.post_norms:
             a = rmsnorm(p["ln_post_attn"], a, cfg.norm_eps)
-        x = _ffn(cfg, p, x + a)
+        x, _ = _ffn(cfg, p, x + a, moe_mode)
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
     logits = logits_of_hidden(cfg, params, x[:, -1])
     return logits, {"cache": cache, "pos": S}

@@ -3,9 +3,9 @@
 Counterpart of ``repro/serving/serve_step.py``.  Greedy decoding is an
 ``argmax`` and gives the reference's tokens for the same logits;
 temperature sampling draws from an explicit ``torch.Generator``, so it
-does not give JAX's bits.  The modality stubs of the reference's
-``generate`` (``extra_batch``: whisper frames, internvl patches) belong to
-families that wait for ROADMAP A14b.
+does not give JAX's bits.  ``generate``'s ``extra_batch`` carries the
+modality stubs' inputs (internvl ``patches``) to prefill; whisper's
+``frames`` wait for its model (ROADMAP A14b-4).
 """
 
 from __future__ import annotations
@@ -61,9 +61,12 @@ def make_prefill(model: Model, sc: ServeConfig = ServeConfig()):
 def generate(model: Model, params, prompts, *, max_new: int = 16,
              sc: ServeConfig = ServeConfig(),
              generator: torch.Generator | None = None,
-             use_kernels: bool | None = None, stats: dict | None = None):
+             use_kernels: bool | None = None, stats: dict | None = None,
+             extra_batch: dict | None = None):
     """Greedy/temperature generation: prompts [B, S] -> tokens
-    [B, max_new], on the prompts' device.
+    [B, max_new], on the prompts' device.  ``extra_batch`` carries the
+    modality stubs' inputs (internvl "patches" [B, Pn, E], which take Pn
+    positions of the cache in front of the prompt).
 
     ``stats``, when given, receives ``prefill_ms`` (host clock, between two
     device synchronisations), ``decode_ms`` (host clock over the whole
@@ -72,6 +75,8 @@ def generate(model: Model, params, prompts, *, max_new: int = 16,
     events between steps on the card, which do not stall the host, and the
     host clock on the CPU.  Without it nothing synchronises."""
     B, S = prompts.shape
+    extra_len = (extra_batch["patches"].shape[1]
+                 if extra_batch and "patches" in extra_batch else 0)
     dev = prompts.device
     timed = stats is not None
     events = timed and dev.type == "cuda"
@@ -91,7 +96,7 @@ def generate(model: Model, params, prompts, *, max_new: int = 16,
         return a.elapsed_time(b) if events else (b - a) * 1e3
 
     with torch.inference_mode():
-        state = model.init_decode_state(B, S + max_new,
+        state = model.init_decode_state(B, S + max_new + extra_len,
                                         kv_dtype=kv_dtype_of(model, sc),
                                         device=dev)
         pf = make_prefill(model, sc)
@@ -99,7 +104,8 @@ def generate(model: Model, params, prompts, *, max_new: int = 16,
         if timed:
             sync()
             t0 = time.perf_counter()
-        nxt, state = pf(params, {"tokens": prompts}, state)
+        nxt, state = pf(params, {"tokens": prompts, **(extra_batch or {})},
+                        state)
         if timed:
             sync()
             t1 = time.perf_counter()

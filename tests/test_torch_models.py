@@ -84,7 +84,7 @@ def test_unported_configs_and_families_name_their_roadmap_item():
     with pytest.raises(KeyError, match="A14b"):
         get_config("mamba2-2.7b")
     cfg = get_config("llama3-8b")
-    for family in ("moe", "vlm", "ssm", "hybrid", "audio"):
+    for family in ("ssm", "hybrid", "audio"):
         with pytest.raises(NotImplementedError, match="A14b"):
             get_model(dataclasses.replace(cfg, family=family))
 

@@ -6,7 +6,9 @@ checkpoints on the CPU.
   failure injected once restarts from ``LATEST`` and ends with the same
   losses; without ``--ckpt-dir`` the failure propagates.
 * ``make_batch_fn``: the dense family's batches are
-  ``data.pipeline.global_batch``'s; audio and vlm name ROADMAP A14b-4.
+  ``data.pipeline.global_batch``'s; vlm's add patches and -1 labels over
+  them (bit for bit the reference's: ``test_torch_vlm.py``); audio names
+  ROADMAP A14b-4.
 * A train-state checkpoint written by the port restores in the
   reference's ``ckpt.restore`` into its own ``init_opt_state`` tree bit
   for bit, and a reference one restores in the port (JAX's leaf order on
@@ -121,9 +123,14 @@ def test_make_batch_fn():
         got, want = fn(step), pipeline.global_batch(dc, step)
         for k in want:
             np.testing.assert_array_equal(got[k], want[k])
-    for family in ("audio", "vlm"):
-        with pytest.raises(NotImplementedError, match="A14b-4"):
-            launch.make_batch_fn(dataclasses.replace(cfg, family=family), dc)
+    vlm = launch.make_batch_fn(dataclasses.replace(cfg, family="vlm"), dc)(3)
+    pn = cfg.num_patches
+    assert vlm["patches"].shape == (2, pn, cfg.d_model)
+    assert (vlm["labels"][:, :pn] == -1).all()
+    np.testing.assert_array_equal(vlm["labels"][:, pn:],
+                                  pipeline.global_batch(dc, 3)["labels"])
+    with pytest.raises(NotImplementedError, match="A14b-4"):
+        launch.make_batch_fn(dataclasses.replace(cfg, family="audio"), dc)
 
 
 # ---------------------------------------------------------------------------
