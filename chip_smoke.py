@@ -36,12 +36,14 @@ Phases (each raises on failure, and the script then exits non-zero):
    flow's kernels too, by the same rules: K = 1 to 2^16, D = 1 to 128,
    bf16 values, sentinel and out-of-range keys, NaN and signed zeros.
    And flash_decode, f32 and bf16, at the reference kernel test's shapes,
-   the bench shape, llama3-8b's decode shape and phase 15's (G = H / Hkv
-   = 8, 5 and 6: a full head block of 8 and two partial ones), with
+   the bench shape, llama3-8b's decode shape, phase 15's (G = H / Hkv
+   = 8, 5 and 6: a full head block of 8 and two partial ones) and phase
+   16's (G = 1, D = 64: zamba2's shared attention at S = 2080, whisper's
+   self-attention at 33 positions and cross-attention at 1500), with
    ragged kv_len (0, 1, S and lengths that are no multiple of a tile),
    within 1e-5 (both sides fold the same inputs in f32), two runs bit for
    bit, and three planted faults (a position, a head map, a tile) must
-   each miss that tolerance at the llama and phase 15 shapes;
+   each miss that tolerance at the llama, phase 15 and phase 16 shapes;
 3. main path, additive: ``MapReduce(KMeans()).run`` on 2^24 points of the
    Phoenix kmeans shape (3 dimensions, 100 means); the plan must be the
    stream flow with a derived monoid, ``onehot_fold`` must have launched,
@@ -256,6 +258,35 @@ Phases (each raises on failure, and the script then exits non-zero):
    load-balance loss per mode; losses finite and falling, two steps from
    one cloned state bit for bit in each mode, the modes' first losses
    within MOE_LOSS_RTOL.
+16. the SSM, hybrid and audio families (``ssm_on_card``, the ``ssm``
+   line), after phase 15's memory is released, random weights from seed
+   0.  (a)-(b) Served through ``generate`` at full width and depth, batch
+   4, 32 greedy tokens (``serve_run``): mamba2-2.7b (64 layers, a
+   2048-token prompt; no kernel on its path: launches all 0, tokens and
+   teacher-forced logits repeat bit for bit), zamba2-1.2b (38 layers, a
+   2048-token prompt; flash_decode 6 x 31 times in the shared attention,
+   G = 1) and whisper-medium (24 + 24 layers, 1500 random frames and a
+   BOS token; flash_decode 48 x 32 times, self- and cross-attention, the
+   BOS step's in prefill included); every flash_decode call of the
+   teacher-forced decode within FD_TOL of its plain version, every
+   planted fault missing it; whisper's logits within 2^-5 of the decode
+   through the kernel's plain version, every fault outside; zamba2's
+   bf16 logits read, not gated (its rounding alone moves them past 2^-5,
+   ROADMAP C.69), and zamba2 served again in f32 with the logits within
+   F32_LOGIT_TOL and every fault outside; the prefills and one decode
+   step profiled.  (c) The SSD prefill against the recurrence in f32 at
+   full width and depth (mamba2-2.7b and zamba2-1.2b, 2 x 512 tokens,
+   two chunks): the prefill's last position and one step after it, and
+   the chunked forward at every position, against 512 single-token
+   decode steps, within SSD_TOL on the softmax (the reference's test) and
+   on the logits (C.68); the exclusive inter-chunk state made inclusive
+   and the decode's conv window shifted by one must each fail it.  (d)
+   ``train_step`` at full width, combiner accumulation, 2 microbatches,
+   the published chunk of 256: mamba2-2.7b at 8 of 64 layers and
+   zamba2-1.2b whole (2 x 1024 tokens), whisper-medium whole (2 x 1500
+   frames, 448 tokens); losses finite and falling, every gradient finite,
+   two steps from one cloned state bit for bit; step ms, tokens/s, peak
+   memory.
 
 ``run()`` prepares its run on its first call (the staged ``compile()``),
 and on the card that is one warm-up run on zeros, whose launches count:
@@ -1128,6 +1159,14 @@ FD_LLAMA_SHAPE = (4, 32, 8, 128, 2080)
 FD_SLICE_SHAPES = {"qwen3-moe-30b-a3b": (4, 32, 4, 128, 2080),
                    "llama4-scout-17b-a16e": (4, 40, 8, 128, 2080),
                    "internvl2-26b": (4, 48, 8, 128, 2336)}
+#: phase 16's decode shapes, all at G = 1 (H = Hkv), D = 64, whose head
+#: blocks of 4 leave 3 heads empty: zamba2-1.2b's shared attention (a
+#: 2048-token prompt, 32 new tokens), whisper-medium's self-attention (a
+#: BOS prompt and 32 new tokens: 33 positions) and its cross-attention over
+#: the 1500 encoder positions of a 30-s window
+FD_PHASE16_SHAPES = {"zamba2-1.2b": (4, 32, 32, 64, 2080),
+                     "whisper-medium/self": (4, 16, 16, 64, 33),
+                     "whisper-medium/cross": (4, 16, 16, 64, 1500)}
 #: flash_decode against its plain version on the card (rtol = atol), f32
 #: and bf16 alike: both read the same inputs, widen them to f32 and fold in
 #: f32, and differ only in the order of the sums (the reference kernel
@@ -1141,21 +1180,24 @@ def fd_faults():
     """Planted faults of the decode attention, each a wrapper of the kernel
     ``fd(q, k, v, kv_len, **kw)``: the newest position left out (kv_len =
     pos), every query head on KV head 0, and the first 64-position tile left
-    out.  The phase-2 check and the serve gate must tell each from the
-    kernel."""
-    t = FD_FAULT_TILE
+    out (half the positions of a cache shorter than two tiles: whisper's
+    self cache holds 33).  The phase-2 check and the serve gate must tell
+    each from the kernel."""
 
     def first_kv_head(x):
         return x[:, :, :1].expand_as(x).contiguous()
+
+    def first_tile_dropped(fd, q, k, v, n, **kw):
+        t = min(FD_FAULT_TILE, k.shape[1] // 2)
+        return fd(q, k[:, t:].contiguous(), v[:, t:].contiguous(),
+                  (n - t).clamp(min=0), **kw)
 
     return {
         "kv_len_minus_1": lambda fd, q, k, v, n, **kw: fd(q, k, v, n - 1,
                                                          **kw),
         "one_kv_head": lambda fd, q, k, v, n, **kw: fd(
             q, first_kv_head(k), first_kv_head(v), n, **kw),
-        "first_tile_dropped": lambda fd, q, k, v, n, **kw: fd(
-            q, k[:, t:].contiguous(), v[:, t:].contiguous(),
-            (n - t).clamp(min=0), **kw),
+        "first_tile_dropped": first_tile_dropped,
     }
 
 
@@ -1183,11 +1225,11 @@ def fd_kv_lens(b: int, s: int) -> list[list[int]]:
 def check_flash_decode(rng) -> None:
     """Phase 2, decode attention: flash_decode against its plain version on
     the card, f32 and bf16, at the reference test's, the bench, the
-    llama3-8b and phase 15's decode shapes, with ragged ``kv_len`` (0,
-    which gives zeros, 1, S and lengths that are no multiple of a tile),
-    within FD_TOL, and two runs bit for bit; each planted fault of
-    :func:`fd_faults` at the llama shape and at phase 15's must miss
-    FD_TOL."""
+    llama3-8b, phase 15's and phase 16's decode shapes, with ragged
+    ``kv_len`` (0, which gives zeros, 1, S and lengths that are no
+    multiple of a tile), within FD_TOL, and two runs bit for bit; each
+    planted fault of :func:`fd_faults` at the llama shape and at phase 15's
+    and 16's must miss FD_TOL."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_decode import flash_decode_plain
@@ -1198,7 +1240,8 @@ def check_flash_decode(rng) -> None:
             err.max())
 
     for shape in FD_TEST_SHAPES + (FD_BENCH_SHAPE, FD_LLAMA_SHAPE,
-                                   *FD_SLICE_SHAPES.values()):
+                                   *FD_SLICE_SHAPES.values(),
+                                   *FD_PHASE16_SHAPES.values()):
         b, h, hkv, d, s = shape
         runs = fd_kv_lens(b, s)
         for kv_len in runs:
@@ -1228,7 +1271,8 @@ def check_flash_decode(rng) -> None:
             raise AssertionError(f"flash_decode tile_s={tile_s}: max abs err "
                                  f"{err}")
     log(f"flash_decode == plain within {FD_TOL} at tile_s 64, 128 and 8192")
-    for shape in (FD_LLAMA_SHAPE, *FD_SLICE_SHAPES.values()):
+    for shape in (FD_LLAMA_SHAPE, *FD_SLICE_SHAPES.values(),
+                  *FD_PHASE16_SHAPES.values()):
         b, _, _, _, s = shape
         q, k, v, kvl = decode_inputs(rng, *shape, "bf16", [s - 32] * b)
         want = flash_decode_plain(q, k, v, kvl)
@@ -1264,28 +1308,60 @@ SERVE_TIMED_RUNS = 3
 SERVE_RMS_TOL, SERVE_MAX_TOL = 2.0 ** -5, 2.0 ** -5
 
 
+#: whisper's frames a request: the encoder length of a 30-s window after
+#: the stub frontend (the conv frontend halves 3000 mel frames)
+WHISPER_FRAMES = 1500
+
+
 def serve_setup(cfg, seed: int = 0):
     """(model, params, prompts, extra): ``cfg`` with random weights from a
     seeded generator on the card, random prompts [SERVE_BATCH,
-    SERVE_PROMPT] and, for vlm, random patch embeddings in the model
-    dtype (the stub frontend's output; ``extra`` is None otherwise)."""
+    SERVE_PROMPT] (whisper: one BOS token a row) and the stub frontends'
+    outputs in the model dtype: for vlm random patch embeddings, for
+    whisper WHISPER_FRAMES random frame embeddings (``extra`` is None
+    otherwise)."""
     import torch
     from repro_torch.models.registry import get_model
 
     model = get_model(cfg)
     params = model.init_params(
         torch.Generator(device="cuda").manual_seed(seed))
+    audio = cfg.family == "audio"
     prompts = torch.randint(
-        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), dtype=torch.int32,
-        device="cuda",
+        0, cfg.vocab_size, (SERVE_BATCH, 1 if audio else SERVE_PROMPT),
+        dtype=torch.int32, device="cuda",
         generator=torch.Generator(device="cuda").manual_seed(seed + 1))
+    stub = torch.Generator(device="cuda").manual_seed(seed + 3)
     extra = None
     if cfg.family == "vlm":
         extra = {"patches": torch.randn(
             (SERVE_BATCH, cfg.num_patches, cfg.d_model), device="cuda",
-            generator=torch.Generator(device="cuda").manual_seed(seed + 3)
-        ).to(cfg.dtype)}
+            generator=stub).to(cfg.dtype)}
+    elif audio:
+        extra = {"frames": torch.randn(
+            (SERVE_BATCH, WHISPER_FRAMES, cfg.d_model), device="cuda",
+            generator=stub).to(cfg.dtype)}
     return model, params, prompts, extra
+
+
+def patch_len(extra) -> int:
+    """Cache positions the stub frontend's output takes in front of the
+    prompt (vlm patches; whisper's frames take none)."""
+    return extra["patches"].shape[1] if extra and "patches" in extra else 0
+
+
+def fd_calls(cfg) -> tuple[int, int]:
+    """flash_decode calls (a decode step, the prefill) of ``cfg``'s serve
+    path: one a layer for the transformer, one a call site of the shared
+    block for the hybrid, two a decoder layer for whisper (self and cross),
+    whose prefill decodes the BOS token, none for mamba2."""
+    if cfg.family == "ssm":
+        return 0, 0
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.hybrid_attn_every, 0
+    if cfg.family == "audio":
+        return 2 * cfg.num_layers, 2 * cfg.num_layers
+    return cfg.num_layers, 0
 
 
 def teacher_forced(model, params, prompts, tokens, use_kernels, extra=None):
@@ -1295,11 +1371,14 @@ def teacher_forced(model, params, prompts, tokens, use_kernels, extra=None):
     import torch
     b, s = prompts.shape
     n = tokens.shape[1]
-    pn = extra["patches"].shape[1] if extra else 0
+    # whisper's prefill decodes the BOS token: its attention takes the
+    # kernel or not as the steps' does
+    kw = {"use_kernels": use_kernels} if model.cfg.family == "audio" else {}
     with torch.inference_mode():
-        st = model.init_decode_state(b, s + n + pn, device=prompts.device)
+        st = model.init_decode_state(b, s + n + patch_len(extra),
+                                     device=prompts.device)
         lg, st = model.prefill(params, {"tokens": prompts, **(extra or {})},
-                               st)
+                               st, **kw)
         out = [lg]
         for i in range(n - 1):
             lg, st = model.decode_step(params, st, tokens[:, i],
@@ -1364,7 +1443,8 @@ def decode_attention_held(fault=None):
     planted ``fault`` of :func:`fd_faults`, if given), each call's output
     held against ``flash_decode_plain`` on the call's own inputs.  Yields a
     list that receives, a call, [max(|Δ| - FD_TOL (1 + |want|)), max|Δ|] on
-    the card (:func:`held_summary` reads it)."""
+    the card and the call's KV positions (:func:`held_summary` reads
+    it)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_decode import flash_decode_plain
@@ -1376,8 +1456,8 @@ def decode_attention_held(fault=None):
                else real(q, k, v, n, **kw))
         want = flash_decode_plain(q, k, v, n)
         err = (out - want).abs()
-        seen.append(torch.stack([(err - FD_TOL * (1 + want.abs())).amax(),
-                                 err.amax()]))
+        seen.append((torch.stack([(err - FD_TOL * (1 + want.abs())).amax(),
+                                  err.amax()]), k.shape[1]))
         return out
 
     ops.flash_decode = fd
@@ -1406,11 +1486,16 @@ def decode_attention_plain():
 
 
 def held_summary(seen) -> dict:
-    """The calls of :func:`decode_attention_held`, the largest error and
-    whether any call missed FD_TOL."""
+    """The calls of :func:`decode_attention_held`, the largest error,
+    whether any call missed FD_TOL, and the calls by KV positions."""
+    import collections
+
     import torch
-    excess, err = torch.stack(seen).amax(0).tolist()
-    return {"calls": len(seen), "max_abs_err": err, "past_tol": excess > 0}
+    excess, err = torch.stack([e for e, _ in seen]).amax(0).tolist()
+    return {"calls": len(seen), "max_abs_err": err, "past_tol": excess > 0,
+            "calls_by_kv_positions": {
+                str(s): n for s, n in sorted(collections.Counter(
+                    s for _, s in seen).items())}}
 
 
 def decode_gap(lk, lp) -> dict:
@@ -1427,13 +1512,15 @@ def decode_gap(lk, lp) -> dict:
                 (lk.argmax(-1) == lp.argmax(-1)).float().mean())}
 
 
-def within_gate(gap: dict) -> bool:
-    return (gap["rms_rel_max"] <= SERVE_RMS_TOL
-            and gap["max_rel_max"] <= SERVE_MAX_TOL)
+def within_gate(gap: dict, tol=None) -> bool:
+    """``gap``'s readings within ``tol`` (rms, max; by default
+    SERVE_RMS_TOL, SERVE_MAX_TOL)."""
+    rms, mx = tol or (SERVE_RMS_TOL, SERVE_MAX_TOL)
+    return gap["rms_rel_max"] <= rms and gap["max_rel_max"] <= mx
 
 
-def serve_run(model, params, prompts, extra=None, *,
-              gate_plain: bool = False) -> dict:
+def serve_run(model, params, prompts, extra=None, *, gates=None,
+              fault_gates=()) -> dict:
     """``serving.serve_step.generate`` on ``model``: batch SERVE_BATCH, the
     prompts, SERVE_NEW new greedy tokens (``extra``: its extra_batch).
     flash_decode must launch layers x (SERVE_NEW - 1) times and no other
@@ -1447,17 +1534,25 @@ def serve_run(model, params, prompts, extra=None, *,
     ``plain``, the model's plain decode (its attention rounds the weights
     to the model dtype, C.22), and ``kernel_plain``, the decode with the
     kernel's plain version in its place (:func:`decode_attention_plain`).
-    The kernel decode must agree with ``kernel_plain`` within the gate;
-    with ``gate_plain`` it must agree with ``plain`` too and every fault
-    must fall outside the gate against ``plain`` (phase 8; at 48 layers
-    the C.22 rounding alone reaches the gate, and a fault whose effect is
-    below the gate's size cannot miss it: ROADMAP C.62).  MoE: the
+    ``gates`` maps each comparison that is gated to its (rms, max) tols
+    (by default ``kernel_plain`` at SERVE_*_TOL; ``{}``: both read, not
+    gated, as zamba2 in bf16, ROADMAP C.69): the kernel decode must agree
+    with each within its gate.  Every planted fault must fall outside the
+    gates of ``fault_gates`` (phase 8: ``plain``; at 48 layers the C.22
+    rounding alone reaches the gate, and a fault whose effect is below the
+    gate's size cannot miss it: ROADMAP C.62).  MoE: the
     compared and the faulty decodes route as the kernel decode did
     (:func:`routing_replayed`), so a top-k near a tie that rounding tips
     the other way (a routing flip, which moves the logits for reasons
     that are not the attention's) does not enter the comparison; the
     flips the plain decode would have taken are counted by (row, layer,
-    step) and printed."""
+    step) and printed.  flash_decode's calls a step and in prefill are
+    :func:`fd_calls`'s (whisper: also the BOS step its prefill decodes,
+    so its prefill logits are compared, not required equal); a model with
+    no kernel on its path (mamba2) gets the launch, repeat and token
+    checks and its timings only.  The launches of the ``generate`` run
+    are also read by KV positions (whisper: self- and cross-attention),
+    and the held decode's calls must split the same way."""
     import functools
     import statistics
 
@@ -1467,20 +1562,27 @@ def serve_run(model, params, prompts, extra=None, *,
     from repro_torch.serving.serve_step import generate
 
     cfg = model.cfg
+    if gates is None:
+        gates = {"kernel_plain": (SERVE_RMS_TOL, SERVE_MAX_TOL)}
+    if not set(fault_gates) <= set(gates):
+        raise ValueError(f"fault gates {fault_gates} not among {gates}")
     log(f"serve: {cfg.name} {cfg.num_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.hd}, d_ff "
         f"{cfg.d_ff}, vocab {cfg.vocab_size}, experts "
         f"{cfg.num_experts} top-{cfg.num_experts_per_tok}, "
-        f"{'patches ' + str(cfg.num_patches) if extra else 'no patches'}, "
+        f"extra {({k: tuple(v.shape) for k, v in (extra or {}).items()})}, "
         f"{cfg.dtype}; {param_count(params)} parameters; batch "
-        f"{SERVE_BATCH}, prompt {SERVE_PROMPT}, {SERVE_NEW} new tokens")
+        f"{SERVE_BATCH}, prompt {prompts.shape[1]}, {SERVE_NEW} new tokens")
     ops.reset_launch_counts()
     toks = generate(model, params, prompts, max_new=SERVE_NEW,
                     extra_batch=extra)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
+    by_kv = {str(s): n for s, n in ops.launch_counts_by_key(
+        "flash_decode").items()}
     want = {name: 0 for name in launches}
-    want["flash_decode"] = cfg.num_layers * (SERVE_NEW - 1)
+    per_step, in_prefill = fd_calls(cfg)
+    want["flash_decode"] = per_step * (SERVE_NEW - 1) + in_prefill
     if launches != want:
         raise AssertionError(f"serve {cfg.name}: launches {launches}, want "
                              f"{want}")
@@ -1498,18 +1600,37 @@ def serve_run(model, params, prompts, extra=None, *,
         timed.append(stats)
     timed.sort(key=lambda st: st["decode_ms"])
     stats = timed[len(timed) // 2]
+    steps = stats["decode_steps"]
+    out = {"arch": cfg.name, "layers": cfg.num_layers,
+           "params": param_count(params),
+           "prefill_ms": stats["prefill_ms"],
+           "decode_ms_per_token": stats["decode_ms"] / steps,
+           "decode_window_ms": stats["decode_ms"], "decode_steps": steps,
+           "tokens_per_s": SERVE_BATCH * steps * 1e3 / stats["decode_ms"],
+           "decode_step_ms_median": statistics.median(
+               stats["decode_step_ms"]),
+           "decode_ms_per_token_runs": [st["decode_ms"] / steps
+                                        for st in timed],
+           "prefill_ms_runs": [st["prefill_ms"] for st in timed],
+           "decode_step_ms": stats["decode_step_ms"],
+           "batch": SERVE_BATCH, "prompt": prompts.shape[1],
+           "new": SERVE_NEW, "patches": patch_len(extra),
+           "frames": extra["frames"].shape[1] if extra and "frames" in extra
+           else 0, "launches": launches["flash_decode"],
+           "launches_by_kv_positions": by_kv}
     forced = functools.partial(teacher_forced, model, params, prompts, toks,
                                extra=extra)
     with routing_recorded() as routes:
         lk = forced(True)
     with decode_attention_held() as seen:
         again = forced(True)
-    held = held_summary(seen)
+    held = held_summary(seen) if seen else {"calls": 0, "past_tol": False}
     del seen
     if not torch.equal(bits(lk), bits(again)):
         raise AssertionError(f"serve {cfg.name}: two kernel runs' logits "
                              f"differ")
-    if held["past_tol"] or held["calls"] != want["flash_decode"]:
+    if held["past_tol"] or held["calls"] != want["flash_decode"] or (
+            held["calls"] and held["calls_by_kv_positions"] != by_kv):
         raise AssertionError(f"serve {cfg.name}: flash_decode against its "
                              f"plain version in the decode: {held}")
     del again
@@ -1518,9 +1639,14 @@ def serve_run(model, params, prompts, extra=None, *,
     if not torch.equal(lk.argmax(-1).to(torch.int32), toks):
         raise AssertionError(f"serve {cfg.name}: teacher-forced logits != "
                              f"generate's tokens")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if not per_step:  # no kernel on this path
+        log(f"serve {cfg.name}: no kernel launched; tokens and logits "
+            f"repeat bit for bit")
+        return out
     with routing_replayed(routes) as flipped:
         lp = forced(False)
-    if not torch.equal(bits(lp[:, 0]), bits(lk[:, 0])):
+    if not in_prefill and not torch.equal(bits(lp[:, 0]), bits(lk[:, 0])):
         raise AssertionError(f"serve {cfg.name}: prefill logits differ (no "
                              f"kernel there)")
     flips = {"prefill": sum(int(f.sum()) for f in flipped[:cfg.num_layers]),
@@ -1534,8 +1660,8 @@ def serve_run(model, params, prompts, extra=None, *,
     with decode_attention_plain(), routing_replayed(routes):
         lq = forced(True)
     gap = {"plain": decode_gap(lk, lp), "kernel_plain": decode_gap(lk, lq)}
-    for g in gap.values():
-        g["within_gate"] = within_gate(g)
+    for label, g in gap.items():
+        g["within_gate"] = within_gate(g, gates.get(label))
     faults = {}
     for name, fault in fd_faults().items():
         with decode_attention_held(fault) as seen, routing_replayed(routes):
@@ -1543,7 +1669,8 @@ def serve_run(model, params, prompts, extra=None, *,
         faults[name] = {"in_decode": held_summary(seen)}
         for label, base in (("plain", lp), ("kernel_plain", lq)):
             fgap = decode_gap(lf, base)
-            faults[name][label] = {**fgap, "caught": not within_gate(fgap)}
+            faults[name][label] = {
+                **fgap, "caught": not within_gate(fgap, gates.get(label))}
         del lf, seen
     del routes, lq
     log(f"serve {cfg.name}: flash_decode x{launches['flash_decode']}, tokens "
@@ -1551,39 +1678,24 @@ def serve_run(model, params, prompts, extra=None, *,
         f"version {held}; routing flips the plain decode would have taken "
         f"(it replays the kernel decode's) {flips}; kernel decode against "
         f"{gap}; planted faults {faults}")
-    gated = ("plain", "kernel_plain") if gate_plain else ("kernel_plain",)
-    for label in gated:
+    for label, tol in gates.items():
         if not gap[label]["within_gate"]:
             raise AssertionError(
                 f"serve {cfg.name}: kernel decode vs {label} decode logits "
-                f"{gap[label]} past rms {SERVE_RMS_TOL}, max {SERVE_MAX_TOL}")
+                f"{gap[label]} past rms, max {tol}")
     blind = [name for name, f in faults.items()
              if not f["in_decode"]["past_tol"]
-             or (gate_plain and not f["plain"]["caught"])]
+             or not all(f[label]["caught"] for label in fault_gates)]
     if blind:
         raise AssertionError(f"serve {cfg.name}: blind to the planted faults "
                              f"{blind}: {faults}")
-    steps = stats["decode_steps"]
-    return {"arch": cfg.name, "layers": cfg.num_layers,
-            "params": param_count(params),
-            "prefill_ms": stats["prefill_ms"],
-            "decode_ms_per_token": stats["decode_ms"] / steps,
-            "decode_window_ms": stats["decode_ms"], "decode_steps": steps,
-            "tokens_per_s": SERVE_BATCH * steps * 1e3 / stats["decode_ms"],
-            "decode_step_ms_median": statistics.median(
-                stats["decode_step_ms"]),
-            "decode_ms_per_token_runs": [st["decode_ms"] / steps
-                                         for st in timed],
-            "prefill_ms_runs": [st["prefill_ms"] for st in timed],
-            "decode_step_ms": stats["decode_step_ms"],
-            "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "new": SERVE_NEW,
-            "patches": extra["patches"].shape[1] if extra else 0,
-            "kernel_vs": gap, "kernel_vs_plain_in_decode": held,
-            "routing_flips": flips, "planted_faults": faults,
-            "gated": list(gated),
-            "gate": {"rms_rel": SERVE_RMS_TOL, "max_rel": SERVE_MAX_TOL},
-            "launches": launches["flash_decode"],
-            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    out.update({"kernel_vs": gap, "kernel_vs_plain_in_decode": held,
+                "routing_flips": flips, "planted_faults": faults,
+                "gated": list(gates), "fault_gates": list(fault_gates),
+                "gate": {label: gates.get(label)
+                         or [SERVE_RMS_TOL, SERVE_MAX_TOL] for label in gap},
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    return out
 
 
 def main_path_serve() -> dict:
@@ -1595,7 +1707,10 @@ def main_path_serve() -> dict:
     from repro_torch.configs import get_config
 
     model, params, prompts, _ = serve_setup(get_config("llama3-8b"))
-    out = serve_run(model, params, prompts, gate_plain=True)
+    tol = (SERVE_RMS_TOL, SERVE_MAX_TOL)
+    out = serve_run(model, params, prompts,
+                    gates={"plain": tol, "kernel_plain": tol},
+                    fault_gates=("plain",))
     # one decode step under the profiler: flash_decode against the matmuls
     with torch.inference_mode():
         st = model.init_decode_state(SERVE_BATCH, SERVE_PROMPT + SERVE_NEW,
@@ -1612,13 +1727,15 @@ def main_path_serve() -> dict:
     return out
 
 
-def flash_decode_rows(rng, launches, ops_count, slice_launches) -> dict:
+def flash_decode_rows(rng, launches, ops_count, slice_launches,
+                      phase16_launches) -> dict:
     """Phase 9, B8: the kernel, its plain version and SDPA (with GQA and
     the kv_len mask, a yardstick the port never calls) at llama3-8b's
     decode shape (bf16, every row at S = 2080) and, nested, at the bench
-    shape (f32, S = 8192) and phase 15's shapes (bf16, with their
-    launches a ``generate``, ``slice_launches``); ``ops_count``: the
-    device operations of phase 2b."""
+    shape (f32, S = 8192), phase 15's shapes and phase 16's G = 1 shapes
+    (bf16, with their launches a ``generate``, ``slice_launches`` and
+    ``phase16_launches``); ``ops_count``: the device operations of phase
+    2b."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
@@ -1668,7 +1785,11 @@ def flash_decode_rows(rng, launches, ops_count, slice_launches) -> dict:
             "phase15_shapes": {
                 arch: {**row(shape, "bf16", f"flash_decode/{arch}"),
                        "launches": slice_launches[arch]}
-                for arch, shape in FD_SLICE_SHAPES.items()}}
+                for arch, shape in FD_SLICE_SHAPES.items()},
+            "phase16_shapes": {
+                key: {**row(shape, "bf16", f"flash_decode/{key}"),
+                      "launches": phase16_launches[key]}
+                for key, shape in FD_PHASE16_SHAPES.items()}}
 
 
 #: the combine flow past the one-hot cutoff: KeyedSum at K = 2^16, 2^22 pairs
@@ -2059,7 +2180,8 @@ def early_device_ops() -> dict:
                                  "f32"),
                                 *((f"flash_decode/{arch}", shape, "bf16")
                                   for arch, shape
-                                  in FD_SLICE_SHAPES.items())):
+                                  in {**FD_SLICE_SHAPES,
+                                      **FD_PHASE16_SHAPES}.items())):
         q, kc, vc, kvl = decode_inputs(rng, *shape, dtype, [shape[4]]
                                        * shape[0])
         out[label] = device_ops(lambda: ops.flash_decode(q, kc, vc, kvl))
@@ -4159,7 +4281,8 @@ def state_digest(state) -> list:
     return out
 
 
-def train_flops(cfg, tokens: int, group: int = 0) -> dict:
+def train_flops(cfg, tokens: int, group: int = 0,
+                enc_tokens: int = 0) -> dict:
     """Operations a step of ``tokens`` positions needs (counted from the
     shapes; vlm: the patches too, whose -1 labels the loss masks after
     computing them): the chunked loss's four f32 GEMMs over the vocabulary
@@ -4167,8 +4290,29 @@ def train_flops(cfg, tokens: int, group: int = 0) -> dict:
     layers' bf16 matmuls with remat (forward twice, backward twice).  An
     MoE layer's experts compute every slot of their capacity, padding too:
     C slots an expert for each dispatch group of ``group`` tokens (a
-    row)."""
+    row).  The SSM, hybrid and audio families count their weights'
+    matmuls only (not the SSD's quadratic terms or the attention scores,
+    so their bound is a lower one); whisper's encoder and cross K/V run
+    over ``enc_tokens`` frames."""
     E, V = cfg.d_model, cfg.vocab_size
+    attn_w = E * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * E
+    if cfg.family in ("ssm", "hybrid", "audio"):
+        if cfg.family == "audio":
+            mlp = 2 * E * cfg.d_ff
+            enc = (attn_w + mlp) * (cfg.enc_layers or cfg.num_layers)
+            dec = (attn_w + 2 * E * cfg.q_dim + mlp) * cfg.num_layers
+            work = (enc * enc_tokens + dec * tokens
+                    + 2 * E * cfg.kv_dim * cfg.num_layers * enc_tokens)
+        else:
+            d_in = cfg.ssm_d_inner
+            mamba = E * (2 * d_in + 2 * cfg.ssm_state + cfg.ssm_heads) + (
+                d_in * E)
+            work = mamba * cfg.num_layers * tokens
+            if cfg.family == "hybrid":
+                work += ((attn_w + 3 * E * cfg.d_ff) * tokens
+                         * (cfg.num_layers // cfg.hybrid_attn_every))
+        return {"xent_f32": 4 * 2 * tokens * V * E,
+                "layers_bf16": 4 * 2 * work}
     ffn = 3 * E * cfg.d_ff
     if cfg.num_experts:
         from repro_torch.models.moe import capacity
@@ -4489,11 +4633,20 @@ def moe_prefill(model, params, prompts) -> dict:
     return out
 
 
-def moe_serve(card: str, arch: str, layers) -> dict:
-    """Phase 15 (a)-(c): :func:`serve_run` on ``arch`` at full width (and
-    ``layers`` deep, None for full depth), random weights from seed 0,
-    then for MoE the prefill modes (:func:`moe_prefill`); peak device
-    memory from a reset before the weights."""
+#: the families whose prefill :func:`serve_model` also profiles (phase
+#: 16's: their prefill is a chunked scan or an encoder, not attention)
+PREFILL_PROFILED = ("ssm", "hybrid", "audio")
+
+
+def serve_model(card: str, arch: str, layers, dtype=None,
+                **serve_kw) -> dict:
+    """Phase 15 (a)-(c) and phase 16 (a)-(b): :func:`serve_run` on
+    ``arch`` at full width (and ``layers`` deep, None for full depth),
+    random weights from seed 0, one decode step profiled (and the prefill,
+    for the families of PREFILL_PROFILED), then for MoE the prefill modes
+    (:func:`moe_prefill`); peak device memory from a reset
+    before the weights.  ``dtype`` replaces the model dtype; ``serve_kw``
+    go to :func:`serve_run`."""
     import dataclasses
     import gc
 
@@ -4507,12 +4660,15 @@ def moe_serve(card: str, arch: str, layers) -> dict:
     cfg = get_config(arch)
     if layers:
         cfg = dataclasses.replace(cfg, num_layers=layers)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
     t0 = time.perf_counter()
     model, params, prompts, extra = serve_setup(cfg)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     weights = torch.cuda.memory_allocated() - base
-    out = {"card": card, **serve_run(model, params, prompts, extra),
+    out = {"card": card, **serve_run(model, params, prompts, extra,
+                                     **serve_kw),
            "published_layers": get_config(arch).num_layers,
            "init_s": init_s, "weight_bytes": weights}
     out["serve_s"] = time.perf_counter() - t0 - init_s
@@ -4520,7 +4676,7 @@ def moe_serve(card: str, arch: str, layers) -> dict:
     # experts' bmm among them) and the rest
     with torch.inference_mode():
         st = model.init_decode_state(
-            SERVE_BATCH, SERVE_PROMPT + SERVE_NEW + out["patches"],
+            SERVE_BATCH, prompts.shape[1] + SERVE_NEW + out["patches"],
             device=prompts.device)
         lg, st = model.prefill(params, {"tokens": prompts, **(extra or {})},
                                st)
@@ -4532,6 +4688,21 @@ def moe_serve(card: str, arch: str, layers) -> dict:
                     "matmul": ("gemm", "cutlass", "xmma", "nvjet"),
                     "sort": ("sort", "radix")})
         del st, lg
+        if cfg.family in PREFILL_PROFILED:  # where the prefill's time goes
+
+            def prefill():
+                st = model.init_decode_state(
+                    SERVE_BATCH, prompts.shape[1] + SERVE_NEW
+                    + out["patches"], device=prompts.device)
+                return model.prefill(
+                    params, {"tokens": prompts, **(extra or {})}, st)
+
+            out["profile_prefill"] = profile_fn(
+                prefill, out["prefill_ms"], top=10,
+                groups={"flash_decode": ("fold_chunks",),
+                        "matmul": ("gemm", "cutlass", "xmma", "nvjet"),
+                        "elementwise": ("elementwise",),
+                        "reduce": ("reduce",)})
     if cfg.num_experts:
         out["prefill_modes"] = moe_prefill(model, params, prompts)
     out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
@@ -4539,7 +4710,7 @@ def moe_serve(card: str, arch: str, layers) -> dict:
     del params, prompts, extra, model
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"moe serve {arch} ({cfg.num_layers} of "
+    log(f"{cfg.family} serve {arch} {cfg.dtype} ({cfg.num_layers} of "
         f"{out['published_layers']} layers): prefill "
         f"{out['prefill_ms']:.1f} ms, decode "
         f"{out['decode_ms_per_token']:.2f} ms a token "
@@ -4549,15 +4720,20 @@ def moe_serve(card: str, arch: str, layers) -> dict:
     return out
 
 
-def moe_train(card: str, arch: str, gbatch: int, mbs: int, modes) -> dict:
-    """Phase 15 (d)-(e): ``training.train_step`` at full width, 2 layers,
-    random weights from seed 0, the launcher's batches
+def train_run(card: str, arch: str, gbatch: int, mbs: int, modes, *,
+              layers=TRAIN_LAYERS, seq: int = TRAIN_SEQ,
+              tag: str = "moe") -> dict:
+    """Phase 15 (d)-(e) and phase 16 (d): ``training.train_step`` at full
+    width, ``layers`` deep (None: full depth), random weights from seed 0,
+    the launcher's batches of ``seq`` positions
     (``launch.train.make_batch_fn``: vlm adds patches, -1 labels over
-    them), combiner accumulation, TRAIN_STEPS steps in each MoE mode from
-    a fresh copy of one initial state; each mode's step ms, tokens/s, peak
-    memory and load-balance loss; losses finite and falling, two steps
-    from the cloned state bit for bit in each mode, and the modes' first
-    losses within MOE_LOSS_RTOL."""
+    them; audio draws ``seq`` frames and cuts the tokens to ``dec_len``),
+    combiner accumulation, TRAIN_STEPS steps in each MoE mode from a fresh
+    copy of one initial state; each mode's step ms, tokens/s, peak memory
+    and load-balance loss; losses finite and falling, every gradient
+    finite (a finite grad_norm), two steps from the cloned state bit for
+    bit in each mode, and the modes' first losses within
+    MOE_LOSS_RTOL."""
     import dataclasses
 
     import torch
@@ -4569,13 +4745,15 @@ def moe_train(card: str, arch: str, gbatch: int, mbs: int, modes) -> dict:
     from repro_torch.training import optim
     from repro_torch.training.train_step import TrainConfig, init_train_state
 
-    cfg = dataclasses.replace(get_config(arch), num_layers=TRAIN_LAYERS)
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     model = get_model(cfg)
     tc = TrainConfig(adam=optim.AdamWConfig(lr=TRAIN_LR),
                      num_microbatches=mbs, warmup_steps=1, total_steps=50,
                      vocab_chunk=TRAIN_CHUNK)
     batch_fn = make_batch_fn(cfg, DataConfig(
-        seed=0, vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        seed=0, vocab_size=cfg.vocab_size, seq_len=seq,
         global_batch=gbatch))
     batches = [batch_fn(i) for i in range(TRAIN_STEPS)]
     t0 = time.perf_counter()
@@ -4586,14 +4764,21 @@ def moe_train(card: str, arch: str, gbatch: int, mbs: int, modes) -> dict:
     del state
     torch.cuda.empty_cache()
     pn = cfg.num_patches if cfg.family == "vlm" else 0
-    tokens = gbatch * TRAIN_SEQ
-    row = {"arch": arch, "layers": cfg.num_layers, "d_model": cfg.d_model,
+    audio = cfg.family == "audio"
+    # the decoder positions the loss sees
+    dec = min(seq, cfg.dec_len) if audio else seq
+    tokens = gbatch * dec
+    row = {"arch": arch, "layers": cfg.num_layers,
+           "published_layers": get_config(arch).num_layers,
+           "d_model": cfg.d_model,
            "experts": cfg.num_experts, "top_k": cfg.num_experts_per_tok,
            "params": P, "active_params": active, "batch": gbatch,
            "microbatches": mbs, "patches": pn, "tokens_per_step": tokens,
-           "positions_per_step": gbatch * (TRAIN_SEQ + pn),
+           "frames_per_step": gbatch * seq if audio else 0,
+           "positions_per_step": gbatch * (dec + pn),
            "init_s": time.perf_counter() - t0, "modes": {}}
-    flops = train_flops(cfg, gbatch * (TRAIN_SEQ + pn), TRAIN_SEQ + pn)
+    flops = train_flops(cfg, gbatch * (dec + pn), dec + pn,
+                        enc_tokens=gbatch * seq if audio else 0)
     row["step_flops"] = flops
     row["step_bound_ms"] = (flops["xent_f32"] / F32_OPS_PER_S
                             + flops["layers_bf16"] / BF16_OPS_PER_S) * 1e3
@@ -4611,21 +4796,21 @@ def moe_train(card: str, arch: str, gbatch: int, mbs: int, modes) -> dict:
         del r["digest"]
         row["modes"][mode] = r
         row["wall_s"][mode] = time.perf_counter() - t0
-        log(f"moe train: {arch} {cfg.num_layers} layers {mode}: losses "
+        log(f"{tag} train: {arch} {cfg.num_layers} layers {mode}: losses "
             f"{r['losses']}, load balance {r['load_balance_losses']}, step "
             f"{r['step_ms_warm_median']:.1f} ms ({r['tokens_per_s']:.0f} "
             f"tokens/s), peak {r['peak_bytes'] / 2**30:.2f} GiB, repeat bit "
             f"for bit {r['repeat_bit_for_bit']} [{card}]")
         if not r["repeat_bit_for_bit"]:
             raise AssertionError(
-                f"moe train: {arch} {mode}: two steps from one cloned state "
+                f"{tag} train: {arch} {mode}: two steps from one cloned state "
                 f"gave other losses or state ({again['losses']!r} against "
                 f"{r['losses'][:2]!r})")
     if len(modes) == 2:
         l1, l2 = (row["modes"][m]["losses"][0] for m in modes)
         row["first_loss_rel_diff"] = abs(l1 - l2) / abs(l2)
         if row["first_loss_rel_diff"] > MOE_LOSS_RTOL:
-            raise AssertionError(f"moe train: {arch}: first losses {modes} "
+            raise AssertionError(f"{tag} train: {arch}: first losses {modes} "
                                  f"{l1} {l2}, past {MOE_LOSS_RTOL}")
     del host
     torch.cuda.empty_cache()
@@ -4636,8 +4821,8 @@ def moe_on_card(card: str) -> dict:
     """Phase 15, after phase 14 has released its memory: serve
     qwen3-moe-30b-a3b (48 layers), llama4-scout-17b-a16e (4 of 48) and
     internvl2-26b (48) at full width through ``generate``
-    (:func:`moe_serve`), then train qwen3-moe-30b-a3b in both MoE modes
-    and internvl2-26b with patches, 2 layers each (:func:`moe_train`)."""
+    (:func:`serve_model`), then train qwen3-moe-30b-a3b in both MoE modes
+    and internvl2-26b with patches, 2 layers each (:func:`train_run`)."""
     import gc
 
     import torch
@@ -4648,11 +4833,250 @@ def moe_on_card(card: str) -> dict:
     out = {"card": card, "resident_bytes_at_start":
            torch.cuda.memory_allocated(), "serve": {}, "train": {}}
     for arch, layers in MOE_SERVE:
-        out["serve"][arch] = moe_serve(card, arch, layers)
+        out["serve"][arch] = serve_model(card, arch, layers)
     for arch, gbatch, mbs, modes in MOE_TRAIN:
-        out["train"][arch] = moe_train(card, arch, gbatch, mbs, modes)
+        out["train"][arch] = train_run(card, arch, gbatch, mbs, modes)
     out["launches"] = {arch: r["launches"]
                        for arch, r in out["serve"].items()}
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# -- phase 16: the SSM, hybrid and audio families (A14b-3, A14b-4) ---------
+
+#: served at full width and depth, batch 4, 32 new greedy tokens: mamba2 and
+#: zamba2 after a 2048-token prompt (8 chunks of 256), whisper after
+#: WHISPER_FRAMES frames and a BOS token
+SSM_SERVE = ("mamba2-2.7b", "zamba2-1.2b", "whisper-medium")
+#: (arch, layers (None: all), global batch, microbatches, positions a row)
+#: trained at full width, combiner accumulation: mamba2 cut 64 -> 8 layers
+#: at the published chunk of 256 (where C.63 would show), zamba2 and
+#: whisper whole (whisper: 1500 frames, tokens cut to dec_len = 448)
+SSM_TRAIN = (("mamba2-2.7b", 8, 2, 2, 1024), ("zamba2-1.2b", None, 2, 2, 1024),
+             ("whisper-medium", None, 2, 2, WHISPER_FRAMES))
+#: the SSD prefill against the recurrence (f32, full width and depth): a
+#: prompt of SSD_LEN tokens (two chunks), batch SSD_BATCH
+SSD_LEN, SSD_BATCH = 512, 2
+#: the reference's own tolerance on the softmax
+#: (tests/models/test_prefill_consistency.py), applied also to the logits
+#: (rms and max, relative, as the serve gate reads them): at a vocabulary
+#: of 32 000-50 280 with random weights no probability reaches 2e-2, so the
+#: softmax alone would pass any logits (ROADMAP C.68)
+SSD_TOL = 2e-2
+#: positions of the stepwise decode under the shifted-window fault (it
+#: moves every position's logits from the first)
+SSD_FAULT_STEPS = 64
+#: the logits gate of zamba2's f32 serve run against the decode through
+#: the kernel's plain version (ROADMAP C.69): in bf16 the 38-layer random
+#: hybrid's rounding alone moves its logits by 0.044 / 0.064 (rms / max),
+#: above 2^-5, while each B8 call agrees with its plain version within
+#: 4.8e-7; in f32 the sound kernel reads 3.8e-6 / 5.7e-6 and the weakest
+#: planted fault 3.9e-3 / 5.8e-3 (NVIDIA H100 80GB HBM3, 700.00 W), so the
+#: gate sits 4x below that fault and 250x above the sound reading
+F32_LOGIT_TOL = 2.0 ** -10
+
+
+@contextlib.contextmanager
+def ssd_fault(name: str):
+    """A planted fault of the SSM layers while open:
+    ``inclusive_chunk_state``, each chunk enters with its own inclusive
+    state (the prefill's exclusive scan made inclusive), and
+    ``conv_window_shifted``, the decode's conv taps read the window one
+    row back (the newest token left out of its own conv; the state kept
+    right)."""
+    import torch
+    from repro_torch.models import ssm
+
+    if name == "inclusive_chunk_state":
+        attr, real = "_chunk_states", ssm._chunk_states
+
+        def fault(decay, s):
+            prev, last = real(decay, s)
+            return torch.cat([prev[:, 1:], last[:, None]], dim=1), last
+    else:
+        attr, real = "_decode_conv", ssm._decode_conv
+
+        def fault(window, w, b):
+            return real(torch.cat([window[:, :1], window[:, :-1]], dim=1),
+                        w, b)
+    setattr(ssm, attr, fault)
+    try:
+        yield
+    finally:
+        setattr(ssm, attr, real)
+
+
+def ssd_prefill_side(model, params, prompt, tok=None):
+    """[B, 2, V]: the prefill's last-position logits and one decode step
+    after it (fed ``tok``, by default the prefill's argmax), and the
+    token."""
+    import torch
+    b, s = prompt.shape
+    st = model.init_decode_state(b, s + 2, device=prompt.device)
+    la, st = model.prefill(params, {"tokens": prompt}, st)
+    if tok is None:
+        tok = la.argmax(-1).to(torch.int32)
+    la2, _ = model.decode_step(params, st, tok)
+    return torch.stack([la, la2], dim=1), tok
+
+
+def ssd_forward_side(model, params, prompt):
+    """[B, S, V]: the chunked forward's logits at every prompt position."""
+    hidden, _ = model.forward(params, {"tokens": prompt}, remat=False)
+    return model.logits_of_hidden(params, hidden)
+
+
+def ssd_step_side(model, params, prompt, tok=None, steps=None):
+    """The prompt (its first ``steps`` tokens) decoded one token at a time:
+    the logits at every position [B, steps, V], and with ``tok`` also
+    [B, 2, V], the last position's and one step after it (fed ``tok``)."""
+    import torch
+    b, s = prompt.shape
+    steps = steps or s
+    st = model.init_decode_state(b, s + 2, device=prompt.device)
+    every = []
+    for t in range(steps):
+        lb, st = model.decode_step(params, st, prompt[:, t])
+        every.append(lb)
+    every = torch.stack(every, dim=1)
+    if tok is None:
+        return every, None
+    lb2, _ = model.decode_step(params, st, tok)
+    return every, torch.stack([every[:, -1], lb2], dim=1)
+
+
+def ssd_gap(la, lb) -> dict:
+    """The reference's reading (max |softmax(a) - softmax(b)|) and
+    :func:`decode_gap`'s on the logits, per position, against SSD_TOL."""
+    import torch
+    sm = float((torch.softmax(la, -1) - torch.softmax(lb, -1)).abs().max())
+    g = decode_gap(la, lb)
+    return {"softmax_max_abs": sm, **g,
+            "max_prob": float(torch.softmax(lb, -1).max()),
+            "within": (sm < SSD_TOL and g["rms_rel_max"] <= SSD_TOL
+                       and g["max_rel_max"] <= SSD_TOL)}
+
+
+def ssd_check(card: str, arch: str) -> dict:
+    """Phase 16 (c): ``arch`` at full width and depth in f32 (IEEE matmuls),
+    random weights from seed 0, a prompt of SSD_LEN random tokens, batch
+    SSD_BATCH, against the same prompt decoded one token at a time (the
+    recurrence): the chunked-SSD prefill's last-position logits and one
+    step after it (``last``, the reference's test), and the chunked
+    forward's logits at every position (``every``: the reference's random
+    init decays a state within a few tokens, A = -1, so only the first
+    positions of a chunk read the state entering it), each within SSD_TOL
+    (:func:`ssd_gap`).  Each fault of :func:`ssd_fault` must fall outside
+    it: the inclusive state in the forward, the shifted conv window in a
+    stepwise decode of the first SSD_FAULT_STEPS tokens."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_model
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cfg = dataclasses.replace(get_config(arch), dtype=torch.float32)
+    model = get_model(cfg)
+    params = model.init_params(torch.Generator("cuda").manual_seed(0))
+    prompt = torch.randint(
+        0, cfg.vocab_size, (SSD_BATCH, SSD_LEN), dtype=torch.int32,
+        device="cuda", generator=torch.Generator("cuda").manual_seed(1))
+    out = {"arch": arch, "layers": cfg.num_layers, "dtype": "float32",
+           "batch": SSD_BATCH, "prompt": SSD_LEN, "tol": SSD_TOL,
+           "fault_steps": SSD_FAULT_STEPS}
+    with torch.inference_mode():
+        ts = time.perf_counter()
+        la, tok = ssd_prefill_side(model, params, prompt)
+        lf_every = ssd_forward_side(model, params, prompt)
+        torch.cuda.synchronize()
+        out["prefill_side_s"] = time.perf_counter() - ts
+        ts = time.perf_counter()
+        lb_every, lb = ssd_step_side(model, params, prompt, tok)
+        torch.cuda.synchronize()
+        out["step_side_s"] = time.perf_counter() - ts
+        out["finite"] = bool(torch.isfinite(la).all()
+                             and torch.isfinite(lb_every).all())
+        out["sound"] = {"last": ssd_gap(la, lb),
+                        "every": ssd_gap(lf_every, lb_every)}
+        faults = {}
+        with ssd_fault("inclusive_chunk_state"):
+            lf = ssd_forward_side(model, params, prompt)
+        faults["inclusive_chunk_state"] = ssd_gap(lf, lb_every)
+        with ssd_fault("conv_window_shifted"):
+            lf, _ = ssd_step_side(model, params, prompt,
+                                  steps=SSD_FAULT_STEPS)
+        faults["conv_window_shifted"] = ssd_gap(
+            lf_every[:, :SSD_FAULT_STEPS], lf)
+        del lf
+    out["planted_faults"] = faults
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    del params, la, lb, lf_every, lb_every
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"ssd check {arch} ({cfg.num_layers} layers, f32, {SSD_BATCH} x "
+        f"{SSD_LEN}): prefill vs recurrence {out['sound']}; planted faults "
+        f"{faults}; {out['wall_s']:.1f} s [{card}]")
+    if not out["finite"] or not all(g["within"]
+                                    for g in out["sound"].values()):
+        raise AssertionError(f"ssd check {arch}: prefill against the "
+                             f"recurrence past {SSD_TOL}: {out}")
+    blind = [name for name, f in faults.items() if f["within"]]
+    if blind:
+        raise AssertionError(f"ssd check {arch}: blind to the planted faults "
+                             f"{blind}: {faults}")
+    return out
+
+
+def ssm_on_card(card: str) -> dict:
+    """Phase 16, after phase 15 has released its memory: serve mamba2-2.7b,
+    zamba2-1.2b and whisper-medium at full width and depth through
+    ``generate`` (:func:`serve_model`: B8 in zamba2's shared attention and
+    whisper's self- and cross-attention, each call held against its plain
+    version, the faults planted), check the SSD prefill against the
+    recurrence in f32 (:func:`ssd_check`), and train the three at full
+    width (:func:`train_run`)."""
+    import gc
+
+    import torch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"card": card, "resident_bytes_at_start":
+           torch.cuda.memory_allocated(), "serve": {}, "ssd_check": {},
+           "train": {}}
+    for arch in SSM_SERVE:
+        # zamba2 in bf16: the logits read, not gated (C.69); its f32 run
+        # below gates them
+        gate = ({"gates": {}} if arch == "zamba2-1.2b"
+                else {"fault_gates": ("kernel_plain",)})
+        out["serve"][arch] = serve_model(card, arch, None, **gate)
+    out["serve_f32"] = {"zamba2-1.2b": serve_model(
+        card, "zamba2-1.2b", None, dtype=torch.float32,
+        gates={"kernel_plain": (F32_LOGIT_TOL, F32_LOGIT_TOL)},
+        fault_gates=("kernel_plain",))}
+    for arch in ("mamba2-2.7b", "zamba2-1.2b"):
+        out["ssd_check"][arch] = ssd_check(card, arch)
+    for arch, layers, gbatch, mbs, seq in SSM_TRAIN:
+        out["train"][arch] = train_run(card, arch, gbatch, mbs,
+                                       ("combiner",), layers=layers, seq=seq,
+                                       tag="ssm")
+    zamba, whisper = (out["serve"][a] for a in ("zamba2-1.2b",
+                                                "whisper-medium"))
+    by_s = whisper["launches_by_kv_positions"]  # generate's own launches
+    out["launches"] = {
+        "zamba2-1.2b": zamba["launches"],
+        "whisper-medium/self": sum(n for s, n in by_s.items()
+                                   if int(s) != WHISPER_FRAMES),
+        "whisper-medium/cross": by_s.get(str(WHISPER_FRAMES), 0),
+        "whisper-medium": whisper["launches"]}
     out["phase_wall_s"] = time.perf_counter() - t_phase
     return out
 
@@ -4720,6 +5144,7 @@ def main() -> int:
     log(json.dumps({"resilient": resilient}))
     log(json.dumps({"train": train_on_card(card)}))
     moe = moe_on_card(card)
+    ssm = ssm_on_card(card)
 
     rows = kernel_rows(rng, launches_add, launches_dense, ops_count)
     for row in rows:  # B1, B2: their launches on the streaming path too
@@ -4748,7 +5173,7 @@ def main() -> int:
             for label, total in resilient["launches"].items()
             if total.get(row["name"], 0)}
     rows.append(flash_decode_rows(rng, serve["launches"], ops_count,
-                                  moe["launches"]))
+                                  moe["launches"], ssm["launches"]))
     log(json.dumps({"combine_route_sweep": {"card": card,
                                             **combine_route_sweep(rng)}}))
     log(json.dumps({"keyed_fold_sweep": {"card": card,
@@ -4783,6 +5208,7 @@ def main() -> int:
     log(json.dumps({"main_path": main_ms}))
     log(json.dumps({"serve": {"card": card, **serve}}))
     log(json.dumps({"moe": moe}))
+    log(json.dumps({"ssm": ssm}))
     for label, mr in (("kmeans", mr_add), ("bounding_box", mr_dense),
                       *flows.items()):
         log(json.dumps({"profile": label,

@@ -169,24 +169,67 @@ def _tensor_from_numpy(x, device) -> torch.Tensor:
     return torch.from_numpy(x).to(device)
 
 
+def _depth(layers) -> int:
+    return next(iter(pytree.tree_leaves(layers))).shape[0]
+
+
+def _check_keys(cfg, what, got, want) -> None:
+    if set(got) != set(want):
+        raise ValueError(f"{cfg.name}: {what} with {sorted(want)} expected, "
+                         f"got {sorted(got)}")
+
+
+def _check_depth(cfg, what, got: int, want: int) -> None:
+    if got != want:
+        raise ValueError(f"{cfg.name}: {want} {what} expected, got {got}")
+
+
 def params_from_repro(cfg, params_np, *, device=None):
     """The port's model parameters from the reference's pytree of numpy
     leaves (``jax.tree.map(np.asarray, params)``) for config ``cfg``: the
-    same nested dicts and the same stacked ``[L, ...]`` layer leaves, in the
-    reference's dtypes (an MoE router stays f32 in a bf16 model), on
-    ``device`` (``None``: the card)."""
+    same nested dicts and the same stacked layer leaves (``[L, ...]``; a
+    hybrid's groups ``[G, k, ...]``), in the reference's dtypes (an MoE
+    router stays f32 in a bf16 model), on ``device`` (``None``: the card).
+    The tree's keys and depth must be those of ``cfg``'s family."""
     dev = resolve_device(device)
     out = pytree.tree_map(lambda x: _tensor_from_numpy(x, dev),
                           dict(params_np))
-    if set(out) != {"embed", "layers", "ln_f", "head"}:
-        raise ValueError(f"not a transformer's parameters: {sorted(out)}")
-    ffn, other = ("moe", "ffn") if cfg.num_experts else ("ffn", "moe")
-    if ffn not in out["layers"] or other in out["layers"]:
-        raise ValueError(f"{cfg.name}: layers with {ffn!r} expected, got "
-                         f"{sorted(out['layers'])}")
-    if out["layers"]["attn"]["wq"].shape[0] != cfg.num_layers:
-        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers expected, "
-                         f"got {out['layers']['attn']['wq'].shape[0]}")
+    family = cfg.family
+    if family in ("dense", "moe", "vlm"):
+        _check_keys(cfg, "a transformer's parameters", out,
+                    ("embed", "layers", "ln_f", "head"))
+        ffn, other = ("moe", "ffn") if cfg.num_experts else ("ffn", "moe")
+        if ffn not in out["layers"] or other in out["layers"]:
+            raise ValueError(f"{cfg.name}: layers with {ffn!r} expected, got "
+                             f"{sorted(out['layers'])}")
+        _check_depth(cfg, "layers", _depth(out["layers"]), cfg.num_layers)
+    elif family == "ssm":
+        _check_keys(cfg, "a Mamba2 LM's parameters", out,
+                    ("embed", "layers", "ln_f", "head"))
+        _check_keys(cfg, "Mamba2 layers", out["layers"], ("ln", "ssm"))
+        _check_depth(cfg, "layers", _depth(out["layers"]), cfg.num_layers)
+    elif family == "hybrid":
+        k = cfg.hybrid_attn_every
+        groups, leftover = divmod(cfg.num_layers, k)
+        _check_keys(cfg, "a hybrid's parameters", out,
+                    ("embed", "groups", "shared", "ln_f", "head")
+                    + (("tail",) if leftover else ()))
+        _check_keys(cfg, "Mamba2 layers", out["groups"], ("ln", "ssm"))
+        _check_depth(cfg, "[groups, layers]",
+                     tuple(out["groups"]["ln"]["scale"].shape[:2]),
+                     (groups, k))
+        if leftover:
+            _check_depth(cfg, "tail layers", _depth(out["tail"]), leftover)
+    elif family == "audio":
+        _check_keys(cfg, "an encoder-decoder's parameters", out,
+                    ("embed", "pos_dec", "enc_layers", "ln_enc_f",
+                     "dec_layers", "ln_dec_f", "head"))
+        _check_depth(cfg, "encoder layers", _depth(out["enc_layers"]),
+                     cfg.enc_layers or cfg.num_layers)
+        _check_depth(cfg, "decoder layers", _depth(out["dec_layers"]),
+                     cfg.num_layers)
+    else:
+        raise ValueError(f"{cfg.name}: unknown family {family!r}")
     return out
 
 
@@ -204,12 +247,15 @@ def train_state_from_repro(cfg, opt_state_np, *, device=None):
 
 
 def decode_state_from_repro(state_np, *, device=None):
-    """The port's decode state from a reference one given as numpy (its
-    ``cache`` leaves ``[L, B, S, Kv, D]``, and ``pos``)."""
+    """The port's decode state from a reference one given as numpy: every
+    entry (a KV ``cache`` of ``[L, B, S, Kv, D]`` leaves; an SSM family's
+    ``ssm``, ``ssm_groups`` and ``ssm_tail`` states; whisper's ``cross_k``
+    and ``cross_v``) as tensors of the same dtypes and nesting, and
+    ``pos`` a Python int."""
     dev = resolve_device(device)
-    return {"cache": {name: _tensor_from_numpy(x, dev)
-                      for name, x in state_np["cache"].items()},
-            "pos": int(np.asarray(state_np["pos"]))}
+    return {name: (int(np.asarray(x)) if name == "pos" else
+                   pytree.tree_map(lambda a: _tensor_from_numpy(a, dev), x))
+            for name, x in state_np.items()}
 
 
 def shuffle_plan_from_repro(plan):

@@ -11,6 +11,7 @@ takes seconds.  Nothing here runs when the module is imported.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -69,19 +70,32 @@ _nvcc_out: dict[str, str] = {}
 #: launches of each kernel since the last :func:`reset_launch_counts`; a
 #: binding adds one right after its kernel was launched, and nowhere else.
 _launches = {name: 0 for name in KERNELS}
+#: the same launches split by the ``key`` a binding gives with them (a
+#: shape, such as flash_decode's KV positions)
+_launches_by_key: dict[str, collections.Counter] = {
+    name: collections.Counter() for name in KERNELS}
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, key=None) -> None:
     _launches[name] += 1
+    if key is not None:
+        _launches_by_key[name][key] += 1
 
 
 def launch_counts() -> dict[str, int]:
     return dict(_launches)
 
 
+def launch_counts_by_key(name: str) -> dict:
+    """``name``'s launches since the last reset, by the key counted with
+    each (launches counted with no key are left out)."""
+    return dict(sorted(_launches_by_key[name].items()))
+
+
 def reset_launch_counts() -> None:
     for name in _launches:
         _launches[name] = 0
+        _launches_by_key[name].clear()
 
 
 def build_dir() -> Path:

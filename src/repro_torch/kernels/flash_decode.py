@@ -169,5 +169,5 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out.data_ptr(), m_ptr, l_ptr, acc_ptr, tickets.data_ptr(), B, S, H,
         Hkv, D, tile, chunk, n_split, int(q.dtype == torch.bfloat16), stream)
     _build.check("flash_decode", lib, err)
-    _build.count_launch("flash_decode")
+    _build.count_launch("flash_decode", key=S)  # by KV positions
     return out

@@ -74,6 +74,7 @@ FOLD_PARTIAL_ELEMS = 1 << 26
 FOLD_PLAIN_KEY_BLOCK = 256
 
 launch_counts = _build.launch_counts
+launch_counts_by_key = _build.launch_counts_by_key
 reset_launch_counts = _build.reset_launch_counts
 
 

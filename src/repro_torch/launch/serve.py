@@ -4,8 +4,10 @@
       --batch 4 --prompt-len 2048 --max-new 32
 
 Counterpart of ``repro/launch/serve.py``.  Weights and prompts are random,
-drawn from seeded ``torch.Generator``s on the device, and so are a vlm's
-patch embeddings (the stub frontend's output, in the model dtype).
+drawn from seeded ``torch.Generator``s on the device, and so are the stub
+frontends' outputs, in the model dtype: a vlm's patch embeddings and
+whisper's frame embeddings (``prompt_len + max_new`` frames, as the
+reference draws them; whisper decodes from the prompt's first token).
 ``--device`` defaults to the card (``cuda``) and there is no fallback to
 the CPU: without a card it exits with an error unless ``--device cpu`` is
 given (with ``--reduced`` for a model the CPU can hold).  It reports the
@@ -53,11 +55,15 @@ def main(argv=None):
         generator=torch.Generator(device=dev).manual_seed(args.seed + 1),
         device=dev, dtype=torch.int32)
     extra = None
-    if cfg.family == "vlm":  # frontend stub: precomputed patch embeddings
+    stub = torch.Generator(device=dev).manual_seed(args.seed + 3)
+    if cfg.family == "audio":  # frontend stub: precomputed frame embeddings
+        extra = {"frames": torch.randn(
+            (args.batch, args.prompt_len + args.max_new, cfg.d_model),
+            device=dev, generator=stub).to(cfg.dtype)}
+    elif cfg.family == "vlm":  # frontend stub: precomputed patch embeddings
         extra = {"patches": torch.randn(
             (args.batch, cfg.num_patches, cfg.d_model), device=dev,
-            generator=torch.Generator(device=dev).manual_seed(args.seed + 3)
-        ).to(cfg.dtype)}
+            generator=stub).to(cfg.dtype)}
     sc = ServeConfig(temperature=args.temperature, kv_dtype=args.kv_dtype)
     gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
 

@@ -27,23 +27,25 @@ from repro_torch.data.pipeline import DataConfig, global_batch
 from repro_torch.device import resolve_device
 from repro_torch.distributed.fault import RestartPolicy
 from repro_torch.models.registry import get_model
-from repro_torch.models.transformer import family_item
 from repro_torch.training.train_step import (TrainConfig, init_train_state,
                                              make_train_step)
 
 
 def make_batch_fn(cfg, dc: DataConfig):
     """``step -> batch`` (numpy) for ``cfg``'s family, bit for bit the
-    reference's: token batches; for vlm also the step's patch embeddings
-    (``default_rng(step)``) and -1 labels over them.  Audio frames wait for
-    whisper."""
-    if cfg.family == "audio":
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.family} batches come with their models "
-            f"(ROADMAP {family_item(cfg)})")
+    reference's: token batches; for audio the step's frame embeddings
+    (``default_rng(step)``, ``seq_len`` frames) with tokens and labels cut
+    to ``dec_len``; for vlm the step's patch embeddings and -1 labels over
+    them."""
 
     def fn(step: int):
         b = global_batch(dc, step)
+        if cfg.family == "audio":
+            rng = np.random.default_rng(step)
+            frames = rng.standard_normal(
+                (dc.global_batch, dc.seq_len, cfg.d_model)).astype(np.float32)
+            return {"frames": frames, "tokens": b["tokens"][:, :cfg.dec_len],
+                    "labels": b["labels"][:, :cfg.dec_len]}
         if cfg.family == "vlm":
             rng = np.random.default_rng(step)
             pn = cfg.num_patches

@@ -16,13 +16,16 @@ Two differences on purpose:
   cache passed in is therefore changed.
 * Under ``use_kernels``, :func:`attn_decode` sends the attention itself to
   the ``flash_decode`` kernel wherever the kernel computes the same
-  function: the new token's K/V already in the cache (no
-  ``deferred_write``), no sliding window, no softcap, no ``cross_kv``, so
-  the valid length is ``pos + 1``.  An int8 cache is dequantized first, as
-  :func:`cache_kv` does.  The kernel keeps the softmax weights and its
-  output in f32 where the reference rounds the weights to the model dtype
-  before the value product (ROADMAP C.22); in f32 models the two agree to
-  rounding.
+  function (:func:`takes_flash_decode`): self-attention with the new
+  token's K/V already in the cache (no ``deferred_write``), no sliding
+  window and no softcap, whose valid length is ``pos + 1``; and
+  cross-attention (``cross_kv``, whisper's decoder) with no softcap, over
+  all T encoder positions (valid length T for every row: the reference
+  attends there with no mask and no window).  An int8 cache is
+  dequantized first, as :func:`cache_kv` does.  The kernel keeps the
+  softmax weights and its output in f32 where the reference rounds the
+  weights to the model dtype before the value product (ROADMAP C.22); in
+  f32 models the two agree to rounding.
 """
 
 from __future__ import annotations
@@ -232,10 +235,13 @@ def cache_kv(layer_cache, dtype):
 def takes_flash_decode(cfg: ModelConfig, *, window, cross_kv,
                        deferred_write: bool) -> bool:
     """Whether the ``flash_decode`` kernel computes this decode step's
-    attention: K/V in the cache, valid length ``pos + 1``, no window (0 is
-    global), no softcap, no cross-attention."""
-    return (cross_kv is None and not deferred_write and not window
-            and cfg.attn_softcap is None)
+    attention: no softcap, and either cross-attention (every encoder
+    position valid; the reference's cross branch takes no window and no
+    deferred write) or self-attention with K/V in the cache, valid length
+    ``pos + 1`` and no window (0 is global)."""
+    if cfg.attn_softcap is not None:
+        return False
+    return cross_kv is not None or (not deferred_write and not window)
 
 
 def attn_decode(
@@ -288,8 +294,8 @@ def attn_decode(
     if kernel:
         from repro_torch.kernels import ops
 
-        kv_len = torch.full((B,), pos + 1, dtype=torch.int32,
-                            device=x.device)
+        kv_len = torch.full((B,), T if cross_kv is not None else pos + 1,
+                            dtype=torch.int32, device=x.device)
         out = ops.flash_decode(q.reshape(B, cfg.num_heads, cfg.hd)
                                .contiguous(), k.contiguous(), v.contiguous(),
                                kv_len)
@@ -315,6 +321,22 @@ def attn_decode(
     w = torch.softmax(logits, dim=-1).to(x.dtype)
     out = _gqa_out(w, v).reshape(B, 1, -1)
     return out @ p["wo"], layer_cache
+
+
+def cache_fill(cache, i: int, k, v):
+    """Write a prompt's K/V ([B, S, Kv, D]) at positions ``[0, S)`` of
+    layer ``i`` of a stacked cache, in place (quantized for an int8
+    cache), as prefill does."""
+    S = k.shape[1]
+    if cache["k"].dtype == torch.int8:
+        kq, ks = _quantize(k)
+        vq, vs = _quantize(v)
+        for name, new in (("k", kq), ("v", vq), ("k_scale", ks),
+                          ("v_scale", vs)):
+            cache[name][i, :, :S] = new
+    else:
+        cache["k"][i, :, :S] = k.to(cache["k"].dtype)
+        cache["v"][i, :, :S] = v.to(cache["v"].dtype)
 
 
 def stacked_cache_write(cache, k_stack, v_stack, pos: int):

@@ -1,11 +1,9 @@
-"""Shared layers: RMS norm, rotary embeddings, SwiGLU, embedding.
+"""Shared layers: norms, rotary embeddings, MLPs, embedding/unembedding.
 
-Counterpart of ``repro/models/layers.py`` (the parts the dense
-transformer's serving path runs; ``layernorm`` and ``mlp``, whisper's,
-wait for ROADMAP A14b).  Parameters are dicts of tensors under the
-reference's names.  ``init_*`` draw from an explicit ``torch.Generator``
-and place the tensors on its device; the draws are not JAX's, so tests
-carry the reference's parameters across with
+Counterpart of ``repro/models/layers.py``.  Parameters are dicts of
+tensors under the reference's names.  ``init_*`` draw from an explicit
+``torch.Generator`` and place the tensors on its device; the draws are
+not JAX's, so tests carry the reference's parameters across with
 :func:`repro_torch.interop.params_from_repro`.
 """
 
@@ -13,6 +11,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
+from torch.utils import _pytree as pytree
 
 
 def normal(rng: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
@@ -36,6 +36,21 @@ def rmsnorm(p, x, eps: float):
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps) * (1.0 + p["scale"])
+    return y.to(x.dtype)
+
+
+def init_layernorm(d: int, device=None):
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def layernorm(p, x, eps: float):
+    """``(x - mean) / std * scale + bias`` in f32, cast back to x's dtype;
+    the population variance, as ``jnp.var``."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
     return y.to(x.dtype)
 
 
@@ -85,6 +100,21 @@ def swiglu(p, x, act: str = "silu"):
     return (g * (x @ p["w_up"])) @ p["w_down"]
 
 
+def init_mlp(rng: torch.Generator, d: int, f: int, dtype):
+    dev = rng.device
+    return {
+        "w1": normal(rng, (d, f), d ** -0.5, dtype),
+        "b1": torch.zeros((f,), dtype=dtype, device=dev),
+        "w2": normal(rng, (f, d), f ** -0.5, dtype),
+        "b2": torch.zeros((d,), dtype=dtype, device=dev),
+    }
+
+
+def mlp(p, x, act: str = "gelu"):
+    h = _ACT[act](x @ p["w1"] + p["b1"])
+    return h @ p["w2"] + p["b2"]
+
+
 # ---------------------------------------------------------------------------
 # Embedding / unembedding
 # ---------------------------------------------------------------------------
@@ -98,8 +128,56 @@ def embed(p, tokens):
     return p["table"][tokens]
 
 
+def unembed(p_embed, p_head, x, *, tie: bool):
+    w = p_embed["table"] if tie else p_head["w"]
+    return x @ w.T
+
+
 def init_unembed(rng: torch.Generator, vocab: int, d: int, dtype, *,
                  tie: bool):
     if tie:
         return {}
     return {"w": normal(rng, (vocab, d), d ** -0.5, dtype)}
+
+
+# ---------------------------------------------------------------------------
+# Stacked layers
+# ---------------------------------------------------------------------------
+
+
+def stack_init(make, n: int):
+    """``n`` draws of ``make()`` (a tree of tensors) stacked ``[n, ...]``
+    leaf by leaf, each draw written into its slice, so that only one
+    draw is live at once.  Nested, it gives the reference's ``[G, k,
+    ...]`` groups."""
+    first = make()
+    stacked = pytree.tree_map(
+        lambda t: torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
+                              device=t.device), first)
+    for dst, src in zip(pytree.tree_leaves(stacked),
+                        pytree.tree_leaves(first)):
+        dst[0] = src
+    del first
+    for i in range(1, n):
+        for dst, src in zip(pytree.tree_leaves(stacked),
+                            pytree.tree_leaves(make())):
+            dst[i] = src
+    return stacked
+
+
+def tree_index(tree, i: int):
+    """Slice ``i`` of every stacked leaf: views, in the tree's layout (a
+    tree of dicts; a plain walk, since it runs for every layer of every
+    decode step)."""
+    return {k: tree_index(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def checkpointed(block, remat: bool):
+    """``block`` run under ``torch.utils.checkpoint`` (non-reentrant) when
+    ``remat`` is set and gradients are recorded, else ``block`` itself:
+    the reference's per-layer ``jax.checkpoint``."""
+    if not (remat and torch.is_grad_enabled()):
+        return block
+    return lambda *a: torch.utils.checkpoint.checkpoint(
+        block, *a, use_reentrant=False)

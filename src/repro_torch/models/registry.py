@@ -1,10 +1,9 @@
 """Model registry: family -> implementation module, plus a uniform facade.
 
-Counterpart of ``repro/models/registry.py``.  The transformer's families
-(dense, moe, vlm) are ported; the others raise ``NotImplementedError``
-naming their ROADMAP items (A14b-3, A14b-4).
-The reference's ``abstract_params`` (a ``jax.eval_shape`` dry run) has no
-counterpart here.
+Counterpart of ``repro/models/registry.py``: every family of the reference
+is ported (dense, moe and vlm to the transformer, ssm to mamba2, hybrid to
+zamba2, audio to whisper).  The reference's ``abstract_params`` (a
+``jax.eval_shape`` dry run) has no counterpart here.
 """
 
 from __future__ import annotations
@@ -14,14 +13,17 @@ from typing import Any
 
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, mamba, transformer, whisper
 from repro_torch.models.common import ModelConfig
 
-_FAMILY_MODULES = {"dense": transformer, "moe": transformer,
-                   "vlm": transformer}
-
-#: the reference's other families, which wait for ROADMAP A14b
-_NOT_PORTED = ("ssm", "hybrid", "audio")
+_FAMILY_MODULES = {
+    "dense": transformer,
+    "moe": transformer,
+    "vlm": transformer,
+    "ssm": mamba,
+    "hybrid": hybrid,
+    "audio": whisper,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,10 +63,6 @@ class Model:
 
 
 def get_model(cfg: ModelConfig) -> Model:
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported to "
-            f"repro_torch yet (ROADMAP {transformer.family_item(cfg)})")
     if cfg.family not in _FAMILY_MODULES:
         raise KeyError(f"unknown family {cfg.family}")
     return Model(cfg, _FAMILY_MODULES[cfg.family])

@@ -5,8 +5,8 @@ bias (qwen), softcaps, local/global windows and post-norms (gemma2), the
 MoE FFN (llama4-scout 16e top-1, qwen3 128e top-8) with the combiner or
 materialize combine-back (``models/moe.py``), and the VLM stub
 (internvl2): precomputed patch embeddings are concatenated in front of
-the text embeddings.  The other families (ssm, hybrid, audio) raise
-``NotImplementedError`` naming their ROADMAP items (A14b-3, A14b-4).
+the text embeddings.  The registry routes the other families (ssm,
+hybrid, audio) to their own modules.
 
 Parameters are the reference's pytree, key for key, as dicts of tensors:
 ``{"embed": {"table"}, "layers": {...}, "ln_f": {"scale"}, "head": {"w"}}``,
@@ -29,34 +29,15 @@ Python int.
 from __future__ import annotations
 
 import torch
-import torch.utils.checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.layers import (apply_rope, embed, init_embed,
-                                       init_rmsnorm, init_swiglu,
-                                       init_unembed, rmsnorm, rope_table,
-                                       swiglu)
-
-#: the families this module runs
-FAMILIES = ("dense", "moe", "vlm")
-#: the ROADMAP items that port the other families
-FAMILY_ITEMS = {"ssm": "A14b-3 (SSM and hybrid)",
-                "hybrid": "A14b-3 (SSM and hybrid)",
-                "audio": "A14b-4 (whisper)"}
-
-
-def family_item(cfg: ModelConfig) -> str:
-    """The ROADMAP item that ports ``cfg``'s family."""
-    return FAMILY_ITEMS.get(cfg.family, "A14b (the other model families)")
-
-
-def _transformer_only(cfg: ModelConfig) -> None:
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported to "
-            f"repro_torch yet (ROADMAP {family_item(cfg)})")
+from repro_torch.models.layers import (apply_rope, checkpointed, embed,
+                                       init_embed, init_rmsnorm,
+                                       init_swiglu, init_unembed, rmsnorm,
+                                       rope_table, stack_init, swiglu,
+                                       tree_index)
 
 
 def _layer_windows(cfg: ModelConfig):
@@ -70,7 +51,6 @@ def _layer_windows(cfg: ModelConfig):
 
 
 def init_layer(rng: torch.Generator, cfg: ModelConfig):
-    _transformer_only(cfg)
     dev = rng.device
     p = {
         "ln_attn": init_rmsnorm(cfg.d_model, dev),
@@ -87,33 +67,12 @@ def init_layer(rng: torch.Generator, cfg: ModelConfig):
     return p
 
 
-def _stack_layers(rng: torch.Generator, cfg: ModelConfig):
-    """Every layer's parameters stacked ``[L, ...]``, one layer drawn at a
-    time into its slice (so only one layer's draw is live at once)."""
-    first = init_layer(rng, cfg)
-    stacked = {}
-    for name, sub in first.items():
-        stacked[name] = {}
-        for leaf, t in sub.items():
-            out = torch.empty((cfg.num_layers,) + tuple(t.shape),
-                              dtype=t.dtype, device=t.device)
-            out[0] = t
-            stacked[name][leaf] = out
-    del first
-    for i in range(1, cfg.num_layers):
-        layer = init_layer(rng, cfg)
-        for name, sub in layer.items():
-            for leaf, t in sub.items():
-                stacked[name][leaf][i] = t
-    return stacked
-
-
 def init_params(cfg: ModelConfig, rng: torch.Generator):
     """Random parameters drawn from ``rng``, on its device."""
-    _transformer_only(cfg)
     return {
         "embed": init_embed(rng, cfg.vocab_size, cfg.d_model, cfg.dtype),
-        "layers": _stack_layers(rng, cfg),  # stacked [L, ...]
+        "layers": stack_init(lambda: init_layer(rng, cfg),
+                             cfg.num_layers),  # stacked [L, ...]
         "ln_f": init_rmsnorm(cfg.d_model, rng.device),
         "head": init_unembed(rng, cfg.vocab_size, cfg.d_model, cfg.dtype,
                              tie=cfg.tie_embeddings),
@@ -122,8 +81,7 @@ def init_params(cfg: ModelConfig, rng: torch.Generator):
 
 def layer_params(params, i: int):
     """Layer ``i``'s parameters: views into the stacked leaves."""
-    return {name: {leaf: t[i] for leaf, t in sub.items()}
-            for name, sub in params["layers"].items()}
+    return tree_index(params["layers"], i)
 
 
 def _embed_in(cfg: ModelConfig, params, tokens, patches=None):
@@ -181,18 +139,11 @@ def forward(cfg: ModelConfig, params, batch, *, moe_mode: str = "combiner",
     as the reference's per-layer ``jax.checkpoint``.  ``moe_mode`` selects
     the MoE combine-back (``combiner`` or ``materialize``); the other
     families ignore it, as the reference does."""
-    _transformer_only(cfg)
     x = _embed_in(cfg, params, batch["tokens"], _patches(cfg, batch))
-    remat = remat and torch.is_grad_enabled()
+    block = checkpointed(_block_train, remat)
     lbs = []
     for i, window in enumerate(_layer_windows(cfg)):
-        p = layer_params(params, i)
-        if remat:
-            x, lb = torch.utils.checkpoint.checkpoint(
-                _block_train, cfg, p, x, window, moe_mode,
-                use_reentrant=False)
-        else:
-            x, lb = _block_train(cfg, p, x, window, moe_mode)
+        x, lb = block(cfg, layer_params(params, i), x, window, moe_mode)
         lbs.append(lb)
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
     lb = torch.stack(lbs).mean() if cfg.num_experts else 0.0
@@ -235,7 +186,6 @@ def decode_step(cfg: ModelConfig, params, state, tokens, *,
     and attends over positions ``<= pos``; under ``use_kernels`` (``None``:
     on when the tokens lie on a CUDA device) that attention is the
     ``flash_decode`` kernel."""
-    _transformer_only(cfg)
     if use_kernels is None:
         use_kernels = tokens.device.type == "cuda"
     pos = int(state["pos"])
@@ -263,27 +213,16 @@ def prefill(cfg: ModelConfig, params, batch, state, *,
     (rotated K) are written into the state's cache at positions ``[0, S)``,
     in place; for vlm S counts the patches in front of the tokens.  MoE
     layers combine back in ``moe_mode``."""
-    _transformer_only(cfg)
     x = _embed_in(cfg, params, batch["tokens"], _patches(cfg, batch))
     S = x.shape[1]
     cache = state["cache"]
-    quant = cache["k"].dtype == torch.int8
     cos, sin = rope_table(torch.arange(S, device=x.device), cfg.hd,
                           cfg.rope_theta)
     for i, window in enumerate(_layer_windows(cfg)):
         p = layer_params(params, i)
         h = rmsnorm(p["ln_attn"], x, cfg.norm_eps)
         k, v = attn._project_kv(cfg, p["attn"], h)
-        k_r = apply_rope(k, cos, sin)
-        if quant:
-            kq, ks = attn._quantize(k_r)
-            vq, vs = attn._quantize(v)
-            for name, new in (("k", kq), ("v", vq), ("k_scale", ks),
-                              ("v_scale", vs)):
-                cache[name][i, :, :S] = new
-        else:
-            cache["k"][i, :, :S] = k_r.to(cache["k"].dtype)
-            cache["v"][i, :, :S] = v.to(cache["v"].dtype)
+        attn.cache_fill(cache, i, apply_rope(k, cos, sin), v)
         a = attn.attn_train(cfg, p["attn"], h, window=window)
         if cfg.post_norms:
             a = rmsnorm(p["ln_post_attn"], a, cfg.norm_eps)

@@ -4,8 +4,8 @@ Counterpart of ``repro/serving/serve_step.py``.  Greedy decoding is an
 ``argmax`` and gives the reference's tokens for the same logits;
 temperature sampling draws from an explicit ``torch.Generator``, so it
 does not give JAX's bits.  ``generate``'s ``extra_batch`` carries the
-modality stubs' inputs (internvl ``patches``) to prefill; whisper's
-``frames`` wait for its model (ROADMAP A14b-4).
+modality stubs' inputs (internvl ``patches``, whisper ``frames``) to
+prefill.
 """
 
 from __future__ import annotations
@@ -66,7 +66,9 @@ def generate(model: Model, params, prompts, *, max_new: int = 16,
     """Greedy/temperature generation: prompts [B, S] -> tokens
     [B, max_new], on the prompts' device.  ``extra_batch`` carries the
     modality stubs' inputs (internvl "patches" [B, Pn, E], which take Pn
-    positions of the cache in front of the prompt).
+    positions of the cache in front of the prompt; whisper "frames" [B,
+    Sf, E], which take none: the cross K/V holds them, and whisper decodes
+    from the prompt's first token).
 
     ``stats``, when given, receives ``prefill_ms`` (host clock, between two
     device synchronisations), ``decode_ms`` (host clock over the whole

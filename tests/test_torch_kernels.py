@@ -18,7 +18,7 @@ jnp = pytest.importorskip("jax.numpy")
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch import numerics  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import _build, ops  # noqa: E402
 
 SUM_TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -168,6 +168,21 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     counts = ops.launch_counts()
     assert {"onehot_fold", "chunk_monoid_fold"} <= set(counts)
     assert set(counts.values()) == {0}, counts
+
+
+def test_launches_counted_by_key_and_reset_together():
+    """A launch counted with a key (flash_decode's KV positions) adds to
+    the kernel's count and to its key's; a launch with no key only to the
+    count; a reset clears both."""
+    ops.reset_launch_counts()
+    for key in (33, 1500, 33, None):
+        _build.count_launch("flash_decode", key=key)
+    assert ops.launch_counts()["flash_decode"] == 4
+    assert ops.launch_counts_by_key("flash_decode") == {33: 2, 1500: 1}
+    assert ops.launch_counts_by_key("segment_reduce") == {}
+    ops.reset_launch_counts()
+    assert ops.launch_counts()["flash_decode"] == 0
+    assert ops.launch_counts_by_key("flash_decode") == {}
 
 
 def _check_fold_plan(plan, n, k, d):

@@ -19,13 +19,14 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 jnp = jax.numpy
 
+from repro import configs as jconfigs  # noqa: E402
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
 from repro.models import transformer as jtr  # noqa: E402
 from repro.models.registry import get_model as jget_model  # noqa: E402
 from repro_torch import interop  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCHS, get_config  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import transformer as ttr  # noqa: E402
@@ -80,13 +81,27 @@ def test_llama3_8b_config_is_the_published_one():
     assert tr.dtype == torch.float32
 
 
-def test_unported_configs_and_families_name_their_roadmap_item():
-    with pytest.raises(KeyError, match="A14b"):
-        get_config("mamba2-2.7b")
-    cfg = get_config("llama3-8b")
-    for family in ("ssm", "hybrid", "audio"):
-        with pytest.raises(NotImplementedError, match="A14b"):
-            get_model(dataclasses.replace(cfg, family=family))
+@pytest.mark.parametrize("arch", jconfigs.ARCHS)
+def test_every_architecture_resolves_to_the_reference_config(arch):
+    """All ten architectures, in the reference's order: the config field for
+    field (dtype aside, bf16 in both) and a model of its family."""
+    assert ARCHS == jconfigs.ARCHS
+    j, t = jget_config(arch), get_config(arch)
+    for f in dataclasses.fields(j):
+        if f.name != "dtype":
+            assert getattr(t, f.name) == getattr(j, f.name), f.name
+    assert t.dtype == torch.bfloat16 and j.dtype == jnp.bfloat16
+    model = get_model(t)
+    assert model.module.__name__.rsplit(".", 1)[1] == jget_model(
+        j).module.__name__.rsplit(".", 1)[1]
+
+
+def test_unknown_architecture_and_family_raise_key_error():
+    with pytest.raises(KeyError, match="A14b-5"):
+        get_config("gpt-2")
+    with pytest.raises(KeyError, match="unknown family"):
+        get_model(dataclasses.replace(get_config("llama3-8b"),
+                                      family="diffusion"))
 
 
 @pytest.mark.parametrize("over", [{}, {"qkv_bias": True, "num_layers": 3},
@@ -140,6 +155,51 @@ def test_rope(theta):
     want = jlayers.apply_rope(jnp.asarray(x), jc, js)
     got = tlayers.apply_rope(torch.from_numpy(x), torch.from_numpy(
         np.array(jc)), torch.from_numpy(np.array(js)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("eps", [1e-6, 1e-5])
+def test_layernorm(eps):
+    """The population variance (``jnp.var``), not torch's default unbiased
+    one; a large mean, where the two variances' forms differ most."""
+    x = _x(0, 3, 5, 64) * 3.0 + 20.0
+    p = {"scale": _x(1, 64) + 1.0, "bias": _x(2, 64) * 0.1}
+    want = jlayers.layernorm({k: jnp.asarray(v) for k, v in p.items()},
+                             jnp.asarray(x), eps)
+    got = tlayers.layernorm({k: torch.from_numpy(v) for k, v in p.items()},
+                            torch.from_numpy(x), eps)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    init = tlayers.init_layernorm(64)
+    jinit = jlayers.init_layernorm(64)
+    for k in jinit:
+        np.testing.assert_array_equal(init[k].numpy(), np.asarray(jinit[k]))
+
+
+@pytest.mark.parametrize("act", ["gelu", "silu", "relu"])
+def test_mlp(act):
+    """``mlp`` (whisper's feed-forward, tanh GELU as ``jax.nn.gelu``) on
+    the reference's parameters, with nonzero biases."""
+    p = _np(jlayers.init_mlp(jax.random.PRNGKey(4), 32, 48, jnp.float32))
+    p["b1"], p["b2"] = _x(5, 48), _x(6, 32)
+    x = _x(7, 2, 7, 32)
+    want = jlayers.mlp(jax.tree.map(jnp.asarray, p), jnp.asarray(x), act)
+    got = tlayers.mlp(_t(p), torch.from_numpy(x), act)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    tp = tlayers.init_mlp(torch.Generator().manual_seed(0), 32, 48,
+                          torch.float32)
+    assert {k: tuple(v.shape) for k, v in tp.items()} == {
+        k: v.shape for k, v in p.items()}
+
+
+@pytest.mark.parametrize("tie", [False, True])
+def test_unembed(tie):
+    pe = {"table": _x(8, 40, 32)}
+    ph = {} if tie else {"w": _x(9, 40, 32)}
+    x = _x(10, 2, 3, 32)
+    want = jlayers.unembed(jax.tree.map(jnp.asarray, pe),
+                           jax.tree.map(jnp.asarray, ph), jnp.asarray(x),
+                           tie=tie)
+    got = tlayers.unembed(_t(pe), _t(ph), torch.from_numpy(x), tie=tie)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
@@ -272,7 +332,13 @@ def test_takes_flash_decode_only_where_it_computes_the_same_function(
             (tcfg, {"deferred_write": True}, False),
             (dataclasses.replace(tcfg, attn_softcap=5.0), {}, False),
             (tcfg, {"cross_kv": (torch.zeros(2, 3, 2, 16),
-                                 torch.zeros(2, 3, 2, 16))}, False)):
+                                 torch.zeros(2, 3, 2, 16))}, True),
+            (tcfg, {"cross_kv": (torch.zeros(2, 3, 2, 16),
+                                 torch.zeros(2, 3, 2, 16)), "window": 4},
+             True),
+            (dataclasses.replace(tcfg, attn_softcap=5.0),
+             {"cross_kv": (torch.zeros(2, 3, 2, 16),
+                           torch.zeros(2, 3, 2, 16))}, False)):
         calls.clear()
         cache = tattn.init_kv_cache(cfg, 2, 8, layers=1)
         cache = {k: v[0] for k, v in cache.items()}

@@ -7,8 +7,9 @@ checkpoints on the CPU.
   losses; without ``--ckpt-dir`` the failure propagates.
 * ``make_batch_fn``: the dense family's batches are
   ``data.pipeline.global_batch``'s; vlm's add patches and -1 labels over
-  them (bit for bit the reference's: ``test_torch_vlm.py``); audio names
-  ROADMAP A14b-4.
+  them (bit for bit the reference's: ``test_torch_vlm.py``); audio's add
+  the step's frames and cut tokens and labels to ``dec_len`` (bit for bit
+  the reference's: ``test_torch_whisper.py``).
 * A train-state checkpoint written by the port restores in the
   reference's ``ckpt.restore`` into its own ``init_opt_state`` tree bit
   for bit, and a reference one restores in the port (JAX's leaf order on
@@ -129,8 +130,16 @@ def test_make_batch_fn():
     assert (vlm["labels"][:, :pn] == -1).all()
     np.testing.assert_array_equal(vlm["labels"][:, pn:],
                                   pipeline.global_batch(dc, 3)["labels"])
-    with pytest.raises(NotImplementedError, match="A14b-4"):
-        launch.make_batch_fn(dataclasses.replace(cfg, family="audio"), dc)
+    audio_cfg = dataclasses.replace(cfg, family="audio", dec_len=5)
+    audio = launch.make_batch_fn(audio_cfg, dc)(3)
+    want = pipeline.global_batch(dc, 3)
+    assert audio["frames"].shape == (2, 8, cfg.d_model)
+    assert audio["frames"].dtype == np.float32
+    np.testing.assert_array_equal(
+        audio["frames"], np.random.default_rng(3).standard_normal(
+            (2, 8, cfg.d_model)).astype(np.float32))
+    for k in ("tokens", "labels"):
+        np.testing.assert_array_equal(audio[k], want[k][:, :5])
 
 
 # ---------------------------------------------------------------------------
