@@ -239,11 +239,11 @@ Phases (each raises on failure, and the script then exits non-zero):
    printed: at 48 layers that rounding alone reaches the gate, and the
    newest-position fault moves qwen3-moe's logits by less than it; every
    fault must miss 1e-5 in the decode's own flash_decode calls): (a)
-   qwen3-moe-30b-a3b at full width and depth (48 layers, 128 experts
-   top-8; flash_decode 48 x 31 times at G = 8), (b)
-   llama4-scout-17b-a16e at full width, 48 -> 4 layers (16 experts top-1;
-   4 x 31 at G = 5), (c) internvl2-26b at full width and depth, 256 random
-   patch embeddings in front of the prompt (48 x 31 at G = 6, S = 2336).
+   qwen3-moe-30b-a3b at full width, 48 -> 12 layers (128 experts top-8;
+   flash_decode 12 x 31 times at G = 8), (b) llama4-scout-17b-a16e at
+   full width, 48 -> 4 layers (16 experts top-1; 4 x 31 at G = 5), (c)
+   internvl2-26b at full width, 48 -> 12 layers, 256 random patch
+   embeddings in front of the prompt (12 x 31 at G = 6, S = 2336).
    The compared and faulty decodes replay the kernel decode's routing,
    and the routing flips the plain decode would have taken are counted
    and printed; one decode step of each model is profiled.  For
@@ -275,16 +275,16 @@ Phases (each raises on failure, and the script then exits non-zero):
    ROADMAP C.69), and zamba2 served again in f32 with the logits within
    F32_LOGIT_TOL and every fault outside; the prefills and one decode
    step profiled.  (c) The SSD prefill against the recurrence in f32 at
-   full width and depth (mamba2-2.7b and zamba2-1.2b, 2 x 512 tokens,
-   two chunks): the prefill's last position and one step after it, and
+   full width (mamba2-2.7b at 32 of 64 layers and zamba2-1.2b at 20 of
+   38, 2 x 512 tokens, two chunks): the prefill's last position and one step after it, and
    the chunked forward at every position, against 512 single-token
    decode steps, within SSD_TOL on the softmax (the reference's test) and
    on the logits (C.68); the exclusive inter-chunk state made inclusive
    and the decode's conv window shifted by one must each fail it.  (d)
    ``train_step`` at full width, combiner accumulation, 2 microbatches,
    the published chunk of 256: mamba2-2.7b at 8 of 64 layers and
-   zamba2-1.2b whole (2 x 1024 tokens), whisper-medium whole (2 x 1500
-   frames, 448 tokens); losses finite and falling, every gradient finite,
+   zamba2-1.2b at 14 of 38 (2 x 1024 tokens), whisper-medium whole (2 x
+   1500 frames, 448 tokens); losses finite and falling, every gradient finite,
    two steps from one cloned state bit for bit; step ms, tokens/s, peak
    memory.
 
@@ -4532,9 +4532,11 @@ def train_on_card(card: str) -> dict:
 
 #: (arch, layers; None: full depth) served at full width, batch 4, a
 #: 2048-token prompt, 32 new tokens: llama4-scout-17b-a16e cut 48 -> 4
-#: layers (all 48 are 203 GB in bf16)
-MOE_SERVE = (("qwen3-moe-30b-a3b", None), ("llama4-scout-17b-a16e", 4),
-             ("internvl2-26b", None))
+#: layers (all 48 are 203 GB in bf16); qwen3-moe-30b-a3b and internvl2-26b
+#: cut 48 -> 12 to keep the script within its time (served whole they
+#: took 91.6 s and 51.0 s of the phase; PERF.md keeps those numbers)
+MOE_SERVE = (("qwen3-moe-30b-a3b", 12), ("llama4-scout-17b-a16e", 4),
+             ("internvl2-26b", 12))
 #: (arch, global batch, microbatches, MoE modes) trained at full width,
 #: 48 -> 2 layers, 1024 tokens a row (internvl2: 256 patches in front)
 MOE_TRAIN = (("qwen3-moe-30b-a3b", 8, 4, ("combiner", "materialize")),
@@ -4819,8 +4821,8 @@ def train_run(card: str, arch: str, gbatch: int, mbs: int, modes, *,
 
 def moe_on_card(card: str) -> dict:
     """Phase 15, after phase 14 has released its memory: serve
-    qwen3-moe-30b-a3b (48 layers), llama4-scout-17b-a16e (4 of 48) and
-    internvl2-26b (48) at full width through ``generate``
+    qwen3-moe-30b-a3b (12 of 48 layers), llama4-scout-17b-a16e (4 of 48)
+    and internvl2-26b (12 of 48) at full width through ``generate``
     (:func:`serve_model`), then train qwen3-moe-30b-a3b in both MoE modes
     and internvl2-26b with patches, 2 layers each (:func:`train_run`)."""
     import gc
@@ -4850,13 +4852,17 @@ def moe_on_card(card: str) -> dict:
 SSM_SERVE = ("mamba2-2.7b", "zamba2-1.2b", "whisper-medium")
 #: (arch, layers (None: all), global batch, microbatches, positions a row)
 #: trained at full width, combiner accumulation: mamba2 cut 64 -> 8 layers
-#: at the published chunk of 256 (where C.63 would show), zamba2 and
-#: whisper whole (whisper: 1500 frames, tokens cut to dec_len = 448)
-SSM_TRAIN = (("mamba2-2.7b", 8, 2, 2, 1024), ("zamba2-1.2b", None, 2, 2, 1024),
+#: at the published chunk of 256 (where C.63 would show), zamba2 cut 38 ->
+#: 14 (two groups of 6 and the tail of 2) for time, whisper whole (1500
+#: frames, tokens cut to dec_len = 448)
+SSM_TRAIN = (("mamba2-2.7b", 8, 2, 2, 1024), ("zamba2-1.2b", 14, 2, 2, 1024),
              ("whisper-medium", None, 2, 2, WHISPER_FRAMES))
-#: the SSD prefill against the recurrence (f32, full width and depth): a
-#: prompt of SSD_LEN tokens (two chunks), batch SSD_BATCH
+#: the SSD prefill against the recurrence (f32, full width): a prompt of
+#: SSD_LEN tokens (two chunks), batch SSD_BATCH, SSD_LAYERS deep (mamba2 64
+#: -> 32, zamba2 38 -> 20: three groups of 6 and the tail; at full depth
+#: they took 35.5 s and 28.0 s of the phase)
 SSD_LEN, SSD_BATCH = 512, 2
+SSD_LAYERS = {"mamba2-2.7b": 32, "zamba2-1.2b": 20}
 #: the reference's own tolerance on the softmax
 #: (tests/models/test_prefill_consistency.py), applied also to the logits
 #: (rms and max, relative, as the serve gate reads them): at a vocabulary
@@ -4958,11 +4964,12 @@ def ssd_gap(la, lb) -> dict:
 
 
 def ssd_check(card: str, arch: str) -> dict:
-    """Phase 16 (c): ``arch`` at full width and depth in f32 (IEEE matmuls),
-    random weights from seed 0, a prompt of SSD_LEN random tokens, batch
-    SSD_BATCH, against the same prompt decoded one token at a time (the
-    recurrence): the chunked-SSD prefill's last-position logits and one
-    step after it (``last``, the reference's test), and the chunked
+    """Phase 16 (c): ``arch`` at full width, SSD_LAYERS deep, in f32 (IEEE
+    matmuls), random weights from seed 0, a prompt of SSD_LEN random
+    tokens, batch SSD_BATCH, against the same prompt decoded one token at
+    a time (the recurrence): the chunked-SSD prefill's last-position
+    logits and one step after it (``last``, the reference's test), and the
+    chunked
     forward's logits at every position (``every``: the reference's random
     init decays a state within a few tokens, A = -1, so only the first
     positions of a chunk read the state entering it), each within SSD_TOL
@@ -4981,7 +4988,8 @@ def ssd_check(card: str, arch: str) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    cfg = dataclasses.replace(get_config(arch), dtype=torch.float32)
+    cfg = dataclasses.replace(get_config(arch), dtype=torch.float32,
+                              num_layers=SSD_LAYERS[arch])
     model = get_model(cfg)
     params = model.init_params(torch.Generator("cuda").manual_seed(0))
     prompt = torch.randint(
@@ -5081,6 +5089,285 @@ def ssm_on_card(card: str) -> dict:
     return out
 
 
+# -- phase 17: sharding and the dry-run (A14b-5) -------------------------------
+
+#: the dry-run's gated cells (the reference's
+#: test_dryrun_smallmesh_train_and_decode), on the pod mesh
+DRYRUN_CELLS = (("llama3-8b", "train_4k"), ("qwen3-moe-30b-a3b", "decode_32k"))
+DRYRUN_TIMEOUT_S = 240
+#: the sharded step's steps from the cloned state (the first at rate 0)
+SHARD_STEPS = 3
+
+
+def start_dryruns(out_dir: str) -> list:
+    """Phase 17 (c), started first so that it overlaps (a) and (b): one
+    ``python -m repro_torch.launch.dryrun`` process a cell, on the CPU."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        procs.append(((arch, shape), subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "pod", "--out", out_dir],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    return procs
+
+
+def spec_argument_bytes(arch: str, shape_name: str) -> int:
+    """A dry-run cell's argument bytes a chip from the specs' arithmetic on
+    a shape-only 16 x 16 mesh (each leaf's dims divided by the sizes of the
+    axes that shard them), independent of the DTensors the dry-run
+    builds."""
+    import torch
+    from repro_torch.checkpoint.ckpt import flatten
+    from repro_torch.configs import (SHAPES, default_kv_dtype, get_config,
+                                     input_specs, state_specs)
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.registry import get_model
+    from repro_torch.training.train_step import abstract_train_state
+
+    class Pod:
+        shape = {"data": 16, "model": 16}
+
+    def nbytes(tree, specs):  # the state's position lives on the host
+        total = 0
+        for (keys, x), sp in zip(shd.leaves_with_paths(tree),
+                                 flatten(specs)[0]):
+            if isinstance(x, torch.Tensor) and keys[-1:] != ("pos",):
+                n = 1
+                for d in shd.local_shape(x.shape, sp, Pod):
+                    n *= d
+                total += n * x.element_size()
+        return total
+
+    cfg, shape = get_config(arch), SHAPES[shape_name]
+    model = get_model(cfg)
+    inputs = input_specs(cfg, shape)
+    if shape.kind == "train":
+        opt = abstract_train_state(model)
+        return (nbytes(opt, shd.param_pspecs(opt, Pod))
+                + nbytes(inputs, shd.batch_pspecs(inputs, Pod)))
+    params = model.abstract_params()
+    state = state_specs(cfg, shape, kv_dtype=default_kv_dtype(arch,
+                                                              shape_name))
+    toks = inputs["tokens"]
+    return (nbytes(params, shd.param_pspecs(params, Pod, fsdp=False))
+            + nbytes(state, shd.decode_state_pspecs(state, Pod, cfg))
+            + nbytes(toks, shd.tokens_pspec(shape.global_batch, Pod)))
+
+
+def finish_dryruns(procs, out_dir: str, card: str) -> dict:
+    """Phase 17 (c): each dry-run process exits 0 with its cell ``ok``,
+    its argument bytes equal to :func:`spec_argument_bytes`, and no CUDA
+    context made."""
+    import os
+
+    import torch
+
+    rows = {}
+    for (arch, shape), proc in procs:
+        try:
+            text, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        finally:
+            proc.kill()
+        path = os.path.join(out_dir, f"{arch}_{shape}_pod.json")
+        if proc.returncode != 0 or not os.path.exists(path):
+            raise AssertionError(f"dry-run {arch} x {shape}: exit "
+                                 f"{proc.returncode}: {text[-3000:]}")
+        with open(path) as f:
+            r = json.load(f)
+        want = spec_argument_bytes(arch, shape)
+        mem, rl = r["memory"], r["roofline"]
+        row = {"status": r["status"], "trace_s": r["compile_s"],
+               "argument_bytes": mem["argument_bytes"],
+               "spec_argument_bytes": want,
+               "peak_per_chip_gib": mem["peak_per_chip_gib"],
+               "fits": mem["fits"], "dominant": rl["dominant"],
+               "step_s": rl["step_s"], "mfu": rl["mfu"],
+               "attention": r["attention"],
+               "cuda_initialized": r["cuda_initialized"],
+               "n_params": r["n_params"], "n_active": r["n_active"],
+               "modelled": "H100 SXM5 data-sheet roofline of a 256-card "
+                           "mesh, not a measurement"}
+        rows[f"{arch}/{shape}"] = row
+        log(f"dry-run {arch} x {shape} (pod, 256 ranks, fake): {row}")
+        if r["status"] != "ok" or mem["argument_bytes"] != want or r[
+                "cuda_initialized"]:
+            raise AssertionError(f"dry-run {arch} x {shape}: {row}")
+    rows["card_total_memory_bytes"] = torch.cuda.get_device_properties(
+        0).total_memory
+    rows["dryrun_card_bytes"] = 80e9
+    log(f"dry-run: the card holds {rows['card_total_memory_bytes']} B "
+        f"against the dry-run's 80 GB [{card}]")
+    return rows
+
+
+def sharding_on_card(card: str) -> dict:
+    """Phase 17: (a) the sharded train step and (b) the elastic restore
+    at world size 1 over NCCL, a ``("data", "model")`` mesh of (1, 1); (c)
+    the dry-run of two cells in subprocesses on the CPU, started first."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"card": card, "resident_bytes_at_start":
+           torch.cuda.memory_allocated()}
+    tmp = tempfile.mkdtemp()
+    procs = start_dryruns(tmp)
+    try:
+        sharded_train_and_restore(card, out, tmp)
+        out["dryrun"] = finish_dryruns(procs, tmp, card)
+    finally:
+        for _, proc in procs:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    log(f"sharding: phase 17 in {out['phase_wall_s']:.1f} s [{card}]")
+    return out
+
+
+def sharded_train_and_restore(card: str, out: dict, tmp: str) -> None:
+    """Phase 17 (a) and (b), into ``out``."""
+    import dataclasses
+    import gc
+    import socket
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.checkpoint.ckpt import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, global_batch
+    from repro_torch.distributed import elastic
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.registry import get_model
+    from repro_torch.training import optim
+    from repro_torch.training.train_step import (TrainConfig,
+                                                 init_train_state,
+                                                 make_train_step)
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_test_mesh(1, 1)
+        arch, gbatch, mbs, _ = TRAIN_CELLS[0]  # phase 14's llama3-8b cell
+        cfg = dataclasses.replace(get_config(arch), num_layers=TRAIN_LAYERS)
+        model = get_model(cfg)
+        tc = TrainConfig(adam=optim.AdamWConfig(lr=TRAIN_LR),
+                         num_microbatches=mbs, warmup_steps=1,
+                         total_steps=50, vocab_chunk=TRAIN_CHUNK)
+        dc = DataConfig(seed=0, vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                        global_batch=gbatch)
+        batches = [global_batch(dc, i) for i in range(SHARD_STEPS)]
+        state = init_train_state(model, torch.Generator("cuda").manual_seed(0))
+        host = tree_to(state, "cpu")
+        del state
+        torch.cuda.empty_cache()
+        pspecs = shd.param_pspecs(host["master"], mesh)
+        runs = {}
+        for label in ("unsharded", "sharded"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            st = tree_to(host, "cuda")
+            if label == "sharded":
+                st = shd.distribute(st, shd.param_shardings(st, mesh))
+                step = make_train_step(
+                    model, tc, param_pspecs=pspecs,
+                    batch_pspecs=shd.batch_pspecs(batches[0], mesh))
+            else:
+                step = make_train_step(model, tc)
+            resident = torch.cuda.memory_allocated() - base
+            losses, gnorms, ms = [], [], []
+            for b in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, m = step(st, b)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(m["loss"]))
+                gnorms.append(float(m["grad_norm"]))
+            local = {k: optim.tree_map(
+                lambda x: x.to_local() if hasattr(x, "to_local") else x,
+                st[k]) for k in ("master", "m", "v")}
+            runs[label] = {
+                "losses": losses, "grad_norms": gnorms, "step_ms": ms,
+                "step_ms_warm_median": float(np.median(ms[1:])),
+                "peak_bytes_above_resident":
+                    torch.cuda.max_memory_allocated() - base - resident,
+                "digest": state_digest(local),
+                "comm_bytes": dict(getattr(step, "comm", {}))}
+            if label == "unsharded":  # (b) saves these parameters
+                params = optim.model_params({"master": local["master"]},
+                                            cfg.dtype)
+                params = tree_to(params, "cpu")
+            del st, local, m
+            gc.collect()
+            torch.cuda.empty_cache()
+        a, b = runs["unsharded"], runs["sharded"]
+        same = (a["losses"] == b["losses"] and a["grad_norms"]
+                == b["grad_norms"] and a["digest"] == b["digest"])
+        for r in runs.values():
+            del r["digest"]
+        out["train"] = {"arch": arch, "layers": cfg.num_layers,
+                        "batch": gbatch, "seq": TRAIN_SEQ,
+                        "microbatches": mbs, "mesh": [1, 1],
+                        "bit_for_bit": same, **runs}
+        log(f"sharding: {arch} {cfg.num_layers} layers, sharded step at "
+            f"world 1 against the unsharded one: bit for bit {same}; "
+            f"{runs} [{card}]")
+        if not same:
+            raise AssertionError(f"sharding: the sharded step at world 1 "
+                                 f"differs from the unsharded: {runs}")
+        # (b) the bf16 parameters saved and restored through elastic_restore
+        d = tempfile.mkdtemp(dir=tmp)
+        sharded = shd.distribute(tree_to(params, "cuda"),
+                                 shd.param_shardings(params, mesh))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save(d, 1, sharded)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        restored, step_no = elastic.elastic_restore(d, params, mesh)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        got = [x.to_local() for x in flatten(restored)[0]]
+        want = [x.to_local() for x in flatten(sharded)[0]]
+        same = step_no == 1 and all(
+            g.dtype == w.dtype and torch.equal(
+                g.contiguous().view(torch.uint8),
+                w.contiguous().view(torch.uint8))
+            for g, w in zip(got, want))
+        nbytes = sum(x.numel() * x.element_size() for x in want)
+        out["elastic"] = {"bytes": nbytes, "save_ms": save_ms,
+                          "restore_ms": restore_ms, "bit_for_bit": same,
+                          "grid_of_8": list(elastic.best_grid(8))}
+        log(f"sharding: elastic_restore of {nbytes} B of bf16 parameters "
+            f"at world 1: save {save_ms:.0f} ms, restore {restore_ms:.0f} "
+            f"ms, bit for bit {same} [{card}]")
+        del sharded, restored, got, want, params
+        if not same:
+            raise AssertionError("sharding: elastic_restore changed bits")
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -5145,6 +5432,7 @@ def main() -> int:
     log(json.dumps({"train": train_on_card(card)}))
     moe = moe_on_card(card)
     ssm = ssm_on_card(card)
+    log(json.dumps({"sharding": sharding_on_card(card)}))
 
     rows = kernel_rows(rng, launches_add, launches_dense, ops_count)
     for row in rows:  # B1, B2: their launches on the streaming path too

@@ -149,6 +149,14 @@ def unflatten(example, leaves: list):
     return _build(example, iter(leaves))
 
 
+def _whole(x):
+    """A DTensor leaf's whole tensor (an all-gather: every rank of its mesh
+    calls), any other leaf as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
 def _to_numpy(x) -> tuple[np.ndarray, str]:
     """A leaf as the array written to disk, with its manifest dtype."""
     if isinstance(x, torch.Tensor):
@@ -173,12 +181,32 @@ def _from_numpy(a: np.ndarray, dtype: str, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _sharded(leaves) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return any(isinstance(x, DTensor) for x in leaves)
+
+
 def save(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3) -> str:
     """Write ``tree`` (tensors, numpy arrays or numbers at the leaves) as
     ``step`` atomically, move ``LATEST`` to it and keep the newest
-    ``keep`` steps; returns the step's directory."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    ``keep`` steps; returns the step's directory.
+
+    DTensor leaves (a sharded train state) are written whole, in the
+    layout the reference writes: every rank of the process group calls
+    ``save`` (each leaf's shards are all-gathered), rank 0 writes, and all
+    ranks return once the step is on disk."""
     leaves, treedef = flatten(tree)
+    if _sharded(leaves):
+        import torch.distributed as dist
+
+        whole = unflatten(tree, [_whole(x) for x in leaves])
+        final = os.path.join(ckpt_dir, f"step_{step}")
+        if dist.get_rank() == 0:
+            final = save(ckpt_dir, step, whole, keep=keep)
+        dist.barrier()
+        return final
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = os.path.join(ckpt_dir, f"step_{step}.tmp")
     final = os.path.join(ckpt_dir, f"step_{step}")
     os.makedirs(tmp, exist_ok=True)
@@ -365,14 +393,17 @@ def restore(ckpt_dir: str, example_tree: Any, *, step: int | None = None,
     corrupt ones are quarantined with a ``RuntimeWarning`` and skipped, so
     a torn newest write degrades to the previous checkpoint.
 
-    ``shardings`` (the reference's restore resharded onto a mesh, which
-    ``elastic_restore`` uses for FSDP parameters) comes with the
-    parameter sharding rules (ROADMAP A14b)."""
+    ``shardings`` (a ``distributed.sharding.Sharding`` a leaf, as
+    ``param_shardings`` gives them) restores onto a mesh instead: each
+    leaf is read whole and every rank keeps its shard, as DTensors
+    (``sharding.distribute``), on the mesh's device type."""
     if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=...) reshards FSDP parameters through "
-            "distributed/sharding.py, which is not ported to repro_torch "
-            "yet (ROADMAP A14b); restore onto one device with device=")
+        from repro_torch.distributed.sharding import distribute
+
+        mesh = flatten(shardings)[0][0].mesh
+        tree, step = restore(ckpt_dir, example_tree, step=step,
+                             device=mesh.device_type)
+        return distribute(tree, shardings), step
     dev = resolve_device(device)
     if step is not None:
         try:

@@ -171,3 +171,43 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check("flash_decode", lib, err)
     _build.count_launch("flash_decode", key=S)  # by KV positions
     return out
+
+
+# ---------------------------------------------------------------------------
+# Tracing under fake tensors (the dry-run)
+# ---------------------------------------------------------------------------
+
+_TRACED_OP = None
+
+
+def traced_op():
+    """The kernel as the dispatcher op ``repro_torch::flash_decode``, made
+    on first use: its fake implementation gives the f32 ``[B, H, D]``
+    output's shape, so that a step traced under ``FakeTensorMode`` counts
+    one op with the kernel's inputs and output where a real step launches
+    it.  On real tensors the op is ``ops.flash_decode``."""
+    global _TRACED_OP
+    if _TRACED_OP is None:
+
+        @torch.library.custom_op("repro_torch::flash_decode",
+                                 mutates_args=())
+        def _op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                kv_len: torch.Tensor) -> torch.Tensor:
+            from repro_torch.kernels import ops
+
+            return ops.flash_decode(q, k, v, kv_len)
+
+        @_op.register_fake
+        def _(q, k, v, kv_len):
+            return q.new_empty(tuple(q.shape), dtype=torch.float32)
+
+        _TRACED_OP = _op
+    return _TRACED_OP
+
+
+def traced_flops(q_shape, k_shape, v_shape, kv_len_shape, *,
+                 out_shape=None, **_) -> int:
+    """``FlopCounterMode`` formula of :func:`traced_op`: q·Kᵀ and p·V over
+    all S positions, 4·B·H·S·D."""
+    B, H, D = q_shape
+    return 4 * B * H * k_shape[1] * D

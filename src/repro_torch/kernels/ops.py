@@ -764,6 +764,10 @@ def flash_decode(q, k, v, kv_len, *, tile_s=512):
     if len(devices) != 1:
         raise ValueError(f"flash_decode: inputs lie on different devices "
                          f"{sorted(map(str, devices))}")
+    from torch._subclasses.fake_tensor import is_fake
+
+    if is_fake(q):  # traced, not run: the kernel as one dispatcher op
+        return _fd.traced_op()(q, k, v, kv_len)
     if q.device.type == "cpu":
         return _fd.flash_decode_plain(q, k, v, kv_len)
     if q.dtype not in (torch.float32, torch.bfloat16) or not (

@@ -5,8 +5,9 @@ are ``[B, S, heads, hd]``, the cache ``[L, B, S, Kv, hd]`` (with int8
 caches, per-position-head f32 scales ``[L, B, S, Kv, 1]``).  Options cover
 QKV bias (qwen), attention softcaps and sliding windows (gemma2),
 cross-attention (whisper's decoder) and int8 caches.  The reference's
-``act_sharding`` constraints pin shardings on a mesh and are identities on
-one device, so they are dropped.
+``act_sharding`` hints are called where it calls them; they act on a
+DTensor with a mesh registered and are identities otherwise (one ``None``
+check each: the models compute on plain tensors, ROADMAP C.70).
 
 Two differences on purpose:
 
@@ -32,6 +33,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import act_sharding as acts
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import apply_rope, normal, rope_table
 
@@ -110,6 +112,7 @@ def _attend(cfg, q, k, v, *, causal, window, q_offset, kv_x_is_none, T):
     """Attention for a (possibly chunked) query block. q [B,Sq,H,D]."""
     Sq = q.shape[1]
     logits = _gqa_logits(q, k).to(torch.float32) * (cfg.hd ** -0.5)
+    logits = acts.attn_weights(logits)  # pin batch/head/query sharding
     logits = _softcap(logits, cfg.attn_softcap)
     if causal and kv_x_is_none:
         i = q_offset + torch.arange(Sq, device=q.device)[:, None]
@@ -117,7 +120,8 @@ def _attend(cfg, q, k, v, *, causal, window, q_offset, kv_x_is_none, T):
         mask = _window_mask(j <= i, i, j, window, T)
         logits = torch.where(mask[None, None, None], logits, NEG_INF)
     w = torch.softmax(logits, dim=-1).to(v.dtype)
-    return _gqa_out(w, v)
+    w = acts.attn_weights(w)
+    return acts.batch_major(_gqa_out(w, v))
 
 
 def attn_train(
@@ -142,6 +146,11 @@ def attn_train(
     src = x if kv_x is None else kv_x
     k, v = _project_kv(cfg, p, src)
     T = k.shape[1]
+
+    if not acts.heads_even(cfg.num_kv_heads):
+        # sequence parallelism: uneven head counts (40 over 16) cannot
+        # carry the model axis, so the query sequence does
+        q = acts.seq_major(q, axis=1)
 
     if rope and kv_x is None:
         pos = (positions if positions is not None
@@ -303,6 +312,7 @@ def attn_decode(
         return out @ p["wo"], layer_cache
 
     logits = _gqa_logits(q, k).to(torch.float32) * (cfg.hd ** -0.5)
+    logits = acts.attn_weights(logits)
     logits = _softcap(logits, cfg.attn_softcap)
     logits = torch.where(valid[None, None, None, None, :], logits, NEG_INF)
 

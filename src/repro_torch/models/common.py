@@ -3,9 +3,11 @@
 Counterpart of ``repro/models/common.py``: :class:`ModelConfig` keeps the
 reference's fields, defaults and derived sizes, with ``dtype`` a
 ``torch.dtype`` (the reference's ``jnp.bfloat16`` is ``torch.bfloat16``).
-The reference's mesh and sharding helpers (``pick``, ``dp_axes``,
-``param_spec``) are not ported: the port runs on one card, where there is
-no mesh to shard over.
+The sharding helpers (``pick``, ``dp_axes``, ``param_spec``) keep the
+reference's logic over :class:`P`, the port's ``PartitionSpec``, and read a
+mesh through :func:`mesh_shape`: a ``torch.distributed`` ``DeviceMesh`` or
+any object whose ``.shape`` maps axis names to sizes, so that the rules run
+with no device and no process group.
 """
 
 from __future__ import annotations
@@ -112,3 +114,114 @@ class ModelConfig:
         )
         base.update(overrides)
         return dataclasses.replace(self, **base)
+
+
+# ---------------------------------------------------------------------------
+# Sharding helpers
+# ---------------------------------------------------------------------------
+
+
+def _canonical(entry):
+    """A spec entry as JAX's ``PartitionSpec`` stores it: a tuple of no
+    name is ``None``, a tuple of one name is the name."""
+    if isinstance(entry, (tuple, list)):
+        entry = tuple(entry)
+        return None if not entry else entry[0] if len(entry) == 1 else entry
+    return entry
+
+
+class P:
+    """A partition spec: one entry a tensor dimension, each ``None``
+    (replicated), an axis name, or a tuple of axis names (major to minor).
+    Entries are stored as JAX's ``PartitionSpec`` stores them
+    (:func:`_canonical`).  Not a tuple, so that tree walkers take it for a leaf."""
+
+    __slots__ = ("entries",)
+
+    def __init__(self, *entries):
+        self.entries = tuple(_canonical(e) for e in entries)
+
+    def __iter__(self):
+        return iter(self.entries)
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+    def __getitem__(self, i):
+        return self.entries[i]
+
+    def __eq__(self, other) -> bool:
+        if isinstance(other, P):
+            return self.entries == other.entries
+        return NotImplemented
+
+    def __hash__(self) -> int:
+        return hash(self.entries)
+
+    def __repr__(self) -> str:
+        return f"P{self.entries!r}" if len(self.entries) != 1 else (
+            f"P({self.entries[0]!r})")
+
+    def axes(self) -> tuple:
+        """Every axis name the spec uses, in order."""
+        out = []
+        for e in self.entries:
+            out += [e] if isinstance(e, str) else list(e or ())
+        return tuple(out)
+
+
+def mesh_shape(mesh) -> dict:
+    """``{axis name: size}`` of a ``DeviceMesh`` (its dimension names) or
+    of any object whose ``.shape`` is such a mapping."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, tuple(mesh.shape)))
+    return dict(mesh.shape)
+
+
+def _fits(dim: int, mesh, axes) -> bool:
+    if axes is None:
+        return True
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    shape = mesh_shape(mesh)
+    n = 1
+    for a in axes:
+        n *= shape[a]
+    return dim % n == 0
+
+
+def pick(mesh, dim: int, *candidates):
+    """First sharding candidate (axis name / tuple / None) dividing dim."""
+    for c in candidates:
+        if _fits(dim, mesh, c):
+            return c
+    return None
+
+
+def dp_axes(mesh) -> tuple:
+    """Data-parallel axes: ('pod','data') on the multi-pod mesh."""
+    shape = mesh_shape(mesh)
+    return tuple(a for a in ("pod", "data") if a in shape)
+
+
+def param_spec(mesh, shape: tuple, kinds: tuple) -> P:
+    """Build a partition spec for a parameter.
+
+    ``kinds[i]`` in {"model", "fsdp", "expert", None}: preferred role of
+    dim i.  "model": tensor-parallel; "fsdp": ZeRO-3 over the data axes;
+    "expert": expert-parallel over 'model'.  Falls back to replication when
+    the dim is not divisible.
+    """
+    dp = dp_axes(mesh)
+    spec = []
+    used_model = False
+    for dim, kind in zip(shape, kinds):
+        if kind in ("model", "expert") and not used_model:
+            c = pick(mesh, dim, "model")
+            spec.append(c)
+            used_model = c is not None
+        elif kind == "fsdp":
+            spec.append(pick(mesh, dim, dp, dp[-1] if dp else None))
+        else:
+            spec.append(None)
+    return P(*spec)

@@ -2,8 +2,9 @@
 
 Counterpart of ``repro/models/registry.py``: every family of the reference
 is ported (dense, moe and vlm to the transformer, ssm to mamba2, hybrid to
-zamba2, audio to whisper).  The reference's ``abstract_params`` (a
-``jax.eval_shape`` dry run) has no counterpart here.
+zamba2, audio to whisper).  :meth:`Model.abstract_params`, the
+reference's ``jax.eval_shape`` of the initializer, builds the tree under
+``FakeTensorMode``: shapes and dtypes, no storage.
 """
 
 from __future__ import annotations
@@ -36,6 +37,15 @@ class Model:
     def init_params(self, rng: torch.Generator):
         return self.module.init_params(self.cfg, rng)
 
+    def abstract_params(self, rng: torch.Generator | None = None):
+        """The parameter tree as fake tensors, without allocation (the
+        dry-run path); ``rng`` defaults to a fixed CPU generator."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        with FakeTensorMode():
+            return self.init_params(
+                rng if rng is not None else torch.Generator())
+
     def forward(self, params, batch, **kw):
         return self.module.forward(self.cfg, params, batch, **kw)
 
@@ -46,9 +56,10 @@ class Model:
         return self.module.unembed_matrix(self.cfg, params)
 
     def init_decode_state(self, batch: int, max_len: int, *, kv_dtype=None,
-                          device=None):
+                          device=None, **kw):
         return self.module.init_decode_state(self.cfg, batch, max_len,
-                                             kv_dtype=kv_dtype, device=device)
+                                             kv_dtype=kv_dtype, device=device,
+                                             **kw)
 
     def decode_step(self, params, state, tokens, *, use_kernels=None):
         return self.module.decode_step(self.cfg, params, state, tokens,

@@ -124,10 +124,12 @@ def forward(cfg: ModelConfig, params, batch, *, remat: bool = True, **_):
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
-                      kv_dtype=None, device=None):
-    """Self-KV capped at dec_len; cross-KV empty, [L, B, 0, Kv, D]: prefill
-    puts the encoder's [L, B, Sf, Kv, D] in its place."""
-    shape = (cfg.num_layers, batch, 0, cfg.num_kv_heads, cfg.hd)
+                      kv_dtype=None, device=None, cross_len: int = 0):
+    """Self-KV capped at dec_len; cross-KV [L, B, cross_len, Kv, D] of
+    zeros, empty by default: prefill puts the encoder's [L, B, Sf, Kv, D]
+    in its place (the dry-run's decode cells hold Sf = max_len, the
+    reference's layout)."""
+    shape = (cfg.num_layers, batch, cross_len, cfg.num_kv_heads, cfg.hd)
     return {
         "cache": attn.init_kv_cache(cfg, batch, min(max_len, cfg.dec_len),
                                     kv_dtype=kv_dtype, device=device),

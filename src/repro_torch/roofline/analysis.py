@@ -12,15 +12,30 @@ defaults.
 reference's too (the latter from the port's ``distributed/wire.py``,
 whose byte accounting equals the reference's).  The HLO parser and the
 compiled-artifact roofline of the reference read XLA's output and have no
-counterpart here; the model FLOP model comes with the module that needs
-it.
+counterpart here (ROADMAP C.71).  :class:`Roofline` keeps the reference's
+fields and terms, stated against an H100 SXM5 mesh's data-sheet rates (a
+model, not a measurement); the dry-run fills it from one fake-traced step
+(:func:`count_step`: ``FlopCounterMode`` for the FLOPs, a dispatch mode
+for the bytes each ATen op reads and writes) and the step's own count of
+its collectives' wire bytes (:func:`analyze_step`).
+:func:`model_flops_estimate` is the reference's arithmetic.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 #: HBM bandwidth of an H100 SXM (80 GB HBM3), bytes per second: the memory
 #: rate the ``cuda`` cost profile states its byte terms against
 H100_SXM_HBM_BYTES_PER_S = 3.35e12
+
+#: dense bf16 tensor-core rate of an H100 SXM5, FLOP/s (NVIDIA's data
+#: sheet, without sparsity, at the 700 W limit)
+H100_SXM_BF16_FLOPS = 989.4e12
+
+#: NVLink 4 of an H100 SXM5, bytes per second in each direction (NVIDIA's
+#: data sheet: 900 GB/s both ways)
+H100_SXM_NVLINK_BYTES_PER_S = 450e9
 
 #: the link rate of the reference's roofline (``repro/roofline/analysis.py``
 #: ``LINK_BW``), which its ``cpu`` cost profile divides the wire bytes by:
@@ -176,3 +191,162 @@ def shuffle_wire_bytes(codec: str = "raw", *, n_pairs: int, key_space: int,
         key_space=int(key_space), num_shards=S, n_pairs=per,
         value_avals=_Spec(), codec=codec, capacity=capacity, plan=plan)
     return wirelib.wire_bytes_per_shard(fmt)
+
+
+# ---------------------------------------------------------------------------
+# LM cells: the reference's roofline terms, on H100 SXM5 data-sheet rates
+# ---------------------------------------------------------------------------
+
+
+def model_flops_estimate(cfg, shape_kind: str, seq: int, batch: int,
+                         n_params: int, n_active: int) -> float:
+    """6·N·D train; 2·N·D per generated token for decode/prefill."""
+    del cfg, n_params
+    tokens = seq * batch
+    n = n_active
+    if shape_kind == "train":
+        return 6.0 * n * tokens
+    if shape_kind == "prefill":
+        return 2.0 * n * tokens
+    return 2.0 * n * batch  # decode: one token per sequence
+
+
+@dataclasses.dataclass
+class Roofline:
+    """One dry-run cell's terms, per chip: compute (FLOPs over the bf16
+    peak), memory (bytes over HBM) and collective (wire bytes over one
+    NVLink direction), each the data sheet's rate: a model of the mesh,
+    not a measurement."""
+
+    arch: str
+    shape: str
+    mesh: str
+    chips: int
+    flops: float  # per chip
+    bytes_accessed: float  # per chip
+    collective_bytes: float  # wire bytes per chip
+    collective_ops: dict
+    model_flops: float  # 6·N·D (global), for the usefulness ratio
+    peak_memory_bytes: float
+
+    @property
+    def compute_s(self) -> float:
+        return self.flops / H100_SXM_BF16_FLOPS
+
+    @property
+    def memory_s(self) -> float:
+        return self.bytes_accessed / H100_SXM_HBM_BYTES_PER_S
+
+    @property
+    def collective_s(self) -> float:
+        return self.collective_bytes / H100_SXM_NVLINK_BYTES_PER_S
+
+    @property
+    def dominant(self) -> str:
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        return max(terms, key=terms.get)
+
+    @property
+    def step_s(self) -> float:
+        """Roofline step time: max of the three overlappable terms."""
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+    @property
+    def useful_ratio(self) -> float:
+        """MODEL_FLOPS / (counted flops × chips): remat/redundancy waste."""
+        total = self.flops * self.chips
+        return self.model_flops / total if total else 0.0
+
+    @property
+    def mfu(self) -> float:
+        """Model-flops utilization at the roofline step time."""
+        denom = self.step_s * self.chips * H100_SXM_BF16_FLOPS
+        return self.model_flops / denom if denom else 0.0
+
+    def to_dict(self) -> dict:
+        return {
+            "arch": self.arch, "shape": self.shape, "mesh": self.mesh,
+            "chips": self.chips, "flops_per_chip": self.flops,
+            "bytes_per_chip": self.bytes_accessed,
+            "collective_bytes_per_chip": self.collective_bytes,
+            "collective_ops": self.collective_ops,
+            "model_flops": self.model_flops,
+            "peak_memory_bytes": self.peak_memory_bytes,
+            "compute_s": self.compute_s, "memory_s": self.memory_s,
+            "collective_s": self.collective_s, "dominant": self.dominant,
+            "step_s": self.step_s, "useful_ratio": self.useful_ratio,
+            "mfu": self.mfu,
+        }
+
+
+#: ATen ops that move no bytes (views and metadata)
+_NO_BYTES = frozenset({
+    "view", "_unsafe_view", "reshape", "expand", "t", "transpose", "permute",
+    "slice", "select", "unsqueeze", "squeeze", "detach", "alias",
+    "as_strided", "split", "split_with_sizes", "chunk", "unbind", "narrow",
+    "view_as", "lift_fresh", "empty", "empty_like", "empty_strided",
+    "new_empty", "new_empty_strided"})
+
+
+def _nbytes(x) -> int:
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor):
+        x = x.to_local()
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    return 0
+
+
+def count_step(fn, *, flop_mapping: dict | None = None) -> tuple:
+    """Run ``fn()`` (under fake tensors: nothing is computed) and count
+    what it would do a rank: ``(result, flops, bytes, ops)``, ``ops`` the
+    ATen op count and each custom op's (``{"ns::name": calls}``).  FLOPs are
+    ``FlopCounterMode``'s (matmuls and attention; ``flop_mapping`` adds
+    formulas for custom ops); bytes are each ATen op's tensor inputs read
+    once and outputs written once (a DTensor counts its shard), views and
+    collectives aside: the traffic of an unfused eager step."""
+    from torch.utils import _pytree as pytree
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    tally = {"bytes": 0, "ops": 0}
+    custom: dict = {}
+
+    class _Bytes(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            ns = func.namespace
+            name = func.overloadpacket.__name__
+            if ns == "aten" and name not in _NO_BYTES:
+                tally["ops"] += 1
+                tally["bytes"] += sum(
+                    _nbytes(x) for x in pytree.tree_leaves((args, kwargs, out)))
+            elif ns not in ("aten", "_c10d_functional", "c10d", "prim"):
+                key = f"{ns}::{name}"  # a custom op: its tensors once
+                custom[key] = custom.get(key, 0) + 1
+                tally["bytes"] += sum(
+                    _nbytes(x) for x in pytree.tree_leaves((args, kwargs, out)))
+            return out
+
+    flops = FlopCounterMode(display=False, custom_mapping=flop_mapping or {})
+    with flops, _Bytes():
+        result = fn()
+    return (result, float(flops.get_total_flops()), float(tally["bytes"]),
+            {"aten": tally["ops"], **custom})
+
+
+def analyze_step(*, arch: str, shape: str, mesh_name: str, chips: int,
+                 model_flops: float, flops: float, bytes_accessed: float,
+                 comm: dict, peak_memory_bytes: float) -> Roofline:
+    """:class:`Roofline` of a dry-run cell from its counted step: FLOPs and
+    bytes a chip (:func:`count_step`), and ``comm``, the step's own wire
+    bytes a chip by collective."""
+    per_op = {op: {"bytes": float(b)} for op, b in sorted(comm.items())}
+    return Roofline(arch=arch, shape=shape, mesh=mesh_name, chips=chips,
+                    flops=float(flops), bytes_accessed=float(bytes_accessed),
+                    collective_bytes=float(sum(comm.values())),
+                    collective_ops=per_op, model_flops=float(model_flops),
+                    peak_memory_bytes=float(peak_memory_bytes))

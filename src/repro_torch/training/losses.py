@@ -21,9 +21,6 @@ from __future__ import annotations
 
 import torch
 
-#: the ROADMAP item that ports the mesh's logits sharding
-SHARDING_ITEM = "A14b-5 (sharding and the dry-run)"
-
 
 def _softcap(x, cap):
     return torch.tanh(x / cap) * cap if cap else x
@@ -130,16 +127,32 @@ def xent_chunked(hidden, unembed, labels, *, mask=None, softcap=None,
     return _masked_mean(nll, mask)
 
 
+def _check_logits_pspec(spec) -> None:
+    from repro_torch.distributed import act_sharding
+    from repro_torch.models.common import P, mesh_shape
+
+    mesh = act_sharding.current_mesh()
+    if mesh is None:
+        raise ValueError(f"logits_pspec {spec} names mesh axes, and no mesh "
+                         f"is registered (distributed.act_sharding.set_mesh)")
+    names = mesh_shape(mesh)
+    missing = [a for a in P(*spec).axes() if a not in names]
+    if missing:
+        raise ValueError(f"logits_pspec {spec} names axes {missing} that the "
+                         f"registered mesh {tuple(names)} lacks")
+
+
 def xent_sharded(hidden, unembed, labels, *, mask=None, softcap=None,
                  logits_pspec=None):
     """Vocab-parallel xent: the stable-softmax statistics and the label
     logit are reductions over V (the logsumexp-monoid merge across vocab
-    shards on a mesh); the label logit is a masked sum, no gather.  One
-    device: ``logits_pspec`` must be ``None``."""
+    shards on a mesh); the label logit is a masked sum, no gather.
+    ``logits_pspec`` is a layout hint, as in the reference: it must name
+    only axes of the mesh registered with
+    ``distributed.act_sharding.set_mesh``; the logits are computed on the
+    tensors given (ROADMAP C.70)."""
     if logits_pspec is not None:
-        raise NotImplementedError(
-            f"xent_sharded(logits_pspec=...) pins the logits' sharding on a "
-            f"mesh, which waits for ROADMAP {SHARDING_ITEM}")
+        _check_logits_pspec(logits_pspec)
     logits = hidden.to(torch.float32) @ unembed.to(torch.float32).T
     logits = _softcap(logits, softcap)
     m = torch.amax(logits, dim=-1)

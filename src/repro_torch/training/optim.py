@@ -66,11 +66,14 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, grads, opt_state, lr_scale=1.0):
+def adamw_update(cfg: AdamWConfig, grads, opt_state, lr_scale=1.0, *,
+                 grad_norm=None):
     """Returns (new_opt_state, stats).  ``m``, ``v`` and ``master`` are
-    updated in place, leaf by leaf: ``opt_state`` is consumed."""
+    updated in place, leaf by leaf: ``opt_state`` is consumed.
+    ``grad_norm`` replaces :func:`global_norm` of ``grads`` (a sharded
+    step passes the norm of the whole gradients and its ranks' shards)."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
     t = step.to(torch.float32)

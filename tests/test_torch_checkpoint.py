@@ -131,10 +131,38 @@ def test_restore_leaf_count_mismatch_raises(tmp_path):
 
 
 def test_restore_with_shardings_names_roadmap_items(tmp_path):
+    """``restore(shardings=...)`` lays each leaf out on the shardings' mesh
+    (a gloo group of one rank here, made and destroyed in the test): the
+    leaves come back as DTensors with the stored bits."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.common import P
+
     ckpt.save(str(tmp_path), 1, tree(1))
-    with pytest.raises(NotImplementedError, match="A14b"):
-        ckpt.restore(str(tmp_path), tree(0), shardings=object(),
-                     device="cpu")
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        specs = {"a": P("data", "model"), "nested": {"b": P(None)}}
+        got, step = ckpt.restore(str(tmp_path), tree(0),
+                                 shardings=shd.shardings_of(specs, mesh))
+        assert step == 1
+        want = tree(1)
+        for g, w in zip(ckpt.flatten(got)[0], ckpt.flatten(want)[0]):
+            assert isinstance(g, DTensor) and g.dtype == w.dtype
+            assert torch.equal(g.full_tensor(), w)
+        assert [str(p) for p in got["a"].placements] == ["S(0)", "S(1)"]
+    finally:
+        dist.destroy_process_group()
 
 
 def test_flatten_follows_jax_order():

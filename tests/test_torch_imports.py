@@ -1,6 +1,7 @@
 """The port stands alone: importing every ``repro_torch`` module loads
-neither JAX nor the reference package, and builds no kernel; no import
-statement of the port or of ``chip_smoke.py`` names either."""
+neither JAX nor the reference package (nor the dry-run's fake process
+group and memory tracker), and builds no kernel; no import statement of
+the port or of ``chip_smoke.py`` names either."""
 
 import ast
 
@@ -21,7 +22,7 @@ names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 77, names
+assert len(names) >= 81, names
 for name in ("repro_torch.core.cost_model", "repro_torch.core.plan_cache",
              "repro_torch.core.pipeline", "repro_torch.roofline",
              "repro_torch.roofline.analysis",
@@ -59,11 +60,18 @@ for name in ("repro_torch.core.cost_model", "repro_torch.core.plan_cache",
              "repro_torch.models.whisper",
              "repro_torch.configs.mamba2_2p7b",
              "repro_torch.configs.zamba2_1p2b",
-             "repro_torch.configs.whisper_medium"):
+             "repro_torch.configs.whisper_medium",
+             "repro_torch.distributed.sharding",
+             "repro_torch.distributed.act_sharding",
+             "repro_torch.launch.mesh", "repro_torch.launch.dryrun"):
     assert name in names, name
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
+# the dry-run's tools load inside the functions that use them
+for name in ("torch.testing._internal.distributed.fake_pg",
+             "torch.distributed._tools.mem_tracker"):
+    assert name not in sys.modules, name
 from repro_torch.kernels import _build
 assert not _build._libs
 print(len(names))
@@ -75,7 +83,7 @@ def test_every_module_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", PROBE], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 77
+    assert int(out.stdout.strip()) >= 81
 
 
 def _imported(path):
@@ -93,7 +101,7 @@ def test_no_import_statement_names_jax_or_repro():
     for dirpath, _, files in os.walk(os.path.join(SRC, "repro_torch")):
         paths += [os.path.join(dirpath, f) for f in files
                   if f.endswith(".py")]
-    assert len(paths) >= 71
+    assert len(paths) >= 75
     for path in paths:
         for mod in _imported(path):
             assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), (

@@ -184,16 +184,39 @@ def test_lm_loss_masks_negative_labels_and_aligns_hidden():
 
 
 def test_sharding_arguments_name_their_roadmap_item():
+    """The mesh arguments run now (tests/test_torch_fsdp.py); here what
+    they check: ``logits_pspec`` names axes of the registered mesh, a
+    sharded accumulation needs a mesh, a sharded step a DTensor state."""
+    from repro_torch.distributed import act_sharding
+
     h, w, lab = _xent_inputs(0, 1, 2, 4, 8)
-    with pytest.raises(NotImplementedError, match="A14b-5"):
+    with pytest.raises(ValueError, match="no mesh"):
         losses.xent_sharded(_t(h), _t(w), _t(lab), logits_pspec=("model",))
-    with pytest.raises(NotImplementedError, match="A14b-5"):
+
+    class Mesh:
+        shape = {"data": 2, "model": 2}
+
+    try:
+        act_sharding.set_mesh(Mesh())
+        with pytest.raises(ValueError, match="lacks"):
+            losses.xent_sharded(_t(h), _t(w), _t(lab),
+                                logits_pspec=(("pod", "data"), None))
+        got = losses.xent_sharded(_t(h), _t(w), _t(lab),
+                                  logits_pspec=("data", None, "model"))
+        assert float(got) == float(losses.xent_sharded(_t(h), _t(w),
+                                                       _t(lab)))
+    finally:
+        act_sharding.clear()
+    with pytest.raises(ValueError, match="needs a mesh"):
         grad_accum.accumulate_gradients(lambda p, b: None, {}, {},
                                         pspecs={})
     model = get_model(get_config("llama3-8b").reduced())
-    with pytest.raises(NotImplementedError, match="A14b-5"):
-        train_step.make_train_step(model, train_step.TrainConfig(),
-                                   param_pspecs={})
+    step = train_step.make_train_step(model, train_step.TrainConfig(),
+                                      param_pspecs={})
+    with pytest.raises(TypeError, match="DTensors"):
+        step(train_step.init_train_state(model,
+                                         torch.Generator().manual_seed(0)),
+             {})
 
 
 # ---------------------------------------------------------------------------
