@@ -288,6 +288,22 @@ Phases (each raises on failure, and the script then exits non-zero):
    two steps from one cloned state bit for bit; step ms, tokens/s, peak
    memory.
 
+18. the op trace (``traced_on_card``, the ``traced`` line): (a)
+   ``Compiled.traced_cost`` of KMeans (2^24 points) and WordCount (2^24
+   zipf tokens over 2^16 words) in the stream, combine and reduce flows:
+   traced bytes, FLOPs and peak, ``cost_analysis()["model_bytes"]``, one
+   warm untraced call's CUDA-event time and the traced bytes over it as a
+   share of 3.35 TB/s; the stream and combine flows under the reduce
+   flow in bytes, the stream flow's peak under half the combine flow's
+   and the same at half the items (the combine flow's grows with them),
+   each peak what a call holds beyond its items; and every launch
+   ``_build`` counted during a traced call one op of its trace; (b) the
+   stream and combine flows at 2^14 items on the card and on the CPU
+   (kernels on, one chunk size): the same kernel ops and bytes; (c) WordCount ``run_distributed`` on ``LocalMesh(S)``, S = 2
+   and 4, at 2^20 and 2^22 pairs: the stream flow's wire bytes a shard
+   the same at both, the reduce flow's larger; (d) phase 17's dry-run
+   cells beside PR 29's FLOPs, bytes and wire bytes.
+
 ``run()`` prepares its run on its first call (the staged ``compile()``),
 and on the card that is one warm-up run on zeros, whose launches count:
 the main paths call ``mr.lower(items).compile()`` before they reset the
@@ -5189,6 +5205,10 @@ def finish_dryruns(procs, out_dir: str, card: str) -> dict:
                "attention": r["attention"],
                "cuda_initialized": r["cuda_initialized"],
                "n_params": r["n_params"], "n_active": r["n_active"],
+               "flops_per_chip": rl["flops_per_chip"],
+               "bytes_per_chip": rl["bytes_per_chip"],
+               "collective_bytes_per_chip": rl["collective_bytes_per_chip"],
+               "collective_ops": rl["collective_ops"],
                "modelled": "H100 SXM5 data-sheet roofline of a 256-card "
                            "mesh, not a measurement"}
         rows[f"{arch}/{shape}"] = row
@@ -5368,6 +5388,241 @@ def sharded_train_and_restore(card: str, out: dict, tmp: str) -> None:
         torch.cuda.empty_cache()
 
 
+# -- phase 18: the op trace (roofline.op_trace) ------------------------------
+
+#: phase 18 (b): items of the same calls on the card and on the CPU
+TRACE_SMALL_ITEMS = 1 << 14
+#: phase 18 (c): WordCount pairs of the two distributed runs a mesh size
+TRACE_DIST_PAIRS = (1 << 20, 1 << 22)
+TRACE_DIST_VOCAB = 1 << 13
+#: PR 29's readings of the dry-run's two gated cells (pod mesh), by
+#: ``python -m repro_torch.launch.dryrun --arch A --shape S --mesh pod``
+#: at commit 97f7553: FLOPs and bytes a chip (FlopCounterMode over the
+#: matmuls, ATen operands with the optimizer counted M times), wire bytes
+#: a chip (the step's own count)
+DRYRUN_PR29 = {
+    "llama3-8b/train_4k": {"flops_per_chip": 4182404793106432.0,
+                           "bytes_per_chip": 78659471892672.0,
+                           "collective_bytes_per_chip": 46141685760.0},
+    "qwen3-moe-30b-a3b/decode_32k": {
+        "flops_per_chip": 1153546846208.0, "bytes_per_chip": 280479591232.0,
+        "collective_bytes_per_chip": 81382932480.0},
+}
+
+
+def event_ms(fn, reps: int = 3) -> float:
+    """Median CUDA-event milliseconds of ``fn()`` on the current stream
+    after a warm-up call: the device's time from the call's first
+    operation to its last, host gaps between them included."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def kernel_ops(cost) -> dict:
+    """The ``repro_torch::<kernel>`` ops of an ``OpCost``: calls, bytes."""
+    return {k: {"calls": v, "bytes": cost.bytes_by_op[k]}
+            for k, v in sorted(cost.op_counts.items())
+            if k.startswith("repro_torch::")}
+
+
+def traced_flows(card: str, label: str, make, items, check) -> dict:
+    """Phase 18 (a) for one app: the stream, combine and reduce flows'
+    traced bytes, FLOPs and peak, the modelled bytes, an untraced warm
+    call's device time and the traced bytes over it as a share of
+    HBM_BYTES_PER_S; every launch counted in a traced call is one op of
+    its trace.  The stream and combine flows' peaks again over the first
+    half of the items: the stream flow's stays (its chunk's and its
+    tables'), the combine flow's grows with the pairs."""
+    import torch
+    from repro_torch.kernels import ops
+
+    out = {}
+    for flow in ("stream", "combine", "reduce"):
+        comp = make(flow).lower(items).compile()
+        ops.reset_launch_counts()
+        cost = comp.traced_cost(items)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        traced = {k.split("::", 1)[1]: v for k, v in cost.op_counts.items()
+                  if k.startswith("repro_torch::")}
+        if launches != traced:
+            raise AssertionError(f"traced {label} {flow}: launches "
+                                 f"{launches} != kernel ops {traced}")
+        check(flow, comp(items))
+        dev = event_ms(lambda c=comp: c(items))
+        share = cost.bytes_accessed / (dev * 1e-3) / HBM_BYTES_PER_S
+        out[flow] = {
+            "traced_bytes": cost.bytes_accessed, "flops": cost.flops,
+            "peak_bytes": cost.peak_bytes,
+            "model_bytes": comp.cost_analysis()["model_bytes"],
+            "device_ms": dev, "hbm_share": share, "launches": launches,
+            "top_bytes": cost.top_bytes(4), "card": card}
+        log(f"traced {label} {flow}: {cost.bytes_accessed:.6g} B, "
+            f"{cost.flops:.6g} FLOPs, peak {cost.peak_bytes:.6g} B, model "
+            f"{out[flow]['model_bytes']:.6g} B, device {dev:.4f} ms, "
+            f"{share:.4f} of 3.35 TB/s, launches {launches} [{card}]")
+    b = {f: out[f]["traced_bytes"] for f in out}
+    p = {f: out[f]["peak_bytes"] for f in out}
+    half = torch.utils._pytree.tree_map(lambda t: t[:t.shape[0] // 2], items)
+    p_half = {f: make(f).lower(half).compile().traced_cost(half).peak_bytes
+              for f in ("stream", "combine")}
+    out["stream_le_combine"] = b["stream"] <= b["combine"]
+    out["stream_over_combine_peak"] = p["stream"] / p["combine"]
+    out["half_items_peak_bytes"] = p_half
+    log(f"traced {label}: peaks at half the items {p_half}; stream over "
+        f"combine peak {p['stream'] / p['combine']:.4f}, stream bytes <= "
+        f"combine bytes: {out['stream_le_combine']} [{card}]")
+    if not (b["stream"] < b["reduce"] and b["combine"] < b["reduce"]):
+        raise AssertionError(f"traced {label}: an optimized flow moves no "
+                             f"fewer bytes than the reduce flow: {b}")
+    if not (0 < p["stream"] < p["combine"] / 2
+            and p["stream"] <= 1.05 * p_half["stream"]
+            and p["combine"] >= 1.5 * p_half["combine"]):
+        raise AssertionError(f"traced {label}: the stream flow's peak is "
+                             f"not under half the combine flow's, or not "
+                             f"flat in the items, or the combine flow's "
+                             f"does not grow: {p}, half {p_half}")
+    return out
+
+
+def traced_on_card(card: str, pts, assign, items, dryrun: dict) -> dict:
+    """Phase 18: ``Compiled.traced_cost`` on the card.  (a) KMeans (2^24
+    points; the reduce flow's Lmax the largest count, as phase 7) and
+    WordCount (2^24 zipf tokens, 2^16 words) in the stream,
+    combine and reduce flows (:func:`traced_flows`): the optimized flows
+    under the reduce flow in bytes, the stream flow's peak under half the
+    combine flow's and flat from half the items to all (the combine
+    flow's grows), every counted launch an op of the trace; whether the
+    stream flow moves no more bytes than the combine flow is read, not
+    gated (ROADMAP C.73).  (b) The stream and combine flows of both at 2^14
+    items, kernels on, on the card and on the CPU at one chunk size: their
+    kernel ops and bytes equal.  (c) ``run_distributed`` of WordCount on
+    ``LocalMesh(S)``, S = 2 and 4, stream and reduce flows at 2^20 and
+    2^22 pairs: the stream flow's wire bytes a shard equal at both sizes,
+    the reduce flow's grow.  (d) The dry-run's two gated cells (phase 17's
+    rows) beside PR 29's readings."""
+    import torch
+    from repro_torch import ExecutionOptions, MapReduce, ShuffleOptions, apps
+    from repro_torch.core.autotune import CUDA_CHUNK_PAIRS
+    from repro_torch.data import datasets
+    from repro_torch.distributed import LocalMesh
+
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    km_counts, km_cent = kmeans_centroids(pts, assign)
+    toks, vocab = datasets.wordcount_data(
+        np.random.default_rng(6), tokens=DIST_WC_TOKENS, vocab=DIST_WC_VOCAB)
+    witems = torch.from_numpy(toks.reshape(-1, 16)).cuda()
+    wc_want = np.bincount(toks, minlength=vocab)
+    lmax = apps.WordCount(vocab).max_values_per_key
+
+    def km_check(flow, res):
+        if not np.array_equal(res.counts.cpu().numpy(), km_counts):
+            raise AssertionError(f"traced kmeans {flow}: counts")
+        np.testing.assert_allclose(res.values.cpu().numpy(), km_cent,
+                                   rtol=1e-5, atol=1e-5)
+
+    def wc_check(flow, res):
+        got = res.values.cpu().numpy()
+        if not np.array_equal(res.counts.cpu().numpy(), wc_want):
+            raise AssertionError(f"traced wordcount {flow}: counts")
+        # the reduce flow folds a key's first Lmax values (its windows)
+        keep = wc_want <= lmax if flow == "reduce" else slice(None)
+        if not np.array_equal(got[keep], wc_want[keep]):
+            raise AssertionError(f"traced wordcount {flow}: values")
+
+    def kmeans(flow):  # the reduce flow's windows hold every value (phase 7)
+        app = apps.KMeans()
+        if flow == "reduce":
+            app.max_values_per_key = int(km_counts.max())
+        return MapReduce(app, flow=flow)
+
+    out["kmeans"] = traced_flows(card, "kmeans", kmeans, items, km_check)
+    out["wordcount"] = traced_flows(
+        card, "wordcount", lambda f: MapReduce(apps.WordCount(vocab),
+                                               flow=f), witems, wc_check)
+
+    # (b) the same calls on the card and on the CPU
+    n = TRACE_SMALL_ITEMS
+    small = {"kmeans": (apps.KMeans(), (torch.from_numpy(assign[:n]),
+                                        torch.from_numpy(pts[:n]))),
+             "wordcount": (apps.WordCount(vocab),
+                           torch.from_numpy(toks[:16 * n].reshape(n, 16)))}
+    same = {}
+    for label, (app, host) in small.items():
+        card_items = torch.utils._pytree.tree_map(lambda t: t.cuda(), host)
+        for flow in ("stream", "combine"):
+            got = {}
+            for dev, it in (("cuda", card_items), ("cpu", host)):
+                mr = MapReduce(app, flow=flow, device=dev, use_kernels=True,
+                               stream_chunk_pairs=CUDA_CHUNK_PAIRS)
+                got[dev] = kernel_ops(mr.lower(it).compile().traced_cost(it))
+            if got["cuda"] != got["cpu"]:
+                raise AssertionError(f"traced {label} {flow} at {n} items: "
+                                     f"card {got['cuda']} != CPU "
+                                     f"{got['cpu']}")
+            same[f"{label}_{flow}"] = got["cuda"]
+    out["card_equals_cpu"] = same
+    log(f"traced: kernel ops at {n} items, card == CPU: {same} [{card}]")
+
+    # (c) wire bytes a shard against the pair count (the paper's Fig 5)
+    rng = np.random.default_rng(7)
+    wire = {}
+    for S in (2, 4):
+        for flow in ("stream", "reduce"):
+            row = []
+            for pairs in TRACE_DIST_PAIRS:
+                t = rng.integers(0, TRACE_DIST_VOCAB, pairs).astype(np.int32)
+                it = torch.from_numpy(t.reshape(-1, 16)).cuda()
+                mr = MapReduce(apps.WordCount(TRACE_DIST_VOCAB), flow=flow)
+                low = mr.lower(it, options=ExecutionOptions(
+                    mesh=LocalMesh(S), shuffle=ShuffleOptions(
+                        capacity=pairs // S, strict=True)))
+                res = low.compile()(it).gather_result()
+                if not np.array_equal(res.counts.cpu().numpy(), np.bincount(
+                        t, minlength=TRACE_DIST_VOCAB)):
+                    raise AssertionError(f"traced wordcount {flow} S={S}: "
+                                         f"counts")
+                cost = low.traced_cost(it)
+                row.append({"pairs": pairs, "wire_bytes_a_shard":
+                            cost.collective_bytes,
+                            "by_op": cost.collective_ops})
+            wire[f"{flow}_S{S}"] = row
+            a, b = (r["wire_bytes_a_shard"] for r in row)
+            grows = b > a
+            if (flow == "stream" and (a != b or a <= 0)) or (
+                    flow == "reduce" and not grows):
+                raise AssertionError(f"traced wordcount {flow} S={S}: wire "
+                                     f"{a} -> {b}")
+            log(f"traced wordcount {flow} LocalMesh({S}): wire bytes a "
+                f"shard {a:.6g} at {row[0]['pairs']} pairs, {b:.6g} at "
+                f"{row[1]['pairs']}; by op {row[1]['by_op']} [{card}]")
+    out["wire"] = wire
+
+    # (d) the dry-run's gated cells: phase 17's rows beside PR 29's
+    cells = {}
+    for key, old in DRYRUN_PR29.items():
+        new = dryrun[key]
+        cells[key] = {k: {"pr29": old[k], "now": new[k]} for k in old}
+        cells[key]["collective_ops"] = new["collective_ops"]
+        log(f"traced dry-run {key} (pod, modelled): {cells[key]}")
+    out["dryrun"] = cells
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    log(f"traced: phase 18 in {out['phase_wall_s']:.1f} s [{card}]")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5432,7 +5687,10 @@ def main() -> int:
     log(json.dumps({"train": train_on_card(card)}))
     moe = moe_on_card(card)
     ssm = ssm_on_card(card)
-    log(json.dumps({"sharding": sharding_on_card(card)}))
+    sharding = sharding_on_card(card)
+    log(json.dumps({"sharding": sharding}))
+    log(json.dumps({"traced": traced_on_card(card, pts, assign, items,
+                                             sharding["dryrun"])}))
 
     rows = kernel_rows(rng, launches_add, launches_dense, ops_count)
     for row in rows:  # B1, B2: their launches on the streaming path too

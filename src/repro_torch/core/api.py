@@ -648,6 +648,10 @@ class Lowered:
     def compile(self) -> "Compiled":
         return self.optimize().compile()
 
+    def traced_cost(self, items, n_valid: int | None = None):
+        """``compile().traced_cost(items, n_valid)``."""
+        return self.compile().traced_cost(items, n_valid)
+
     def explain(self) -> str:
         plan = dataclasses.replace(self.mr.plan, stage="lowered")
         return plan.explain() + f"\nitems: {pc.spec_sig_of(self.items_spec)}"
@@ -913,11 +917,13 @@ class ResilientDriver:
 
 class Compiled:
     """Stage 3: the prepared run (``engine.LocalRun``).  ``compiled(items)``
-    dispatches it.  The XLA introspection of the reference has no
-    counterpart on the card; here ``as_text()`` is the launch plan of the
-    bound shape, ``memory_analysis()`` the modelled peak (and, on the card,
-    the warm-up call's), ``cost_analysis()`` the modelled bytes and the
-    cost model's estimate."""
+    dispatches it.  The card has no XLA executable to introspect: here
+    ``as_text()`` is the launch plan of the bound shape,
+    ``memory_analysis()`` the modelled peak (and, on the card, the warm-up
+    call's), ``cost_analysis()`` the modelled bytes and the cost model's
+    estimate, and ``traced_cost(items)`` the FLOPs, bytes, wire bytes and
+    peak of one traced call (``roofline.op_trace``: the counterpart of the
+    reference's ``hlo_parser.analyze_text(compiled.as_text())``)."""
 
     def __init__(self, opt: Optimized, entry: pc.CompiledEntry, *,
                  cache_event: str):
@@ -1042,9 +1048,24 @@ class Compiled:
                     self._mr.plan.flow, **self._shape()),
                 "warmup_peak_bytes": self._entry.warmup_peak_bytes}
 
+    def traced_cost(self, items, n_valid: int | None = None):
+        """An ``op_trace.OpCost`` of one traced call over ``items`` (the
+        bound shape), run on this run's device: FLOPs, bytes accessed,
+        each collective's wire bytes a shard, where the bytes live
+        (``top_bytes()``) and the peak of what the call allocated.  Each
+        kernel counts as one op, its tensors read and written once, so the
+        count does not depend on how a kernel is written; on a
+        ``LocalMesh`` the bytes are the process's (every shard's), the wire
+        bytes a shard's."""
+        from repro_torch.roofline import op_trace
+
+        _, tr = op_trace.trace(self, items, n_valid)
+        return op_trace.analyze_trace(tr, default_group=self.num_shards)
+
     def cost_analysis(self) -> dict:
         """The modelled bytes of the bound shape and the cost model's
-        estimate of its flow in the device's profile."""
+        estimate of its flow in the device's profile; a model, which runs
+        no call (:meth:`traced_cost` counts one)."""
         mr, s = self._mr, self._shape()
         spec = mr.plan.spec
         backend = cm.default_backend(mr.device)

@@ -33,13 +33,33 @@ Collectives (each the counterpart of the ``lax`` one named):
 * ``psum_scatter`` (``lax.psum_scatter(..., tiled=True)``): shard ``s``
   gets block ``s`` of the sum along the leading axis;
 * ``axis_index`` (``lax.axis_index``): the shard indices of the list.
+
+While ``roofline.op_trace`` traces a call, each collective records itself
+as one op ``mesh::<name>`` over the mesh's size, as the reference's HLO
+names its all-reduce, all-gather, all-to-all and reduce-scatter; the
+copies or process-group calls inside it are hidden.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.roofline import op_trace
+
+
+def _traced(method):
+    """A collective that records itself in an active trace: one op a
+    call, standing for every shard of ``xs``."""
+
+    @functools.wraps(method)
+    def run(self, xs):
+        return op_trace.collective(method.__name__, self.size, len(xs),
+                                   method, self, xs)
+
+    return run
 
 
 def _check_leading(xs, size: int, what: str) -> None:
@@ -101,6 +121,7 @@ class LocalMesh(Mesh):
                              f"tensors, one a shard; got {len(xs)}")
         return list(xs)
 
+    @_traced
     def psum(self, xs):
         xs = self._full(xs)
         total = xs[0].clone()
@@ -108,17 +129,21 @@ class LocalMesh(Mesh):
             total = total + x
         return [total] * self.size
 
+    @_traced
     def pmax(self, xs):
         xs = self._full(xs)
         return [torch.stack(xs).amax(dim=0)] * self.size
 
+    @_traced
     def pmin(self, xs):
         xs = self._full(xs)
         return [torch.stack(xs).amin(dim=0)] * self.size
 
+    @_traced
     def all_gather(self, xs):
         return [torch.stack(self._full(xs))] * self.size
 
+    @_traced
     def all_to_all(self, xs):
         xs = self._full(xs)
         _check_leading(xs, self.size, "all_to_all")
@@ -126,6 +151,7 @@ class LocalMesh(Mesh):
         return [torch.cat([parts[src][dst] for src in range(self.size)])
                 for dst in range(self.size)]
 
+    @_traced
     def psum_scatter(self, xs):
         xs = self._full(xs)
         _check_leading(xs, self.size, "psum_scatter")
@@ -176,21 +202,25 @@ class ProcessGroupMesh(Mesh):
         dist.all_reduce(out, op=op, group=self.group)
         return [out]
 
+    @_traced
     def psum(self, xs):
         import torch.distributed as dist
 
         return self._all_reduce(xs, dist.ReduceOp.SUM)
 
+    @_traced
     def pmax(self, xs):
         import torch.distributed as dist
 
         return self._all_reduce(xs, dist.ReduceOp.MAX)
 
+    @_traced
     def pmin(self, xs):
         import torch.distributed as dist
 
         return self._all_reduce(xs, dist.ReduceOp.MIN)
 
+    @_traced
     def all_gather(self, xs):
         import torch.distributed as dist
 
@@ -203,6 +233,7 @@ class ProcessGroupMesh(Mesh):
         gather(out, rows, group=self.group)
         return [out]
 
+    @_traced
     def all_to_all(self, xs):
         import torch.distributed as dist
 
@@ -212,6 +243,7 @@ class ProcessGroupMesh(Mesh):
         dist.all_to_all_single(out, x, group=self.group)
         return [out]
 
+    @_traced
     def psum_scatter(self, xs):
         import torch.distributed as dist
 

@@ -372,9 +372,11 @@ def reduce_to_shard(g: torch.Tensor, mesh, partial_axes: tuple,
     hold the same ``g``), as this rank's shard under the placements
     ``target``.  DTensor reduce-scatters over the partial axes a dim is
     sharded over and all-reduces over those it is replicated over, in its
-    own fixed order.  ``comm`` counts a rank's wire bytes: ``(a - 1)`` shard
-    sizes for a reduce-scatter over a ranks, ``2 (r - 1) / r`` of the shard
-    for an all-reduce over r."""
+    own fixed order: the mesh dims in turn, each partial axis's
+    reduce-scatter or all-reduce on the tensor as the earlier dims left it,
+    a dim sharded without a partial axis cut locally.  ``comm`` counts a
+    rank's wire bytes so: ``(n - 1) / n`` of the tensor a reduce-scatter
+    over n ranks takes, ``2 (n - 1) / n`` of it for an all-reduce."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     names = tuple(mesh.mesh_dim_names)
@@ -384,17 +386,16 @@ def reduce_to_shard(g: torch.Tensor, mesh, partial_axes: tuple,
     out = DTensor.from_local(g, mesh, src, run_check=False).redistribute(
         mesh, list(target)).to_local()
     if comm is not None:
-        a = r = 1
+        size = float(g.numel() * g.element_size())
         for n, p in zip(names, target):
+            k = mesh.size(names.index(n))
             if n in partial_axes:
-                size = mesh.size(names.index(n))
                 if isinstance(p, Shard):
-                    a *= size
+                    _count(comm, "reduce_scatter", (k - 1) / k * size)
                 else:
-                    r *= size
-        shard = out.numel() * out.element_size()
-        _count(comm, "reduce_scatter", (a - 1) * shard)
-        _count(comm, "all_reduce", 2.0 * (r - 1) / r * shard)
+                    _count(comm, "all_reduce", 2.0 * (k - 1) / k * size)
+            if isinstance(p, Shard):
+                size /= k
     return out
 
 

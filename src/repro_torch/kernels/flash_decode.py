@@ -207,7 +207,7 @@ def traced_op():
 
 def traced_flops(q_shape, k_shape, v_shape, kv_len_shape, *,
                  out_shape=None, **_) -> int:
-    """``FlopCounterMode`` formula of :func:`traced_op`: q·Kᵀ and p·V over
-    all S positions, 4·B·H·S·D."""
+    """The kernel's FLOPs in a trace (``roofline.op_trace``): q·Kᵀ and p·V
+    over all S positions, 4·B·H·S·D."""
     B, H, D = q_shape
     return 4 * B * H * k_shape[1] * D

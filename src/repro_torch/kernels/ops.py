@@ -4,7 +4,9 @@ Counterpart of ``repro/kernels/ops.py``.  Each wrapper validates its inputs,
 returns early on an empty chunk, sizes the launch, and then takes one of
 two paths chosen by where the tensors lie: CUDA tensors launch the
 hand-written kernel (or raise), CPU tensors take the kernel's plain PyTorch
-version.  There is no fallback from one to the other.
+version.  There is no fallback from one to the other.  Either path runs
+through ``roofline.op_trace.kernel``: while a trace is active the call is
+one op ``repro_torch::<kernel>`` of its tensors, the same on both paths.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import onehot_combine as _oc
 from repro_torch.kernels import radix_partition as _rp
 from repro_torch.kernels import segment_reduce as _sr
+from repro_torch.roofline import op_trace as _trace
 
 #: shared memory one block may use on an H100 (227 KB of the SM's 256 KB),
 #: the shared memory of one SM, and what the runtime keeps per block
@@ -328,11 +331,13 @@ def onehot_fold(keys, values, acc, key_space=None, *, block_k=None):
         return acc.to(torch.float32)
     block_k = _block(block_k, key_space)
     if keys.device.type == "cpu":
-        return _oc.onehot_fold_plain(keys, values, acc,
-                                     block_k=_plain_block(block_k, key_space))
+        return _trace.kernel("onehot_fold", _oc.onehot_fold_plain, keys,
+                             values, acc,
+                             block_k=_plain_block(block_k, key_space))
     _check_cuda("onehot_fold", keys, values, acc)
-    return _oc.onehot_fold_cuda(keys, values, acc, _fold_launch(
-        "onehot_fold", n, key_space, d, "add", block_k))
+    return _trace.kernel("onehot_fold", _oc.onehot_fold_cuda, keys, values,
+                         acc, _fold_launch("onehot_fold", n, key_space, d,
+                                           "add", block_k))
 
 
 def chunk_monoid_fold(keys, values, acc, op="add", *, block_k=None):
@@ -350,11 +355,13 @@ def chunk_monoid_fold(keys, values, acc, op="add", *, block_k=None):
         return acc.to(torch.float32)
     block_k = _block(block_k, key_space)
     if keys.device.type == "cpu":
-        return _sr.chunk_monoid_fold_plain(
-            keys, values, acc, op, block_k=_plain_block(block_k, key_space))
+        return _trace.kernel(
+            "chunk_monoid_fold", _sr.chunk_monoid_fold_plain, keys, values,
+            acc, op, block_k=_plain_block(block_k, key_space))
     _check_cuda("chunk_monoid_fold", keys, values, acc)
-    return _sr.chunk_monoid_fold_cuda(keys, values, acc, op, _fold_launch(
-        "chunk_monoid_fold", n, key_space, d, op, block_k))
+    return _trace.kernel(
+        "chunk_monoid_fold", _sr.chunk_monoid_fold_cuda, keys, values, acc,
+        op, _fold_launch("chunk_monoid_fold", n, key_space, d, op, block_k))
 
 
 # ---------------------------------------------------------------------------
@@ -538,14 +545,17 @@ def radix_partition(keys, values, key_space, *, bucket_size=None,
             raise ValueError(f"fanouts {fanouts} x bucket_size {bucket_size} "
                              f"cover {cover} < key_space {key_space}")
     np_ = _rp.partition_slots(n, nb, pad_align)
+    # the launch counts as B4's when the caller asked for a hierarchy
+    name = "radix_partition_multi" if len(fanouts) > 1 else "radix_partition"
     if keys.device.type == "cpu":
         if len(fanouts) > 1:
-            return _rp.radix_partition_multi_plain(
-                keys, values, key_space, bucket_size=bucket_size,
-                fanouts=fanouts, pad_align=pad_align)
-        return _rp.radix_partition_plain(keys, values, key_space,
-                                         bucket_size=bucket_size,
-                                         pad_align=pad_align)
+            return _trace.kernel(
+                name, _rp.radix_partition_multi_plain, keys, values,
+                key_space, bucket_size=bucket_size, fanouts=fanouts,
+                pad_align=pad_align)
+        return _trace.kernel(name, _rp.radix_partition_plain, keys, values,
+                             key_space, bucket_size=bucket_size,
+                             pad_align=pad_align)
     _check_cuda_pairs("radix_partition", keys, values)
     if np_ * max(d, 1) > MAX_INDEX or key_space >= MAX_INDEX:
         raise ValueError(f"radix_partition: {np_} slots x {d} columns pass "
@@ -557,9 +567,9 @@ def radix_partition(keys, values, key_space, *, bucket_size=None,
                             device=keys.device),
                 torch.zeros((nb,), dtype=torch.int32, device=keys.device))
     plan = _rp.partition_plan(n, d, key_space, bucket_size, pad_align)
-    return _rp.radix_partition_cuda(keys, values, key_space, plan,
-                                    pad_align=pad_align,
-                                    multi=len(fanouts) > 1)
+    return _trace.kernel(name, _rp.radix_partition_cuda, keys, values,
+                         key_space, plan, pad_align=pad_align,
+                         multi=len(fanouts) > 1)
 
 
 def tile_block_k(keys: torch.Tensor, key_space: int, tile_n: int) -> int:
@@ -604,13 +614,8 @@ def segment_reduce(sorted_keys, sorted_values, key_space, op="add", *,
         return torch.full((key_space, d), ident, dtype=torch.float32,
                           device=sorted_keys.device)
     if sorted_keys.device.type == "cpu":
-        chunk = _sr.segment_reduce_plain(sorted_keys, sorted_values,
-                                         key_space, op)
-        if acc is None:
-            return chunk
-        f = {"add": torch.add, "max": numerics.maximum,
-             "min": numerics.minimum}[op]
-        return f(acc.to(torch.float32), chunk)
+        return _trace.kernel("segment_reduce", _segment_reduce_cpu,
+                             sorted_keys, sorted_values, key_space, op, acc)
     _check_cuda_pairs("segment_reduce", sorted_keys, sorted_values)
     if acc is not None and (acc.dtype != torch.float32
                             or not acc.is_contiguous()):
@@ -624,8 +629,20 @@ def segment_reduce(sorted_keys, sorted_values, key_space, op="add", *,
         raise ValueError(f"segment_reduce: a block of {block_k} keys does "
                          f"not fit the kernel's {SEGMENT_TABLE_BYTES}-byte "
                          f"shared-memory table")
-    return _sr.segment_reduce_cuda(sorted_keys, sorted_values, key_space, op,
-                                   block_k=block_k, tile=tile_n, acc=acc)
+    return _trace.kernel("segment_reduce", _sr.segment_reduce_cuda,
+                         sorted_keys, sorted_values, key_space, op,
+                         block_k=block_k, tile=tile_n, acc=acc)
+
+
+def _segment_reduce_cpu(sorted_keys, sorted_values, key_space, op, acc):
+    """The plain segment_reduce, merged into ``acc`` when one is given."""
+    chunk = _sr.segment_reduce_plain(sorted_keys, sorted_values, key_space,
+                                     op)
+    if acc is None:
+        return chunk
+    f = {"add": torch.add, "max": numerics.maximum,
+         "min": numerics.minimum}[op]
+    return f(acc.to(torch.float32), chunk)
 
 
 def sort_segment_fold(keys, values, acc, op="add", *, bucket_size=None,
@@ -699,10 +716,13 @@ def onehot_combine(keys, values, key_space, *, block_k=None):
         return torch.zeros((key_space, d), dtype=torch.float32,
                            device=values.device)
     if keys.device.type == "cpu":
-        return _oc.onehot_combine_plain(
-            keys, values, key_space, block_k=_plain_block(block_k, key_space))
-    return _oc.onehot_combine_cuda(keys, values, key_space, _combine_cuda(
-        "onehot_combine", keys, values, key_space, "add", block_k))
+        return _trace.kernel(
+            "onehot_combine", _oc.onehot_combine_plain, keys, values,
+            key_space, block_k=_plain_block(block_k, key_space))
+    return _trace.kernel(
+        "onehot_combine", _oc.onehot_combine_cuda, keys, values, key_space,
+        _combine_cuda("onehot_combine", keys, values, key_space, "add",
+                      block_k))
 
 
 def combine_scatter(keys, values, key_space, op="add", *, block_k=None):
@@ -723,11 +743,12 @@ def combine_scatter(keys, values, key_space, op="add", *, block_k=None):
         return torch.full((key_space, d), ident, dtype=torch.float32,
                           device=values.device)
     if keys.device.type == "cpu":
-        return _cs.combine_scatter_plain(keys, values, key_space, op)
-    return _cs.combine_scatter_cuda(keys, values, key_space, op,
-                                    _combine_cuda("combine_scatter", keys,
-                                                  values, key_space, op,
-                                                  block_k))
+        return _trace.kernel("combine_scatter", _cs.combine_scatter_plain,
+                             keys, values, key_space, op)
+    return _trace.kernel("combine_scatter", _cs.combine_scatter_cuda, keys,
+                         values, key_space, op,
+                         _combine_cuda("combine_scatter", keys, values,
+                                       key_space, op, block_k))
 
 
 # ---------------------------------------------------------------------------
@@ -767,9 +788,11 @@ def flash_decode(q, k, v, kv_len, *, tile_s=512):
     from torch._subclasses.fake_tensor import is_fake
 
     if is_fake(q):  # traced, not run: the kernel as one dispatcher op
-        return _fd.traced_op()(q, k, v, kv_len)
+        return _trace.kernel("flash_decode", _fd.traced_op(), q, k, v,
+                             kv_len)
     if q.device.type == "cpu":
-        return _fd.flash_decode_plain(q, k, v, kv_len)
+        return _trace.kernel("flash_decode", _fd.flash_decode_plain, q, k, v,
+                             kv_len)
     if q.dtype not in (torch.float32, torch.bfloat16) or not (
             q.dtype == k.dtype == v.dtype):
         raise TypeError(f"flash_decode: q, k and v must share one dtype, "
@@ -794,5 +817,5 @@ def flash_decode(q, k, v, kv_len, *, tile_s=512):
     if B > 65535 or Hkv > 65535 or k.numel() >= 2**62:
         raise ValueError("flash_decode: a grid CUDA cannot launch")
     tile, chunk, n_split = _fd.split_plan(B, H, Hkv, S, D, item, tile_s)
-    return _fd.flash_decode_cuda(q, k, v, kv_len, tile=tile, chunk=chunk,
-                                 n_split=n_split)
+    return _trace.kernel("flash_decode", _fd.flash_decode_cuda, q, k, v,
+                         kv_len, tile=tile, chunk=chunk, n_split=n_split)

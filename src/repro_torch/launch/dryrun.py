@@ -16,16 +16,19 @@ gather-compute-scatter of :func:`_serve_step`).  Per cell:
   ``output_bytes``, ``alias_bytes`` (the state, updated in place) and
   ``temp_bytes``, the peak of ``MemTracker`` over the traced step;
   ``peak_per_chip_gib`` and whether it ``fits`` a card's 80 GB;
-* ``roofline`` (``roofline.analysis.analyze_step``): FLOPs a chip from
-  ``FlopCounterMode`` over the rank's plain-tensor compute, bytes from each
-  ATen op's operands, and the step's own count of its collectives' wire
-  bytes; a train cell traces one microbatch and multiplies its FLOPs,
-  bytes and reduce-scatters by the microbatch count (the reference's HLO
-  parser multiplies a while body by its trip count).  Every rate is an
-  H100 SXM5 data-sheet rate: the terms are a model, not a measurement.
+* ``roofline`` (``roofline.analysis.analyze``): FLOPs, bytes and wire
+  bytes a chip from ``roofline.op_trace``'s trace of the step, at a rank's
+  shapes, the collectives read from the DTensor redistributions that
+  reach the dispatcher; a train cell traces one microbatch, whose body
+  (``op_trace.loop("microbatch")``) counts M times while the parameters'
+  gather and the optimizer count once (the reference's HLO parser
+  multiplies a while body by its trip count).  Every rate is an H100 SXM5
+  data-sheet rate: the terms are a model, not a measurement.
 
 Decode cells trace ``flash_decode`` as one op (its fake implementation,
-``kernels.flash_decode.traced_op``), not its plain version.  Errors become
+``kernels.flash_decode.traced_op``), not its plain version.  The row's
+``traced_ops`` counts the ATen ops (``"aten"``) and every other op by
+name.  Errors become
 ``"status": "error"`` rows and the process exits 1, as the reference's.
 
 Usage:
@@ -113,12 +116,12 @@ def _batch_only(placements, batch_dim: int) -> list:
             for p in placements]
 
 
-def _serve_step(model, kind: str, comm: dict):
+def _serve_step(model, kind: str):
     """One sharded serve step of the port's design: parameters gathered
     whole, each rank's batch rows of the decode state gathered over the
     other axes, ``prefill`` / ``decode_step`` (``flash_decode`` where it
     applies) on plain tensors, and the new state cut back to the rank's
-    shards.  ``comm`` counts the all-gathers' wire bytes."""
+    shards."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.serving.serve_step import make_decode_step, make_prefill
@@ -129,15 +132,11 @@ def _serve_step(model, kind: str, comm: dict):
     def gather_rows(x, batch_dim):
         if not isinstance(x, DTensor):
             return x
-        local = x.redistribute(x.device_mesh,
-                               _batch_only(x.placements, batch_dim)).to_local()
-        before = x.to_local().numel() * x.element_size()
-        comm["all_gather"] = comm.get("all_gather", 0.0) + float(
-            local.numel() * local.element_size() - before)
-        return local
+        return x.redistribute(x.device_mesh,
+                              _batch_only(x.placements, batch_dim)).to_local()
 
     def step(params, state, inputs):
-        full = unflatten(params, [shd.gather_full(x, x.dtype, comm)
+        full = unflatten(params, [shd.gather_full(x, x.dtype)
                                   for x in flatten(params)[0]])
         leaves = flatten(state)[0]
         local = unflatten(state, [gather_rows(x, 1) for x in leaves])
@@ -165,8 +164,8 @@ def build_cell(arch: str, shape_name: str, mesh, *, microbatches: int = 16,
     """Under an active ``FakeTensorMode``: the cell's step function, its
     arguments as DTensors of fake shards, and what :func:`run_cell` reads
     (``fn``, ``args``, ``argument_bytes``, ``state_bytes`` (the donated
-    argument's), ``scale`` (the microbatches one traced step stands for),
-    ``comm``)."""
+    argument's) and, for a train cell, ``microbatches``: the trip count of
+    the one microbatch its step runs)."""
     from repro_torch.distributed.act_sharding import set_mesh
     from repro_torch.models.common import P, dp_axes, pick
     from repro_torch.training import optim
@@ -203,7 +202,6 @@ def build_cell(arch: str, shape_name: str, mesh, *, microbatches: int = 16,
                 "argument_bytes": state_bytes + shd.local_nbytes(
                     whole, shd.shardings_of(shd.batch_pspecs(whole, mesh),
                                             mesh)),
-                "scale": mb, "comm": lambda: step.comm,
                 "microbatches": mb}
 
     kv_dtype = default_kv_dtype(arch, shape_name)
@@ -225,13 +223,11 @@ def build_cell(arch: str, shape_name: str, mesh, *, microbatches: int = 16,
         inputs = input_specs(cfg, shape)["tokens"]
         specs = shd.tokens_pspec(shape.global_batch, mesh)
     inputs = shd.distribute(_fake_like(inputs), shd.shardings_of(specs, mesh))
-    comm: dict = {}
     state_bytes = shd.local_nbytes(state)
-    return {"fn": _serve_step(model, shape.kind, comm),
+    return {"fn": _serve_step(model, shape.kind),
             "args": (params, state, inputs), "state_bytes": state_bytes,
             "argument_bytes": sum(shd.local_nbytes(a)
-                                  for a in (params, state, inputs)),
-            "scale": 1, "comm": lambda: comm}
+                                  for a in (params, state, inputs))}
 
 
 def _cell_memory(cell, temp: float) -> dict:
@@ -256,12 +252,11 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, *,
         return {"arch": arch, "shape": shape_name, "mesh": mesh_name,
                 "status": "skipped", "reason": why}
     from torch._subclasses.fake_tensor import FakeTensorMode
-    from torch.distributed._tools.mem_tracker import MemTracker
 
     from repro_torch.distributed.act_sharding import clear
-    from repro_torch.kernels.flash_decode import traced_flops, traced_op
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.roofline import analysis as roofline
+    from repro_torch.roofline import op_trace
     from repro_torch.training.grad_accum import derive_grad_combiner
 
     t0 = time.time()
@@ -283,27 +278,25 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, *,
             del abstract
             cell = build_cell(arch, shape_name, mesh,
                               microbatches=microbatches)
-            tracker = MemTracker()
-            with tracker:
-                _, flops, nbytes, n_ops = roofline.count_step(
-                    lambda: cell["fn"](*cell["args"]),
-                    flop_mapping={traced_op() and
-                                  torch.ops.repro_torch.flash_decode:
-                                  traced_flops})
-            temp = max(float(v["Total"]) for v in
-                       tracker.get_tracker_snapshot("peak").values())
+            mf = roofline.model_flops_estimate(
+                cfg, shape.kind, shape.seq_len, shape.global_batch,
+                n_params, n_active)
+
+            def step():
+                with op_trace.trips(microbatch=cell.get("microbatches", 1)):
+                    return cell["fn"](*cell["args"])
+
+            rl = roofline.analyze(
+                step, arch=arch, shape=shape_name, mesh_name=mesh_name,
+                chips=chips, model_flops=mf,
+                argument_bytes=cell["argument_bytes"])
         clear()
-        m = cell["scale"]
-        comm = {op: b * (1 if op == "all_gather" else m)
-                for op, b in cell["comm"]().items()}
-        mf = roofline.model_flops_estimate(
-            cfg, shape.kind, shape.seq_len, shape.global_batch, n_params,
-            n_active)
-        memory = _cell_memory(cell, temp)
-        rl = roofline.analyze_step(
-            arch=arch, shape=shape_name, mesh_name=mesh_name, chips=chips,
-            model_flops=mf, flops=flops * m, bytes_accessed=nbytes * m,
-            comm=comm, peak_memory_bytes=memory["peak_per_chip_gib"] * 2**30)
+        memory = _cell_memory(cell, rl.cost.peak_bytes)
+        counts = rl.cost.op_counts
+        n_ops = {"aten": sum(v for k, v in counts.items()
+                             if k.startswith("aten::")),
+                 **{k: v for k, v in sorted(counts.items())
+                    if not k.startswith("aten::")}}
         out = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
                "status": "ok", "compile_s": round(time.time() - t0, 1),
                "n_params": int(n_params), "n_active": int(n_active),

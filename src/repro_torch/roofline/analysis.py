@@ -10,15 +10,14 @@ defaults.
 
 :func:`pipeline_handoff_bytes` and :func:`shuffle_wire_bytes` are the
 reference's too (the latter from the port's ``distributed/wire.py``,
-whose byte accounting equals the reference's).  The HLO parser and the
-compiled-artifact roofline of the reference read XLA's output and have no
-counterpart here (ROADMAP C.71).  :class:`Roofline` keeps the reference's
-fields and terms, stated against an H100 SXM5 mesh's data-sheet rates (a
-model, not a measurement); the dry-run fills it from one fake-traced step
-(:func:`count_step`: ``FlopCounterMode`` for the FLOPs, a dispatch mode
-for the bytes each ATen op reads and writes) and the step's own count of
-its collectives' wire bytes (:func:`analyze_step`).
-:func:`model_flops_estimate` is the reference's arithmetic.
+whose byte accounting equals the reference's).  The reference's HLO
+parser is ``roofline/op_trace.py`` here, a trace of the port's own calls;
+:func:`collective_stats` and :func:`analyze` read it as the reference's
+read the compiled module.  :class:`Roofline` keeps the reference's fields
+and terms, stated against an H100 SXM5 mesh's data-sheet rates (a model,
+not a measurement); the dry-run fills it from one traced step under fake
+tensors (:func:`analyze`).  :func:`model_flops_estimate` is the
+reference's arithmetic.
 """
 
 from __future__ import annotations
@@ -228,6 +227,10 @@ class Roofline:
     collective_ops: dict
     model_flops: float  # 6·N·D (global), for the usefulness ratio
     peak_memory_bytes: float
+    #: the traced call's ``op_trace.OpCost`` (:func:`analyze`), not part of
+    #: the reference's fields
+    cost: object = dataclasses.field(default=None, repr=False,
+                                     compare=False)
 
     @property
     def compute_s(self) -> float:
@@ -280,73 +283,38 @@ class Roofline:
         }
 
 
-#: ATen ops that move no bytes (views and metadata)
-_NO_BYTES = frozenset({
-    "view", "_unsafe_view", "reshape", "expand", "t", "transpose", "permute",
-    "slice", "select", "unsqueeze", "squeeze", "detach", "alias",
-    "as_strided", "split", "split_with_sizes", "chunk", "unbind", "narrow",
-    "view_as", "lift_fresh", "empty", "empty_like", "empty_strided",
-    "new_empty", "new_empty_strided"})
+def collective_stats(trace, default_group: int) -> tuple[float, dict]:
+    """(wire bytes a chip, per-op ``{count, bytes}``) of a traced call
+    (``op_trace.trace``): the counterpart of the reference's, which reads
+    partitioned HLO.  ``default_group`` stands for a collective whose ranks
+    the trace could not read."""
+    from repro_torch.roofline import op_trace
+
+    cost = op_trace.analyze_trace(trace, default_group=default_group)
+    return cost.collective_bytes, cost.collective_ops
 
 
-def _nbytes(x) -> int:
-    import torch
-    from torch.distributed.tensor import DTensor
+def analyze(fn, *, arch: str, shape: str, mesh_name: str, chips: int,
+            model_flops: float, argument_bytes: float = 0.0) -> Roofline:
+    """Roofline terms of one traced call of ``fn()`` a chip (the
+    counterpart of the reference's ``analyze``, which reads the compiled
+    module through ``hlo_parser``): FLOPs, bytes and wire bytes from
+    ``op_trace.analyze_trace``, each op at its multiplicity (``repeat``,
+    ``loop``), collectives of unknown ranks over ``chips``.  The peak is
+    ``argument_bytes`` plus what the call allocated at most (the
+    reference's argument + output + temp - alias, the state donated).
+    ``Roofline.cost`` keeps the ``OpCost``, its ``warnings`` (first five)
+    also in ``collective_ops["_warnings"]``."""
+    from repro_torch.roofline import op_trace
 
-    if isinstance(x, DTensor):
-        x = x.to_local()
-    if isinstance(x, torch.Tensor):
-        return x.numel() * x.element_size()
-    return 0
-
-
-def count_step(fn, *, flop_mapping: dict | None = None) -> tuple:
-    """Run ``fn()`` (under fake tensors: nothing is computed) and count
-    what it would do a rank: ``(result, flops, bytes, ops)``, ``ops`` the
-    ATen op count and each custom op's (``{"ns::name": calls}``).  FLOPs are
-    ``FlopCounterMode``'s (matmuls and attention; ``flop_mapping`` adds
-    formulas for custom ops); bytes are each ATen op's tensor inputs read
-    once and outputs written once (a DTensor counts its shard), views and
-    collectives aside: the traffic of an unfused eager step."""
-    from torch.utils import _pytree as pytree
-    from torch.utils._python_dispatch import TorchDispatchMode
-    from torch.utils.flop_counter import FlopCounterMode
-
-    tally = {"bytes": 0, "ops": 0}
-    custom: dict = {}
-
-    class _Bytes(TorchDispatchMode):
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
-            ns = func.namespace
-            name = func.overloadpacket.__name__
-            if ns == "aten" and name not in _NO_BYTES:
-                tally["ops"] += 1
-                tally["bytes"] += sum(
-                    _nbytes(x) for x in pytree.tree_leaves((args, kwargs, out)))
-            elif ns not in ("aten", "_c10d_functional", "c10d", "prim"):
-                key = f"{ns}::{name}"  # a custom op: its tensors once
-                custom[key] = custom.get(key, 0) + 1
-                tally["bytes"] += sum(
-                    _nbytes(x) for x in pytree.tree_leaves((args, kwargs, out)))
-            return out
-
-    flops = FlopCounterMode(display=False, custom_mapping=flop_mapping or {})
-    with flops, _Bytes():
-        result = fn()
-    return (result, float(flops.get_total_flops()), float(tally["bytes"]),
-            {"aten": tally["ops"], **custom})
-
-
-def analyze_step(*, arch: str, shape: str, mesh_name: str, chips: int,
-                 model_flops: float, flops: float, bytes_accessed: float,
-                 comm: dict, peak_memory_bytes: float) -> Roofline:
-    """:class:`Roofline` of a dry-run cell from its counted step: FLOPs and
-    bytes a chip (:func:`count_step`), and ``comm``, the step's own wire
-    bytes a chip by collective."""
-    per_op = {op: {"bytes": float(b)} for op, b in sorted(comm.items())}
+    _, tr = op_trace.trace(fn)
+    cost = op_trace.analyze_trace(tr, default_group=chips)
+    per_op = {op: dict(v) for op, v in sorted(cost.collective_ops.items())}
+    if cost.warnings:
+        per_op["_warnings"] = cost.warnings[:5]
     return Roofline(arch=arch, shape=shape, mesh=mesh_name, chips=chips,
-                    flops=float(flops), bytes_accessed=float(bytes_accessed),
-                    collective_bytes=float(sum(comm.values())),
+                    flops=cost.flops, bytes_accessed=cost.bytes_accessed,
+                    collective_bytes=cost.collective_bytes,
                     collective_ops=per_op, model_flops=float(model_flops),
-                    peak_memory_bytes=float(peak_memory_bytes))
+                    peak_memory_bytes=float(argument_bytes) + cost.peak_bytes,
+                    cost=cost)

@@ -27,6 +27,11 @@ the batch with whole parameters, and each microbatch's gradients are
 summed over the DP ranks and cut to the rank's shard before they are
 folded: the holder, or the materialized stack, is kept in the parameters'
 layout, as the reference pins it there.
+
+A single microbatch's body is ``roofline.op_trace.loop("microbatch")``: a
+trace whose caller sets that trip count to M (the dry-run) counts the one
+microbatch it traces M times, as the reference's HLO parser multiplies a
+scan body by its trip count.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import torch
 from repro_torch.checkpoint.ckpt import flatten, unflatten
 from repro_torch.core.combiner import ValueSpec
 from repro_torch.core.optimizer import derive_combiner
+from repro_torch.roofline import op_trace
 
 
 def _mean_reducer(key, values, count):
@@ -124,7 +130,8 @@ def accumulate_gradients(loss_fn, params, batch, *, num_microbatches: int = 1,
         raise ValueError("mb_pspecs lays out the batch of a sharded "
                          "accumulation: pass the parameters' pspecs too")
     if num_microbatches == 1:
-        (loss, aux), g = _value_and_grad(loss_fn, params, batch)
+        with op_trace.loop("microbatch"):
+            (loss, aux), g = _value_and_grad(loss_fn, params, batch)
         return (loss, aux), unflatten(params, g)
     if mode not in ("combiner", "materialize"):
         raise ValueError(mode)
@@ -232,8 +239,9 @@ def _accumulate_sharded(loss_fn, params, batch, M, mode, spec, pspecs,
         return shd.reduce_to_shard(x, mesh, partial, targets[i], comm)
 
     if M == 1:  # as the unsharded path: no fold
-        (loss, aux), g = _value_and_grad(loss_fn, params, local)
-        locs = [cut(g, i) for i in range(len(g))]
+        with op_trace.loop("microbatch"):
+            (loss, aux), g = _value_and_grad(loss_fn, params, local)
+            locs = [cut(g, i) for i in range(len(g))]
         del g
     else:
         shapes = [shd.local_shape(p.shape, sp, mesh)

@@ -122,14 +122,14 @@ def test_cell_memory_and_roofline_are_consistent(rows, i):
     assert rl["dominant"] in ("compute", "memory", "collective")
     assert rl["step_s"] == max(rl["compute_s"], rl["memory_s"],
                                rl["collective_s"])
-    assert "all_gather" in rl["collective_ops"]
+    assert "all-gather" in rl["collective_ops"]
 
 
 def test_train_cell_counts_its_microbatches(rows):
     r = rows["rows"][0]
     assert r["microbatches"] == 16  # 256 rows, 128 a DP rank
     ops = r["roofline"]["collective_ops"]
-    assert ops["reduce_scatter"]["bytes"] > 0
+    assert ops["reduce-scatter"]["bytes"] > 0
     # a step runs 6·N·D model flops over 4 chips; the model axis's two
     # ranks compute the same rows, the layers' attention and remat more
     assert r["roofline"]["useful_ratio"] < 1.0

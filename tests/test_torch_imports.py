@@ -26,6 +26,7 @@ assert len(names) >= 81, names
 for name in ("repro_torch.core.cost_model", "repro_torch.core.plan_cache",
              "repro_torch.core.pipeline", "repro_torch.roofline",
              "repro_torch.roofline.analysis",
+             "repro_torch.roofline.op_trace",
              "repro_torch.kernels.radix_partition",
              "repro_torch.kernels.segment_reduce",
              "repro_torch.kernels.combine_scatter",

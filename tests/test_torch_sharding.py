@@ -311,13 +311,19 @@ def test_roofline_terms_on_data_sheet_rates():
 
 
 def test_count_step_counts_matmul_flops_and_operand_bytes():
+    """``analysis.analyze`` over a fake-traced step (``op_trace``): the
+    matmul's 2·M·K·N FLOPs and the sum's |in|, each op's operands read
+    and its output written once."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     with FakeTensorMode():
         a = torch.zeros(64, 32)
         b = torch.zeros(32, 16)
-        out, flops, nbytes, ops = analysis.count_step(lambda: (a @ b).sum())
-    assert flops == 2 * 64 * 32 * 16
-    assert nbytes == (64 * 32 + 32 * 16 + 64 * 16) * 4 + (64 * 16 + 1) * 4
-    assert ops == {"aten": 2} and tuple(out.shape) == ()
-    assert np.isfinite(flops)
+        r = analysis.analyze(lambda: (a @ b).sum(), arch="a", shape="s",
+                             mesh_name="pod", chips=4, model_flops=1.0)
+    assert r.flops == 2 * 64 * 32 * 16 + 64 * 16
+    assert r.bytes_accessed == ((64 * 32 + 32 * 16 + 64 * 16) * 4
+                                + (64 * 16 + 1) * 4)
+    assert r.cost.op_counts == {"aten::mm": 1, "aten::sum": 1}
+    assert r.collective_bytes == 0.0 and r.peak_memory_bytes > 0
+    assert np.isfinite(r.flops)
