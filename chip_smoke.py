@@ -43,7 +43,14 @@ Phases (each raises on failure, and the script then exits non-zero):
    ragged kv_len (0, 1, S and lengths that are no multiple of a tile),
    within 1e-5 (both sides fold the same inputs in f32), two runs bit for
    bit, and three planted faults (a position, a head map, a tile) must
-   each miss that tolerance at the llama, phase 15 and phase 16 shapes;
+   each miss that tolerance at the llama, phase 15 and phase 16 shapes.
+   B1 with the counts column folded in the kernel (``onehot_fold(...,
+   counts=True)``, the stream flow's fused accumulator) bit for bit the
+   fold of ``[values, valid]`` it replaced, at the main path's shape,
+   ragged, one key holding almost every pair, every key out of range, two
+   key tiles, streaming KeyedSum's K = 2^16, lane column tiles, a
+   counts-only column tile and an empty chunk; within 1e-5 of its plain
+   version, counts exact; two runs bit for bit;
 3. main path, additive: ``MapReduce(KMeans()).run`` on 2^24 points of the
    Phoenix kmeans shape (3 dimensions, 100 means); the plan must be the
    stream flow with a derived monoid, ``onehot_fold`` must have launched,
@@ -150,7 +157,9 @@ Phases (each raises on failure, and the script then exits non-zero):
    ``sliding(8, 2)`` cover exactly the live periods, and ``tumbling(2)``
    drops a key seen only in expired batches; (d) 50 ingests of one
    2^22-point KMeans batch: ingest ms (median, p99), pairs/s, ``run()``
-   of the batch, host syncs an ingest, device busy share, zero derives,
+   of the batch, host syncs an ingest, device busy share, an ingest's
+   device time (the ``streaming ingest`` line: the kernels' sum, B1's and
+   any ``cat``'s share, first to last op by CUDA events), zero derives,
    tunes, probes and compiles, and a second service is a compiled-cache
    hit; (e) snapshots from the main thread while an ``IngestionQueue``
    worker folds 30 batches under ``sliding(4, 1)``, each consistent, with
@@ -296,13 +305,22 @@ Phases (each raises on failure, and the script then exits non-zero):
    share of 3.35 TB/s; the stream and combine flows under the reduce
    flow in bytes, the stream flow's peak under half the combine flow's
    and the same at half the items (the combine flow's grows with them),
-   each peak what a call holds beyond its items; and every launch
-   ``_build`` counted during a traced call one op of its trace; (b) the
+   each peak what a call holds beyond its items; KMeans's stream flow no
+   more bytes than its combine flow, with the same FLOPs in its kernel
+   ops and a peak no higher than before B1 folded the counts column; and
+   every launch ``_build`` counted during a traced call one op of its
+   trace; (b) the
    stream and combine flows at 2^14 items on the card and on the CPU
    (kernels on, one chunk size): the same kernel ops and bytes; (c) WordCount ``run_distributed`` on ``LocalMesh(S)``, S = 2
    and 4, at 2^20 and 2^22 pairs: the stream flow's wire bytes a shard
    the same at both, the reduce flow's larger; (d) phase 17's dry-run
    cells beside PR 29's FLOPs, bytes and wire bytes.
+19. the examples (``examples_on_card``, the ``examples`` line): the
+   port's single-card examples (``examples/torch/``: quickstart,
+   pipeline_wordcount_topk, serve_lm, train_lm at 4 steps) through their
+   ``main`` on the card, their default device: quickstart's counts equal
+   ``np.bincount``, the pipeline's fused run its unfused one, serve_lm's
+   tokens twice the same, train_lm's losses finite; each one's wall.
 
 ``run()`` prepares its run on its first call (the staged ``compile()``),
 and on the card that is one warm-up run on zeros, whose launches count:
@@ -521,6 +539,68 @@ def check_kernels(rng) -> None:
             f"plan={ops.fold_plan(n, k, d, 'add', block_k)}")
 
 
+def check_counts_column(rng) -> None:
+    """Phase 2, B1 with the counts column folded in the kernel
+    (``onehot_fold(..., counts=True)``, the stream flow's fused
+    accumulator): bit for bit the parent's form, a fold of ``[values,
+    valid]`` onto the same ``[K, D + 1]`` acc; within SUM_RTOL of the plain
+    version, whose counts it equals exactly; two runs bit for bit."""
+    import torch
+    from repro_torch.core.autotune import CUDA_CHUNK_PAIRS
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.onehot_combine import onehot_fold_plain
+
+    cases = [  # (n, D values, k, label[, mix]): acc is [K, D + 1]
+        (CUDA_CHUNK_PAIRS, 3, 100, "main path (KMeans [K, 3+1])"),
+        (1_000_003, 8, 300, "ragged"),
+        (CUDA_CHUNK_PAIRS, 3, 100, "one key holds almost every pair",
+         "one_hot_key"),
+        (100_003, 3, 100, "every key out of range", "all_out"),
+        (100_003, 1, ops.FOLD_TABLE_FLOATS + 1,
+         "K one past a table (two key tiles, a counts-only column tile)"),
+        (1 << 22, 1, 1 << 16,
+         "streaming KeyedSum K = 2^16 (fused [K, 1+1], index order)"),
+        (300_007, 9, 100, "D = 9 + 1 (lane column tiles)"),
+        (200_003, 128, 100, "D = 128 + 1 (a counts-only lane column tile)"),
+        (1_000_003, 3, 1000, "K = 1000 (index order)"),
+        (31, 3, 100, "n < 32"),
+        (100_003, 3, 1, "K = 1"),
+        (0, 3, 100, "empty chunk"),
+    ]
+    for n, d, k, label, *how in cases:
+        mix = how[0] if how else "uniform"
+        keys, vals, _ = fold_inputs(rng, n, d, k, specials=False,
+                                    bad_keys=True, mix=mix)
+        acc = torch.from_numpy(
+            rng.standard_normal((k, d + 1)).astype(np.float32)).cuda()
+        valid = ((keys >= 0) & (keys < k)).to(torch.float32)[:, None]
+        parent = ops.onehot_fold(keys, torch.cat([vals, valid], 1), acc)
+        got = [ops.onehot_fold(keys, vals, acc, counts=True)
+               for _ in range(2)]
+        if not torch.equal(bits(got[0]), bits(got[1])):
+            raise AssertionError(f"onehot_fold counts ({label}): two runs "
+                                 f"differ")
+        if not torch.equal(bits(got[0]), bits(parent)):
+            diff = (bits(got[0]) != bits(parent)).sum().item()
+            raise AssertionError(f"onehot_fold counts != the [values, "
+                                 f"valid] fold bitwise ({label}): {diff} "
+                                 f"elements differ")
+        block = min(k, ops.FOLD_PLAIN_KEY_BLOCK)
+        plain = onehot_fold_plain(keys, vals, acc, block_k=block,
+                                  counts=True)
+        tol = SUM_RTOL * onehot_fold_plain(keys, vals.abs(), acc.abs(),
+                                           block_k=block,
+                                           counts=True) + SUM_RTOL
+        err = (got[0] - plain).abs()
+        if not bool((err <= tol).all()) or not torch.equal(
+                got[0][:, -1], plain[:, -1]):
+            raise AssertionError(f"onehot_fold counts != plain ({label}): "
+                                 f"max abs err {err.max().item()}")
+        plan = ops.fold_plan(n, k, d + 1, "add") if n else None
+        log(f"counts column == [values, valid] bitwise: {label} n={n} "
+            f"d={d}+1 k={k} plan={plan}")
+
+
 def lane_crossover(d: int) -> int:
     """The most keys whose sum of D columns takes the lane-table plan."""
     from repro_torch.kernels import ops
@@ -614,9 +694,9 @@ def fold_shapes():
     saved = [getattr(mod, f"{name}_cuda") for mod, name in bindings]
 
     def wrap(fn, name):
-        def call(*args):  # the plan is the bindings' last argument
+        def call(*args, **kw):  # the plan: the bindings' last positional
             seen.setdefault(name, []).append(args[-1].shape)
-            return fn(*args)
+            return fn(*args, **kw)
         return call
 
     for (mod, name), fn in zip(bindings, saved):
@@ -751,16 +831,24 @@ def kernel_rows(rng, launches_add, launches_dense, ops_count) -> list[dict]:
 
     n, k = CUDA_CHUNK_PAIRS, 100
     rows = []
-    for name, d, op in (("onehot_fold", 4, "add"),
+    # B1 as the stream flow calls it: [n, 3] values onto the fused [K, 3+1]
+    # accumulator, the counts column folded in the kernel
+    for name, d, op in (("onehot_fold", 3, "add"),
                         ("chunk_monoid_fold", 3, "max")):
         keys, vals, acc = fold_inputs(rng, n, d, k, specials=False,
                                       bad_keys=False)
         keys64 = keys.long()
+        width = d
         if name == "onehot_fold":
+            width = d + 1
+            acc = torch.cat([acc, torch.zeros_like(acc[:, :1])], 1)
+            # the library's call folds a ones column made beforehand
+            ones = torch.cat([vals, torch.ones_like(vals[:, :1])], 1)
             kern = lambda ks=keys: ops.onehot_fold(  # noqa: E731
-                ks, vals, acc)
-            plain = lambda: onehot_fold_plain(keys, vals, acc)  # noqa: E731
-            lib = lambda: acc.index_add(0, keys64, vals)  # noqa: E731
+                ks, vals, acc, counts=True)
+            plain = lambda: onehot_fold_plain(  # noqa: E731
+                keys, vals, acc, counts=True)
+            lib = lambda: acc.index_add(0, keys64, ones)  # noqa: E731
             launches = launches_add[name]
         else:
             idx = keys64[:, None].expand(n, d).contiguous()
@@ -779,8 +867,8 @@ def kernel_rows(rng, launches_add, launches_dense, ops_count) -> list[dict]:
         kern_graph_ms = graph_ms(kern, 20)
         hot_ms = graph_ms(lambda: kern(hot), 20)
         err = (kern() - plain()).abs().max().item()
-        nbytes = n * (4 + 4 * d) + 2 * k * d * 4
-        n_ops = n * d  # one add (or compare) per value
+        nbytes = n * (4 + 4 * d) + 2 * k * width * 4
+        n_ops = n * width  # one add (or compare) per column of a pair
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = n_ops / F32_OPS_PER_S * 1e3
         ms = time_ms(kern, 20)
@@ -797,9 +885,10 @@ def kernel_rows(rng, launches_add, launches_dense, ops_count) -> list[dict]:
             "library_ms": time_ms(lib, 20),
             "graph_ms": kern_graph_ms, "library_graph_ms": graph_ms(lib, 20),
             "device_ops": ops_count[name],
-            "plan": ops.fold_plan(n, k, d, op).shape,
+            "plan": ops.fold_plan(n, k, width, op).shape,
             "hot_half_graph_ms": hot_ms,
-            "shape": {"n": n, "d": d, "k": k, "op": op},
+            "shape": {"n": n, "d": d, "k": k, "op": op,
+                      "acc_columns": width},
         })
     return rows
 
@@ -3259,8 +3348,19 @@ def streaming_on_card(card: str, pts, assign, items) -> dict:
         "pairs_per_s": STREAM_CAP / (med / 1e3),
         "run_ms": wall_ms(lambda: mr.run(batch)),
         "host_syncs_per_ingest": host_syncs(lambda: svc.ingest(batch)),
-        "profile": profile_fn(lambda: svc.ingest(batch), med),
+        "profile": profile_fn(lambda: svc.ingest(batch), med, groups={
+            "onehot_fold": ("fold_runs", "fold_segments", "merge_segments"),
+            "cat": ("catarray",)}),
+        "ingest_event_ms": event_ms(lambda: svc.ingest(batch)),
         "stats_delta": delta, "second_service": "hit"}
+    prof = out["steady"]["profile"]
+    out["steady"]["ingest_device_ms"] = prof["device_ms"]
+    log(f"streaming ingest: {STREAM_CAP} KMeans points, device "
+        f"{prof['device_ms']:.4f} ms (kernels' sum: B1 "
+        f"{prof['groups']['onehot_fold']:.4f} ms, cat "
+        f"{prof['groups']['cat']:.4f} ms), first to last op "
+        f"{out['steady']['ingest_event_ms']:.4f} ms, wall p50 {med:.4f} ms "
+        f"[{card}]")
     log(f"streaming steady state: {out['steady']}\n{svc2.explain()}")
 
     svc = serve(apps.KMeans, STREAM_WIN_N, window=sliding(4, 1))  # (e)
@@ -5436,14 +5536,24 @@ def kernel_ops(cost) -> dict:
             if k.startswith("repro_torch::")}
 
 
-def traced_flows(card: str, label: str, make, items, check) -> dict:
+#: KMeans at 2^24 points: the stream flow's traced peak before B1 folded
+#: the counts column itself (phase 18's reading on the card with the
+#: [values, valid] fold, NVIDIA H100 80GB HBM3, 700.00 W)
+KMEANS_STREAM_PEAK_BEFORE = 155_827_200
+
+
+def traced_flows(card: str, label: str, make, items, check, *,
+                 kernels=None) -> dict:
     """Phase 18 (a) for one app: the stream, combine and reduce flows'
     traced bytes, FLOPs and peak, the modelled bytes, an untraced warm
     call's device time and the traced bytes over it as a share of
     HBM_BYTES_PER_S; every launch counted in a traced call is one op of
     its trace.  The stream and combine flows' peaks again over the first
     half of the items: the stream flow's stays (its chunk's and its
-    tables'), the combine flow's grows with the pairs."""
+    tables'), the combine flow's grows with the pairs.  ``kernels``
+    (stream kernel, combine kernel) gates the stream flow: no more bytes
+    than the combine flow, the same FLOPs in its kernel ops as the combine
+    flow's, and a peak no higher than :data:`KMEANS_STREAM_PEAK_BEFORE`."""
     import torch
     from repro_torch.kernels import ops
 
@@ -5464,6 +5574,8 @@ def traced_flows(card: str, label: str, make, items, check) -> dict:
         share = cost.bytes_accessed / (dev * 1e-3) / HBM_BYTES_PER_S
         out[flow] = {
             "traced_bytes": cost.bytes_accessed, "flops": cost.flops,
+            "kernel_flops": {k: v for k, v in cost.flops_by_op.items()
+                             if k.startswith("repro_torch::")},
             "peak_bytes": cost.peak_bytes,
             "model_bytes": comp.cost_analysis()["model_bytes"],
             "device_ms": dev, "hbm_share": share, "launches": launches,
@@ -5486,6 +5598,23 @@ def traced_flows(card: str, label: str, make, items, check) -> dict:
     if not (b["stream"] < b["reduce"] and b["combine"] < b["reduce"]):
         raise AssertionError(f"traced {label}: an optimized flow moves no "
                              f"fewer bytes than the reduce flow: {b}")
+    if kernels is not None:
+        kf = {f: sum(v for k, v in out[f]["kernel_flops"].items()
+                     if k == f"repro_torch::{name}")
+              for f, name in zip(("stream", "combine"), kernels)}
+        out["stream_over_combine_bytes"] = b["stream"] / b["combine"]
+        log(f"traced {label}: stream over combine bytes "
+            f"{b['stream'] / b['combine']:.4f}, kernel FLOPs {kf}, stream "
+            f"FLOPs {out['stream']['flops']:.6g}, stream peak "
+            f"{p['stream']:.6g} B (before: {KMEANS_STREAM_PEAK_BEFORE}) "
+            f"[{card}]")
+        if not (b["stream"] <= b["combine"] and kf["stream"] > 0
+                and kf["stream"] == kf["combine"]
+                and p["stream"] <= KMEANS_STREAM_PEAK_BEFORE):
+            raise AssertionError(
+                f"traced {label}: the stream flow moves more bytes than the "
+                f"combine flow, or its kernels' FLOPs differ, or its peak "
+                f"rose: bytes {b}, kernel FLOPs {kf}, peak {p['stream']}")
     if not (0 < p["stream"] < p["combine"] / 2
             and p["stream"] <= 1.05 * p_half["stream"]
             and p["combine"] >= 1.5 * p_half["combine"]):
@@ -5503,9 +5632,10 @@ def traced_on_card(card: str, pts, assign, items, dryrun: dict) -> dict:
     combine and reduce flows (:func:`traced_flows`): the optimized flows
     under the reduce flow in bytes, the stream flow's peak under half the
     combine flow's and flat from half the items to all (the combine
-    flow's grows), every counted launch an op of the trace; whether the
-    stream flow moves no more bytes than the combine flow is read, not
-    gated (ROADMAP C.73).  (b) The stream and combine flows of both at 2^14
+    flow's grows), every counted launch an op of the trace; KMeans's
+    stream flow moves no more bytes than its combine flow, with the same
+    kernel FLOPs, and WordCount's order is read, not gated (its integer
+    stream fold carries its tables: ROADMAP C.73).  (b) The stream and combine flows of both at 2^14
     items, kernels on, on the card and on the CPU at one chunk size: their
     kernel ops and bytes equal.  (c) ``run_distributed`` of WordCount on
     ``LocalMesh(S)``, S = 2 and 4, stream and reduce flows at 2^20 and
@@ -5548,7 +5678,8 @@ def traced_on_card(card: str, pts, assign, items, dryrun: dict) -> dict:
             app.max_values_per_key = int(km_counts.max())
         return MapReduce(app, flow=flow)
 
-    out["kmeans"] = traced_flows(card, "kmeans", kmeans, items, km_check)
+    out["kmeans"] = traced_flows(card, "kmeans", kmeans, items, km_check,
+                                 kernels=("onehot_fold", "onehot_combine"))
     out["wordcount"] = traced_flows(
         card, "wordcount", lambda f: MapReduce(apps.WordCount(vocab),
                                                flow=f), witems, wc_check)
@@ -5623,6 +5754,59 @@ def traced_on_card(card: str, pts, assign, items, dryrun: dict) -> dict:
     return out
 
 
+# -- phase 19: the examples on the card (A16) ----------------------------------
+
+#: the single-card examples of examples/torch/ and their arguments
+EXAMPLE_ARGS = {"quickstart": [], "pipeline_wordcount_topk": [],
+                "serve_lm": [], "train_lm": ["--steps", "4"]}
+
+
+def examples_on_card(card: str) -> dict:
+    """Phase 19: the port's single-card examples (``examples/torch/``),
+    each run in this process through its ``main`` on the card (its default
+    device): quickstart's counts against ``np.bincount``, the pipeline's
+    fused result against its unfused run (inside the example), serve_lm's
+    tokens twice the same, train_lm's losses finite; each one's wall."""
+    import importlib.util
+    import math
+
+    import torch
+
+    out = {"card": card}
+    mods = {}
+    for name in EXAMPLE_ARGS:
+        spec = importlib.util.spec_from_file_location(
+            f"torch_example_{name}", ROOT / "examples" / "torch" /
+            f"{name}.py")
+        mods[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mods[name])
+    t_phase = time.perf_counter()
+    for name, args in EXAMPLE_ARGS.items():
+        t0 = time.perf_counter()
+        got = mods[name].main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if name == "quickstart":
+            ids = mods[name].windows_of(mods[name].TEXT).reshape(-1)
+            want = np.bincount(ids[ids < mods[name].VOCAB],
+                               minlength=mods[name].VOCAB)
+            ok = (got.counts.device.type == "cuda" and np.array_equal(
+                got.counts.cpu().numpy(), want))
+        elif name == "pipeline_wordcount_topk":
+            ok = got[0].values.device.type == "cuda"
+        elif name == "serve_lm":
+            again = mods[name].main(args)
+            ok = got.device.type == "cuda" and torch.equal(got, again)
+        else:
+            ok = len(got) == 4 and all(map(math.isfinite, got.values()))
+        if not ok:
+            raise AssertionError(f"example {name} on the card: {got}")
+        out[name] = {"wall_s": wall}
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    log(f"examples: {out} [{card}]")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5656,6 +5840,7 @@ def main() -> int:
 
     rng = np.random.default_rng(0)
     check_kernels(rng)
+    check_counts_column(rng)
     check_sort_kernels(rng)
     check_combine_kernels(rng)
     check_lane_folds(rng)
@@ -5691,6 +5876,7 @@ def main() -> int:
     log(json.dumps({"sharding": sharding}))
     log(json.dumps({"traced": traced_on_card(card, pts, assign, items,
                                              sharding["dryrun"])}))
+    log(json.dumps({"examples": examples_on_card(card)}))
 
     rows = kernel_rows(rng, launches_add, launches_dense, ops_count)
     for row in rows:  # B1, B2: their launches on the streaming path too

@@ -210,8 +210,10 @@ class StreamCombiner(CarriedTables):
 
     * additive   — float holders with ``fold_fn`` (the ``onehot_fold``
       kernel) fold into ONE fused f32 accumulator ``[K, ΣD + 1]`` whose last
-      column counts the pairs; otherwise one fold per holder leaf: the
-      one-hot contraction for float leaves, ``index_add_`` for integer ones.
+      column counts the pairs: ``fold_fn(keys, rows, acc, counts=True)``
+      takes the ``[n, ΣD]`` value rows and folds that column from the keys
+      alone; otherwise one fold per holder leaf: the one-hot contraction
+      for float leaves, ``index_add_`` for integer ones.
     * dense      — max/min/mul/bool per leaf: ``monoid_fold_fn`` (the
       ``chunk_monoid_fold`` kernel) for f32 add/max/min leaves, else an
       identity-masked reduction one key block at a time.
@@ -284,15 +286,16 @@ class StreamCombiner(CarriedTables):
 
     def fold_chunk(self, state, stream: PairStream):
         assert stream.key_space == self.key_space
+        if self.fused_acc:  # the kernel folds the counts column itself
+            n = stream.keys.shape[0]
+            leaves = pytree.tree_leaves(self.spec.premap(stream.values))
+            rows = (_rows_f32(leaves[0], n) if len(leaves) == 1 else
+                    torch.cat([l.reshape(n, -1).to(torch.float32)
+                               for l in leaves], dim=1))
+            return self.fold_fn(stream.keys, rows, state, counts=True)
         valid = stream.valid
         if self.mode == "size":
             return state + _counts(stream.keys, valid, self.key_space)
-        if self.fused_acc:
-            n = stream.keys.shape[0]
-            cols = [l.reshape(n, -1).to(torch.float32) for l in
-                    pytree.tree_leaves(self.spec.premap(stream.values))]
-            cols.append(valid.to(torch.float32)[:, None])  # counts column
-            return self.fold_fn(stream.keys, torch.cat(cols, dim=1), state)
         tables, counts = state
         if self.mode == "sequential":
             return _sequential_fold(self.spec, tables, counts, stream.keys,

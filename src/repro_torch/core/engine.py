@@ -362,7 +362,8 @@ class LocalRun:
                 for m in sizes:
                     lines.append(
                         f"  onehot_fold, fused [K={K}, {width}] accumulator "
-                        f"(counts in the last column), n={m}: "
+                        f"(values [n, {width - 1}]; the counts column folded "
+                        f"in the kernel from the keys), n={m}: "
                         f"{_fold_desc(ops.fold_plan(m, K, width, 'add', self.key_block))}")
             elif comb.mode == "dense" and comb.monoid_fold_fn is not None:
                 for mono, leaf in zip(spec.monoids, comb._holder_leaves):

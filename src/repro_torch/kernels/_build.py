@@ -42,7 +42,7 @@ _I = ctypes.c_int
 #: c_void_p so that ctypes passes them at full width.
 _ARGTYPES = {
     "onehot_fold": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                    _I, _P],
+                    _I, _I, _P],
     "chunk_monoid_fold": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                           _I, _I, _I, _P],
     "radix_partition": [_P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P],

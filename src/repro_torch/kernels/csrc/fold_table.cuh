@@ -24,6 +24,11 @@
 // joined in order is the fold of the pairs in index order.  The work per
 // pair does not depend on block_k.
 //
+// With CNT (sums only) the table's last column, d - 1, counts the pairs
+// that land: vals rows hold the d - 1 value columns alone, and the ring's
+// counts column is set to 1.0 once, before the first stage, and never
+// copied, so nothing is read for it.
+//
 // combine<OP>(a, b) folds b after a.  Max and min follow the JAX package's
 // rules: +0 beats -0 under max and -0 under min in either order, a NaN
 // beats every number and keeps its bits, and between two NaNs max keeps a
@@ -135,14 +140,18 @@ __device__ __forceinline__ void fold_lanes(float* table, int lk, unsigned same,
 // block_k) into the [block_k][nc] table at the start of `smem` (set to the
 // identity first).  Every thread of the block calls it; it ends with a
 // barrier, after which the table is complete.
-template <int OP, int W>
+template <int OP, int W, bool CNT = false>
 __device__ __forceinline__ void fold_range(const int* __restrict__ keys,
                                            const float* __restrict__ vals,
                                            const Geom& g, int key0, int col0,
                                            int nc, long long lo, long long hi,
                                            unsigned char* smem) {
+  static_assert(!CNT || OP == kAdd, "the counts column is a sum");
   constexpr int kThreads = W * 32;
   const int S = g.stage;
+  // value columns of a vals row, and of this tile (the rest: counts)
+  const int vd = CNT ? g.d - 1 : g.d;
+  const int nv = CNT ? max(0, min(nc, vd - col0)) : nc;
   float* table = reinterpret_cast<float*>(smem);  // [block_k][nc]
   int* s_keys = reinterpret_cast<int*>(table + (size_t)g.block_k * g.cols);
   float* s_vals = reinterpret_cast<float*>(s_keys + kRing * S);  // [S][nc]
@@ -163,6 +172,10 @@ __device__ __forceinline__ void fold_range(const int* __restrict__ keys,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   for (int i = tid; i < g.block_k * nc; i += kThreads)
     table[i] = identity<OP>();
+  if (CNT && nv < nc)  // the tile holds the counts column: ones, once
+    for (int i = tid; i < kRing * S; i += kThreads)
+      s_vals[(size_t)(i / S) * S * g.cols + (size_t)(i % S) * nc + nv] =
+          1.0f;
 
   auto fetch = [&](int st) {
     const long long c0 = lo + (long long)st * S;
@@ -172,13 +185,13 @@ __device__ __forceinline__ void fold_range(const int* __restrict__ keys,
       int* sk = s_keys + buf * S;
       float* sv = s_vals + (size_t)buf * S * g.cols;
       for (int i = tid; i < m; i += kThreads) cp_async4(sk + i, keys + c0 + i);
-      if (nc == g.d) {
+      if (!CNT && nc == g.d) {
         const float* src = vals + c0 * g.d;
         for (int i = tid; i < m * nc; i += kThreads) cp_async4(sv + i, src + i);
       } else {
-        for (int i = tid; i < m * nc; i += kThreads) {
-          const int row = i / nc;
-          cp_async4(sv + i, vals + (c0 + row) * g.d + col0 + (i - row * nc));
+        for (int i = tid; i < m * nv; i += kThreads) {
+          const int row = i / nv, c = i - row * nv;
+          cp_async4(sv + row * nc + c, vals + (c0 + row) * vd + col0 + c);
         }
       }
     }

@@ -88,7 +88,7 @@ enum Shape { kBallot = 0, kBucket = 1, kLane = 2 };
 constexpr int kMergeThreads = 256;
 constexpr int kMergeRun = 8;  // segments one merge thread folds, at most
 
-template <int OP, int W>
+template <int OP, int W, bool CNT>
 __global__ void __launch_bounds__(W * 32, 16 / W)
     fold_segments(const int* __restrict__ keys, const float* __restrict__ vals,
                   const float* __restrict__ acc, float* __restrict__ out,
@@ -100,7 +100,8 @@ __global__ void __launch_bounds__(W * 32, 16 / W)
   const int nc = min(g.cols, g.d - col0);
   const long long lo = (long long)blockIdx.x * seg_len;
   const long long hi = min(n, lo + seg_len);
-  fold_table::fold_range<OP, W>(keys, vals, g, key0, col0, nc, lo, hi, smem);
+  fold_table::fold_range<OP, W, CNT>(keys, vals, g, key0, col0, nc, lo, hi,
+                                    smem);
   const float* table = reinterpret_cast<const float*>(smem);
   const int kb = min(g.block_k, g.k - key0);  // keys of this tile below K
   const long long row0 = n_seg == 1 ? 0 : (long long)blockIdx.x * g.k;
@@ -164,7 +165,7 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 }
 
 // Pass 1 of the lane shape: fold_runs of the block's width.
-template <int OP, int C = 1>
+template <int OP, bool CNT, int C = 1>
 inline cudaError_t launch_lanes(const int* keys, const float* vals,
                                 const float* acc, float* out, float* partial,
                                 int n, int d, int k, int block_k, int cols,
@@ -172,26 +173,29 @@ inline cudaError_t launch_lanes(const int* keys, const float* vals,
                                 cudaStream_t stream) {
   if constexpr (C < lane_fold::kMaxWarps) {
     if (cols != C)
-      return launch_lanes<OP, C + 1>(keys, vals, acc, out, partial, n, d, k,
-                                     block_k, cols, n_seg, grid, smem,
-                                     stream);
+      return launch_lanes<OP, CNT, C + 1>(keys, vals, acc, out, partial, n,
+                                          d, k, block_k, cols, n_seg, grid,
+                                          smem, stream);
   }
-  const cudaError_t err = allow_smem(lane_fold::fold_runs<OP, C>, smem);
+  const cudaError_t err = allow_smem(lane_fold::fold_runs<OP, C, CNT>, smem);
   if (err != cudaSuccess) return err;
-  lane_fold::fold_runs<OP, C><<<grid, C * 32, smem, stream>>>(
+  lane_fold::fold_runs<OP, C, CNT><<<grid, C * 32, smem, stream>>>(
       keys, vals, acc, out, partial, n, d, k, block_k, n_seg);
   return cudaSuccess;
 }
 
 // One fold: pass 1, and pass 2 when there are several segments.  Returns
 // cudaErrorInvalidValue for a plan the kernels cannot run, a lane-table
-// plan for max or min among them.
-template <int OP>
+// plan for max or min among them.  With CNT (sums only) vals is [n, d - 1]
+// and the table's last column counts the pairs that land (a sum of ones,
+// exact below 2^24); acc, out and partial keep d columns.
+template <int OP, bool CNT = false>
 inline cudaError_t launch(const int* keys, const float* vals, const float* acc,
                           float* out, float* partial, int n, int d, int k,
                           int shape, int block_k, int cols, int stage,
                           int warps, int seg_len, int n_seg,
                           cudaStream_t stream) {
+  static_assert(!CNT || OP == kAdd, "the counts column is a sum");
   const bool lane = shape == kLane, bucket = shape == kBucket;
   if (n <= 0 || d <= 0 || k <= 0 || block_k <= 0 || block_k > k ||
       cols <= 0 || cols > d || cols > fold_table::kMaxCols ||
@@ -225,20 +229,19 @@ inline cudaError_t launch(const int* keys, const float* vals, const float* acc,
   const dim3 grid(n_seg, key_tiles, col_tiles);
   cudaError_t err = cudaSuccess;
   if (lane) {
-    if constexpr (OP == kAdd) err = launch_lanes<OP>(keys, vals, acc, out,
-                                                     partial, n, d, k,
-                                                     block_k, cols, n_seg,
-                                                     grid, smem, stream);
+    if constexpr (OP == kAdd) err = launch_lanes<OP, CNT>(
+        keys, vals, acc, out, partial, n, d, k, block_k, cols, n_seg, grid,
+        smem, stream);
   } else if (bucket) {
     constexpr int W = fold_table::kBucketWarps;
-    err = allow_smem(fold_segments<OP, W>, smem);
+    err = allow_smem(fold_segments<OP, W, CNT>, smem);
     if (err != cudaSuccess) return err;
-    fold_segments<OP, W><<<grid, W * 32, smem, stream>>>(
+    fold_segments<OP, W, CNT><<<grid, W * 32, smem, stream>>>(
         keys, vals, acc, out, partial, n, g, seg_len, n_seg);
   } else {
-    err = allow_smem(fold_segments<OP, 1>, smem);
+    err = allow_smem(fold_segments<OP, 1, CNT>, smem);
     if (err != cudaSuccess) return err;
-    fold_segments<OP, 1><<<grid, 32, smem, stream>>>(
+    fold_segments<OP, 1, CNT><<<grid, 32, smem, stream>>>(
         keys, vals, acc, out, partial, n, g, seg_len, n_seg);
   }
   err = cudaGetLastError();

@@ -36,6 +36,14 @@
 // the one in index order, which only max and min need.  The result is the
 // block's partial, or, with one block, out itself (added onto acc when
 // there is one).
+//
+// With CNT the table's last column, d - 1, counts the pairs that land:
+// vals rows hold the d - 1 value columns alone, the ring stages those (a
+// block of whole rows stages [kStage][d - 1], in 16-byte pieces where they
+// may), and the warp that owns the counts column adds 1.0 for each of its
+// lane's pairs in the tile, in the same order as any other column, without
+// reading anything for it.  The sum is exact below 2^24 and equals the one
+// of a ones column of vals bit for bit.
 
 #pragma once
 
@@ -66,7 +74,7 @@ using prims::cp_async_wait;
 
 // grid (block, key tile, column tile), blocks of C warps.  partial is
 // [n_seg, K, D] (unused with one block); acc may be nullptr.
-template <int OP, int C>
+template <int OP, int C, bool CNT = false>
 __global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks)
     fold_runs(const int* __restrict__ keys, const float* __restrict__ vals,
               const float* __restrict__ acc, float* __restrict__ out,
@@ -81,9 +89,14 @@ __global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks)
   const unsigned kb = (unsigned)min(block_k, k - key0);  // keys below K
   const int col0 = blockIdx.z * C;
   const int nc = min(C, d - col0);  // columns of this tile
+  const int vd = CNT ? d - 1 : d;  // value columns of a vals row
+  const int nv = CNT ? max(0, min(nc, vd - col0)) : nc;  // ... of the tile
   const bool whole = nc == d;  // the tile holds whole rows
   const bool wide = whole && ((reinterpret_cast<size_t>(keys) |
                                reinterpret_cast<size_t>(vals)) & 15) == 0;
+  // a staged row's stride: whole rows are staged as they lie in vals
+  const int rs = CNT && whole ? C - 1 : C;
+  const bool ones = CNT && col0 + warp == vd;  // this warp counts
   const long long runs = (n + kStage - 1) / kStage;
   float* table = reinterpret_cast<float*>(smem);  // [C][block_k][32]
   int* s_keys = reinterpret_cast<int*>(table + (size_t)C * block_k * 32);
@@ -95,9 +108,10 @@ __global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks)
       t4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   // a column tile's values: thread tid copies the elements tid, tid +
-  // kThreads, ... of a run's [m][nc]; row and column advance by fixed steps
-  const int row_step = kThreads / nc, col_step = kThreads - row_step * nc;
-  const int row_first = tid / nc, col_first = tid - row_first * nc;
+  // kThreads, ... of a run's [m][nv]; row and column advance by fixed steps
+  const int nvs = max(nv, 1);
+  const int row_step = kThreads / nvs, col_step = kThreads - row_step * nvs;
+  const int row_first = tid / nvs, col_first = tid - row_first * nvs;
 
   auto fetch = [&](int st) {
     const long long r = blockIdx.x + (long long)st * n_seg;
@@ -112,23 +126,23 @@ __global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks)
         for (int i = tid; i < kStage / 4; i += kThreads)
           cp_async16(sk + 4 * i, keys + c0 + 4 * i);
 #pragma unroll
-        for (int i = tid; i < kStage * C / 4; i += kThreads)
-          cp_async16(sv + 4 * i, vals + c0 * C + 4 * i);
+        for (int i = tid; i < kStage * rs / 4; i += kThreads)
+          cp_async16(sv + 4 * i, vals + c0 * rs + 4 * i);
       } else {
         for (int i = tid; i < m; i += kThreads)
           cp_async4(sk + i, keys + c0 + i);
         if (whole) {
-          for (int i = tid; i < m * nc; i += kThreads)
-            cp_async4(sv + i, vals + c0 * nc + i);
-        } else {
-          const float* src = vals + c0 * d + col0;
+          for (int i = tid; i < m * nv; i += kThreads)
+            cp_async4(sv + i, vals + c0 * nv + i);
+        } else if (nv > 0) {
+          const float* src = vals + c0 * vd + col0;
           int row = row_first, c = col_first;
           while (row < m) {
-            cp_async4(sv + row * C + c, src + (long long)row * d + c);
+            cp_async4(sv + row * C + c, src + (long long)row * vd + c);
             row += row_step;
             c += col_step;
-            if (c >= nc) {
-              c -= nc;
+            if (c >= nv) {
+              c -= nv;
               ++row;
             }
           }
@@ -150,7 +164,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks)
       const bool in = j < m;
       // unsigned: a negative key, or one below key0, lands past kb
       lk[q] = in ? (unsigned)sk[j] - (unsigned)key0 : kb;
-      v[q] = in ? sv[j * C] : 0.f;
+      v[q] = in ? (ones ? 1.f : sv[j * rs]) : 0.f;
     }
 #pragma unroll
     for (int q = 0; q < kPerLane; q += 2) {

@@ -7,12 +7,17 @@
 // work, no float atomics, the same bits on every run; a small table
 // (the KMeans one among them) takes lane tables (lane_fold.cuh), where a
 // hot key costs nothing.  The stream flow's fused accumulator [K, sum(D) +
-// 1] goes through this kernel; its last column sums ones, so the per-key
-// counts stay exact up to 2^24.
+// 1] goes through this kernel with `counts` set: vals is then [N, D] and
+// the kernel adds 1.0 to the table's last column for every pair that lands
+// (its keys in [0, K)), reading nothing for it, so the per-key counts stay
+// exact up to 2^24 and no [N, D + 1] copy of the values is made.
 // On an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py and
 // tools/ab_keyed_fold.py): 2^22 pairs, D = 4, K = 100, onto acc, take
 // 0.036 ms replayed from a CUDA graph, also with half the pairs on one key
-// (the index-order pass: 0.082 and 0.190 ms; byte bound 0.025 ms).
+// (the index-order pass: 0.082 and 0.190 ms; byte bound 0.025 ms); with
+// the counts column folded here, D = 3 + 1, 0.0365 ms (byte bound 0.020
+// ms): the fold is bound by instruction throughput, not by the bytes it
+// no longer reads.
 
 #include "keyed_fold.cuh"
 
@@ -20,7 +25,12 @@ extern "C" int onehot_fold_launch(const int* keys, const float* vals,
                                   const float* acc, float* out, float* partial,
                                   int n, int d, int k, int shape, int block_k,
                                   int cols, int stage, int warps, int seg_len,
-                                  int n_seg, void* stream) {
+                                  int n_seg, int counts, void* stream) {
+  // d: the columns of acc and out (with counts, vals has d - 1)
+  if (counts)
+    return (int)keyed_fold::launch<keyed_fold::kAdd, true>(
+        keys, vals, acc, out, partial, n, d, k, shape, block_k, cols, stage,
+        warps, seg_len, n_seg, (cudaStream_t)stream);
   return (int)keyed_fold::launch<keyed_fold::kAdd>(
       keys, vals, acc, out, partial, n, d, k, shape, block_k, cols, stage,
       warps, seg_len, n_seg, (cudaStream_t)stream);

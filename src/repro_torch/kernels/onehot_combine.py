@@ -3,7 +3,8 @@
 Counterpart of ``repro/kernels/onehot_combine.py``.
 
 * ``onehot_fold`` — ``acc + one_hot(keys)ᵀ @ values``, the stream flow's
-  additive chunk fold (``csrc/onehot_fold.cu``);
+  additive chunk fold (``csrc/onehot_fold.cu``); with ``counts`` the
+  per-key pair counts land in acc's last column;
 * ``onehot_combine`` — ``one_hot(keys)ᵀ @ values`` of a whole pair buffer,
   the combine flow's additive fold (``csrc/onehot_combine.cu``).
 
@@ -23,14 +24,17 @@ from repro_torch.kernels import _build
 
 
 def onehot_fold_plain(keys: torch.Tensor, values: torch.Tensor,
-                      acc: torch.Tensor, block_k: int | None = None
-                      ) -> torch.Tensor:
+                      acc: torch.Tensor, block_k: int | None = None,
+                      counts: bool = False) -> torch.Tensor:
     """[N] keys, [N, D] values, [K, D] acc -> acc + per-key sums (f32).
 
     The one-hot contraction one key block at a time, so the live one-hot is
-    ``[N, block_k]``; keys outside ``[0, K)`` match no row."""
+    ``[N, block_k]``; keys outside ``[0, K)`` match no row.  With
+    ``counts`` acc is ``[K, D + 1]`` and its last column gains each key's
+    pair count (the one-hot's column sums, exact below 2^24)."""
     k_space = acc.shape[0]
     block_k = k_space if block_k is None else block_k
+    d = values.shape[1]
     vals = values.to(torch.float32)
     keys64 = keys.to(torch.int64)
     delta = torch.empty(acc.shape, dtype=torch.float32, device=acc.device)
@@ -38,23 +42,26 @@ def onehot_fold_plain(keys: torch.Tensor, values: torch.Tensor,
         hi = min(lo + block_k, k_space)
         iota = torch.arange(lo, hi, device=keys.device)
         onehot = (keys64[:, None] == iota[None, :]).to(torch.float32)
-        delta[lo:hi] = onehot.T @ vals
+        delta[lo:hi, :d] = onehot.T @ vals
+        if counts:
+            delta[lo:hi, d] = onehot.sum(0)
     return acc.to(torch.float32) + delta
 
 
 def onehot_fold_cuda(keys: torch.Tensor, values: torch.Tensor,
-                     acc: torch.Tensor, plan) -> torch.Tensor:
-    """Launch the kernel with ``plan`` (an ``ops.FoldPlan``); the wrapper
-    in ``ops`` has checked the inputs."""
+                     acc: torch.Tensor, plan, counts: bool = False
+                     ) -> torch.Tensor:
+    """Launch the kernel with ``plan`` (an ``ops.FoldPlan``, of acc's
+    width); the wrapper in ``ops`` has checked the inputs."""
     lib = _build.library("onehot_fold")
-    n, d = values.shape
-    k_space = acc.shape[0]
+    n = values.shape[0]
+    k_space, d = acc.shape
     out = torch.empty_like(acc)
     partial = fold_partials(plan, k_space, d, acc.device)
     err = lib.onehot_fold_launch(
         keys.data_ptr(), values.data_ptr(), acc.data_ptr(), out.data_ptr(),
         None if partial is None else partial.data_ptr(), n, d, k_space,
-        *plan.launch_args(),
+        *plan.launch_args(), int(counts),
         torch.cuda.current_stream(acc.device).cuda_stream)
     _build.check("onehot_fold", lib, err)
     _build.count_launch("onehot_fold")

@@ -258,15 +258,16 @@ def fold_plan(n: int, key_space: int, d: int, op: str,
     return table_plan(n, key_space, d, block_k)
 
 
-def _check(name, keys, values, acc):
+def _check(name, keys, values, acc, counts=False):
+    """``counts``: acc has one column more than values (the counts)."""
     if values.ndim != 2:
         raise ValueError("values must be [N, D]")
     if keys.ndim != 1 or keys.shape[0] != values.shape[0]:
         raise ValueError(f"keys {tuple(keys.shape)} must be [N] with N == "
                          f"values.shape[0] == {values.shape[0]}")
-    if acc.ndim != 2 or acc.shape[1] != values.shape[1]:
-        raise ValueError(f"acc shape {tuple(acc.shape)} != (K, "
-                         f"{values.shape[1]})")
+    width = values.shape[1] + int(counts)
+    if acc.ndim != 2 or acc.shape[1] != width:
+        raise ValueError(f"acc shape {tuple(acc.shape)} != (K, {width})")
     devices = {keys.device, values.device, acc.device}
     if len(devices) != 1:
         raise ValueError(f"{name}: keys, values and acc lie on different "
@@ -311,33 +312,40 @@ def _plain_block(block_k, key_space):
     return min(block_k or key_space, FOLD_PLAIN_KEY_BLOCK)
 
 
-def onehot_fold(keys, values, acc, key_space=None, *, block_k=None):
+def onehot_fold(keys, values, acc, key_space=None, *, block_k=None,
+                counts=False):
     """Streaming-chunk additive fold: ``acc + one_hot(keys)ᵀ @ values``.
 
     [N] int32 keys, [N, D] f32 values, [K, D] f32 acc -> [K, D] f32.  Keys
-    outside ``[0, K)`` (the sentinel ``K`` among them) never land.
+    outside ``[0, K)`` (the sentinel ``K`` among them) never land.  With
+    ``counts`` acc is ``[K, D + 1]`` and its last column gains each key's
+    pair count, folded in the kernel from the keys alone (the stream
+    flow's fused accumulator); the plan is that of acc's width, so the
+    value columns take the bits of a fold of ``[values, ones]``.
     ``block_k`` caps the keys of one table of the kernel, a key tile (CPU:
     the key block of the plain contraction, at most
     :data:`FOLD_PLAIN_KEY_BLOCK`); ``None`` sizes it (:func:`fold_plan`).
     Signature matches the stream collector's ``fold_fn(keys, mat, acc)``."""
-    _check("onehot_fold", keys, values, acc)
+    _check("onehot_fold", keys, values, acc, counts)
     if key_space is None:
         key_space = acc.shape[0]
     if acc.shape[0] != key_space:
         raise ValueError(f"acc shape {tuple(acc.shape)} != ({key_space}, "
-                         f"{values.shape[1]})")
-    n, d = values.shape
-    if n == 0 or d == 0:  # empty chunk: nothing to fold
+                         f"{acc.shape[1]})")
+    n, width = values.shape[0], acc.shape[1]
+    if n == 0 or width == 0:  # empty chunk: nothing to fold
         return acc.to(torch.float32)
     block_k = _block(block_k, key_space)
+    extra = {"counts": True} if counts else {}  # the flag only when set
     if keys.device.type == "cpu":
         return _trace.kernel("onehot_fold", _oc.onehot_fold_plain, keys,
                              values, acc,
-                             block_k=_plain_block(block_k, key_space))
+                             block_k=_plain_block(block_k, key_space),
+                             **extra)
     _check_cuda("onehot_fold", keys, values, acc)
     return _trace.kernel("onehot_fold", _oc.onehot_fold_cuda, keys, values,
-                         acc, _fold_launch("onehot_fold", n, key_space, d,
-                                           "add", block_k))
+                         acc, _fold_launch("onehot_fold", n, key_space,
+                                           width, "add", block_k), **extra)
 
 
 def chunk_monoid_fold(keys, values, acc, op="add", *, block_k=None):

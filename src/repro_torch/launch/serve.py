@@ -29,7 +29,9 @@ from repro_torch.models.registry import get_model
 from repro_torch.serving.serve_step import ServeConfig, generate
 
 
-def main(argv=None):
+def main(argv=None) -> torch.Tensor:
+    """Runs the CLI; returns the measured generation's ``[B, prompt_len +
+    max_new]`` tokens."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3-8b")
     ap.add_argument("--reduced", action="store_true")
@@ -86,6 +88,7 @@ def main(argv=None):
           f"{step_med:.3f} ms")
     for b in range(min(args.batch, 2)):
         print(f"  seq{b}: {out[b].tolist()}")
+    return out
 
 
 if __name__ == "__main__":

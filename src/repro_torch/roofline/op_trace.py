@@ -503,6 +503,9 @@ def _kernel_flops(name: str):
             from repro_torch.kernels.flash_decode import traced_flops
 
             return traced_flops(*(tuple(t.shape) for t in ins[:4]))
+    elif name == "onehot_fold":
+        def flops(ins, outs):  # an add per pair and column of acc: with
+            return ins[0].numel() * ins[2].shape[1]  # counts, one past D
     else:
         def flops(ins, outs):  # the elements the fold reads: its values
             return ins[1].numel() if len(ins) > 1 else 0

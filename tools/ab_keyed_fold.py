@@ -12,14 +12,18 @@ from its own checkout (its kernels built into that checkout's
 ``build/``), so any commit of the port can be the parent.  The script runs
 parent, tree, tree, parent, a process each.  Per process it records, for
 each of :data:`SHAPES`, the call's time from a CUDA graph of ``--iters``
-calls and a digest of its table; for each cell of the combine flow's
+calls and a digest of its table (B1's counts rows: ``onehot_fold(...,
+counts=True)`` on [n, D] values where the side has it, else the fold of
+``[values, ones]`` made before the timed call, onto the same [K, D + 1]
+acc); for each cell of the combine flow's
 scatter-route sweep (:data:`ROUTE_KEYS` x D = 1, 3 x uniform keys and one
 key holding half the pairs) the times of ``combine_scatter``'s and
 ``sort_segment_fold``'s add by CUDA events; and for each of the KMeans main
 paths (:data:`PATHS`) the median and fastest wall time of a run and the
 device time of one run (torch.profiler).  It prints the card's name and
 power limit and one JSON line, and exits 1 if the two runs of a side
-differ, or if the two sides differ where the pass did not change (max).
+differ, or if the two sides differ where the pass did not change (max,
+and B1's counts rows).
 """
 
 from __future__ import annotations
@@ -44,6 +48,12 @@ SHAPES = (
      "add", "uniform"),
     ("B1 onehot_fold, half-hot key", "onehot_fold", 1 << 22, 4, 100,
      "add", "half"),
+    ("B1 onehot_fold counts, KMeans stream [K, 3+1]", "onehot_fold_counts",
+     1 << 22, 3, 100, "add", "uniform"),
+    ("B1 onehot_fold counts, half-hot key", "onehot_fold_counts", 1 << 22,
+     3, 100, "add", "half"),
+    ("B1 onehot_fold counts, KeyedSum K=2^16 (index order)",
+     "onehot_fold_counts", 1 << 22, 1, 1 << 16, "add", "uniform"),
     ("B2 chunk_monoid_fold add", "chunk_monoid_fold", 1 << 22, 3, 100,
      "add", "uniform"),
     ("B2 chunk_monoid_fold max (index order)", "chunk_monoid_fold", 1 << 22,
@@ -107,13 +117,22 @@ def worker(root: Path, iters: int) -> dict:
     from repro_torch.data import datasets
     from repro_torch.kernels import ops
 
+    import inspect
+    has_counts = "counts" in inspect.signature(ops.onehot_fold).parameters
     rows = []
     for i, (label, entry, n, d, k, op, mix) in enumerate(SHAPES):
         keys, vals = pairs(200 + i, n, d, k, mix)
-        acc = torch.randn((k, d), device="cuda",
+        width = d + (entry == "onehot_fold_counts")
+        acc = torch.randn((k, width), device="cuda",
                           generator=torch.Generator(
                               device="cuda").manual_seed(300 + i))
+        ones = (None if has_counts or width == d else
+                torch.cat([vals, torch.ones_like(vals[:, :1])], 1))
         fn = {"onehot_fold": lambda: ops.onehot_fold(keys, vals, acc),
+              "onehot_fold_counts": (
+                  (lambda: ops.onehot_fold(keys, vals, acc, counts=True))
+                  if has_counts else
+                  (lambda: ops.onehot_fold(keys, ones, acc))),
               "chunk_monoid_fold": lambda: ops.chunk_monoid_fold(
                   keys, vals, acc, op),
               "onehot_combine": lambda: ops.onehot_combine(keys, vals, k),
@@ -122,7 +141,7 @@ def worker(root: Path, iters: int) -> dict:
         digest = hashlib.sha256(fn().cpu().numpy().tobytes()).hexdigest()
         rows.append({"shape": label, "digest": digest[:16],
                      "graph_ms": graph_ms(fn, iters)})
-        del keys, vals
+        del keys, vals, ones
 
     routes = []
     for d in (1, 3):
@@ -189,12 +208,13 @@ def main() -> int:
             return 1
         runs[which].append(json.loads(out.stdout.strip().splitlines()[-1]))
     rows, ok = [], True
-    for i, (label, _, n, d, k, op, mix) in enumerate(SHAPES):
+    for i, (label, entry, n, d, k, op, mix) in enumerate(SHAPES):
         digests = {w: {r["rows"][i]["digest"] for r in runs[w]}
                    for w in runs}
         repeat = all(len(v) == 1 for v in digests.values())
         same = len(digests["parent"] | digests["tree"]) == 1
-        ok &= repeat and (same or op == "add")
+        ok &= repeat and (same or (op == "add"
+                                   and entry != "onehot_fold_counts"))
         rows.append({"shape": label, "n": n, "d": d, "k": k, "op": op,
                      "keys": mix, "runs_repeat": repeat,
                      "same_as_parent": same,
