@@ -9,8 +9,8 @@ Phases (each raises on failure, and the script then exits non-zero):
    ``src/repro_torch/kernels/csrc`` (into ``build/repro_torch/``), one
    nvcc per source, all at once, and print ptxas's registers, shared
    memory and spills of the keyed fold's (chunk_monoid_fold's), the radix
-   partition's, segment_reduce's and flash_decode's kernels, and of the
-   lane-table fold (onehot_fold's);
+   partition's, segment_reduce's, flash_decode's and int_fold's kernels,
+   and of the lane-table fold (onehot_fold's);
 2. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at ragged ones: max/min bit for bit (signed
    zeros and NaNs of random payloads included, several a key, one or two a
@@ -50,7 +50,12 @@ Phases (each raises on failure, and the script then exits non-zero):
    ragged, one key holding almost every pair, every key out of range, two
    key tiles, streaming KeyedSum's K = 2^16, lane column tiles, a
    counts-only column tile and an empty chunk; within 1e-5 of its plain
-   version, counts exact; two runs bit for bit;
+   version, counts exact; two runs bit for bit.  int_fold (the exact
+   integer keyed fold) bit for bit its plain version, tables and counts,
+   two runs bit for bit, its inputs unwritten: K = 1 to 2^20, D = 0, 1,
+   3 and 6, int32 and int64 rows, values at the int32 limits and near
+   ±2^63, sentinel and out-of-range keys, every key invalid, n = 0, 31
+   and 2^22, one key holding almost every pair, zipf 1.2, without counts;
 3. main path, additive: ``MapReduce(KMeans()).run`` on 2^24 points of the
    Phoenix kmeans shape (3 dimensions, 100 means); the plan must be the
    stream flow with a derived monoid, ``onehot_fold`` must have launched,
@@ -59,8 +64,15 @@ Phases (each raises on failure, and the script then exits non-zero):
    atol = 1e-5);
 4. main path, dense: the bounding-box (max/min) app on the same points;
    ``chunk_monoid_fold`` must have launched and the boxes must equal
-   numpy's per-key max/min bit for bit; then the seven Phoenix apps, on
-   small inputs, must give on the card what they give on the CPU;
+   numpy's per-key max/min bit for bit (int_fold counts its pairs);
+   4c. the integer main paths: ``MapReduce(WordCount(2^16)).run`` on 2^24
+   zipf tokens and ``MapReduce(Histogram()).run`` on 2^22 pixels, the
+   stream flow with the reference's ``mode=additive``, no FALLBACK note
+   and no ``LoweringFallbackWarning``, ``int_fold`` once a chunk and no
+   other kernel, values and counts ``np.bincount`` bit for bit; then the
+   seven Phoenix apps, on small inputs, must give on the card what they
+   give on the CPU, each stream flow with the CPU's ``mode=`` (phases 5b,
+   6b and 7b too);
 5. the sort flow's main paths: ``MapReduce(KeyedSum(K), flow="sort").run``
    on 2^24 pairs (2^21 items of 8 keys, f32 weights drawn from a seed) at
    K = 2^18 (one radix level) and K = 2^20 (two levels);
@@ -118,7 +130,9 @@ Phases (each raises on failure, and the script then exits non-zero):
    at llama3-8b's decode shape, the bench shape and phase 15's three
    decode shapes, against SDPA;
    segment_reduce's max at the BoundingBox combine shape against
-   scatter_reduce_; the radix partitions also at the combine flow's
+   scatter_reduce_; int_fold at WordCount's, Histogram's and a counts-only
+   K = 100 shape against ``index_add_`` + ``bincount``; the radix
+   partitions also at the combine flow's
    sort-route shapes and at 2048 leaves; the keyed folds' rows name their
    plan's shape and give a time with one key holding half the pairs),
    B4's pass sweep (one pass against two; the splits of 2048 leaves), the
@@ -131,7 +145,8 @@ Phases (each raises on failure, and the script then exits non-zero):
    combine and stream flows' (the paper's speedup), and profile one run of
    each (device time by kernel, busy share);
 10. the staged path (``staged_on_card``, the ``staged`` line): compiled
-   calls of KMeans (stream, B1), BoundingBox (stream, B2), KeyedSum
+   calls of KMeans (stream, B1), BoundingBox (stream, B2), WordCount
+   (stream, int_fold), KeyedSum
    K = 2^20 (sort, B4 + B5) and KMeans ``flow="combine"`` (B6) at 2^24
    pairs equal an uncached ``run()`` bit for bit and launch their kernels,
    and a second call leaves the first call's tensors; a second MapReduce
@@ -307,7 +322,8 @@ Phases (each raises on failure, and the script then exits non-zero):
    and the same at half the items (the combine flow's grows with them),
    each peak what a call holds beyond its items; KMeans's stream flow no
    more bytes than its combine flow, with the same FLOPs in its kernel
-   ops and a peak no higher than before B1 folded the counts column; and
+   ops and a peak no higher than before B1 folded the counts column;
+   WordCount's stream flow no more bytes than its combine flow; and
    every launch ``_build`` counted during a traced call one op of its
    trace; (b) the
    stream and combine flows at 2^14 items on the card and on the CPU
@@ -786,8 +802,9 @@ def main_path_dense(pts, assign, items):
     res = mr.run(items)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
-    if launches["chunk_monoid_fold"] <= 0:
-        raise AssertionError(f"chunk_monoid_fold never launched: {launches}")
+    if launches["chunk_monoid_fold"] <= 0 or launches["int_fold"] <= 0:
+        raise AssertionError(f"chunk_monoid_fold or int_fold (the counts) "
+                             f"never launched: {launches}")
     want = numpy_boxes(pts, assign)
     got = res.values.cpu().numpy()
     if not np.array_equal(got.view(np.uint32), want.view(np.uint32)):
@@ -804,10 +821,19 @@ def phoenix_on_card(flow: str = "auto") -> None:
     order)."""
     from repro_torch import MapReduce, apps
 
+    modes = {}
     for name in apps.ALL:
         app, items = apps.build(name, np.random.default_rng(2), scale=0.05)
-        card = MapReduce(app, flow=flow).run(items)
-        host = MapReduce(app, flow=flow, device="cpu").run(items)
+        card_mr = MapReduce(app, flow=flow)
+        host_mr = MapReduce(app, flow=flow, device="cpu")
+        if card_mr.plan.flow == "stream":  # the fold's lowering, both sides
+            modes[name] = (card_mr.tiling.mode, host_mr.tiling.mode)
+            if modes[name][0] != modes[name][1]:
+                raise AssertionError(f"{name}: stream mode={modes[name][0]} "
+                                     f"on the card, {modes[name][1]} on the "
+                                     f"CPU:\n{card_mr.explain()}")
+        card = card_mr.run(items)
+        host = host_mr.run(items)
         if not np.array_equal(card.counts.cpu().numpy(),
                               host.counts.numpy()):
             raise AssertionError(f"{name}: counts differ card vs CPU")
@@ -817,7 +843,7 @@ def phoenix_on_card(flow: str = "auto") -> None:
         else:
             np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     log(f"Phoenix apps (flow={flow}) on the card == on the CPU: "
-        f"{', '.join(apps.ALL)}")
+        f"{', '.join(apps.ALL)}; stream modes (card, CPU) {modes}")
 
 
 def kernel_rows(rng, launches_add, launches_dense, ops_count) -> list[dict]:
@@ -891,6 +917,239 @@ def kernel_rows(rng, launches_add, launches_dense, ops_count) -> list[dict]:
                       "acc_columns": width},
         })
     return rows
+
+
+# -- the exact integer keyed fold (int_fold) ---------------------------------
+
+#: phase 4c: WordCount's zipf tokens and words, Histogram's pixels (3 pairs
+#: each)
+INT_WC_TOKENS = 1 << 24
+INT_WC_VOCAB = 1 << 16
+INT_HG_PIXELS = 1 << 22
+#: int_fold's rows of the ``kernels`` line: (label, n, D, K, key mix); the
+#: rows int64, as the stream flow hands them over (the premap widens the
+#: map's int32 ones)
+INT_FOLD_SHAPES = (("wordcount", 1 << 22, 1, INT_WC_VOCAB, "zipf"),
+                   ("histogram", 1 << 22, 1, 768, "uniform"),
+                   ("counts_k100", 1 << 22, 0, 100, "uniform"))
+
+
+def int_fold_inputs(rng, n, d, k, dtype, mix, bad_keys=True):
+    """(keys, rows, table, counts) on the card: [n] int32 keys by ``mix``
+    (:data:`KEY_MIXES`, or ``zipf``: zipf 1.2 keys, hottest at the low ids;
+    ``near_limits``: uniform keys with rows at the int32 limits, so per-key
+    sums pass 2^31, or near ±2^63 for int64 rows, which wrap), sentinel and
+    out-of-range keys mixed in (``bad_keys``); [n, D] rows of ``dtype``; a
+    random [K, D] int64 table and [K] int32 counts."""
+    import torch
+    if mix == "zipf":
+        keys = (rng.zipf(1.2, n) % k).astype(np.int32)
+        if bad_keys:
+            bad = rng.random(n) < 0.1
+            keys[bad] = rng.choice(np.array([k, k + 3, -1, -7], np.int32),
+                                   size=int(bad.sum()))
+    else:
+        keys = fold_keys(rng, n, k, "uniform" if mix == "near_limits"
+                         else mix, bad_keys)
+    if mix == "near_limits":
+        info = np.iinfo(dtype)
+        picks = np.array([info.max, info.max - 1, info.min, info.min + 1,
+                          -1, 1], dtype)
+        rows = rng.choice(picks[:2] if dtype == np.int32 else picks, (n, d))
+    else:
+        rows = rng.integers(-1000, 1000, (n, d)).astype(dtype)
+    table = rng.integers(-2**40, 2**40, (k, d)).astype(np.int64)
+    counts = rng.integers(0, 1000, k).astype(np.int32)
+    return tuple(torch.from_numpy(a).cuda() for a in (keys, rows, table,
+                                                      counts))
+
+
+def check_int_fold(rng) -> None:
+    """Phase 2, ``int_fold`` bit for bit against ``int_fold_plain`` on the
+    same card tensors, the table and the counts, and two runs bit for bit:
+    K = 1, 4, 100, 768, 2^16 and 2^20 (a table in shared memory, partly, or
+    not at all); D = 0, 1, 3 and 6 (columns past the first, which the warp
+    loads with its keys); int32 and
+    int64 rows, values at the int32 limits (per-key sums past 2^31) and
+    near ±2^63 (wrapping); sentinel and out-of-range keys, every key
+    invalid; n = 0, 31, ragged and 2^22; one key holding almost every pair,
+    zipf 1.2; without counts too."""
+    import torch
+    from repro_torch.core.autotune import CUDA_CHUNK_PAIRS
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.int_fold import int_fold_plain
+
+    n = CUDA_CHUNK_PAIRS
+    i32, i64 = np.int32, np.int64
+    cases = [  # (n, D, K, row dtype, mix[, counts])
+        (n, 1, INT_WC_VOCAB, i64, "zipf"),  # WordCount's chunk
+        (n, 1, 768, i64, "uniform"),  # Histogram's
+        (n, 0, 100, i32, "uniform"),  # the counts of K = 100
+        (n, 1, INT_WC_VOCAB, i32, "zipf"),
+        (n, 3, 100, i32, "zipf"),
+        (n, 1, 1 << 20, i32, "uniform"),
+        (n, 1, INT_WC_VOCAB, i32, "one_hot_key"),
+        (n, 1, 768, i64, "one_hot_key"),
+        (n, 0, 1 << 20, i32, "zipf"),
+        (n, 1, 1, i32, "uniform"),
+        (1_000_003, 1, 4, i32, "near_limits"),
+        (1_000_003, 3, 100, i64, "near_limits"),
+        (1_000_003, 3, INT_WC_VOCAB, i32, "near_limits"),
+        (1_000_003, 6, 768, i64, "uniform"),
+        (1_000_003, 6, INT_WC_VOCAB, i32, "zipf"),
+        (1_000_003, 3, 4, i64, "uniform", False),
+        (1_000_003, 1, INT_WC_VOCAB, i32, "zipf", False),
+        (100_003, 1, 100, i32, "all_out"),
+        (100_003, 0, INT_WC_VOCAB, i32, "all_out"),
+        (31, 1, 100, i32, "uniform"),
+        (31, 3, 1 << 20, i64, "uniform"),
+        (31, 0, 1, i32, "uniform"),
+        (0, 1, 100, i32, "uniform"),
+        (0, 0, 4, i32, "uniform"),
+    ]
+    for m, d, k, dtype, mix, *how in cases:
+        with_counts = how[0] if how else True
+        keys, rows, table, counts = int_fold_inputs(rng, m, d, k, dtype, mix)
+        args = (keys, rows, table) + ((counts,) if with_counts else ())
+        kept = [t.clone() for t in args]
+        got = [ops.int_fold(*args) for _ in range(2)]
+        want = int_fold_plain(*args) if m else (
+            (table, counts) if with_counts else table)
+        torch.cuda.synchronize()
+        if not with_counts:
+            got, want = [(g,) for g in got], (want,)
+        for a, b, w in zip(got[0], got[1], want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"int_fold: two runs differ (n={m} "
+                                     f"d={d} k={k} {mix})")
+            if a.dtype != w.dtype or not torch.equal(a, w):
+                diff = (a != w).sum().item()
+                raise AssertionError(f"int_fold != plain (n={m} d={d} k={k} "
+                                     f"{np.dtype(dtype).name} {mix}): {diff} "
+                                     f"elements differ")
+        if not all(torch.equal(x, y) for x, y in zip(args, kept)):
+            raise AssertionError(f"int_fold wrote its inputs (n={m} d={d} "
+                                 f"k={k})")
+        if mix == "near_limits":  # the sums must leave the int32 range
+            if not bool(((got[0][0] - table).abs() > 2**31).any()):
+                raise AssertionError("int_fold near_limits: no sum past "
+                                     "2^31")
+        log(f"int_fold == plain bitwise: n={m} d={d} k={k} "
+            f"{np.dtype(dtype).name} {mix} counts={with_counts}")
+
+
+def main_path_int_fold() -> dict:
+    """Phase 4c: ``MapReduce(WordCount(2^16)).run`` on 2^24 zipf tokens
+    and ``MapReduce(Histogram()).run`` on 2^22 pixels (3 x 2^22 pairs) on
+    the card.  The plan must be the stream flow with ``mode=additive`` (the
+    reference's), no FALLBACK note and no ``LoweringFallbackWarning``;
+    ``int_fold`` must have launched, once a chunk, and no other kernel;
+    values and counts must equal ``np.bincount`` bit for bit.  Returns
+    ``{label: (mr, items, launches)}``."""
+    import warnings
+
+    import torch
+    from repro_torch import MapReduce, apps
+    from repro_torch.core.collector import LoweringFallbackWarning
+    from repro_torch.data import datasets
+    from repro_torch.kernels import ops
+
+    toks, vocab = datasets.wordcount_data(
+        np.random.default_rng(6), tokens=INT_WC_TOKENS, vocab=INT_WC_VOCAB)
+    px = datasets.histogram_data(np.random.default_rng(8),
+                                 pixels=INT_HG_PIXELS)
+    runs = {"wordcount": (apps.WordCount(vocab), toks.reshape(-1, 16),
+                          np.bincount(toks, minlength=vocab)),
+            "histogram": (apps.Histogram(), px, np.bincount(
+                (np.arange(3, dtype=np.int32) * 256 + px).ravel(),
+                minlength=768))}
+    out = {}
+    for label, (app, host, want) in runs.items():
+        items = torch.from_numpy(host).cuda()
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", LoweringFallbackWarning)
+            mr = MapReduce(app)
+            text = mr.explain()
+            if (mr.plan.flow, mr.tiling.mode) != ("stream", "additive") or (
+                    "FALLBACK" in text):
+                raise AssertionError(f"{label}: unexpected plan:\n{text}")
+            mr.lower(items).compile()  # the warm-up's launches stay out
+            ops.reset_launch_counts()
+            res = mr.run(items)
+            torch.cuda.synchronize()
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        chunks = -(-host.shape[0] // (mr.tiling.chunk_pairs
+                                      // app.emit_capacity))
+        if launches != {"int_fold": chunks}:
+            raise AssertionError(f"{label}: launches {launches}, want "
+                                 f"int_fold once a chunk ({chunks})")
+        counts, values = res.counts.cpu().numpy(), res.values.cpu().numpy()
+        if not (np.array_equal(counts, want) and np.array_equal(values,
+                                                                want)):
+            raise AssertionError(f"{label}: values or counts != np.bincount")
+        log(f"main path int_fold: {label}, {host.shape[0]} items, "
+            f"{mr.tiling.describe()}, values and counts == np.bincount "
+            f"(max {want.max()} a key), launches {launches}")
+        out[label] = (mr, items, launches)
+    return out
+
+
+def int_fold_rows(rng, launches: dict, ops_count) -> list[dict]:
+    """Phase 8: ``int_fold`` at :data:`INT_FOLD_SHAPES`: kernel (CUDA
+    events and a CUDA graph), plain and library times (``index_add_`` and
+    ``bincount`` on the same inputs, the int64 index built beforehand), the
+    byte bound (each key and row read once, the table and counts in and
+    out) and the launches of the main path that hands it that shape
+    (``launches``, by label); ``ops_count``: phase 2b's device operations."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.int_fold import int_fold_plain
+
+    rows_out = []
+    for label, n, d, k, mix in INT_FOLD_SHAPES:
+        keys, rows, table, counts = int_fold_inputs(rng, n, d, k, np.int64,
+                                                    mix, bad_keys=False)
+        table.zero_()
+        counts.zero_()
+        keys64 = keys.long()
+        kern = lambda: ops.int_fold(keys, rows, table, counts)  # noqa: E731
+        plain = lambda: int_fold_plain(  # noqa: E731
+            keys, rows, table, counts)
+
+        def lib():
+            out = counts + torch.bincount(keys64, minlength=k)
+            return (table.index_add(0, keys64, rows), out) if d else out
+
+        got, want = kern(), plain()
+        err = max((a - b).abs().max().item() for a, b in zip(got, want)
+                  if a.numel())
+        nbytes = n * (4 + 8 * d) + 2 * k * (8 * d + 4)
+        n_ops = n * (d + 1)  # an add a pair and column, and its count
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n_ops / F32_OPS_PER_S * 1e3
+        ms = time_ms(kern, 20)
+        rows_out.append({
+            "name": "int_fold", "label": label, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/int_fold.cu",
+            "replaces": ("none (port only, no pallas_call): "
+                         "src/repro/core/collector.py:634 "
+                         "StreamCombiner._fold_additive, the XLA-fused "
+                         "integer one-hot contraction"),
+            "launches": launches[label], "max_abs_err": err,
+            "ms": ms, "kernel_ms": ms, "graph_ms": graph_ms(kern, 20),
+            "plain_ms": time_ms(plain, 5),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": time_ms(lib, 20),
+            "device_ops": ops_count[f"int_fold/{label}"],
+            "shape": {"n": n, "d": d, "k": k, "rows": "int64",
+                      "counts": True, "keys": mix}})
+        log(f"int_fold {label}: {ms:.4f} ms, graph "
+            f"{rows_out[-1]['graph_ms']:.4f}, bound "
+            f"{rows_out[-1]['bound_ms']:.4f}, plain "
+            f"{rows_out[-1]['plain_ms']:.4f}, library "
+            f"{rows_out[-1]['library_ms']:.4f}")
+    return rows_out
 
 
 # -- the combine and reduce flows ---------------------------------------------
@@ -995,9 +1254,10 @@ def main_path_combine(pts, assign, items):
             ("kmeans", apps.KMeans(), "auto", "onehot",
              {"onehot_combine": 2}),  # the values and the counts
             ("bounding_box", apps.BoundingBox(), "auto", "scatter",
-             {"radix_partition": 2, "segment_reduce": 2}),  # max, min
+             {"radix_partition": 2, "segment_reduce": 2,  # max, min
+              "int_fold": 1}),  # the counts
             ("kmeans_scatter", apps.KMeans(), "scatter", "scatter",
-             {"combine_scatter": 1})):  # the values; counts by bincount
+             {"combine_scatter": 1, "int_fold": 1})):  # values; counts
         mr = MapReduce(app, flow="combine", combine_impl=forced)
         chosen = forced
         if forced == "auto":
@@ -2279,6 +2539,14 @@ def early_device_ops() -> dict:
                                                                   k))
     out["combine_scatter"] = device_ops(lambda: ops.combine_scatter(
         keys, vals, k, "add"))
+    for label, m, d, kk, _ in INT_FOLD_SHAPES:  # the copies and the kernel
+        ikeys = torch.randint(0, kk, (m,), dtype=torch.int32,
+                              device="cuda", generator=gen)
+        rows = torch.ones((m, d), dtype=torch.int64, device="cuda")
+        table = torch.zeros((kk, d), dtype=torch.int64, device="cuda")
+        cnt = torch.zeros((kk,), dtype=torch.int32, device="cuda")
+        out[f"int_fold/{label}"] = device_ops(
+            lambda: ops.int_fold(ikeys, rows, table, cnt))
     rng = np.random.default_rng(12)
     for label, shape, dtype in (("flash_decode", FD_LLAMA_SHAPE, "bf16"),
                                 ("flash_decode/bench_shape", FD_BENCH_SHAPE,
@@ -2887,9 +3155,10 @@ def staged_on_card(card: str, kitems,
                    first_plan_ms: float | None = None) -> dict:
     """Phase 10: the staged path (``lower().optimize().compile()``), the
     plan cache, pow2 bucketing, pipelines and the measured probe on the
-    card.  (a) KMeans (stream, B1), BoundingBox (stream, B2), KeyedSum
-    K = 2^20 (sort, B4 + B5) and KMeans ``flow="combine"`` (B6) at 2^24
-    pairs: the compiled call equals an uncached ``run()`` bit for bit and
+    card.  (a) KMeans (stream, B1), BoundingBox (stream, B2 and int_fold),
+    WordCount (stream, 2^16 words, int_fold), KeyedSum K = 2^20 (sort, B4
+    + B5) and KMeans ``flow="combine"`` (B6) at 2^24 pairs: the compiled
+    call equals an uncached ``run()`` bit for bit and
     launches each kernel; a second call leaves the first call's tensors as
     they were.  (b) A second MapReduce over an equal app derives, tunes
     and prepares nothing (``stats_snapshot``), ``cache_event == "hit"``;
@@ -2915,13 +3184,19 @@ def staged_on_card(card: str, kitems,
     from repro_torch.core import autotune as at
     from repro_torch.core import plan_cache as pc
     from repro_torch.core import ValueSpec
+    from repro_torch.data import datasets
     from repro_torch.kernels import ops
 
     out: dict = {"card": card}
     sitems, _, _ = sort_items(1 << 20)
+    toks, vocab = datasets.wordcount_data(
+        np.random.default_rng(6), tokens=INT_WC_TOKENS, vocab=INT_WC_VOCAB)
+    witems = torch.from_numpy(toks.reshape(-1, 16)).cuda()
     cases = (("kmeans_stream", apps.KMeans, {}, kitems, ("onehot_fold",)),
              ("bounding_box_stream", apps.BoundingBox, {}, kitems,
-              ("chunk_monoid_fold",)),
+              ("chunk_monoid_fold", "int_fold")),
+             ("wordcount_stream", lambda: apps.WordCount(vocab), {}, witems,
+              ("int_fold",)),
              ("keyed_sum_K1048576_sort", lambda: apps.KeyedSum(1 << 20),
               {"flow": "sort"}, sitems,
               ("radix_partition_multi", "segment_reduce")),
@@ -5543,7 +5818,7 @@ KMEANS_STREAM_PEAK_BEFORE = 155_827_200
 
 
 def traced_flows(card: str, label: str, make, items, check, *,
-                 kernels=None) -> dict:
+                 kernels=None, bytes_gate: bool = False) -> dict:
     """Phase 18 (a) for one app: the stream, combine and reduce flows'
     traced bytes, FLOPs and peak, the modelled bytes, an untraced warm
     call's device time and the traced bytes over it as a share of
@@ -5553,7 +5828,9 @@ def traced_flows(card: str, label: str, make, items, check, *,
     tables'), the combine flow's grows with the pairs.  ``kernels``
     (stream kernel, combine kernel) gates the stream flow: no more bytes
     than the combine flow, the same FLOPs in its kernel ops as the combine
-    flow's, and a peak no higher than :data:`KMEANS_STREAM_PEAK_BEFORE`."""
+    flow's, and a peak no higher than :data:`KMEANS_STREAM_PEAK_BEFORE`;
+    ``bytes_gate`` (or ``kernels``) gates the stream flow's bytes at no
+    more than the combine flow's."""
     import torch
     from repro_torch.kernels import ops
 
@@ -5590,6 +5867,7 @@ def traced_flows(card: str, label: str, make, items, check, *,
     p_half = {f: make(f).lower(half).compile().traced_cost(half).peak_bytes
               for f in ("stream", "combine")}
     out["stream_le_combine"] = b["stream"] <= b["combine"]
+    out["stream_over_combine_bytes"] = b["stream"] / b["combine"]
     out["stream_over_combine_peak"] = p["stream"] / p["combine"]
     out["half_items_peak_bytes"] = p_half
     log(f"traced {label}: peaks at half the items {p_half}; stream over "
@@ -5598,11 +5876,13 @@ def traced_flows(card: str, label: str, make, items, check, *,
     if not (b["stream"] < b["reduce"] and b["combine"] < b["reduce"]):
         raise AssertionError(f"traced {label}: an optimized flow moves no "
                              f"fewer bytes than the reduce flow: {b}")
+    if bytes_gate and not out["stream_le_combine"]:
+        raise AssertionError(f"traced {label}: the stream flow moves more "
+                             f"bytes than the combine flow: {b}")
     if kernels is not None:
         kf = {f: sum(v for k, v in out[f]["kernel_flops"].items()
                      if k == f"repro_torch::{name}")
               for f, name in zip(("stream", "combine"), kernels)}
-        out["stream_over_combine_bytes"] = b["stream"] / b["combine"]
         log(f"traced {label}: stream over combine bytes "
             f"{b['stream'] / b['combine']:.4f}, kernel FLOPs {kf}, stream "
             f"FLOPs {out['stream']['flops']:.6g}, stream peak "
@@ -5634,8 +5914,8 @@ def traced_on_card(card: str, pts, assign, items, dryrun: dict) -> dict:
     combine flow's and flat from half the items to all (the combine
     flow's grows), every counted launch an op of the trace; KMeans's
     stream flow moves no more bytes than its combine flow, with the same
-    kernel FLOPs, and WordCount's order is read, not gated (its integer
-    stream fold carries its tables: ROADMAP C.73).  (b) The stream and combine flows of both at 2^14
+    kernel FLOPs, and so does WordCount's (its integer stream fold one
+    ``int_fold`` op a chunk).  (b) The stream and combine flows of both at 2^14
     items, kernels on, on the card and on the CPU at one chunk size: their
     kernel ops and bytes equal.  (c) ``run_distributed`` of WordCount on
     ``LocalMesh(S)``, S = 2 and 4, stream and reduce flows at 2^20 and
@@ -5682,7 +5962,8 @@ def traced_on_card(card: str, pts, assign, items, dryrun: dict) -> dict:
                                  kernels=("onehot_fold", "onehot_combine"))
     out["wordcount"] = traced_flows(
         card, "wordcount", lambda f: MapReduce(apps.WordCount(vocab),
-                                               flow=f), witems, wc_check)
+                                               flow=f), witems, wc_check,
+        bytes_gate=True)
 
     # (b) the same calls on the card and on the CPU
     n = TRACE_SMALL_ITEMS
@@ -5825,7 +6106,7 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc, "
         f"{len(_build.LIBRARIES)} libraries, into {_build.build_dir()})")
     for name in ("chunk_monoid_fold", "radix_partition", "segment_reduce",
-                 "flash_decode"):
+                 "flash_decode", "int_fold"):
         log(f"build: {name}: " + "; ".join(
             f"{r['function']} {r['registers']} registers, {r['smem_bytes']} "
             f"B static smem, {r['spill_bytes']} B spilled"
@@ -5841,6 +6122,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     check_kernels(rng)
     check_counts_column(rng)
+    check_int_fold(rng)
     check_sort_kernels(rng)
     check_combine_kernels(rng)
     check_lane_folds(rng)
@@ -5853,6 +6135,7 @@ def main() -> int:
     mr_add, items, launches_add, first_plan_ms = main_path_additive(
         pts, assign)
     mr_dense, launches_dense = main_path_dense(pts, assign, items)
+    int_runs = main_path_int_fold()
     phoenix_on_card()
     sort_runs = {k: main_path_sort(k) for k in SORT_KEY_SPACES}
     phoenix_on_card("sort")
@@ -5894,12 +6177,17 @@ def main() -> int:
         "combine_scatter":
             combine_runs["kmeans_scatter"][1]["combine_scatter"]},
         ops_count)
-    for row in rows:  # B1-B7: their launches a shard on the distributed path
+    rows += int_fold_rows(rng, {
+        "wordcount": int_runs["wordcount"][2]["int_fold"],
+        "histogram": int_runs["histogram"][2]["int_fold"],
+        "counts_k100": launches_dense["int_fold"]}, ops_count)
+    for row in rows:  # B1-B7, int_fold: their launches a shard on the
+        # distributed path
         row["distributed_launches"] = {
             label: [s.get(row["name"], 0) for s in shards]
             for label, shards in distributed["launches"].items()
             if any(s.get(row["name"], 0) for s in shards)}
-    for row in rows:  # B1-B7: their launches on the resilient path
+    for row in rows:  # B1-B7, int_fold: their launches on the resilient path
         row["resilient_launches"] = {
             label: total[row["name"]]
             for label, total in resilient["launches"].items()
@@ -5937,6 +6225,8 @@ def main() -> int:
     main_ms["combine_large_k_pairs"] = COMBINE_LARGE_ITEMS * 8
     for label, run in hinted.items():
         main_ms[f"{label}_auto_hint_ms"] = run["wall_ms"]
+    for label, (mr, iitems, _) in int_runs.items():
+        main_ms[f"{label}_ms"] = run_ms(mr, iitems)
     log(json.dumps({"main_path": main_ms}))
     log(json.dumps({"serve": {"card": card, **serve}}))
     log(json.dumps({"moe": moe}))
@@ -5949,6 +6239,9 @@ def main() -> int:
         label = f"keyed_sum_K{k}"
         log(json.dumps({"profile": label,
                         **profile(mr, sitems, main_ms[f"{label}_ms"])}))
+    for label, (mr, iitems, _) in int_runs.items():
+        log(json.dumps({"profile": label,
+                        **profile(mr, iitems, main_ms[f"{label}_ms"])}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

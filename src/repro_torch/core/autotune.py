@@ -95,6 +95,7 @@ def autotune_stream(app, spec, *, device, use_kernels: bool = False,
     notes: list[str] = []
     K = app.key_space
     kernel_additive = use_kernels and spec.kernel_additive_ok(app.value_spec)
+    kernel_int = use_kernels and spec.kernel_int_additive_ok(app.value_spec)
     kernel_monoid = use_kernels and spec.kernel_monoid_ok(app.value_spec)
     manual_chunk = isinstance(chunk_pairs, int)
     chunk = _chunk(app, device, chunk_pairs, CPU_CHUNK_PAIRS)
@@ -138,7 +139,8 @@ def autotune_stream(app, spec, *, device, use_kernels: bool = False,
 
     dense_ok = kernel_monoid or chunk * blk <= col.DENSE_FOLD_ELEMS_BUDGET
     mode = col.stream_mode(spec, dense_ok=dense_ok,
-                           additive_ok=kernel_additive or dense_ok)
+                           additive_ok=kernel_additive or kernel_int
+                           or dense_ok)
     if spec.sum_lowerable and mode == "scatter":
         notes.append(f"FALLBACK: chunk_pairs={chunk} × key_block={blk} "
                      f"exceeds the dense fold budget; exact scatter fold")

@@ -20,9 +20,10 @@ Every fold is deterministic on the card: float sums go through the one-hot
 contraction, the ``onehot_fold``, ``onehot_combine``, ``combine_scatter`` or
 ``segment_reduce`` kernel (no float atomics), a sorted ``index_put_``, or
 the difference of a sorted chunk's running sum (one result per run end,
-written without accumulation), integer sums through ``index_add_`` in the
-table's own integer dtype (integer atomics give the same result in any
-order), and max/min follow JAX's NaN and signed-zero rules.
+written without accumulation), integer sums and pair counts through the
+``int_fold`` kernel (integer atomics give the same result in any order) or
+``index_add_`` in the table's own integer dtype, and max/min follow JAX's
+NaN and signed-zero rules.
 """
 
 from __future__ import annotations
@@ -104,15 +105,32 @@ def choose_dense_key_block(key_space: int, chunk_pairs: int | None, *,
     return pow2_floor(max(budget // max(chunk_pairs, 1), 8))
 
 
-def _counts(keys: torch.Tensor, valid: torch.Tensor,
-            key_space: int) -> torch.Tensor:
-    """[K] int32 number of valid pairs per key (exact).  ``bincount`` with
-    invalid pairs in an extra bin: no host sync for a boolean index, and no
-    atomics contended on a few hot keys (``index_add_`` took 0.9 ms per
-    2^22-pair chunk at K=100 on the H100)."""
-    binned = torch.where(valid, keys, key_space).to(torch.int64)
-    return torch.bincount(binned, minlength=key_space + 1)[:key_space].to(
-        torch.int32)
+def _add_counts(keys: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """``counts`` ([K] int32) plus the pairs of each key in ``[0, K)``,
+    exact: ``ops.int_fold`` with no value columns (on the card one pass and
+    no host sync; on the CPU ``bincount``)."""
+    from repro_torch.kernels import ops
+
+    empty = torch.empty((counts.shape[0], 0), dtype=torch.int64,
+                        device=counts.device)
+    return ops.int_fold(keys, keys.new_empty((keys.shape[0], 0)), empty,
+                        counts)[1]
+
+
+def _counts(keys: torch.Tensor, key_space: int) -> torch.Tensor:
+    """[K] int32 number of pairs per key in ``[0, K)`` (exact)."""
+    return _add_counts(keys, torch.zeros((key_space,), dtype=torch.int32,
+                                         device=keys.device))
+
+
+def _int_rows(chan: torch.Tensor, n: int) -> torch.Tensor:
+    """``[n, D]`` dense rows of an integer channel as ``int_fold`` takes
+    them: int32 and int64 as they are, narrower integers widened to
+    int32."""
+    rows = chan.reshape(n, -1)
+    if rows.dtype not in (torch.int32, torch.int64):
+        rows = rows.to(torch.int32)
+    return rows.contiguous()
 
 
 def _rows_f32(chan: torch.Tensor, n: int) -> torch.Tensor:
@@ -213,15 +231,21 @@ class StreamCombiner(CarriedTables):
       column counts the pairs: ``fold_fn(keys, rows, acc, counts=True)``
       takes the ``[n, ΣD]`` value rows and folds that column from the keys
       alone; otherwise one fold per holder leaf: the one-hot contraction
-      for float leaves, ``index_add_`` for integer ones.
+      for float leaves, ``int_fold`` for integer ones (with the counts in
+      the same launch).  With ``fold_fn`` an all-integer sum is exempt from
+      the dense budget, as the fused accumulator is: ``int_fold`` expands
+      no one-hot.
     * dense      — max/min/mul/bool per leaf: ``monoid_fold_fn`` (the
       ``chunk_monoid_fold`` kernel) for f32 add/max/min leaves, else an
       identity-masked reduction one key block at a time.
     * first      — first occurrence per key, kept while the count is 0.
-    * size       — counts only.
+    * size       — counts only (``int_fold``, no value columns).
     * scatter    — exact monoid scatters, where the dense expansion would
       not fit :data:`DENSE_FOLD_ELEMS_BUDGET` even at the smallest block.
     * sequential — one pair at a time (coupled holders).
+
+    Every lowering but the fused and the sequential ones counts the pairs
+    with ``int_fold``.
 
     ``key_block`` bounds the dense expansions (and is the kernels' keys per
     block); ``None`` means unblocked.  ``mode`` forces a lowering.
@@ -244,11 +268,14 @@ class StreamCombiner(CarriedTables):
         eff_block = key_block if key_block is not None else key_space
         kernel_additive = (fold_fn is not None
                            and spec.kernel_additive_ok(value_spec))
+        # integer sums fold through int_fold, which expands no one-hot
+        kernel_int = (fold_fn is not None
+                      and spec.kernel_int_additive_ok(value_spec))
         kernel_monoid = (monoid_fold_fn is not None
                          and spec.kernel_monoid_ok(value_spec))
         self._dense_ok = (kernel_monoid or chunk_pairs is None or
                           chunk_pairs * eff_block <= DENSE_FOLD_ELEMS_BUDGET)
-        additive_ok = kernel_additive or self._dense_ok
+        additive_ok = kernel_additive or kernel_int or self._dense_ok
         self.mode = (mode if mode is not None else
                      stream_mode(spec, dense_ok=self._dense_ok,
                                  additive_ok=additive_ok))
@@ -293,42 +320,58 @@ class StreamCombiner(CarriedTables):
                     torch.cat([l.reshape(n, -1).to(torch.float32)
                                for l in leaves], dim=1))
             return self.fold_fn(stream.keys, rows, state, counts=True)
-        valid = stream.valid
         if self.mode == "size":
-            return state + _counts(stream.keys, valid, self.key_space)
+            return _add_counts(stream.keys, state)
         tables, counts = state
         if self.mode == "sequential":
             return _sequential_fold(self.spec, tables, counts, stream.keys,
                                     stream.values)
-        new_counts = counts + _counts(stream.keys, valid, self.key_space)
         if self.mode == "additive":
-            return self._fold_additive(tables, stream, valid), new_counts
+            return self._fold_additive(tables, counts, stream)
+        new_counts = _add_counts(stream.keys, counts)
         if self.mode == "dense":
             return self._fold_dense(tables, stream), new_counts
         if self.mode == "scatter":
             return self._fold_scatter(tables, stream), new_counts
-        return self._fold_first(tables, counts, stream, valid), new_counts
+        return (self._fold_first(tables, counts, stream, stream.valid),
+                new_counts)
 
     def _leaves(self, tables, stream):
         return (pytree.tree_leaves(tables),
                 pytree.tree_leaves(self.spec.premap(stream.values)))
 
-    def _fold_additive(self, tables, stream, valid):
-        # integer leaves: exact index_add_ in the table's own dtype; float
-        # leaves: the one-hot contraction (or onehot_fold), in f32
+    def _fold_additive(self, tables, counts, stream):
+        """Float leaves: the one-hot contraction (or onehot_fold), in f32.
+        Integer leaves: ``int_fold``, exact, into int64 tables as they are
+        (a narrower table takes an int64 delta, cast back: the same wrap as
+        a sum in its own dtype); the counts ride with the first integer
+        leaf's launch, or take one of their own."""
+        from repro_torch.kernels import ops
+
         n = stream.keys.shape[0]
-        out = []
+        out, new_counts = [], None
         for tab, chan in zip(*self._leaves(tables, stream)):
             if tab.is_floating_point():
                 delta = self._sum_fold(stream.keys,
                                        _rows_f32(chan, n))
                 out.append(tab + delta.reshape(tab.shape).to(tab.dtype))
-            else:  # invalid pairs add 0 to row 0: exact, and no host sync
-                vmask = valid.reshape((n,) + (1,) * (chan.ndim - 1))
-                out.append(tab.index_add(
-                    0, torch.where(valid, stream.keys, 0).to(torch.int64),
-                    torch.where(vmask, chan, 0).to(tab.dtype)))
-        return pytree.tree_unflatten(out, self._holder_treedef)
+                continue
+            flat = tab.reshape(self.key_space, -1)
+            start = (flat if flat.dtype == torch.int64
+                     else torch.zeros(flat.shape, dtype=torch.int64,
+                                      device=flat.device))
+            rows = _int_rows(chan, n)
+            if new_counts is None:
+                red, new_counts = ops.int_fold(stream.keys, rows,
+                                               start.contiguous(), counts)
+            else:
+                red = ops.int_fold(stream.keys, rows, start.contiguous())
+            if flat.dtype != torch.int64:
+                red = flat + red.to(flat.dtype)
+            out.append(red.reshape(tab.shape))
+        if new_counts is None:
+            new_counts = _add_counts(stream.keys, counts)
+        return pytree.tree_unflatten(out, self._holder_treedef), new_counts
 
     def _fold_dense(self, tables, stream):
         tabs, chans = self._leaves(tables, stream)
@@ -627,9 +670,8 @@ def reduce_flow(reduce_fn: Callable, stream: PairStream, *,
     dev = keys.device
     # stable: order-dependent reducers see their values in emission order
     order = torch.argsort(keys, stable=True)
-    counts = torch.bincount(keys, minlength=K + 1)[:K]
-    offsets = torch.cumsum(counts, 0) - counts
-    counts = counts.to(torch.int32)
+    counts = _counts(stream.keys, K)
+    offsets = torch.cumsum(counts, 0, dtype=torch.int64) - counts
     clipped = counts.clamp(max=lmax)
     slot = torch.arange(lmax, device=dev)
     block = max(1, REDUCE_WINDOW_ELEMS // max(lmax, 1))
@@ -731,7 +773,7 @@ def combine_scatter(spec: C.CombinerSpec, stream: PairStream, *,
     ``sort_fold_fn(keys, mat, identity, op)`` (``ops.sort_segment_fold``
     folded onto the identity table); both drop keys outside ``[0, K)``.
     The other leaves, and every leaf without the kernels, take the monoid's
-    exact scatter.  Counts: ``bincount``.  ``routes``, when given,
+    exact scatter.  Counts: ``int_fold``.  ``routes``, when given,
     receives ``"<monoid> <route>"`` for each leaf, in leaf order."""
     assert spec.monoids is not None
     K = stream.key_space
@@ -761,7 +803,7 @@ def combine_scatter(spec: C.CombinerSpec, stream: PairStream, *,
             tables.append(mono.scatter(init, stream.keys, chan))
         if routes is not None:
             routes.append(f"{mono.name} {route}")
-    counts = _counts(stream.keys, stream.valid, K)
+    counts = _counts(stream.keys, K)
     return pytree.tree_unflatten(tables, treedef), counts
 
 
@@ -774,7 +816,7 @@ def combine_onehot(spec: C.CombinerSpec, stream: PairStream, *,
     channel in f32, integer ones too (exact up to 2^24 per key, ROADMAP
     C.6), and the counts, as in the reference.  Without it float channels
     take the plain contraction in f32 and integer channels an exact
-    ``index_add_`` in their own dtype (ROADMAP C.5); counts ``bincount``."""
+    ``index_add_`` in their own dtype (ROADMAP C.5); counts ``int_fold``."""
     assert spec.sum_lowerable
     K = stream.key_space
     n = stream.keys.shape[0]
@@ -800,7 +842,7 @@ def combine_onehot(spec: C.CombinerSpec, stream: PairStream, *,
         counts = onehot_fn(stream.keys, valid.to(torch.float32)[:, None],
                            K)[:, 0].to(torch.int32)
     else:
-        counts = _counts(stream.keys, valid, K)
+        counts = _counts(stream.keys, K)
     return pytree.tree_unflatten(tables, treedef), counts
 
 
@@ -821,7 +863,7 @@ def combine_first(spec: C.CombinerSpec, stream: PairStream
     safe = first_pos.clamp(max=max(n - 1, 0))
     tables = [chan[safe] for chan in chans]
     return (pytree.tree_unflatten(tables, treedef),
-            _counts(stream.keys, valid, K))
+            _counts(stream.keys, K))
 
 
 def combine_segment(spec: C.CombinerSpec, stream: PairStream
@@ -892,7 +934,7 @@ def combine_flow(spec: C.CombinerSpec, stream: PairStream, *,
     taken = impl
     if impl == "scatter":
         if spec.strategy == C.STRATEGY_SIZE:
-            tables, counts = (), _counts(stream.keys, stream.valid, K)
+            tables, counts = (), _counts(stream.keys, K)
             taken = "scatter (counts only)"
         else:
             routes: list[str] = []

@@ -212,6 +212,16 @@ class CombinerSpec:
             l.is_floating_point()
             for l in pytree.tree_leaves(self.init(value_spec)))
 
+    def kernel_int_additive_ok(self, value_spec: ValueSpec) -> bool:
+        """Whether the integer fold kernel (``int_fold``) can carry the
+        holders: a pure sum whose every holder leaf is an integer table.
+        Like the fused kernel it expands no ``[chunk, K]`` one-hot, so the
+        dense fold budget does not bind it."""
+        leaves = pytree.tree_leaves(self.init(value_spec))
+        return self.sum_lowerable and len(leaves) > 0 and all(
+            not l.is_floating_point() and not l.is_complex()
+            and l.dtype != torch.bool for l in leaves)
+
     def kernel_monoid_ok(self, value_spec: ValueSpec) -> bool:
         """Whether chunk_monoid_fold can carry the holders: f32 tables and
         add/max/min on every leaf."""

@@ -344,7 +344,7 @@ class LocalRun:
                 line += ("; per f32 leaf combine_scatter or sort_segment_fold "
                          "by collector.scatter_route")
             if not (impl == "onehot" and self.use_kernels):
-                line += "; counts: torch.bincount"
+                line += "; counts: int_fold"
             return "\n".join([head, "map over every item (torch.func.vmap)",
                               line])
         n_items = max(n_items, 0)
@@ -372,10 +372,26 @@ class LocalRun:
                             f"  chunk_monoid_fold {mono.name} [K={K}, "
                             f"{leaf.numel()}], n={m}: "
                             f"{_fold_desc(ops.fold_plan(m, K, leaf.numel(), mono.name, self.key_block))}")
-                lines.append("  counts: torch.bincount")
+                lines.append("  counts: int_fold")
+            elif comb.mode == "additive" and any(
+                    not leaf.is_floating_point()
+                    for leaf in comb._holder_leaves):
+                ints = [f"[K={K}, {leaf.numel()}]"
+                        for leaf in comb._holder_leaves
+                        if not leaf.is_floating_point()]
+                line = (f"  int_fold per integer holder leaf, int64 "
+                        f"{', '.join(ints)} (the counts in the first "
+                        f"launch)")
+                if len(ints) < len(comb._holder_leaves):
+                    line += "; float leaves: " + (
+                        "onehot_fold" if comb.fold_fn is not None
+                        else "the plain one-hot contraction")
+                lines.append(line)
+            elif comb.mode == "sequential":
+                lines.append("  sequential fold in plain PyTorch (no kernel)")
             else:
                 lines.append(f"  {comb.mode} fold in plain PyTorch (no "
-                             f"kernel); counts: torch.bincount")
+                             f"kernel); counts: int_fold")
         elif comb.sort_fold_fn is not None:
             passes = rp.partition_passes(K, self.bucket_size,
                                          ops.KERNEL_MAX_LEVEL_BUCKETS)
@@ -820,7 +836,7 @@ def _combine_local_tables(app, spec, stream: col.PairStream, *,
     note = routes.append if routes is not None else (lambda _: None)
     if spec.strategy == C.STRATEGY_SIZE:
         note("scatter (counts only)")
-        return (), col._counts(stream.keys, stream.valid, K)
+        return (), col._counts(stream.keys, K)
     if spec.strategy == C.STRATEGY_FIRST:
         note("first")
         return col.combine_first(spec, stream)

@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 #: one shared library per source; each maps to its launch function's name.
 LIBRARIES = ("onehot_fold", "chunk_monoid_fold", "radix_partition",
              "segment_reduce", "onehot_combine", "combine_scatter",
-             "flash_decode")
+             "flash_decode", "int_fold")
 
 #: the kernels whose launches are counted: each library's, and
 #: radix_partition_multi, the hierarchy's partition, which the
@@ -53,6 +53,7 @@ _ARGTYPES = {
                         _I, _I, _P],
     "flash_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _I, _I, _I, _I, _P],
+    "int_fold": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 #: argument types of ``<name>_scratch_bytes``, for the kernels whose scratch
 #: the launch function sizes itself (it returns -1 for a shape it refuses).

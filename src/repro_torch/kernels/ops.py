@@ -20,6 +20,7 @@ from repro_torch import numerics
 from repro_torch.kernels import _build
 from repro_torch.kernels import combine_scatter as _cs
 from repro_torch.kernels import flash_decode as _fd
+from repro_torch.kernels import int_fold as _if
 from repro_torch.kernels import onehot_combine as _oc
 from repro_torch.kernels import radix_partition as _rp
 from repro_torch.kernels import segment_reduce as _sr
@@ -370,6 +371,55 @@ def chunk_monoid_fold(keys, values, acc, op="add", *, block_k=None):
     return _trace.kernel(
         "chunk_monoid_fold", _sr.chunk_monoid_fold_cuda, keys, values, acc,
         op, _fold_launch("chunk_monoid_fold", n, key_space, d, op, block_k))
+
+
+def int_fold(keys, rows, table, counts=None):
+    """Exact integer keyed fold: ``table`` plus each key's sum of ``rows``.
+
+    [N] int32 keys, [N, D] int32 or int64 rows (D = 0: counts only),
+    [K, D] int64 table -> [K, D] int64, wrapping modulo 2^64 as
+    ``index_add_`` does; with ``counts`` ([K] int32) the pair
+    ``(table', counts + each key's pair count)``.  Keys outside ``[0, K)``
+    (the sentinel ``K`` among them) never land.  The outputs are fresh
+    tensors: the inputs are never written.  The stream flow's integer
+    additive holders and every pair count of the port take it."""
+    if rows.ndim != 2 or keys.ndim != 1 or keys.shape[0] != rows.shape[0]:
+        raise ValueError(f"int_fold: keys {tuple(keys.shape)} must be [N] and "
+                         f"rows {tuple(rows.shape)} [N, D]")
+    if table.ndim != 2 or table.shape[1] != rows.shape[1]:
+        raise ValueError(f"int_fold: table shape {tuple(table.shape)} != "
+                         f"(K, {rows.shape[1]})")
+    k = table.shape[0]
+    if counts is not None and tuple(counts.shape) != (k,):
+        raise ValueError(f"int_fold: counts shape {tuple(counts.shape)} != "
+                         f"({k},)")
+    tensors = (keys, rows, table) + (() if counts is None else (counts,))
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"int_fold: inputs lie on different devices "
+                         f"{sorted(map(str, devices))}")
+    if (keys.dtype != torch.int32
+            or rows.dtype not in (torch.int32, torch.int64)
+            or table.dtype != torch.int64
+            or (counts is not None and counts.dtype != torch.int32)):
+        raise TypeError(f"int_fold: keys int32, rows int32 or int64, table "
+                        f"int64 and counts int32, got {keys.dtype}, "
+                        f"{rows.dtype}, {table.dtype}, "
+                        f"{None if counts is None else counts.dtype}")
+    if keys.shape[0] == 0:  # empty chunk: nothing to fold
+        return (table.clone() if counts is None
+                else (table.clone(), counts.clone()))
+    if keys.device.type == "cpu":
+        return _trace.kernel("int_fold", _if.int_fold_plain, keys, rows,
+                             table, counts)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("int_fold: keys, rows, table and counts must be "
+                         "contiguous")
+    if keys.shape[0] > MAX_INDEX or k > MAX_INDEX:
+        raise ValueError("int_fold: sizes past 2^31 - 1 pairs or keys are "
+                         "not taken")
+    return _trace.kernel("int_fold", _if.int_fold_cuda, keys, rows, table,
+                         counts)
 
 
 # ---------------------------------------------------------------------------

@@ -35,7 +35,8 @@ Accounting (the reference's rules, restated for eager PyTorch):
   2·|out|·|contracted|; elementwise and transcendental ops |out|;
   reductions |in|; data movement and views none.  A kernel counts the
   formula it registers: ``flash_decode.traced_flops`` for B8, |values|
-  (the elements its fold reads) for B1–B7.
+  (the elements its fold reads) for B1–B7, and ``int_fold`` an add a
+  pair and column and one for its count (n·(D + 1) with counts).
 * Bytes: each op |out| + Σ|operands|; views and metadata none
   (:data:`NO_BYTES`).  A tensor is counted at its own size (a broadcast
   view at its distinct elements), so an in-place
@@ -506,6 +507,9 @@ def _kernel_flops(name: str):
     elif name == "onehot_fold":
         def flops(ins, outs):  # an add per pair and column of acc: with
             return ins[0].numel() * ins[2].shape[1]  # counts, one past D
+    elif name == "int_fold":
+        def flops(ins, outs):  # an add per pair and column, and its count
+            return ins[0].numel() * (ins[1].shape[1] + (len(ins) > 3))
     else:
         def flops(ins, outs):  # the elements the fold reads: its values
             return ins[1].numel() if len(ins) > 1 else 0

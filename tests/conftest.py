@@ -146,6 +146,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "raw_wire: asserts the raw wire layout / bucket bytes "
         "(skipped under REPRO_TEST_WIRE)")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the port's kernels); skips "
+        "where there is none")
 
 
 def pytest_collection_modifyitems(config, items):
