@@ -3112,39 +3112,6 @@ def wall_ms(fn, reps: int = 3) -> float:
     return float(np.median(times))
 
 
-def host_syncs(fn) -> dict:
-    """Host synchronizations one call of ``fn`` makes, by the warnings of
-    ``torch.cuda.set_sync_debug_mode("warn")``: their count, and for each
-    the innermost line of the port on the stack when it was raised."""
-    import os
-    import traceback
-    import warnings
-
-    import torch
-    where: dict[str, int] = {}
-
-    def record(message, category, filename, lineno, file=None, line=None):
-        if "synchroniz" not in str(message):
-            return
-        at = f"{os.path.basename(filename)}:{lineno}"
-        for frame in reversed(traceback.extract_stack()[:-1]):
-            if "repro_torch" in frame.filename:
-                at = f"{os.path.basename(frame.filename)}:{frame.lineno}"
-                break
-        where[at] = where.get(at, 0) + 1
-
-    torch.cuda.synchronize()
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = record
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    return {"count": sum(where.values()), "at": where}
-
-
 def same_bits(a, b) -> bool:
     import torch
     return (torch.equal(a.counts, b.counts)
@@ -3186,6 +3153,8 @@ def staged_on_card(card: str, kitems,
     from repro_torch.core import ValueSpec
     from repro_torch.data import datasets
     from repro_torch.kernels import ops
+
+    from portbench.syncs import host_syncs
 
     out: dict = {"card": card}
     sitems, _, _ = sort_items(1 << 20)
@@ -3493,6 +3462,8 @@ def streaming_on_card(card: str, pts, assign, items) -> dict:
     from repro_torch.core import plan_cache as pc
     from repro_torch.core.plan_cache import TensorSpec
     from repro_torch.streaming import IngestionQueue, sliding, tumbling
+
+    from portbench.syncs import host_syncs
 
     out: dict = {"card": card}
     spec = (TensorSpec((), torch.int32), TensorSpec((3,), torch.float32))

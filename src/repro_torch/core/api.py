@@ -73,6 +73,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch import spans
 from repro_torch.core import autotune as at
 from repro_torch.core import collector as col
 from repro_torch.core import combiner as C
@@ -312,70 +313,82 @@ class MapReduce:
                  cache: bool = True,
                  device=None,
                  streaming: bool = False):
-        if app.key_space <= 0:
-            raise ValueError("app.key_space must be positive")
-        self.device = resolve_device(device)
-        self.app = app
-        self.use_kernels = (self.device.type == "cuda" if use_kernels is None
-                            else use_kernels)
-        self.combine_impl = combine_impl
-        self._plan_key = pc.plan_key(
-            app, flow=flow, trust_semantics=trust_semantics,
-            n_pairs_hint=n_pairs_hint, use_kernels=self.use_kernels,
-            combine_impl=combine_impl, chunk_pairs=stream_chunk_pairs,
-            key_block=stream_key_block, autotune_probe=autotune_probe,
-            device=self.device, streaming=streaming)
-        entry = pc.plan_get(self._plan_key) if cache else None
-        if entry is not None:
-            # a fresh plan instance, so that run-time diagnostics never
-            # reach the cached template
-            self.plan = dataclasses.replace(
-                entry.plan, stage="planned", cache_key=self._plan_key,
-                cache_event="hit")
-            self.tiling = entry.tiling
-            return
-        cache_event = "miss" if cache else ""
-        fentry = pc.file_get(self._plan_key, self.device) if cache else None
-        if (fentry is not None and not isinstance(stream_chunk_pairs, int)
-                and fentry["flow"] in ("stream", "sort")):
-            # another process's tiling: pin it, skip the probe (derivation
-            # still runs: closures do not serialize)
-            stream_chunk_pairs = fentry["chunk_pairs"]
-            if (fentry.get("key_block") is not None
-                    and fentry["flow"] == "stream"
-                    and not isinstance(stream_key_block, int)):
-                stream_key_block = fentry["key_block"]
-            cache_event = "file-hit"
-        self.plan = plan_execution(app, flow=flow,
-                                   trust_semantics=trust_semantics,
-                                   n_pairs_hint=n_pairs_hint,
-                                   device=self.device, streaming=streaming)
-        self.tiling = None
-        if self.plan.flow == "combine":
-            self._combine_diagnostics()
-        elif self.plan.flow == "sort":
-            self.tiling = at.autotune_sort(
-                app, self.plan.spec, device=self.device,
-                use_kernels=self.use_kernels, chunk_pairs=stream_chunk_pairs)
-        elif self.plan.flow == "stream":
-            self.tiling = at.autotune_stream(
-                app, self.plan.spec, device=self.device,
-                use_kernels=self.use_kernels, chunk_pairs=stream_chunk_pairs,
-                key_block=stream_key_block, probe=autotune_probe)
-            if self.tiling.mode == "scatter" and self.plan.spec.sum_lowerable:
-                self.plan.diagnostics += (
-                    "stream fold degraded to exact scatter (dense budget "
-                    "exceeded) — see tiling notes",)
-        self.plan.tiling = self.tiling
-        self.plan.stage = "planned"
-        self.plan.cache_key = self._plan_key
-        self.plan.cache_event = cache_event
-        if cache:
-            # a snapshot: the template must not see what a run appends
-            pc.plan_put(self._plan_key, pc.PlanEntry(
-                plan=dataclasses.replace(self.plan), tiling=self.tiling))
-            pc.file_put(self._plan_key, pc.file_entry_from(
-                self.plan, self.tiling, self.device))
+        with spans.span("plan"):
+            if app.key_space <= 0:
+                raise ValueError("app.key_space must be positive")
+            self.device = resolve_device(device)
+            self.app = app
+            self.use_kernels = (self.device.type == "cuda"
+                                if use_kernels is None else use_kernels)
+            self.combine_impl = combine_impl
+            with spans.span("plan.key"):
+                self._plan_key = pc.plan_key(
+                    app, flow=flow, trust_semantics=trust_semantics,
+                    n_pairs_hint=n_pairs_hint, use_kernels=self.use_kernels,
+                    combine_impl=combine_impl,
+                    chunk_pairs=stream_chunk_pairs,
+                    key_block=stream_key_block,
+                    autotune_probe=autotune_probe, device=self.device,
+                    streaming=streaming)
+            entry = pc.plan_get(self._plan_key) if cache else None
+            if entry is not None:
+                # a fresh plan instance, so that run-time diagnostics never
+                # reach the cached template
+                self.plan = dataclasses.replace(
+                    entry.plan, stage="planned", cache_key=self._plan_key,
+                    cache_event="hit")
+                self.tiling = entry.tiling
+                return
+            cache_event = "miss" if cache else ""
+            fentry = (pc.file_get(self._plan_key, self.device) if cache
+                      else None)
+            if (fentry is not None and not isinstance(stream_chunk_pairs, int)
+                    and fentry["flow"] in ("stream", "sort")):
+                # another process's tiling: pin it, skip the probe (derivation
+                # still runs: closures do not serialize)
+                stream_chunk_pairs = fentry["chunk_pairs"]
+                if (fentry.get("key_block") is not None
+                        and fentry["flow"] == "stream"
+                        and not isinstance(stream_key_block, int)):
+                    stream_key_block = fentry["key_block"]
+                cache_event = "file-hit"
+            with spans.span("plan.derive"):
+                self.plan = plan_execution(app, flow=flow,
+                                           trust_semantics=trust_semantics,
+                                           n_pairs_hint=n_pairs_hint,
+                                           device=self.device,
+                                           streaming=streaming)
+            self.tiling = None
+            if self.plan.flow == "combine":
+                self._combine_diagnostics()
+            elif self.plan.flow == "sort":
+                with spans.span("plan.tune"):
+                    self.tiling = at.autotune_sort(
+                        app, self.plan.spec, device=self.device,
+                        use_kernels=self.use_kernels,
+                        chunk_pairs=stream_chunk_pairs)
+            elif self.plan.flow == "stream":
+                with spans.span("plan.tune"):
+                    self.tiling = at.autotune_stream(
+                        app, self.plan.spec, device=self.device,
+                        use_kernels=self.use_kernels,
+                        chunk_pairs=stream_chunk_pairs,
+                        key_block=stream_key_block, probe=autotune_probe)
+                if (self.tiling.mode == "scatter"
+                        and self.plan.spec.sum_lowerable):
+                    self.plan.diagnostics += (
+                        "stream fold degraded to exact scatter (dense budget "
+                        "exceeded) — see tiling notes",)
+            self.plan.tiling = self.tiling
+            self.plan.stage = "planned"
+            self.plan.cache_key = self._plan_key
+            self.plan.cache_event = cache_event
+            if cache:
+                # a snapshot: the template must not see what a run appends
+                pc.plan_put(self._plan_key, pc.PlanEntry(
+                    plan=dataclasses.replace(self.plan), tiling=self.tiling))
+                pc.file_put(self._plan_key, pc.file_entry_from(
+                    self.plan, self.tiling, self.device))
 
     def _combine_diagnostics(self) -> None:
         """Flag, at plan time, a combine flow that the collector's rule
@@ -506,8 +519,9 @@ class MapReduce:
         them when given) and finalize the tables:
         ``lower(items).optimize().compile()(items)``."""
         opts = _resolve_options(options, legacy, method="run")
-        return self.lower(items, options=opts, mode="local").optimize(
-        ).compile()(items, n_valid=n_valid)
+        with spans.job():
+            return self.lower(items, options=opts, mode="local").optimize(
+            ).compile()(items, n_valid=n_valid)
 
     def run_distributed(self, items, *, mesh=None,
                         options: ExecutionOptions | None = None,
@@ -709,7 +723,8 @@ class Optimized:
             ent = pc.compiled_get(self.cache_key)
             if ent is not None:
                 return Compiled(self, ent, cache_event="hit")
-        ent = self._build()
+        with spans.span("compile"):
+            ent = self._build()
         if use_cache:
             pc.compiled_put(self.cache_key, ent)
         return Compiled(self, ent, cache_event="miss" if use_cache else "")
@@ -735,9 +750,9 @@ class Optimized:
                                       device=mr.device), self.items_spec)
             torch.cuda.synchronize(mr.device)
             torch.cuda.reset_peak_memory_stats(mr.device)
-            with torch.no_grad():
+            with spans.span("compile.warmup"), torch.no_grad():
                 run(zeros, sinks=(mr.plan,))
-            torch.cuda.synchronize(mr.device)
+                torch.cuda.synchronize(mr.device)
             peak = int(torch.cuda.max_memory_allocated(mr.device))
         return pc.CompiledEntry(executable=run, mode=self.mode,
                                 warmup_peak_bytes=peak)
@@ -943,7 +958,11 @@ class Compiled:
     def __call__(self, items, n_valid: int | None = None) -> MapReduceResult:
         """Run over ``items``: N rows (the bound count), or the bucket's
         rows padded by the caller, of which the first N (or ``n_valid``)
-        are folded."""
+        are folded; one ``job`` span (``spans.job``)."""
+        with spans.job():
+            return self._call(items, n_valid)
+
+    def _call(self, items, n_valid: int | None) -> MapReduceResult:
         if self.mode == "streaming":
             raise TypeError(
                 "a streaming-mode Compiled is an incremental ingest, not a "

@@ -35,6 +35,7 @@ from typing import Any, Callable
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch import spans
 from repro_torch.core import combiner as C
 
 #: largest chunk_pairs × key_block masked expansion (elements) the pure
@@ -312,35 +313,39 @@ class StreamCombiner(CarriedTables):
         return onehot_fold_plain(keys, flat, zeros, block_k=self.key_block)
 
     def fold_chunk(self, state, stream: PairStream):
+        """The carried state after folding ``stream``: its ``premap`` span
+        maps the values to holder channels (and, for the fused
+        accumulator, builds the rows), its ``fold`` span folds them."""
         assert stream.key_space == self.key_space
-        if self.fused_acc:  # the kernel folds the counts column itself
-            n = stream.keys.shape[0]
-            leaves = pytree.tree_leaves(self.spec.premap(stream.values))
-            rows = (_rows_f32(leaves[0], n) if len(leaves) == 1 else
-                    torch.cat([l.reshape(n, -1).to(torch.float32)
-                               for l in leaves], dim=1))
-            return self.fold_fn(stream.keys, rows, state, counts=True)
-        if self.mode == "size":
-            return _add_counts(stream.keys, state)
-        tables, counts = state
-        if self.mode == "sequential":
-            return _sequential_fold(self.spec, tables, counts, stream.keys,
-                                    stream.values)
-        if self.mode == "additive":
-            return self._fold_additive(tables, counts, stream)
-        new_counts = _add_counts(stream.keys, counts)
-        if self.mode == "dense":
-            return self._fold_dense(tables, stream), new_counts
-        if self.mode == "scatter":
-            return self._fold_scatter(tables, stream), new_counts
-        return (self._fold_first(tables, counts, stream, stream.valid),
-                new_counts)
+        if self.mode in ("size", "sequential"):  # no channels of their own
+            with spans.span("fold"):
+                if self.mode == "size":
+                    return _add_counts(stream.keys, state)
+                return _sequential_fold(self.spec, *state, stream.keys,
+                                        stream.values)
+        n = stream.keys.shape[0]
+        with spans.span("premap"):
+            chans = pytree.tree_leaves(self.spec.premap(stream.values))
+            if self.fused_acc:
+                rows = (_rows_f32(chans[0], n) if len(chans) == 1 else
+                        torch.cat([c.reshape(n, -1).to(torch.float32)
+                                   for c in chans], dim=1))
+        with spans.span("fold"):
+            if self.fused_acc:  # the kernel folds the counts column itself
+                return self.fold_fn(stream.keys, rows, state, counts=True)
+            tables, counts = state
+            tabs = pytree.tree_leaves(tables)
+            if self.mode == "additive":
+                return self._fold_additive(tabs, chans, counts, stream)
+            new_counts = _add_counts(stream.keys, counts)
+            if self.mode == "dense":
+                return self._fold_dense(tabs, chans, stream), new_counts
+            if self.mode == "scatter":
+                return self._fold_scatter(tabs, chans, stream), new_counts
+            return (self._fold_first(tabs, chans, counts, stream,
+                                     stream.valid), new_counts)
 
-    def _leaves(self, tables, stream):
-        return (pytree.tree_leaves(tables),
-                pytree.tree_leaves(self.spec.premap(stream.values)))
-
-    def _fold_additive(self, tables, counts, stream):
+    def _fold_additive(self, tabs, chans, counts, stream):
         """Float leaves: the one-hot contraction (or onehot_fold), in f32.
         Integer leaves: ``int_fold``, exact, into int64 tables as they are
         (a narrower table takes an int64 delta, cast back: the same wrap as
@@ -350,7 +355,7 @@ class StreamCombiner(CarriedTables):
 
         n = stream.keys.shape[0]
         out, new_counts = [], None
-        for tab, chan in zip(*self._leaves(tables, stream)):
+        for tab, chan in zip(tabs, chans):
             if tab.is_floating_point():
                 delta = self._sum_fold(stream.keys,
                                        _rows_f32(chan, n))
@@ -373,8 +378,7 @@ class StreamCombiner(CarriedTables):
             new_counts = _add_counts(stream.keys, counts)
         return pytree.tree_unflatten(out, self._holder_treedef), new_counts
 
-    def _fold_dense(self, tables, stream):
-        tabs, chans = self._leaves(tables, stream)
+    def _fold_dense(self, tabs, chans, stream):
         keys = stream.keys
         out = []
         for mono, tab, chan in zip(self.spec.monoids, tabs, chans):
@@ -400,13 +404,12 @@ class StreamCombiner(CarriedTables):
             out.append(mono.op(tab, torch.cat(blocks).to(tab.dtype)))
         return pytree.tree_unflatten(out, self._holder_treedef)
 
-    def _fold_scatter(self, tables, stream):
+    def _fold_scatter(self, tabs, chans, stream):
         out = [mono.scatter(tab, stream.keys, chan)
-               for mono, tab, chan in zip(self.spec.monoids,
-                                          *self._leaves(tables, stream))]
+               for mono, tab, chan in zip(self.spec.monoids, tabs, chans)]
         return pytree.tree_unflatten(out, self._holder_treedef)
 
-    def _fold_first(self, tables, counts, stream, valid):
+    def _fold_first(self, tabs, chans, counts, stream, valid):
         n = stream.keys.shape[0]
         pos = torch.arange(n, device=stream.keys.device)
         # invalid pairs go to an extra row, cut off: no boolean index
@@ -417,7 +420,7 @@ class StreamCombiner(CarriedTables):
         fresh = (first_pos < n) & (counts == 0)
         safe = first_pos.clamp(max=max(n - 1, 0))
         out = []
-        for tab, chan in zip(*self._leaves(tables, stream)):
+        for tab, chan in zip(tabs, chans):
             sel = fresh.reshape((self.key_space,) + (1,) * (chan.ndim - 1))
             out.append(torch.where(sel, chan[safe].to(tab.dtype), tab))
         return pytree.tree_unflatten(out, self._holder_treedef)
@@ -555,12 +558,19 @@ class SortCombiner(CarriedTables):
         return is_start, start_pos, run_len, end_tgt, start_tgt
 
     def fold_chunk(self, state, stream: PairStream):
+        """The carried state after folding ``stream``, in a ``fold`` span
+        (the holders' ``premap`` in a span of its own)."""
         assert stream.key_space == self.key_space
         n = stream.keys.shape[0]
         if n == 0:
             return state
         if self.use_kernel:
             return self._fold_kernel(state, stream)
+        with spans.span("fold"):
+            return self._fold_sorted(state, stream)
+
+    def _fold_sorted(self, state, stream: PairStream):
+        n = stream.keys.shape[0]
         K = self.key_space
         sk, order = stable_sort_by_key(stream.keys, K)
         is_start, start_pos, run_len, tgt, start_tgt = self._run_layout(sk)
@@ -568,8 +578,9 @@ class SortCombiner(CarriedTables):
             return state + _at_keys(tgt, run_len, K)
         svals = pytree.tree_map(lambda v: v[order], stream.values)
         if self.fused_acc:
-            cols = [l.reshape(n, -1).to(torch.float32) for l in
-                    pytree.tree_leaves(self.spec.premap(svals))]
+            with spans.span("premap"):
+                cols = [l.reshape(n, -1).to(torch.float32) for l in
+                        pytree.tree_leaves(self.spec.premap(svals))]
             cols.append((sk < K).to(torch.float32)[:, None])  # counts
             agg = _run_aggregate(C.ADD, torch.cat(cols, dim=1), is_start,
                                  start_pos)
@@ -577,7 +588,8 @@ class SortCombiner(CarriedTables):
         tables, counts = state
         if self.mode == "sequential":
             return _sequential_fold(self.spec, tables, counts, sk, svals)
-        mapped = pytree.tree_leaves(self.spec.premap(svals))
+        with spans.span("premap"):
+            mapped = pytree.tree_leaves(self.spec.premap(svals))
         cnt_delta = _at_keys(tgt, run_len, K)
         if self.mode == "first":
             fresh = (counts == 0) & (cnt_delta > 0)
@@ -605,30 +617,33 @@ class SortCombiner(CarriedTables):
         separately."""
         tables, counts = state
         n = stream.keys.shape[0]
-        mapped = pytree.tree_leaves(self.spec.premap(stream.values))
-        ones = stream.valid.to(torch.float32)[:, None]
-        out = []
-        new_counts = None
-        for mono, tab, chan in zip(self.spec.monoids,
-                                   pytree.tree_leaves(tables), mapped):
-            flat = _rows_f32(chan, n)
-            acc = tab.reshape(self.key_space, -1)
-            if mono.name == "add" and new_counts is None:
-                flat = torch.cat([flat, ones], dim=1)
-                acc = torch.cat([acc, counts.to(torch.float32)[:, None]],
-                                dim=1)
-                red = self.sort_fold_fn(stream.keys, flat, acc, "add")
-                new_counts = red[:, -1].to(torch.int32)
-                red = red[:, :-1]
-            else:
-                red = self.sort_fold_fn(stream.keys, flat, acc.contiguous(),
-                                        mono.name)
-            out.append(red.reshape(tab.shape).to(tab.dtype))
-        if new_counts is None:
-            new_counts = self.sort_fold_fn(
-                stream.keys, ones, counts.to(torch.float32)[:, None],
-                "add")[:, 0].to(torch.int32)
-        return pytree.tree_unflatten(out, self._holder_treedef), new_counts
+        with spans.span("premap"):
+            mapped = pytree.tree_leaves(self.spec.premap(stream.values))
+            ones = stream.valid.to(torch.float32)[:, None]
+        with spans.span("fold"):
+            out = []
+            new_counts = None
+            for mono, tab, chan in zip(self.spec.monoids,
+                                       pytree.tree_leaves(tables), mapped):
+                flat = _rows_f32(chan, n)
+                acc = tab.reshape(self.key_space, -1)
+                if mono.name == "add" and new_counts is None:
+                    flat = torch.cat([flat, ones], dim=1)
+                    acc = torch.cat([acc, counts.to(torch.float32)[:, None]],
+                                    dim=1)
+                    red = self.sort_fold_fn(stream.keys, flat, acc, "add")
+                    new_counts = red[:, -1].to(torch.int32)
+                    red = red[:, :-1]
+                else:
+                    red = self.sort_fold_fn(stream.keys, flat,
+                                            acc.contiguous(), mono.name)
+                out.append(red.reshape(tab.shape).to(tab.dtype))
+            if new_counts is None:
+                new_counts = self.sort_fold_fn(
+                    stream.keys, ones, counts.to(torch.float32)[:, None],
+                    "add")[:, 0].to(torch.int32)
+            return (pytree.tree_unflatten(out, self._holder_treedef),
+                    new_counts)
 
 
 def sort_flow(spec: C.CombinerSpec, stream: PairStream, *,

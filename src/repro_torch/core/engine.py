@@ -24,6 +24,7 @@ from typing import Callable
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch import spans
 from repro_torch.core import collector as col
 from repro_torch.core import combiner as C
 
@@ -104,13 +105,14 @@ def map_phase(app, items, device) -> col.PairStream:
         app.map(item, em)
         return em.pairs()
 
-    keys, vals = torch.func.vmap(one)(items)
-    # a map that emits the same key (or value) for every item gets it back
-    # expanded with stride 0; the kernels take dense rows
-    return col.PairStream(
-        keys.reshape(-1).contiguous(),
-        vals.reshape((-1,) + tuple(vals.shape[2:])).contiguous(),
-        app.key_space)
+    with spans.span("map"):
+        keys, vals = torch.func.vmap(one)(items)
+        # a map that emits the same key (or value) for every item gets it
+        # back expanded with stride 0; the kernels take dense rows
+        return col.PairStream(
+            keys.reshape(-1).contiguous(),
+            vals.reshape((-1,) + tuple(vals.shape[2:])).contiguous(),
+            app.key_space)
 
 
 def _fold_kernels(use_kernels: bool, key_block: int | None = None
@@ -164,12 +166,17 @@ def fold_items_chunked(app, combiner, items, chunk_items: int,
     """
     n_items = valid_items(items, n_valid)
     if state is None:
-        state = combiner.init_state()
+        with spans.span("init"):
+            state = combiner.init_state()
     for lo in range(0, n_items, chunk_items):
-        hi = min(lo + chunk_items, n_items)
-        chunk = pytree.tree_map(lambda a: a[lo:hi], items)
-        state = combiner.fold_chunk(state, map_phase(app, chunk,
-                                                     combiner.device))
+        with spans.span("chunk"):
+            hi = min(lo + chunk_items, n_items)
+            chunk = pytree.tree_map(lambda a: a[lo:hi], items)
+            stream = map_phase(app, chunk, combiner.device)
+            spans.count("chunks")
+            spans.count("pairs", stream.keys.shape[0])
+            state = combiner.fold_chunk(state, stream)
+            del stream  # the chunk's pairs go before the next are mapped
     return state
 
 
@@ -286,8 +293,9 @@ class LocalRun:
         one element (no ``[K]`` column is written); the combine and reduce
         flows compute their values and drop them.  ``sinks``: the plans a
         combine run records its lowering and fallbacks on (default: the
-        plan)."""
+        plan).  Each call counts one ``runs`` (``repro_torch.spans``)."""
         K = self.app.key_space
+        spans.count("runs")
         if self.flow in ("combine", "reduce"):
             keys, vals, counts = run_local(
                 self.app, self.plan, items, device=self.device,
@@ -296,7 +304,8 @@ class LocalRun:
             return keys, (vals if values else dead_values(vals, K)), counts
         comb, tables, counts = self.tables(items, n_valid)
         if values:
-            grouped = col.finalize_tables(self.spec, tables, counts, K)
+            with spans.span("finalize"):
+                grouped = col.finalize_tables(self.spec, tables, counts, K)
             return grouped.keys, grouped.values, grouped.counts
         # one row is finalized, for the values' shape and dtype only
         one = col.finalize_tables(

@@ -11,7 +11,6 @@ takes seconds.  Nothing here runs when the module is imported.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import hashlib
 import os
@@ -20,6 +19,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+from repro_torch import spans
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 
@@ -68,35 +69,39 @@ _libs: dict[str, ctypes.CDLL] = {}
 #: every kernel's registers, shared memory and spills)
 _nvcc_out: dict[str, str] = {}
 
-#: launches of each kernel since the last :func:`reset_launch_counts`; a
-#: binding adds one right after its kernel was launched, and nowhere else.
-_launches = {name: 0 for name in KERNELS}
-#: the same launches split by the ``key`` a binding gives with them (a
-#: shape, such as flash_decode's KV positions)
-_launches_by_key: dict[str, collections.Counter] = {
-    name: collections.Counter() for name in KERNELS}
+#: the counter of each kernel's launches in the port's counter registry
+#: (``repro_torch.spans``); a binding counts one right after its kernel
+#: was launched, and nowhere else
+_LAUNCHES = {name: f"launches.{name}" for name in KERNELS}
 
 
 def count_launch(name: str, key=None) -> None:
-    _launches[name] += 1
-    if key is not None:
-        _launches_by_key[name][key] += 1
+    """Count one launch of kernel ``name``, by ``key`` too when given (a
+    shape, such as flash_decode's KV positions)."""
+    spans.count(_LAUNCHES[name], key=key)
+
+
+def count_fold(n: int, scans: int) -> None:
+    """Count one keyed fold of ``n`` pairs that reads them ``scans`` times
+    in all (a fold kernel's blocks each stream the pairs of their
+    segment: ``n`` × key tiles × column tiles)."""
+    spans.count("fold_pairs", n)
+    spans.count("fold_scans", scans)
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(_launches)
+    """Launches of each kernel since the last :func:`reset_launch_counts`."""
+    return {name: spans.total(c) for name, c in _LAUNCHES.items()}
 
 
 def launch_counts_by_key(name: str) -> dict:
     """``name``'s launches since the last reset, by the key counted with
     each (launches counted with no key are left out)."""
-    return dict(sorted(_launches_by_key[name].items()))
+    return dict(sorted(spans.by_key(_LAUNCHES[name]).items()))
 
 
 def reset_launch_counts() -> None:
-    for name in _launches:
-        _launches[name] = 0
-        _launches_by_key[name].clear()
+    spans.reset(_LAUNCHES.values())
 
 
 def build_dir() -> Path:
@@ -188,7 +193,9 @@ def ptxas_report(name: str) -> list[dict]:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if missing."""
     lib = _libs.get(name)
-    if lib is None:
+    if lib is not None:
+        return lib
+    with spans.span("kernels.load"):
         build((name,))
         lib = ctypes.CDLL(str(_library_path(name)))
         launch = getattr(lib, f"{name}_launch")

@@ -26,6 +26,7 @@ def int_fold_plain(keys: torch.Tensor, rows: torch.Tensor,
     key's sum of rows in the table's dtype (and ``counts`` plus each key's
     pair count, int32, when given); keys outside ``[0, K)`` never land."""
     k = table.shape[0]
+    _build.count_fold(keys.shape[0], keys.shape[0])
     valid = (keys >= 0) & (keys < k)
     out = table.index_add(0, torch.where(valid, keys, 0).to(torch.int64),
                           torch.where(valid[:, None], rows, 0).to(table.dtype))
@@ -52,4 +53,5 @@ def int_fold_cuda(keys: torch.Tensor, rows: torch.Tensor,
         table.shape[0], torch.cuda.current_stream(keys.device).cuda_stream)
     _build.check("int_fold", lib, err)
     _build.count_launch("int_fold")
+    _build.count_fold(n, n)
     return out if counts is None else (out, out_counts)

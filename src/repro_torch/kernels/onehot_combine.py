@@ -38,6 +38,7 @@ def onehot_fold_plain(keys: torch.Tensor, values: torch.Tensor,
     vals = values.to(torch.float32)
     keys64 = keys.to(torch.int64)
     delta = torch.empty(acc.shape, dtype=torch.float32, device=acc.device)
+    _build.count_fold(keys.shape[0], keys.shape[0] * -(-k_space // block_k))
     for lo in range(0, k_space, block_k):
         hi = min(lo + block_k, k_space)
         iota = torch.arange(lo, hi, device=keys.device)
@@ -65,6 +66,7 @@ def onehot_fold_cuda(keys: torch.Tensor, values: torch.Tensor,
         torch.cuda.current_stream(acc.device).cuda_stream)
     _build.check("onehot_fold", lib, err)
     _build.count_launch("onehot_fold")
+    _build.count_fold(n, n * plan.key_tiles * plan.col_tiles)
     return out
 
 
@@ -106,6 +108,7 @@ def keyed_table_cuda(name: str, keys: torch.Tensor, values: torch.Tensor,
         torch.cuda.current_stream(values.device).cuda_stream)
     _build.check(name, lib, err)
     _build.count_launch(name)
+    _build.count_fold(n, n * plan.key_tiles * plan.col_tiles)
     return out
 
 

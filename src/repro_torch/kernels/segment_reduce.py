@@ -39,6 +39,7 @@ def chunk_monoid_fold_plain(keys: torch.Tensor, values: torch.Tensor,
     ``max``/``min`` reduce each key's values exactly, in any order."""
     if op == "add":
         return onehot_fold_plain(keys, values, acc, block_k=block_k)
+    _build.count_fold(keys.shape[0], keys.shape[0])
     return numerics.scatter_extremum(acc.to(torch.float32), keys,
                                      values.to(torch.float32), op)
 
@@ -59,6 +60,7 @@ def chunk_monoid_fold_cuda(keys: torch.Tensor, values: torch.Tensor,
         torch.cuda.current_stream(acc.device).cuda_stream)
     _build.check("chunk_monoid_fold", lib, err)
     _build.count_launch("chunk_monoid_fold")
+    _build.count_fold(n, n * plan.key_tiles * plan.col_tiles)
     return out
 
 
@@ -70,6 +72,7 @@ def segment_reduce_plain(keys: torch.Tensor, values: torch.Tensor,
     ``add`` accumulates with ``index_put_`` (sorted, the same bits on every
     run); ``max``/``min`` are exact in any order."""
     vals = values.to(torch.float32)
+    _build.count_fold(keys.shape[0], keys.shape[0])
     if op == "add":
         valid = (keys >= 0) & (keys < key_space)
         table = torch.zeros((key_space, vals.shape[1]), dtype=torch.float32,
@@ -103,4 +106,5 @@ def segment_reduce_cuda(keys: torch.Tensor, values: torch.Tensor,
         torch.cuda.current_stream(keys.device).cuda_stream)
     _build.check("segment_reduce", lib, err)
     _build.count_launch("segment_reduce")
+    _build.count_fold(n, n)
     return out
