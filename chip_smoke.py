@@ -134,7 +134,10 @@ Phases (each raises on failure, and the script then exits non-zero):
    K = 100 shape against ``index_add_`` + ``bincount``; the radix
    partitions also at the combine flow's
    sort-route shapes and at 2048 leaves; the keyed folds' rows name their
-   plan's shape and give a time with one key holding half the pairs),
+   plan's shape and give a time with one key holding half the pairs;
+   B1 also at the uv.sourceip benchmark cell's shape, K = 2.5M in place on
+   the partitioned route, against float64, its plain version and the tile
+   route, ``cell_fold_rows``),
    B4's pass sweep (one pass against two; the splits of 2048 leaves), the
    keyed-fold sweep (the lane-table pass against the index-order pass
    over K and D, behind the plan's crossover), the scatter lowering's
@@ -917,6 +920,151 @@ def kernel_rows(rng, launches_add, launches_dense, ops_count) -> list[dict]:
                       "acc_columns": width},
         })
     return rows
+
+
+#: the uv.sourceip benchmark cell's groups: B1 onto [K, 1 + counts]
+CELL_FOLD_K = 2_500_000
+#: key block of the plain version's one-hot contraction at the cell's
+#: shape: its [n, block] f32 one-hot is 8 GiB at a card chunk
+CELL_PLAIN_KEY_BLOCK = 512
+
+
+def cell_fold_rows(rng) -> list[dict]:
+    """Phase 9: B1 at the uv.sourceip cell's shape, as its chunk loop
+    calls it: a card chunk of pairs with one value column onto the fused
+    [2.5M, 1 + counts] accumulator, in place (``ops.onehot_fold(...,
+    counts=True, inplace=True)``), which takes the partitioned route.  With
+    uniform keys, and with half the pairs on one key (its region cut into
+    segments joined in order), sentinel and negative keys mixed into both.
+    Each is held to float64 sums within SUM_RTOL of each key's sum of
+    absolute values, the counts exactly, and a bfloat16 control (the values
+    rounded to bfloat16, summed in float64) must miss that tolerance.  The
+    uniform case is also held to the plain version (``onehot_fold_plain``
+    over key blocks of :data:`CELL_PLAIN_KEY_BLOCK`, one timed call: it
+    compares every pair with every key).  Beside the route's time: the
+    tile route's (``ops.tile_plan``, out of place as before the route), the
+    bound, ``index_add_``'s, each fold's allocations and its launches."""
+    import torch
+    from repro_torch import spans
+    from repro_torch.core.autotune import CUDA_CHUNK_PAIRS
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.onehot_combine import (onehot_fold_cuda,
+                                                    onehot_fold_plain)
+
+    n, k, d, width = CUDA_CHUNK_PAIRS, CELL_FOLD_K, 1, 2
+    plan = ops.fold_plan(n, k, width, "add", None, True, True)
+    tile = ops.tile_plan(n, k, width, "add")
+    if plan.route != "partitioned":
+        raise AssertionError(f"cell fold: not on the partitioned route: "
+                             f"{plan}")
+    acc = torch.from_numpy(np.concatenate([
+        rng.standard_normal((k, d)).astype(np.float32),
+        rng.integers(0, 64, size=(k, 1)).astype(np.float32)], 1)).cuda()
+    vals = torch.from_numpy(rng.standard_normal((n, d)).astype(
+        np.float32)).cuda()
+    row = {"name": "onehot_fold", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/onehot_fold.cu",
+           "replaces": "src/repro/kernels/onehot_combine.py:69",
+           "plan": plan.route, "tile_plan_scans": tile.scans,
+           "scans": plan.scans, "sub_chunks": plan.n_seg,
+           "shape": {"n": n, "d": d, "k": k, "op": "add",
+                     "acc_columns": width, "inplace": True}}
+
+    def fold_in_place(keys, start):
+        out = start.clone()
+        return ops.onehot_fold(keys, vals, out, counts=True, inplace=True)
+
+    def peak_bytes(fn):
+        fn()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        del out
+        return peak
+
+    for mix in ("uniform", "half_hot_key"):
+        keys = torch.from_numpy(fold_keys(rng, n, k, mix)).cuda()
+        ok = (keys >= 0) & (keys < k)
+        k64 = keys[ok].long()
+        sums = acc[:, 0].double().index_add(0, k64, vals[ok, 0].double())
+        mass = acc[:, 0].double().abs().index_add(
+            0, k64, vals[ok, 0].double().abs()).clamp(min=1.0)
+        counts = acc[:, 1].double().index_add(
+            0, k64, torch.ones_like(k64, dtype=torch.float64))
+        ops.reset_launch_counts()
+        with spans.recording() as rec:
+            got = fold_in_place(keys, acc)
+        torch.cuda.synchronize()
+        launches = {name: c for name, c in ops.launch_counts().items() if c}
+        again = fold_in_place(keys, acc)
+        err = float(((got[:, 0].double() - sums).abs() / mass).max())
+        control = acc[:, 0].double().index_add(
+            0, k64, vals[ok, 0].bfloat16().double())
+        control_err = float(((control - sums).abs() / mass).max())
+        if not (torch.equal(bits(got), bits(again))
+                and torch.equal(got[:, 1].double(), counts)
+                and err <= SUM_RTOL < control_err):
+            raise AssertionError(
+                f"cell fold {mix}: rel err {err} (bfloat16 control "
+                f"{control_err}, tolerance {SUM_RTOL}), counts "
+                f"{torch.equal(got[:, 1].double(), counts)}, two runs "
+                f"{torch.equal(bits(got), bits(again))}")
+        run = acc.clone()
+        kern = lambda ks=keys: ops.onehot_fold(  # noqa: E731
+            ks, vals, run, counts=True, inplace=True)
+        by_tile = lambda ks=keys: onehot_fold_cuda(  # noqa: E731
+            ks, vals, acc, tile, counts=True)
+        tag = "" if mix == "uniform" else "hot_half_"
+        row[f"{tag}rel_err"] = err
+        row[f"{tag}bf16_control_rel_err"] = control_err
+        row[f"{tag}graph_ms"] = graph_ms(kern, 20)
+        row[f"{tag}tile_graph_ms"] = graph_ms(by_tile, 5)
+        row[f"{tag}launches"] = launches
+        row[f"{tag}counters"] = {
+            name: rec.counters.get(name, 0)
+            for name in ("fold_pairs", "fold_scans", "fold_partitioned")}
+        if mix == "uniform":
+            row["ms"] = row["kernel_ms"] = time_ms(kern, 20)
+            row["tile_ms"] = time_ms(by_tile, 5)
+            row["peak_bytes"] = peak_bytes(kern)
+            row["tile_peak_bytes"] = peak_bytes(by_tile)
+            # index_add_ takes no key outside [0, K): the kept pairs only
+            ones = torch.cat([vals[ok], torch.ones_like(vals[ok])], 1)
+            lib = lambda: acc.index_add(0, k64, ones)  # noqa: E731
+            row["library_ms"] = time_ms(lib, 20)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            plain = onehot_fold_plain(keys, vals, acc,
+                                      block_k=CELL_PLAIN_KEY_BLOCK,
+                                      counts=True)
+            stop.record()
+            torch.cuda.synchronize()
+            row["plain_ms"] = start.elapsed_time(stop)
+            row["max_abs_err"] = float((got - plain).abs().max())
+            row["plain_rel_err"] = float(
+                ((plain[:, 0].double() - sums).abs() / mass).max())
+            if not (torch.equal(plain[:, 1], got[:, 1])
+                    and row["plain_rel_err"] <= SUM_RTOL):
+                raise AssertionError(f"cell fold: the plain version "
+                                     f"misses float64: {row}")
+            del plain
+    nbytes = n * (4 + 4 * d) + 2 * k * width * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n * width / F32_OPS_PER_S * 1e3
+    row["bound_ms"] = max(t_bytes, t_ops)
+    row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"cell fold (B1 at K={k}, n={n}, in place): route "
+        f"{row['graph_ms']:.4f} ms (graph), tile route "
+        f"{row['tile_graph_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms, "
+        f"half on one key {row['hot_half_graph_ms']:.4f} ms; rel err "
+        f"{row['rel_err']:.3g} / {row['hot_half_rel_err']:.3g} (bfloat16 "
+        f"control {row['bf16_control_rel_err']:.3g}); plain "
+        f"{row['plain_ms']:.1f} ms; launches {row['launches']}")
+    return [row]
 
 
 # -- the exact integer keyed fold (int_fold) ---------------------------------
@@ -6142,6 +6290,7 @@ def main() -> int:
     launches_sort = {name: sum(run[2][name] for run in sort_runs.values())
                      for name in ("radix_partition", "radix_partition_multi",
                                   "segment_reduce")}
+    rows += cell_fold_rows(rng)
     rows += sort_kernel_rows(rng, launches_sort, ops_count)
     rows += combine_kernel_rows(rng, {
         "onehot_combine": combine_runs["kmeans"][1]["onehot_combine"],

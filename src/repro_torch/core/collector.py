@@ -183,6 +183,9 @@ class CarriedTables:
         self._holder_leaves, self._holder_treedef = pytree.tree_flatten(
             spec.init(value_spec))
 
+    #: whether ``fold_chunk`` may write into the state it is given
+    folds_in_place = False
+
     @property
     def fused_acc(self) -> bool:
         raise NotImplementedError
@@ -312,10 +315,15 @@ class StreamCombiner(CarriedTables):
 
         return onehot_fold_plain(keys, flat, zeros, block_k=self.key_block)
 
+    folds_in_place = True
+
     def fold_chunk(self, state, stream: PairStream):
         """The carried state after folding ``stream``: its ``premap`` span
         maps the values to holder channels (and, for the fused
-        accumulator, builds the rows), its ``fold`` span folds them."""
+        accumulator, builds the rows), its ``fold`` span folds them.  The
+        caller hands ``state`` over: the fused accumulator and the
+        kernels' dense f32 tables, where contiguous, are folded in place
+        (``inplace``), and the result is what to keep."""
         assert stream.key_space == self.key_space
         if self.mode in ("size", "sequential"):  # no channels of their own
             with spans.span("fold"):
@@ -332,7 +340,8 @@ class StreamCombiner(CarriedTables):
                                    for c in chans], dim=1))
         with spans.span("fold"):
             if self.fused_acc:  # the kernel folds the counts column itself
-                return self.fold_fn(stream.keys, rows, state, counts=True)
+                return self.fold_fn(stream.keys, rows, state, counts=True,
+                                    inplace=state.is_contiguous())
             tables, counts = state
             tabs = pytree.tree_leaves(tables)
             if self.mode == "additive":
@@ -388,7 +397,8 @@ class StreamCombiner(CarriedTables):
                     and mono.name in ("add", "max", "min")):
                 red = self.monoid_fold_fn(
                     keys, _rows_f32(chan, n),
-                    tab.reshape(self.key_space, -1), mono.name)
+                    tab.reshape(self.key_space, -1), mono.name,
+                    inplace=tab.is_contiguous())
                 out.append(red.reshape(tab.shape).to(tab.dtype))
                 continue
             ident = mono.identity(chan.dtype)

@@ -11,8 +11,12 @@ named terms in seconds, from one of two profiles:
   measurement of the port's torch CPU path.
 * ``cuda`` — terms from the port's own launch plans on the card, with
   coefficients fitted on an H100 (:data:`CUDA_COEFF`).  The stream fold
-  reads each chunk once per key tile × column tile of ``ops.fold_plan``
-  (the lane-table or the index-order shape); the sort flow moves each
+  takes the route of ``ops.fold_plan`` (in place, as the chunk loop
+  folds): the tile route reads each chunk once per key tile × column
+  tile (the lane-table or the index-order shape); the partitioned route
+  moves it once through its partition pass(es), priced as the sort
+  flow's, then reads the layout once per column tile; the sort flow moves
+  each
   chunk once per pass of ``radix_partition.partition_passes`` (over the
   leaves of ``ops.plan_radix_levels``), then once through
   ``segment_reduce``; the combine flow takes one of the two over the
@@ -73,7 +77,9 @@ CPU_COEFF = {
 #:   map        — the map, the premap and the fold's input columns
 #:   fold_lane  — a lane-table fold's tile passes, partials and table
 #:   fold_table — an index-order fold's tile passes, partials and table
-#:   partition  — the radix partition's passes
+#:                (the partitioned route: its region fold and the table)
+#:   partition  — the radix partition's passes (the sort flow's, and the
+#:                partitioned route's)
 #:   segment    — segment_reduce over the partitioned slots and the table
 #:   reduce     — the reduce flow's stable sort and window gather
 #: Fitted by ``chip_smoke.cost_refit`` (``fit_cost_profile``) on one
@@ -83,7 +89,11 @@ CPU_COEFF = {
 #: pairs, KMeans at 2^24 points and two reduce-flow runs; byte terms from
 #: torch.profiler device time by kernel, the host terms from the walls
 #: less device time.  ``chip_smoke.py``'s ``cost_profile`` line prints a
-#: refit beside these on every run.
+#: refit beside these on every run.  The stream fold's partitioned route
+#: is priced with ``partition`` and ``fold_table``; a refit with the
+#: route running (PERF.md §6) matched the measured winner at the same
+#: swept shapes as these and made the ranking at K = 2^15 turn twice, so
+#: these stand.
 CUDA_COEFF = {
     "dispatch": 8.44e-4,
     "chunk": 3.13e-4,
@@ -203,20 +213,33 @@ def _chunks(n: int, chunk: int) -> list[tuple[int, int]]:
     return [(m, c) for m, c in ((chunk, full), (last, 1)) if m and c]
 
 
-def _fold_bytes(m: int, k: int, cols: int, op: str) -> tuple[str, float]:
-    """(plan shape, bytes) of one keyed fold of ``m`` pairs into a
-    ``[K, cols]`` table as the stream flow launches it: the key tile
-    ``autotune_stream`` passes on, each tile pass reading the chunk's keys
-    and the tile's columns, the segment partials written and joined, the
-    table read and written."""
+def _fold_bytes(m: int, k: int, cols: int, op: str) -> dict[str, float]:
+    """Bytes by term of one keyed fold of ``m`` pairs into a ``[K, cols]``
+    table as the stream flow launches it (an add's last column counts the
+    pairs), with the key tile ``autotune_stream`` passes on, and the table
+    read and written.  On the tile route each tile pass reads the chunk's
+    keys and the tile's columns, and the segment partials are written and
+    joined; on the partitioned route each partition pass reads the keys
+    for its histogram, then the pairs, and writes them to their padded
+    slots (``partition``), and each column tile reads the slots' keys and
+    its value columns (``fold_table``)."""
     from repro_torch.kernels import ops
 
     blk = min(ops.auto_key_block(k), k)
-    plan = ops.fold_plan(m, k, cols, op, blk if blk < k else None)
+    plan = ops.fold_plan(m, k, cols, op, blk if blk < k else None,
+                         op == "add", True)
+    table = 2 * k * cols * 4
+    if plan.route == "partitioned":
+        vd = cols - (op == "add")
+        slots = plan.n_seg * plan.part.slots
+        pair = 4 * (1 + vd)
+        return {"partition": len(plan.part.passes) * (m * 4 + m * pair
+                                                      + slots * pair),
+                "fold_table": slots * 4 * (plan.col_tiles + vd) + table}
     passes = plan.key_tiles * plan.col_tiles
     partials = 2 * plan.n_seg * k * cols * 4 if plan.n_seg > 1 else 0
-    nbytes = passes * m * 4 * (1 + plan.cols) + partials + 2 * k * cols * 4
-    return ("fold_lane" if plan.shape == "lane" else "fold_table"), nbytes
+    nbytes = passes * m * 4 * (1 + plan.cols) + partials + table
+    return {"fold_lane" if plan.shape == "lane" else "fold_table": nbytes}
 
 
 def _sort_bytes(m: int, k: int, cols: int) -> tuple[float, float]:
@@ -258,8 +281,8 @@ def cuda_work(flow: str, *, n_pairs: int, key_space: int, d: int = 1,
         flow = "stream" if k <= col.ONEHOT_MAX_KEYS else "sort"
     if flow == "stream":
         for m, times in sizes:
-            shape, nbytes = _fold_bytes(m, k, cols, fold_op)
-            work[shape] = work.get(shape, 0.0) + times * nbytes
+            for name, nbytes in _fold_bytes(m, k, cols, fold_op).items():
+                work[name] = work.get(name, 0.0) + times * nbytes
     elif flow == "sort":
         work["partition"] = work["segment"] = 0.0
         for m, times in sizes:

@@ -163,11 +163,18 @@ def fold_items_chunked(app, combiner, items, chunk_items: int,
     the exact call, chunk for chunk.  A fold's sum order depends on the
     pairs a call sees (the lane tables' segments, ROADMAP C.26), so this
     is what keeps a padded run's bits those of the exact run.
+
+    A collector that folds in place (``combiner.folds_in_place``) is
+    handed the loop's own state: ``init_state``'s, or a copy of the state
+    the caller seeded, which is never written.
     """
     n_items = valid_items(items, n_valid)
     if state is None:
         with spans.span("init"):
             state = combiner.init_state()
+    elif combiner.folds_in_place:
+        state = pytree.tree_map(
+            lambda t: t.clone(memory_format=torch.contiguous_format), state)
     for lo in range(0, n_items, chunk_items):
         with spans.span("chunk"):
             hi = min(lo + chunk_items, n_items)
@@ -253,6 +260,8 @@ class LocalRun:
         self.bucket_size = bucket_size
         self.level_fanouts = level_fanouts
         self._combiners: dict[int, col.CarriedTables] = {}
+        #: :meth:`fold_lowering` by item count
+        self._lowerings: dict[int, str] = {}
 
     def combiner(self, chunk_items: int) -> col.CarriedTables:
         """The collector of chunks of ``chunk_items`` items."""
@@ -292,8 +301,9 @@ class LocalRun:
         flows and hands back zeros of their shape and dtype, broadcast from
         one element (no ``[K]`` column is written); the combine and reduce
         flows compute their values and drop them.  ``sinks``: the plans a
-        combine run records its lowering and fallbacks on (default: the
-        plan).  Each call counts one ``runs`` (``repro_torch.spans``)."""
+        run records its lowering on (a combine run its fallbacks too;
+        default: the plan).  Each call counts one ``runs``
+        (``repro_torch.spans``)."""
         K = self.app.key_space
         spans.count("runs")
         if self.flow in ("combine", "reduce"):
@@ -303,6 +313,14 @@ class LocalRun:
                 n_valid=n_valid, sinks=sinks)
             return keys, (vals if values else dead_values(vals, K)), counts
         comb, tables, counts = self.tables(items, n_valid)
+        n_items = valid_items(items, n_valid)
+        lowering = self._lowerings.get(n_items)
+        if lowering is None:
+            lowering = self._lowerings[n_items] = self.fold_lowering(n_items)
+        if lowering:
+            for p in ((self.plan,) if sinks is None else sinks):
+                if p is not None:
+                    p.lowering = lowering
         if values:
             with spans.span("finalize"):
                 grouped = col.finalize_tables(self.spec, tables, counts, K)
@@ -356,15 +374,12 @@ class LocalRun:
                 line += "; counts: int_fold"
             return "\n".join([head, "map over every item (torch.func.vmap)",
                               line])
-        n_items = max(n_items, 0)
-        ci = chunk_items_of(self.app, max(n_items, 1), self.chunk_pairs)
-        full, last = divmod(n_items, ci)
+        ci, full, last, sizes = self._chunks(n_items)
         loop = f"chunk loop: {full} chunk(s) of {ci * cap} pairs"
         if last:
             loop += f" and one of {last * cap}"
         lines = [head, loop + "; per chunk: map (torch.func.vmap), then:"]
         comb = self.combiner(ci)
-        sizes = sorted({ci * cap} | ({last * cap} if last else set()))
         if self.flow == "stream":
             if comb.fused_acc:
                 width = sum(comb._widths()) + 1
@@ -373,14 +388,14 @@ class LocalRun:
                         f"  onehot_fold, fused [K={K}, {width}] accumulator "
                         f"(values [n, {width - 1}]; the counts column folded "
                         f"in the kernel from the keys), n={m}: "
-                        f"{_fold_desc(ops.fold_plan(m, K, width, 'add', self.key_block))}")
+                        f"{_fold_desc(ops.fold_plan(m, K, width, 'add', self.key_block, True, True))}")
             elif comb.mode == "dense" and comb.monoid_fold_fn is not None:
                 for mono, leaf in zip(spec.monoids, comb._holder_leaves):
                     for m in sizes:
                         lines.append(
                             f"  chunk_monoid_fold {mono.name} [K={K}, "
                             f"{leaf.numel()}], n={m}: "
-                            f"{_fold_desc(ops.fold_plan(m, K, leaf.numel(), mono.name, self.key_block))}")
+                            f"{_fold_desc(ops.fold_plan(m, K, leaf.numel(), mono.name, self.key_block, inplace=True))}")
                 lines.append("  counts: int_fold")
             elif comb.mode == "additive" and any(
                     not leaf.is_floating_point()
@@ -420,12 +435,74 @@ class LocalRun:
                      f"K={K} rows")
         return "\n".join(lines)
 
+    def _chunks(self, n_items: int):
+        """``(chunk items, full chunks, items of the last, the chunks'
+        distinct pair counts)`` of a stream or sort run over ``n_items``."""
+        n_items = max(n_items, 0)
+        cap = max(self.app.emit_capacity, 1)
+        ci = chunk_items_of(self.app, max(n_items, 1), self.chunk_pairs)
+        full, last = divmod(n_items, ci)
+        return ci, full, last, sorted({ci * cap}
+                                      | ({last * cap} if last else set()))
+
+    def fold_lowering(self, n_items: int) -> str:
+        """The stream flow's ``lowering:`` record of a run over
+        ``n_items`` with the kernels on: each keyed fold kernel a chunk
+        launches and the route its plan takes (``ops.fold_plan``), by
+        chunk size; "" where no keyed fold kernel runs."""
+        if self.flow != "stream" or not self.use_kernels:
+            return ""
+        from repro_torch.kernels import ops
+
+        K = self.app.key_space
+        ci, _, _, sizes = self._chunks(n_items)
+        comb = self.combiner(ci)
+        folds = []
+        if comb.fused_acc:
+            width = sum(comb._widths()) + 1
+            folds = [(f"onehot_fold [K, {width}]", m,
+                      ops.fold_plan(m, K, width, "add", self.key_block, True,
+                                    True))
+                     for m in sizes]
+        elif comb.mode == "dense" and comb.monoid_fold_fn is not None:
+            folds = [(f"chunk_monoid_fold {mono.name} [K, {leaf.numel()}]", m,
+                      ops.fold_plan(m, K, leaf.numel(), mono.name,
+                                    self.key_block, inplace=True))
+                     for mono, leaf in zip(self.spec.monoids,
+                                           comb._holder_leaves)
+                     if leaf.dtype == torch.float32
+                     and mono.name in ("add", "max", "min")
+                     for m in sizes]
+        if not folds:
+            return ""
+        return (f"stream (K={K}: "
+                + "; ".join(f"{name} n={m}: {_fold_route(plan)}"
+                            for name, m, plan in folds) + ")")
+
+
+def _fold_route(plan) -> str:
+    """The route of a keyed fold's plan, for the ``lowering:`` line (and
+    the head of :func:`_fold_desc`)."""
+    if plan.route == "partitioned":
+        head = (f"partitioned route, {len(plan.part.passes)} partition "
+                f"pass(es) into {plan.key_tiles} key tiles of {plan.block_k}"
+                f", {plan.n_seg} sub-chunk(s) of {plan.seg_len} pairs")
+    else:
+        head = (f"tile route, {plan.key_tiles} key tile(s) x "
+                f"{plan.col_tiles} column tile(s)")
+    return f"{head}, {plan.scans} read(s) a pair"
+
 
 def _fold_desc(plan) -> str:
-    return (f"{plan.shape} block_k={plan.block_k} cols={plan.cols} "
+    """A keyed fold's plan in full, for the launch plan."""
+    desc = (f"{plan.shape} block_k={plan.block_k} cols={plan.cols} "
             f"warps={plan.warps} stage={plan.stage} seg_len={plan.seg_len} "
             f"n_seg={plan.n_seg} key_tiles={plan.key_tiles} "
             f"col_tiles={plan.col_tiles}")
+    if plan.route == "partitioned":
+        desc += (f" region_seg={plan.region_seg} extra={plan.extra} "
+                 f"scratch={plan.scratch}B")
+    return f"{_fold_route(plan)}: {desc}"
 
 
 def dead_values(values, key_space: int):
@@ -481,7 +558,7 @@ class StreamIngest:
     reference pads it and masks the tail to the sentinel key, but a sum's
     lane order depends on the pairs a fold call sees (ROADMAP C.26), so
     here the loop stops at ``n_valid``.  The state passed in is never
-    written through (every fold returns new tensors)."""
+    written: the chunk loop folds a state it did not make out of place."""
 
     def __init__(self, app, spec, *, batch_items: int, chunk_pairs: int,
                  device, use_kernels: bool = False,

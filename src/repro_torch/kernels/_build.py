@@ -39,19 +39,24 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 #: argument types of each ``<name>_launch``; every pointer and the stream are
-#: c_void_p so that ctypes passes them at full width.
+#: c_void_p so that ctypes passes them at full width.  The keyed folds end
+#: with their route's arguments (``ops.FoldPlan.route_args``: the
+#: partition's passes, their count, the scratch's bytes, and the segments
+#: of the partitioned route's fold).
+_ROUTE = [_P, _I, _L, _I, _I]
 _ARGTYPES = {
     "onehot_fold": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                    _I, _I, _P],
+                    _I, _I, *_ROUTE, _P],
     "chunk_monoid_fold": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _I, _P],
+                          _I, _I, _I, *_ROUTE, _P],
     "radix_partition": [_P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P],
     "segment_reduce": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "onehot_combine": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                       _I, _P],
+                       _I, *_ROUTE, _P],
     "combine_scatter": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _I, _P],
+                        _I, _I, *_ROUTE, _P],
     "flash_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _I, _I, _I, _I, _P],
     "int_fold": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -81,12 +86,16 @@ def count_launch(name: str, key=None) -> None:
     spans.count(_LAUNCHES[name], key=key)
 
 
-def count_fold(n: int, scans: int) -> None:
+def count_fold(n: int, scans: int, partitioned: bool = False) -> None:
     """Count one keyed fold of ``n`` pairs that reads them ``scans`` times
-    in all (a fold kernel's blocks each stream the pairs of their
-    segment: ``n`` × key tiles × column tiles)."""
+    in all (``n`` × ``ops.FoldPlan.scans`` on the card: key tiles ×
+    column tiles on the tile route, passes + column tiles on the
+    partitioned one); ``partitioned``: the fold took the partitioned
+    route (counter ``fold_partitioned``)."""
     spans.count("fold_pairs", n)
     spans.count("fold_scans", scans)
+    if partitioned:
+        spans.count("fold_partitioned")
 
 
 def launch_counts() -> dict[str, int]:

@@ -23,21 +23,28 @@ extern "C" int chunk_monoid_fold_launch(const int* keys, const float* vals,
                                         float* partial, int n, int d, int k,
                                         int op, int shape, int block_k,
                                         int cols, int stage, int warps,
-                                        int seg_len, int n_seg, void* stream) {
+                                        int seg_len, int n_seg,
+                                        const int* passes, int n_passes,
+                                        long long scratch_bytes,
+                                        int region_seg, int extra,
+                                        void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   switch (op) {
     case keyed_fold::kAdd:
       return (int)keyed_fold::launch<keyed_fold::kAdd>(
           keys, vals, acc, out, partial, n, d, k, shape, block_k, cols,
-          stage, warps, seg_len, n_seg, s);
+          stage, warps, seg_len, n_seg, passes, n_passes, scratch_bytes,
+          region_seg, extra, s);
     case keyed_fold::kMax:
       return (int)keyed_fold::launch<keyed_fold::kMax>(
           keys, vals, acc, out, partial, n, d, k, shape, block_k, cols,
-          stage, warps, seg_len, n_seg, s);
+          stage, warps, seg_len, n_seg, passes, n_passes, scratch_bytes,
+          region_seg, extra, s);
     case keyed_fold::kMin:
       return (int)keyed_fold::launch<keyed_fold::kMin>(
           keys, vals, acc, out, partial, n, d, k, shape, block_k, cols,
-          stage, warps, seg_len, n_seg, s);
+          stage, warps, seg_len, n_seg, passes, n_passes, scratch_bytes,
+          region_seg, extra, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

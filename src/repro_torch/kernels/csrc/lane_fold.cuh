@@ -73,12 +73,13 @@ using prims::cp_async_commit;
 using prims::cp_async_wait;
 
 // grid (block, key tile, column tile), blocks of C warps.  partial is
-// [n_seg, K, D] (unused with one block); acc may be nullptr.
+// [n_seg, K, D] (unused with one block); acc may be nullptr, or out
+// itself (each element is read and then written by one lane).
 template <int OP, int C, bool CNT = false>
 __global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks)
     fold_runs(const int* __restrict__ keys, const float* __restrict__ vals,
-              const float* __restrict__ acc, float* __restrict__ out,
-              float* __restrict__ partial, long long n, int d, int k,
+              const float* acc, float* out, float* __restrict__ partial,
+              long long n, int d, int k,
               int block_k, int n_seg) {
   static_assert(OP == 0, "lane tables fold sums only");
   static_assert(C >= 1 && C <= kMaxWarps, "one warp a column");

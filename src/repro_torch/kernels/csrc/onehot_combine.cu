@@ -21,10 +21,14 @@ extern "C" int onehot_combine_launch(const int* keys, const float* vals,
                                      float* out, float* partial, int n, int d,
                                      int k, int shape, int block_k, int cols,
                                      int stage, int warps, int seg_len,
-                                     int n_seg, void* stream) {
+                                     int n_seg, const int* passes,
+                                     int n_passes, long long scratch_bytes,
+                                     int region_seg, int extra,
+                                     void* stream) {
   return (int)keyed_fold::launch<keyed_fold::kAdd>(
       keys, vals, nullptr, out, partial, n, d, k, shape, block_k, cols, stage,
-      warps, seg_len, n_seg, (cudaStream_t)stream);
+      warps, seg_len, n_seg, passes, n_passes, scratch_bytes, region_seg,
+      extra, (cudaStream_t)stream);
 }
 
 extern "C" const char* onehot_combine_error_string(int err) {

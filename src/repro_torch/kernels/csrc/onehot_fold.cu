@@ -17,7 +17,11 @@
 // (the index-order pass: 0.082 and 0.190 ms; byte bound 0.025 ms); with
 // the counts column folded here, D = 3 + 1, 0.0365 ms (byte bound 0.020
 // ms): the fold is bound by instruction throughput, not by the bytes it
-// no longer reads.
+// no longer reads.  Past one key tile the plan takes keyed_fold.cuh's
+// partitioned route: the stream flow's fused [2.5M, 1 + 1] accumulator
+// (Pavlo et al.'s GROUP BY sourceIP) takes 0.359 ms a 2^22-pair chunk,
+// in two sub-chunks of 2^21 folded in place, against 10.888 ms on the
+// tile route's 77 x 2 tiles (tools/fold_route_sweep.py, CUDA graph).
 
 #include "keyed_fold.cuh"
 
@@ -25,15 +29,20 @@ extern "C" int onehot_fold_launch(const int* keys, const float* vals,
                                   const float* acc, float* out, float* partial,
                                   int n, int d, int k, int shape, int block_k,
                                   int cols, int stage, int warps, int seg_len,
-                                  int n_seg, int counts, void* stream) {
+                                  int n_seg, int counts, const int* passes,
+                                  int n_passes, long long scratch_bytes,
+                                  int region_seg, int extra, void* stream) {
   // d: the columns of acc and out (with counts, vals has d - 1)
+  const cudaStream_t s = (cudaStream_t)stream;
   if (counts)
     return (int)keyed_fold::launch<keyed_fold::kAdd, true>(
         keys, vals, acc, out, partial, n, d, k, shape, block_k, cols, stage,
-        warps, seg_len, n_seg, (cudaStream_t)stream);
+        warps, seg_len, n_seg, passes, n_passes, scratch_bytes, region_seg,
+        extra, s);
   return (int)keyed_fold::launch<keyed_fold::kAdd>(
       keys, vals, acc, out, partial, n, d, k, shape, block_k, cols, stage,
-      warps, seg_len, n_seg, (cudaStream_t)stream);
+      warps, seg_len, n_seg, passes, n_passes, scratch_bytes, region_seg,
+      extra, s);
 }
 
 extern "C" const char* onehot_fold_error_string(int err) {

@@ -98,6 +98,7 @@ struct Pass {
   int pad;        // region alignment: pad_align in the last pass, else 1
   int fill;       // key of a pad slot (last pass)
   int clamp;      // largest key written
+  int limit;      // keys at or past it are dropped too
   long long n;    // input pairs of the first pass (bounds every layout)
   long long slots;  // output slots: the padded layout, or n inside
 };
@@ -137,9 +138,13 @@ inline int ceil_log2(int x) {
 }
 
 // The passes of a partition of n pairs, from the plan's kPassFields ints a
-// pass; 0 if the plan is not one the kernels take.
+// pass; 0 if the plan is not one the kernels take.  Keys at or past limit
+// are dropped as negative ones are (the keyed fold's partitioned route
+// drops the sentinel key_space so; the sort flow keeps it in the last
+// bucket).
 inline int read_passes(long long n, int d, int key_space, int pad_align,
-                       const int* f, int n_passes, Pass* ps) {
+                       const int* f, int n_passes, Pass* ps,
+                       int limit = 0x7fffffff) {
   if (n < 1 || d < 0 || key_space < 1 || pad_align < 1 || n_passes < 1 ||
       n_passes > kMaxPasses)
     return 0;
@@ -180,6 +185,7 @@ inline int read_passes(long long n, int d, int key_space, int pad_align,
     p.pad = last ? pad_align : 1;
     p.fill = key_space;
     p.clamp = last ? key_space : 0x7fffffff;
+    p.limit = limit;
     p.n = n;
     p.slots = last ? slots(n, p.buckets, pad_align) : n;
     if (p.slots * (d > 0 ? d : 1) > 0x7fffffffLL ||
@@ -190,7 +196,7 @@ inline int read_passes(long long n, int d, int key_space, int pad_align,
 }
 
 __device__ __forceinline__ bool bucket_of(int key, const Pass& P, int* b) {
-  if (key < 0) return false;
+  if (key < 0 || key >= P.limit) return false;
   *b = (int)((__umulhi((unsigned)key, P.magic) + (unsigned)key) >> P.shift);
   return *b < P.buckets;
 }

@@ -12,6 +12,7 @@ one op ``repro_torch::<kernel>`` of its tensors, the same on both paths.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -73,6 +74,36 @@ FOLD_LANE_SM_WARPS = 32
 FOLD_LANE_MAX_KEYS = 1024
 #: largest segment-partials buffer [S, K, D] f32 the fold kernels allocate
 FOLD_PARTIAL_ELEMS = 1 << 26
+#: The partitioned route (csrc/keyed_fold.cuh launch_regions), for a table
+#: of many key tiles: the chunk in sub-chunks, each partitioned stably by
+#: key tile (radix_level.cuh, one pass while the key tiles fit its
+#: MAX_PASS_BUCKETS digits) into regions that start at multiples of
+#: FOLD_REGION_PAD slots, then each region folded by its own block, in
+#: index order.  The plan takes it past one key tile where the tile route
+#: would read each pair more than FOLD_PART_SCANS times.  Its scratch (the
+#: layout and the partition's counts) comes out of memory the fold no
+#: longer allocates: the tile route's segment partials, and for a fold in
+#: place the [K, D] table too (so a fold out of place of a one-segment
+#: tile plan, B6 and B7 at large K, keeps the tile route); a chunk whose layout
+#: would pass that is folded in equal sub-chunks that fit, none shorter
+#: than FOLD_PART_MIN_PAIRS pairs (else the tile route, whose launches
+#: are fewer).  A region much longer than the mean (a hot key) is cut into
+#: segments of at least FOLD_REGION_MIN_SEG slots, folded by blocks of
+#: their own into partial tables and joined in order, where the scratch
+#: leaves room for them.
+#: FOLD_PART_SCANS from tools/fold_route_sweep.py on an NVIDIA H100 80GB
+#: HBM3 at 700.00 W (B1 onto a [K, D] accumulator with counts, 2^22 uniform
+#: pairs, CUDA graph, ms tile / partitioned, the tile plan's reads a pair
+#: in brackets): K = 2^15 D = 2 0.202 / 0.325 [2], D = 4 0.388 / 0.484
+#: [4]; 2^16 0.306 / 0.322 [4], 0.975 / 0.477 [8]; 2^17 0.824 / 0.270
+#: [8], 1.543 / 0.504 [16]; 2^18 1.331 / 0.276 [16], 2.616 / 0.530 [32];
+#: 2^20 4.115 / 0.293 [64], 6.775 / 0.548 [128]; 2.5M 10.888 / 0.359
+#: [154], 18.670 / 0.810 [308].  The tile route wins up to 4 reads.
+FOLD_PART_SCANS = 4
+FOLD_REGION_PAD = 32
+FOLD_REGION_MIN_SEG = 8192
+FOLD_PART_MIN_PAIRS = 1 << 16
+FOLD_ROUTES = ("tile", "partitioned")
 #: keys of one block of the plain versions' one-hot contraction at most
 #: (CPU tensors): the [N, block] one-hot stays small
 FOLD_PLAIN_KEY_BLOCK = 256
@@ -116,16 +147,28 @@ def fold_smem_bytes(shape: str, block_k: int, cols: int, stage: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class FoldPlan:
-    """Launch sizes of the keyed-fold kernels (B1, B2, B6, B7): a grid of
-    ``n_seg`` segments × key tiles of ``block_k`` keys × column tiles of
-    ``cols`` columns, blocks of ``shape`` (one of :data:`FOLD_SHAPES`) of
-    ``warps`` warps with ``smem`` bytes of dynamic shared memory streaming
-    ``stage`` pairs a ring stage, ``per_sm`` blocks an SM.  A segment of
-    the ballot and bucket shapes is a run of ``seg_len`` pairs; one of the
-    lane shape is every ``n_seg``-th run of ``seg_len`` pairs (a stage),
-    so that the blocks running at one time read neighbouring runs.
-    Several segments fold into a partials buffer ``[n_seg, K, D]`` that a
-    second pass joins."""
+    """Launch sizes of the keyed-fold kernels (B1, B2, B6, B7) on one of
+    :data:`FOLD_ROUTES`.
+
+    The tile route: a grid of ``n_seg`` segments × key tiles of
+    ``block_k`` keys × column tiles of ``cols`` columns, blocks of
+    ``shape`` (one of :data:`FOLD_SHAPES`) of ``warps`` warps with
+    ``smem`` bytes of dynamic shared memory streaming ``stage`` pairs a
+    ring stage, ``per_sm`` blocks an SM.  A segment of the ballot and
+    bucket shapes is a run of ``seg_len`` pairs; one of the lane shape is
+    every ``n_seg``-th run of ``seg_len`` pairs (a stage), so that the
+    blocks running at one time read neighbouring runs.  Several segments
+    fold into a partials buffer ``[n_seg, K, D]`` that a second pass joins.
+
+    The partitioned route: ``n_seg`` sub-chunks of ``seg_len`` pairs, each
+    partitioned by ``part`` (a ``radix_partition.PartitionPlan`` of a
+    whole sub-chunk) into one region a key tile, then a bucket block a
+    segment and column tile folds it: a region longer than ``region_seg``
+    slots is cut into segments of that length, at most ``extra`` beyond
+    one a region, whose partial tables are joined in order (``region_seg``
+    0: no region is cut).  ``scratch`` bytes hold a ticket a region and
+    column tile, ``2 * extra`` partial ``[block_k, D]`` tables, the layout
+    and the partition's counts."""
 
     shape: str
     block_k: int
@@ -138,11 +181,34 @@ class FoldPlan:
     n_seg: int
     key_tiles: int
     col_tiles: int
+    route: str = "tile"
+    part: _rp.PartitionPlan | None = None
+    scratch: int = 0
+    region_seg: int = 0
+    extra: int = 0
+
+    @property
+    def scans(self) -> int:
+        """Times the fold reads each pair: once a key tile and column tile
+        on the tile route; once a partition pass, then once a column tile,
+        on the partitioned route."""
+        if self.route == "partitioned":
+            return len(self.part.passes) + self.col_tiles
+        return self.key_tiles * self.col_tiles
 
     def launch_args(self) -> tuple[int, ...]:
         """The kernels' launch arguments after K (and op)."""
         return (FOLD_SHAPES.index(self.shape), self.block_k, self.cols,
                 self.stage, self.warps, self.seg_len, self.n_seg)
+
+    def route_args(self) -> tuple:
+        """The launch arguments of the route: the partition's passes (a C
+        array, None on the tile route), their count, the scratch's bytes,
+        ``region_seg`` and ``extra``."""
+        if self.route != "partitioned":
+            return (None, 0, 0, 0, 0)
+        return (self.part.c_fields, len(self.part.passes), self.scratch,
+                self.region_seg, self.extra)
 
 
 def _blocks_per_sm(smem: int) -> int:
@@ -169,34 +235,40 @@ def _segments(n, key_space, d, shape, blk, cols, warps, stage, smem,
                     col_tiles=col_tiles)
 
 
+def _bucket_block(blk: int, cols: int) -> tuple[int, int, int]:
+    """``(stage, smem, per_sm)`` of a bucket block over a ``[blk, cols]``
+    table: its stage leaves room for :data:`FOLD_BUCKET_BLOCKS` blocks an
+    SM (one, for a table past that)."""
+    table = blk * cols * 4
+    per_pair = FOLD_RING * (1 + cols) * 4 + 8
+    fixed = fold_smem_bytes("bucket", blk, cols, 0) - table
+    room = min(FOLD_SMEM,
+               SMEM_PER_SM // FOLD_BUCKET_BLOCKS - SMEM_BLOCK_RESERVE)
+    stage = min(FOLD_MAX_STAGE, (room - table - fixed) // per_pair) & ~31
+    if stage < 32:
+        stage = min(FOLD_MAX_STAGE,
+                    (FOLD_SMEM - table - fixed) // per_pair) & ~31
+    smem = fold_smem_bytes("bucket", blk, cols, stage)
+    return stage, smem, min(FOLD_BUCKET_BLOCKS, _blocks_per_sm(smem))
+
+
 def table_plan(n: int, key_space: int, d: int,
                block_k: int | None = None) -> FoldPlan:
-    """The index-order plan (ballot or bucket shape): the table takes
-    :func:`auto_key_block` keys (at most ``block_k``) and
+    """The index-order plan (ballot or bucket shape) of the tile route:
+    the table takes :func:`auto_key_block` keys (at most ``block_k``) and
     :func:`_fold_cols` columns.  A table small enough that
     :data:`FOLD_BALLOT_FIT` one-warp blocks fit on an SM takes the ballot
-    shape; else the bucket shape, whose stage leaves room for
-    :data:`FOLD_BUCKET_BLOCKS` blocks an SM (one, for a table past that)."""
+    shape; else the bucket shape (:func:`_bucket_block`)."""
     cols = _fold_cols(key_space, d)
     blk = auto_key_block(key_space, d)
     if block_k is not None:
         blk = max(1, min(blk, int(block_k)))
-    table = blk * cols * 4
     shape, stage = "ballot", FOLD_BALLOT_STAGE
     smem = fold_smem_bytes(shape, blk, cols, stage)
     per_sm = min(_blocks_per_sm(smem), FOLD_BALLOT_BLOCKS)
     if per_sm < FOLD_BALLOT_FIT:
         shape = "bucket"
-        per_pair = FOLD_RING * (1 + cols) * 4 + 8
-        fixed = fold_smem_bytes(shape, blk, cols, 0) - table
-        room = min(FOLD_SMEM,
-                   SMEM_PER_SM // FOLD_BUCKET_BLOCKS - SMEM_BLOCK_RESERVE)
-        stage = min(FOLD_MAX_STAGE, (room - table - fixed) // per_pair) & ~31
-        if stage < 32:
-            stage = min(FOLD_MAX_STAGE,
-                        (FOLD_SMEM - table - fixed) // per_pair) & ~31
-        smem = fold_smem_bytes(shape, blk, cols, stage)
-        per_sm = min(FOLD_BUCKET_BLOCKS, _blocks_per_sm(smem))
+        stage, smem, per_sm = _bucket_block(blk, cols)
     warps = FOLD_BUCKET_WARPS if shape == "bucket" else 1
     return _segments(n, key_space, d, shape, blk, cols, warps, stage, smem,
                      per_sm)
@@ -235,10 +307,82 @@ def lane_plan(n: int, key_space: int, d: int,
                      FOLD_LANE_STAGE, smem, per_sm)
 
 
-def fold_plan(n: int, key_space: int, d: int, op: str,
+def _align256(nbytes: int) -> int:
+    return -(-nbytes // 256) * 256
+
+
+def route_scratch_bytes(part: _rp.PartitionPlan, n: int, vd: int) -> int:
+    """Scratch of one sub-chunk of the partitioned route, as
+    csrc/keyed_fold.cuh launch_regions carves it: the layout's keys and
+    its ``vd`` value columns, each from a 256-byte boundary, then the
+    partition's own scratch (:func:`radix_partition.scratch_bytes`)."""
+    return (_align256(part.slots * 4) + _align256(part.slots * vd * 4)
+            + _rp.scratch_bytes(part, n, vd))
+
+
+def partitioned_plan(n: int, key_space: int, d: int,
+                     block_k: int | None = None, *, counts: bool,
+                     budget: int) -> FoldPlan | None:
+    """The partitioned route's plan of a fold of ``n`` pairs into a
+    ``[K, D]`` table (``counts``: the last column counts the pairs, and a
+    pair carries D - 1 value columns), or None where its sub-chunks would
+    be shorter than :data:`FOLD_PART_MIN_PAIRS` pairs (a shorter chunk is
+    folded whole or not at all).
+
+    Key tiles: as many as one partition pass splits into
+    (:data:`radix_partition.MAX_PASS_BUCKETS`), each of the fewest keys
+    that gives, with whole rows where the table holds them (columns cut
+    to fit, down to one; past that, tables of one column and more passes);
+    at most ``block_k`` keys; a bucket block a segment and column tile
+    (:func:`_bucket_block`), whose eight warps share the segment's pairs.
+    Sub-chunks: the fewest equal ones whose layout, partition scratch
+    (:func:`route_scratch_bytes`) and tickets stay within ``budget`` bytes
+    (:func:`route_budget`).  What the budget leaves holds the
+    partial tables of regions cut into segments: ``extra`` further
+    segments (at most one wave of blocks), each region's segments
+    ``region_seg`` slots, at least twice a region's mean and
+    :data:`FOLD_REGION_MIN_SEG`, so that uniform keys cut no region."""
+    vd = d - int(counts)
+    blk = -(-key_space // _rp.MAX_PASS_BUCKETS)
+    cols = max(1, min(d, FOLD_MAX_COLS, FOLD_TABLE_FLOATS // blk))
+    blk = min(blk, FOLD_TABLE_FLOATS // cols)
+    if block_k is not None:
+        blk = max(1, min(blk, int(block_k)))
+    stage, smem, per_sm = _bucket_block(blk, cols)
+    passes = _rp.partition_passes(key_space, blk, _rp.MAX_PASS_BUCKETS)
+    regions, col_tiles = -(-key_space // blk), -(-d // cols)
+    tickets = _align256(regions * col_tiles * 4)
+    floor = min(n, FOLD_PART_MIN_PAIRS)
+    n_sub = max(1, -(-n * 4 * (1 + vd) // budget))
+    while True:
+        m = -(-n // n_sub)
+        if m < floor:
+            return None
+        part = _rp.plan_passes(m, vd, key_space, passes, FOLD_REGION_PAD)
+        scratch = tickets + route_scratch_bytes(part, m, vd)
+        if scratch <= budget:
+            break
+        if m == floor:
+            return None
+        n_sub = -(-n // (m - 1))  # the next shorter sub-chunk
+    table = blk * d * 4  # a partial table
+    shortest = max(2 * -(-part.slots // regions), FOLD_REGION_MIN_SEG)
+    extra = max(0, min((budget - scratch) // (2 * table),
+                       part.slots // shortest, per_sm * SM_COUNT))
+    return FoldPlan(shape="bucket", block_k=blk, cols=cols,
+                    warps=FOLD_BUCKET_WARPS, stage=stage, smem=smem,
+                    per_sm=per_sm, seg_len=m, n_seg=-(-n // m),
+                    key_tiles=regions, col_tiles=col_tiles,
+                    route="partitioned", part=part,
+                    scratch=scratch + _align256(2 * extra * table),
+                    region_seg=-(-part.slots // extra) if extra else 0,
+                    extra=extra)
+
+
+def tile_plan(n: int, key_space: int, d: int, op: str,
               block_k: int | None = None) -> FoldPlan:
-    """Plan one keyed fold of ``n`` pairs into a ``[K, D]`` table with
-    ``op`` (add, max or min).
+    """The tile route's plan of one keyed fold of ``n`` pairs into a
+    ``[K, D]`` table with ``op`` (add, max or min).
 
     A sum over at most :data:`FOLD_LANE_MAX_KEYS` keys takes
     :func:`lane_plan` where its tile holds whole rows, or, with column
@@ -257,6 +401,43 @@ def fold_plan(n: int, key_space: int, d: int, op: str,
                                  * plan.warps >= FOLD_LANE_MIN_WARPS):
             return plan
     return table_plan(n, key_space, d, block_k)
+
+
+@functools.lru_cache(maxsize=512)
+def fold_plan(n: int, key_space: int, d: int, op: str,
+              block_k: int | None = None, counts: bool = False,
+              inplace: bool = False) -> FoldPlan:
+    """Plan one keyed fold of ``n`` pairs into a ``[K, D]`` table with
+    ``op`` (add, max or min); ``counts``: the table's last column counts
+    the pairs (B1's fused accumulator), so a pair carries D - 1 value
+    columns; ``inplace``: the fold writes its result into acc.
+
+    The tile route's plan (:func:`tile_plan`), or, past one key tile where
+    that plan would read each pair more than :data:`FOLD_PART_SCANS`
+    times, the partitioned route (:func:`partitioned_plan`) when it has
+    one, its scratch within :func:`route_budget`.  ``block_k`` caps the
+    keys of a key tile.  Kept per shape: a chunk loop asks for the same
+    plan every call."""
+    plan = tile_plan(n, key_space, d, op, block_k)
+    budget = route_budget(plan, key_space, d, inplace)
+    if budget and plan.key_tiles > 1 and plan.scans > FOLD_PART_SCANS:
+        route = partitioned_plan(n, key_space, d, block_k, counts=counts,
+                                 budget=budget)
+        if route is not None:
+            return route
+    return plan
+
+
+def route_budget(tile: FoldPlan, key_space: int, d: int,
+                 inplace: bool) -> int:
+    """Bytes the partitioned route's scratch may take in place of the
+    tile plan ``tile``: memory the fold no longer allocates.  That is the
+    tile plan's segment partials, and, for a fold in place (which writes
+    into acc), the fresh ``[K, D]`` f32 table too: the larger of the two.
+    0 (no route) for a fold out of place of a one-segment tile plan."""
+    table = key_space * d * 4
+    partials = tile.n_seg * table if tile.n_seg > 1 else 0
+    return max(table if inplace else 0, partials)
 
 
 def _check(name, keys, values, acc, counts=False):
@@ -286,12 +467,13 @@ def _check_cuda(name, keys, values, acc):
             raise ValueError(f"{name}: {what} must be contiguous")
 
 
-def _fold_launch(name, n, key_space, d, op, block_k) -> FoldPlan:
+def _fold_launch(name, n, key_space, d, op, block_k,
+                 counts=False, inplace=False) -> FoldPlan:
     """The fold kernels' plan, within their launch limits: int32 sizes,
     and a grid CUDA can launch."""
     if n >= 2**31 or key_space * d >= 2**31:
         raise ValueError(f"{name}: sizes past 2^31 elements are not taken")
-    plan = fold_plan(n, key_space, d, op, block_k)
+    plan = fold_plan(n, key_space, d, op, block_k, counts, inplace)
     if plan.key_tiles > 65535 or plan.col_tiles > 65535:
         raise ValueError(f"{name}: {plan.key_tiles} key tiles x "
                          f"{plan.col_tiles} column tiles is not a grid "
@@ -313,8 +495,14 @@ def _plain_block(block_k, key_space):
     return min(block_k or key_space, FOLD_PLAIN_KEY_BLOCK)
 
 
+def _check_inplace(name, acc, inplace):
+    if inplace and (acc.dtype != torch.float32 or not acc.is_contiguous()):
+        raise ValueError(f"{name}: a fold in place needs a contiguous "
+                         f"float32 acc, got {acc.dtype}")
+
+
 def onehot_fold(keys, values, acc, key_space=None, *, block_k=None,
-                counts=False):
+                counts=False, inplace=False):
     """Streaming-chunk additive fold: ``acc + one_hot(keys)ᵀ @ values``.
 
     [N] int32 keys, [N, D] f32 values, [K, D] f32 acc -> [K, D] f32.  Keys
@@ -326,8 +514,11 @@ def onehot_fold(keys, values, acc, key_space=None, *, block_k=None,
     ``block_k`` caps the keys of one table of the kernel, a key tile (CPU:
     the key block of the plain contraction, at most
     :data:`FOLD_PLAIN_KEY_BLOCK`); ``None`` sizes it (:func:`fold_plan`).
-    Signature matches the stream collector's ``fold_fn(keys, mat, acc)``."""
+    ``inplace`` writes the result into acc (f32, contiguous) and returns
+    acc, the same bits as a fresh table; the caller owns acc.  Signature
+    matches the stream collector's ``fold_fn(keys, mat, acc)``."""
     _check("onehot_fold", keys, values, acc, counts)
+    _check_inplace("onehot_fold", acc, inplace)
     if key_space is None:
         key_space = acc.shape[0]
     if acc.shape[0] != key_space:
@@ -335,9 +526,11 @@ def onehot_fold(keys, values, acc, key_space=None, *, block_k=None,
                          f"{acc.shape[1]})")
     n, width = values.shape[0], acc.shape[1]
     if n == 0 or width == 0:  # empty chunk: nothing to fold
-        return acc.to(torch.float32)
+        return acc if inplace else acc.to(torch.float32)
     block_k = _block(block_k, key_space)
-    extra = {"counts": True} if counts else {}  # the flag only when set
+    extra = {"counts": True} if counts else {}  # the flags only when set
+    if inplace:
+        extra["inplace"] = True
     if keys.device.type == "cpu":
         return _trace.kernel("onehot_fold", _oc.onehot_fold_plain, keys,
                              values, acc,
@@ -346,31 +539,39 @@ def onehot_fold(keys, values, acc, key_space=None, *, block_k=None,
     _check_cuda("onehot_fold", keys, values, acc)
     return _trace.kernel("onehot_fold", _oc.onehot_fold_cuda, keys, values,
                          acc, _fold_launch("onehot_fold", n, key_space,
-                                           width, "add", block_k), **extra)
+                                           width, "add", block_k, counts,
+                                           inplace),
+                         **extra)
 
 
-def chunk_monoid_fold(keys, values, acc, op="add", *, block_k=None):
+def chunk_monoid_fold(keys, values, acc, op="add", *, block_k=None,
+                      inplace=False):
     """Streaming-chunk monoid fold of an UNSORTED pair tile into [K, D] acc.
 
     ``op`` is add, max or min; max/min follow JAX's NaN and signed-zero
-    rules.  Signature matches the stream collector's
+    rules.  ``inplace`` writes the result into acc (f32, contiguous) and
+    returns acc.  Signature matches the stream collector's
     ``monoid_fold_fn(keys, mat, acc, op)``; the key space is acc's rows."""
     _check("chunk_monoid_fold", keys, values, acc)
+    _check_inplace("chunk_monoid_fold", acc, inplace)
     if op not in _sr.OPS:
         raise ValueError(f"op must be one of {sorted(_sr.OPS)}, got {op!r}")
     key_space = acc.shape[0]
     n, d = values.shape
     if n == 0 or d == 0:  # empty chunk: nothing to fold
-        return acc.to(torch.float32)
+        return acc if inplace else acc.to(torch.float32)
     block_k = _block(block_k, key_space)
+    extra = {"inplace": True} if inplace else {}
     if keys.device.type == "cpu":
         return _trace.kernel(
             "chunk_monoid_fold", _sr.chunk_monoid_fold_plain, keys, values,
-            acc, op, block_k=_plain_block(block_k, key_space))
+            acc, op, block_k=_plain_block(block_k, key_space), **extra)
     _check_cuda("chunk_monoid_fold", keys, values, acc)
     return _trace.kernel(
         "chunk_monoid_fold", _sr.chunk_monoid_fold_cuda, keys, values, acc,
-        op, _fold_launch("chunk_monoid_fold", n, key_space, d, op, block_k))
+        op, _fold_launch("chunk_monoid_fold", n, key_space, d, op, block_k,
+                         inplace=inplace),
+        **extra)
 
 
 def int_fold(keys, rows, table, counts=None):

@@ -263,6 +263,26 @@ def partition_plan(n: int, d: int, key_space: int, bucket_size: int,
         partition_passes(key_space, bucket_size, MAX_PASS_BUCKETS), pad_align)
 
 
+def scratch_bytes(plan: PartitionPlan, n: int, d: int) -> int:
+    """Bytes of the scratch the kernels carve for ``plan`` over ``n``
+    pairs of ``d`` value columns (csrc/radix_level.cuh ``carve``; what
+    ``radix_partition_scratch_bytes`` returns): the count matrix of the
+    widest pass, a ticket, two sets of totals, starts and next-pass tile
+    offsets, and one or two compact layouts between passes, each from a
+    256-byte boundary."""
+    def a(nbytes):
+        return -(-max(nbytes, 4) // 256) * 256
+
+    passes = plan.passes
+    cells = max(p.digits * (p.grid + 1) for p in passes)
+    width = max(p.buckets + 1 for p in passes)
+    inner = n if len(passes) > 1 else 0
+    bufs = min(len(passes) - 1, 2)
+    sizes = ([cells * 4, 4] + [width * 4] * 6 + [inner * 4] * bufs
+             + [inner * d * 4] * bufs)
+    return sum(a(x) for x in sizes)
+
+
 def pass_tiles(parent_starts, parent_counts, tile: int):
     """The tiles of a pass as the kernels cut them: parent ``p``'s pairs
     ``[starts[p], starts[p] + counts[p])`` in tiles of at most ``tile``

@@ -22,7 +22,7 @@ import torch
 
 from repro_torch import numerics
 from repro_torch.kernels import _build
-from repro_torch.kernels.onehot_combine import (fold_partials,
+from repro_torch.kernels.onehot_combine import (count_fold, fold_scratch,
                                                 onehot_fold_plain)
 
 #: op codes of csrc/fold_table.cuh
@@ -31,36 +31,42 @@ OPS = {"add": 0, "max": 1, "min": 2}
 
 def chunk_monoid_fold_plain(keys: torch.Tensor, values: torch.Tensor,
                             acc: torch.Tensor, op: str = "add",
-                            block_k: int | None = None) -> torch.Tensor:
+                            block_k: int | None = None,
+                            inplace: bool = False) -> torch.Tensor:
     """Unsorted [N] keys + [N, D] values folded into [K, D] acc (f32).
 
     Rows of keys absent from the chunk pass through; keys outside
     ``[0, K)`` are dropped.  ``add`` is the blocked one-hot contraction;
-    ``max``/``min`` reduce each key's values exactly, in any order."""
+    ``max``/``min`` reduce each key's values exactly, in any order.
+    ``inplace``: the result is written into acc, which is returned."""
     if op == "add":
-        return onehot_fold_plain(keys, values, acc, block_k=block_k)
+        return onehot_fold_plain(keys, values, acc, block_k=block_k,
+                                 inplace=inplace)
     _build.count_fold(keys.shape[0], keys.shape[0])
-    return numerics.scatter_extremum(acc.to(torch.float32), keys,
-                                     values.to(torch.float32), op)
+    out = numerics.scatter_extremum(acc.to(torch.float32), keys,
+                                    values.to(torch.float32), op)
+    return acc.copy_(out) if inplace else out
 
 
 def chunk_monoid_fold_cuda(keys: torch.Tensor, values: torch.Tensor,
-                           acc: torch.Tensor, op: str, plan) -> torch.Tensor:
+                           acc: torch.Tensor, op: str, plan,
+                           inplace: bool = False) -> torch.Tensor:
     """Launch the kernel with ``plan`` (an ``ops.FoldPlan``); the wrapper
-    in ``ops`` has checked the inputs."""
+    in ``ops`` has checked the inputs.  ``inplace`` writes the result into
+    acc and returns it."""
     lib = _build.library("chunk_monoid_fold")
     n, d = values.shape
     k_space = acc.shape[0]
-    out = torch.empty_like(acc)
-    partial = fold_partials(plan, k_space, d, acc.device)
+    out = acc if inplace else torch.empty_like(acc)
+    scratch = fold_scratch(plan, k_space, d, acc.device)
     err = lib.chunk_monoid_fold_launch(
         keys.data_ptr(), values.data_ptr(), acc.data_ptr(), out.data_ptr(),
-        None if partial is None else partial.data_ptr(), n, d, k_space,
-        OPS[op], *plan.launch_args(),
+        None if scratch is None else scratch.data_ptr(), n, d, k_space,
+        OPS[op], *plan.launch_args(), *plan.route_args(),
         torch.cuda.current_stream(acc.device).cuda_stream)
     _build.check("chunk_monoid_fold", lib, err)
     _build.count_launch("chunk_monoid_fold")
-    _build.count_fold(n, n * plan.key_tiles * plan.col_tiles)
+    count_fold(n, plan)
     return out
 
 

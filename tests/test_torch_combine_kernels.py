@@ -176,10 +176,14 @@ def test_wrappers_on_a_card_tensor_reach_the_kernels_only(monkeypatch):
         ("onehot_combine", torch.float32,
          ops.fold_plan(10_000, 100, 3, "add")),
         ("combine_scatter", "max", ops.fold_plan(10_000, k, 3, "max"))]
-    # one table of all 100 x 3; at 2^16 keys one column a table, two key
-    # tiles a column
+    # one table of all 100 x 3; at 2^16 keys the tile route would read the
+    # pairs 2 key tiles x 3 column tiles times into segment partials, so
+    # the partitioned route within them: 256 key tiles of 256 keys, whole
+    # rows
     assert (calls[0][2].key_tiles, calls[0][2].col_tiles) == (1, 1)
-    assert (calls[1][2].key_tiles, calls[1][2].col_tiles) == (2, 3)
+    assert ops.tile_plan(10_000, k, 3, "max").scans == 6
+    assert (calls[1][2].route, calls[1][2].key_tiles,
+            calls[1][2].col_tiles) == ("partitioned", 256, 1)
     with pytest.raises(TypeError):  # the kernels take int32 keys only
         ops.onehot_combine(keys.to(torch.int64), vals, 100)
 

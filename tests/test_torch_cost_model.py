@@ -244,21 +244,41 @@ def test_cuda_profile_keeps_kmeans_on_the_stream_flow():
 
 
 def test_cuda_work_follows_the_launch_plans():
-    """The stream fold reads a chunk once per key tile × column tile of
-    ``ops.fold_plan`` (64 at K = 2^20, D = 2); the sort flow moves it once
-    per partition pass, then through segment_reduce."""
+    """The stream fold takes the route of ``ops.fold_plan``, in place as
+    the chunk loop folds: at K = 2^14 the tile route, reading a chunk once
+    per key tile x column tile; at K = 2^20, where the tile route would
+    read it 64 times (D = 2), the partitioned route: its partition pass
+    under ``partition``, its column tiles' reads of the layout under
+    ``fold_table``.  The sort flow moves a chunk once per partition pass,
+    then through segment_reduce."""
     from repro_torch.kernels import ops
 
-    n = 1 << 22
-    plan = ops.fold_plan(n, 1 << 20, 2, "add", ops.auto_key_block(1 << 20))
-    assert plan.key_tiles * plan.col_tiles == 64 and plan.shape != "lane"
-    k, cols = 1 << 20, 2
-    partials = 2 * plan.n_seg * k * cols * 4 if plan.n_seg > 1 else 0
+    n, cols = 1 << 22, 2
+
+    def plan_of(k):
+        blk = min(ops.auto_key_block(k), k)
+        return ops.fold_plan(n, k, cols, "add", blk if blk < k else None,
+                             True, True)
+
+    k = 1 << 20
+    tile = ops.tile_plan(n, k, cols, "add", ops.auto_key_block(k))
+    assert tile.scans == 64 and tile.shape != "lane"
+    plan = plan_of(k)
+    assert plan.route == "partitioned" and plan.scans == 2
+    slots = plan.n_seg * plan.part.slots
     wide = tcm.cuda_work("stream", n_pairs=n, key_space=k)
-    assert wide["fold_table"] == (64 * n * 4 * (1 + plan.cols) + partials
+    assert wide["partition"] == len(plan.part.passes) * (n * 4 + n * 8
+                                                         + slots * 8)
+    assert wide["fold_table"] == (slots * 4 * (plan.col_tiles + 1)
                                   + 2 * k * cols * 4)
-    narrow = tcm.cuda_work("stream", n_pairs=n, key_space=1 << 14)
-    assert wide["fold_table"] > 20 * narrow["fold_table"]
+    k = 1 << 14
+    plan = plan_of(k)
+    assert plan.route == "tile" and plan.shape != "lane"
+    partials = 2 * plan.n_seg * k * cols * 4 if plan.n_seg > 1 else 0
+    narrow = tcm.cuda_work("stream", n_pairs=n, key_space=k)
+    assert set(narrow) == {"chunk", "map", "fold_table"}
+    assert narrow["fold_table"] == (plan.scans * n * 4 * (1 + plan.cols)
+                                    + partials + 2 * k * cols * 4)
     sort = tcm.cuda_work("sort", n_pairs=4 * n, key_space=1 << 20)
     assert sort["chunk"] == 4 and set(sort) == {"chunk", "map", "partition",
                                                 "segment"}
@@ -277,13 +297,24 @@ def test_cuda_estimates_grow_with_n(flow, k):
 @pytest.mark.parametrize("k", [1 << 15, 1 << 16, 1 << 18, 1 << 20, 1 << 22])
 def test_cuda_ranking_turns_once_at_large_k(k):
     """Past a single fold table (K > 2^14 at D = 2) the ranking is monotone
-    in N: stream while the host's fixed costs rule, sort from some N on."""
+    in N, stream while the host's fixed costs rule.  Where the stream fold
+    takes the tile route (K = 2^15, 2^16) sort from some N on; where it
+    takes the partitioned route (K >= 2^17) it moves each pair once
+    through a partition pass as the sort flow does and skips the sort
+    flow's segment pass, so stream at every N."""
+    from repro_torch.core import autotune as at
+    from repro_torch.kernels import ops
+
     chosen = [tcm.choose_flow(n_pairs=1 << b, key_space=k,
                               backend="cuda").chosen
               for b in range(6, 29)]
-    turn = chosen.index("sort")
-    assert set(chosen[:turn]) <= {"stream"} and set(chosen[turn:]) == {"sort"}
-    assert chosen[-1] == "sort"
+    turn = chosen.index("sort") if "sort" in chosen else len(chosen)
+    assert set(chosen[:turn]) == {"stream"}
+    assert set(chosen[turn:]) <= {"sort"}
+    blk = min(ops.auto_key_block(k), k)
+    plan = ops.fold_plan(at.CUDA_CHUNK_PAIRS, k, 2, "add",
+                         blk if blk < k else None, True, True)
+    assert (chosen[-1] == "sort") == (plan.route == "tile")
 
 
 # -- the planner against the reference ----------------------------------------
@@ -463,12 +494,14 @@ def test_forced_flow_and_underivable_reducer_ignore_the_hint():
 def test_the_card_plans_with_the_cuda_profile():
     """``device`` picks the profile: planning is arithmetic, so the card's
     plan can be made without one; KeyedSum at K = 2^20 and 2^24 pairs
-    takes the sort flow there."""
+    takes the stream flow there, whose fold takes the partitioned route
+    (on an H100 its wall beat the sort flow's at this shape)."""
     plan = tplan.plan_execution(tapps.KeyedSum(1 << 20),
                                 n_pairs_hint=1 << 24, device="cuda")
-    assert plan.flow == "sort" and plan.cost.backend == "cuda"
+    assert plan.flow == "stream" and plan.cost.backend == "cuda"
     assert plan.reason.endswith("cost model [cuda] at N=16777216")
-    assert "cost model [cuda] N=16777216 K=1048576 -> sort" in plan.explain()
+    assert ("cost model [cuda] N=16777216 K=1048576 -> stream"
+            in plan.explain())
 
 
 def test_model_holder_bytes_count_int_tables_at_the_references_width():

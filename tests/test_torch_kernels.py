@@ -185,10 +185,15 @@ def test_launches_counted_by_key_and_reset_together():
     assert ops.launch_counts_by_key("flash_decode") == {}
 
 
-def _check_fold_plan(plan, n, k, d):
+def _check_fold_plan(plan, n, k, d, counts=False, block_k=None,
+                     inplace=False):
     """A plan the kernels can launch: its tables fit the shared memory and
-    cover K x D, its segments cover the pairs, its partials fit."""
-    assert plan.shape in ops.FOLD_SHAPES
+    cover K x D, its segments (the partitioned route: its sub-chunks)
+    cover the pairs, its partials fit (the partitioned route: its
+    scratch, within what the tile plan would have allocated)."""
+    assert plan.shape in ops.FOLD_SHAPES and plan.route in ops.FOLD_ROUTES
+    if plan.route == "partitioned":
+        _check_route_plan(plan, n, k, d, counts, block_k, inplace)
     if plan.shape == "lane":  # one warp a column, 32 copies of the table
         assert plan.warps == plan.cols <= ops.FOLD_LANE_MAX_WARPS
         assert plan.stage == ops.FOLD_LANE_STAGE
@@ -216,7 +221,36 @@ def _check_fold_plan(plan, n, k, d):
     else:
         assert plan.seg_len * plan.n_seg >= n > plan.seg_len * (
             plan.n_seg - 1)
-    assert plan.n_seg == 1 or plan.n_seg * k * d <= ops.FOLD_PARTIAL_ELEMS
+    assert (plan.n_seg == 1 or plan.route == "partitioned"
+            or plan.n_seg * k * d <= ops.FOLD_PARTIAL_ELEMS)
+
+
+def _check_route_plan(plan, n, k, d, counts, block_k, inplace):
+    """The partitioned route: bucket blocks; a partition whose last pass
+    splits into the key tiles; sub-chunks of at least FOLD_PART_MIN_PAIRS
+    pairs (or the whole chunk); scratch as the kernel carves it, within the route's budget;
+    one pass over the pairs for each partition pass and column tile."""
+    from repro_torch.kernels import radix_partition as rp
+
+    vd = d - int(counts)
+    assert plan.shape == "bucket" and plan.warps == ops.FOLD_BUCKET_WARPS
+    last = plan.part.passes[-1]
+    assert last.range_ == plan.block_k and last.buckets == plan.key_tiles
+    assert plan.part == rp.plan_passes(
+        plan.seg_len, vd, k,
+        rp.partition_passes(k, plan.block_k, rp.MAX_PASS_BUCKETS),
+        ops.FOLD_REGION_PAD)
+    assert plan.seg_len >= min(n, ops.FOLD_PART_MIN_PAIRS)
+    assert plan.n_seg == -(-n // plan.seg_len)
+    tickets = -(-plan.key_tiles * plan.col_tiles * 4 // 256) * 256
+    partials = -(-2 * plan.extra * plan.block_k * d * 4 // 256) * 256
+    assert plan.scratch == tickets + partials + ops.route_scratch_bytes(
+        plan.part, plan.seg_len, vd)
+    assert (plan.region_seg > 0) == (plan.extra > 0)
+    tile = ops.table_plan(n, k, d, block_k)
+    assert plan.scratch <= ops.route_budget(tile, k, d, inplace)
+    assert tile.key_tiles > 1 and tile.scans > ops.FOLD_PART_SCANS
+    assert plan.scans == len(plan.part.passes) + plan.col_tiles
 
 
 @pytest.mark.parametrize("n,k,d", [(1, 1, 1), (100, 100, 4), (1 << 22, 100, 4),
@@ -243,11 +277,18 @@ def test_fold_plan_covers_the_table_and_fits(n, k, d):
     within FOLD_PARTIAL_ELEMS; a cap on the key tile is kept."""
     plan = ops.fold_plan(n, k, d, "add")
     _check_fold_plan(plan, n, k, d)
-    # the fewest tiles: a key tile takes every key its table holds
-    assert plan.block_k == min(k, ops.FOLD_TABLE_FLOATS // plan.cols)
+    if plan.route == "tile":
+        # the fewest tiles: a key tile takes every key its table holds
+        assert plan.block_k == min(k, ops.FOLD_TABLE_FLOATS // plan.cols)
+    else:  # as many key tiles as one partition pass splits into
+        assert plan.key_tiles == ops.KERNEL_MAX_LEVEL_BUCKETS
+        assert plan.cols == min(d, ops.FOLD_MAX_COLS)
     capped = ops.fold_plan(n, k, d, "add", block_k=7)
-    _check_fold_plan(capped, n, k, d)
+    _check_fold_plan(capped, n, k, d, block_k=7)
     assert capped.block_k == min(7, k)
+    # in place (the chunk loop's folds), the route's budget holds acc too
+    _check_fold_plan(ops.fold_plan(n, k, d, "add", inplace=True), n, k, d,
+                     inplace=True)
 
 
 # -- the lane-table shape of a sum (csrc/lane_fold.cuh) ----------------------

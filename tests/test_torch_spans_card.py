@@ -20,7 +20,7 @@ from repro_torch.core import MapReduce  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-K = 1 << 21  # past one fold table: 64 key tiles
+K = 1 << 21  # past one fold table: 64 key tiles on the tile route
 ITEMS = 1 << 20  # of 8 pairs
 CHUNK_PAIRS = 1 << 22  # 2 chunks
 
@@ -62,6 +62,7 @@ def test_a_traced_stream_job_is_attributed_to_its_spans(card):
     assert dev["fold"] > 0.5 * sum(dev.values()), dev
     assert [j.counters["chunks"] for j in stretch.named("job")] == [2, 2]
 
-    plan = ops.fold_plan(CHUNK_PAIRS, K, 2, "add", mr.tiling.key_block)
+    plan = ops.fold_plan(CHUNK_PAIRS, K, 2, "add", mr.tiling.key_block,
+                         True, True)
     got = stretch.counters["fold_scans"] / stretch.counters["fold_pairs"]
-    assert got == plan.key_tiles * plan.col_tiles
+    assert got == plan.scans
