@@ -98,7 +98,9 @@ Phases (each raises on failure, and the script then exits non-zero):
 7c. the cost model behind ``n_pairs_hint``: (a) the stream and sort
    flows of KeyedSum (f32 weights) at K = 2^10 to 2^20 and 2^22 / 2^24
    pairs, KMeans at 2^24 points and two reduce-flow runs, each the median
-   wall of 3 and one profiled run; the ``cuda`` profile refit from them
+   wall of 3 and one profiled run, over the items and a copy in turn (the
+   stream flow's eager loop: a call over items the run has not just seen,
+   which is what the model prices); the ``cuda`` profile refit from them
    (device time by kernel against ``cost_model.cuda_work``'s bytes, host
    terms from the walls), printed beside the committed ``CUDA_COEFF``
    (the ``cost_profile`` line); (b) with the committed coefficients, the
@@ -2973,21 +2975,40 @@ COST_GATE_MARGIN = 2.0
 COST_REPS = 9
 
 
+def in_turn(items):
+    """A function that hands out ``items`` and a copy of them in turn: no
+    call gets the tensors of the call before, so a run called with it
+    keeps the stream flow's chunk loop eager (``engine.LocalRun`` captures
+    a CUDA graph only over items that repeat), which is what the cost
+    model prices: a call over items the run has not just seen."""
+    from torch.utils import _pytree as pytree
+
+    copies, turn = (items, pytree.tree_map(lambda t: t.clone(), items)), [0]
+
+    def next_items():
+        turn[0] ^= 1
+        return copies[turn[0]]
+    return next_items
+
+
 def interleaved_ms(mrs: dict, items, reps: int = COST_REPS) -> dict:
-    """Median wall milliseconds of ``mr.run(items)`` for each ``mr`` in
-    ``mrs`` (by label), after a warm-up run of each.  The runs take turns,
-    ``reps`` rounds of one run each, so that a stretch of load on the
-    host's shared cores falls on every flow alike rather than on the
-    flow timed while it lasts."""
+    """Median wall milliseconds of ``mr.run`` for each ``mr`` in ``mrs``
+    (by label), after a warm-up run of each, over ``items`` and a copy in
+    turn (:func:`in_turn`: the eager loop).  The runs take turns, ``reps``
+    rounds of one run each, so that a stretch of load on the host's
+    shared cores falls on every flow alike rather than on the flow timed
+    while it lasts."""
     import torch
     times = {label: [] for label in mrs}
-    for mr in mrs.values():
-        mr.run(items)
+    feeds = {label: in_turn(items) for label in mrs}
+    for label, mr in mrs.items():
+        mr.run(feeds[label]())
     torch.cuda.synchronize()
     for _ in range(reps):
         for label, mr in mrs.items():
+            it = feeds[label]()
             t0 = time.perf_counter()
-            mr.run(items)
+            mr.run(it)
             torch.cuda.synchronize()
             times[label].append((time.perf_counter() - t0) * 1e3)
     return {label: float(np.median(t)) for label, t in times.items()}
@@ -3000,7 +3021,8 @@ def cost_run(mr, items, wall: float, *, label, k, n, d, value_bytes,
     ``cuda`` profile prices for it (``cost_model.cuda_work``)."""
     from repro_torch.core import cost_model as cm
 
-    prof = profile_fn(lambda: mr.run(items), wall, top=0,
+    feed = in_turn(items)  # the eager loop, as timed
+    prof = profile_fn(lambda: mr.run(feed()), wall, top=0,
                       groups=COST_GROUPS)
     fold_op = ("add" if mr.plan.spec is None or mr.plan.spec.sum_lowerable
                else "max")

@@ -28,14 +28,18 @@ answers ``explain()``.  The card has no XLA executable: what ``compile()``
 makes and caches is the prepared run (``engine.LocalRun``): the resolved
 knobs, the built collector and tiling, and, on the card, the kernel
 libraries loaded by one warm-up call on zeros of the bound shape.  A call
-dispatches the kernels eagerly, in the order ``run()`` always did, with
-no re-planning, re-tuning or rebuilding, and returns fresh tensors.
-Capturing a compiled call in a CUDA graph is queued (ROADMAP): a graph
-keeps its memory pool while cached, and a call still synchronizes with
-the host.  ``items_bucket="pow2"`` lets the batch sizes of one power-of-two
-bucket share a compiled entry; a padded call folds only its first
-``n_valid`` items (``engine.fold_items_chunked``), so it gives the bits of
-the exact call.
+dispatches the kernels in the order ``run()`` always did, with no
+re-planning, re-tuning or rebuilding, and returns fresh tensors.  On the
+card a stream-flow call over the same items as the call before it
+captures the chunk loop as one CUDA graph, and later calls over those
+items replay it (``engine.CapturedLoop``; ``explain()``'s ``loop:``
+line); a first or one-shot call stays eager.  The compiled run holds one
+graph's memory pool until it captures another or is dropped, and the
+process at most ``engine.GRAPH_POOL_BYTES`` of pools over all runs.
+``items_bucket="pow2"`` lets the batch sizes of one power-of-two bucket
+share a compiled entry; a padded call folds only its first ``n_valid``
+items (``engine.fold_items_chunked``), so it gives the bits of the exact
+call.
 
 The run happens on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without ``device="cpu"`` the constructor raises.
@@ -744,7 +748,8 @@ class Optimized:
         peak = None
         if mr.device.type == "cuda":
             # the warm-up: loads the kernels' libraries, and measures the
-            # bound shape's peak (the process's peak counter is reset)
+            # bound shape's peak (the process's peak counter is reset); a
+            # first call over its items is eager, so it holds no graph
             zeros = pytree.tree_map(
                 lambda a: torch.zeros(tuple(a.shape), dtype=a.dtype,
                                       device=mr.device), self.items_spec)

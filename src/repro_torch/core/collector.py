@@ -182,6 +182,8 @@ class CarriedTables:
         self.device = torch.device(device)
         self._holder_leaves, self._holder_treedef = pytree.tree_flatten(
             spec.init(value_spec))
+        #: the identity holder's leaves on the device, copied there once
+        self._identity: list[torch.Tensor] | None = None
 
     #: whether ``fold_chunk`` may write into the state it is given
     folds_in_place = False
@@ -200,8 +202,17 @@ class CarriedTables:
         if self.fused_acc:
             return torch.zeros((self.key_space, sum(self._widths()) + 1),
                                dtype=torch.float32, device=self.device)
-        return self.spec.init_tables(self.key_space, self.value_spec,
-                                     self.device)
+        # ``spec.init_tables``, from the identity's copy on the device: after
+        # the first state, a state's init copies nothing from the host (no
+        # host sync, and a CUDA graph can capture it)
+        if self._identity is None:
+            self._identity = [l.to(self.device) for l in self._holder_leaves]
+        tables = pytree.tree_unflatten(
+            [l.expand((self.key_space,) + tuple(l.shape)).clone()
+             for l in self._identity], self._holder_treedef)
+        counts = torch.zeros((self.key_space,), dtype=torch.int32,
+                             device=self.device)
+        return tables, counts
 
     def tables_counts(self, state) -> tuple[Any, torch.Tensor]:
         """Un-finalized (tables, counts) from the carried state."""

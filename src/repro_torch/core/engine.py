@@ -9,15 +9,25 @@ distributed half (``merge_tables_collective``, the shuffle's send and
 receive sides, ``run_distributed``, ``build_distributed_fn``) and the
 resilient driver (``run_resilient`` over ``resilient_run``).  The reference scans the chunks
 with ``lax.scan``; here the chunk loop is a Python loop, so chunks are
-large (see ``autotune``) and each one is a handful of launches.  The
-combine and reduce flows map every item at once and hand the whole pair
-buffer to their collector.  :class:`LocalRun` is a flow prepared to
-dispatch, what the staged API's ``compile()`` caches.
+large (see ``autotune``) and each one is a handful of launches.  On the
+card a prepared stream run captures that loop as one CUDA graph and
+replays it (:class:`CapturedLoop`), so the host no longer paces the
+chunks.  The combine and reduce flows map every item at once and hand the
+whole pair buffer to their collector.  :class:`LocalRun` is a flow
+prepared to dispatch, what the staged API's ``compile()`` caches.
 """
 
 from __future__ import annotations
 
+import atexit
+import collections
+import inspect
+import itertools
+import numbers
+import threading
+import types
 import warnings
+import weakref
 from functools import partial
 from typing import Callable
 
@@ -224,12 +234,259 @@ def _check_sort_kernel_plan(spec, key_space: int, value_spec,
     return plan.bucket_size, plan.fanouts
 
 
+#: the app's attribute that memoizes its plan keys (``plan_cache``): not
+#: read by its map
+_PLAN_MEMO = "_plan_cache_fp"
+#: a closure's cell that was never set (it has no ``cell_contents``)
+_EMPTY_CELL = types.CellType()
+
+
+def _state_key(obj, seen: set) -> object:
+    """What a captured map reads of ``obj``, an attribute of its app: a
+    tensor by its address and layout (a replay reads what the address
+    holds then), a number or string by value, a container, a function's
+    closure or a plain object by its parts, anything else by identity."""
+    if isinstance(obj, torch.Tensor):
+        return ("tensor", obj.data_ptr(), tuple(obj.shape), obj.stride(),
+                obj.dtype, obj.device)
+    if obj is None or isinstance(obj, (numbers.Number, str, bytes,
+                                       torch.dtype, torch.device)):
+        return obj
+    if id(obj) in seen:
+        return ("seen", id(obj))
+    seen.add(id(obj))
+    if isinstance(obj, (list, tuple)):
+        return (type(obj).__name__,) + tuple(_state_key(x, seen)
+                                             for x in obj)
+    if isinstance(obj, dict):
+        return ("dict",) + tuple((repr(k), _state_key(v, seen))
+                                 for k, v in obj.items())
+    if inspect.isfunction(obj):
+        cells = [c.cell_contents for c in obj.__closure__ or ()
+                 if c != _EMPTY_CELL]
+        return ("function", id(obj)) + tuple(_state_key(c, seen)
+                                             for c in cells)
+    if (hasattr(obj, "__dict__") and not isinstance(obj, type)
+            and not inspect.ismodule(obj)):
+        return (type(obj).__qualname__,) + tuple(
+            (name, _state_key(v, seen)) for name, v in vars(obj).items())
+    return ("object", id(obj))
+
+
+def loop_key(app, items, n_items: int) -> tuple:
+    """What a captured chunk loop reads from its call: the items it folds,
+    each items leaf's address (its storage and offset), shape, strides,
+    dtype and device, and the app's attributes (:func:`_state_key`).  A
+    replay reads whatever those addresses hold then, so items changed in
+    place, or new items at the same address and layout, fold as they are;
+    an app attribute set to another tensor or value is another key."""
+    seen = {id(app)}
+    state = tuple((name, _state_key(v, seen))
+                  for name, v in vars(app).items() if name != _PLAN_MEMO)
+    return (n_items, state) + tuple(
+        (t.data_ptr(), tuple(t.shape), t.stride(), t.dtype, t.device)
+        for t in pytree.tree_leaves(items))
+
+
+def graph_capturable(device: torch.device) -> bool:
+    """Whether a chunk loop on ``device`` can be captured: a CUDA card."""
+    return device.type == "cuda"
+
+
+def _dispatch_mode_on() -> bool:
+    """A ``TorchDispatchMode`` is active (an op trace, fake tensors): it
+    has to see every op, so the loop runs eagerly."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode
+
+    return _get_current_dispatch_mode() is not None
+
+
+def _abandon(graph, device: torch.device, pool) -> None:
+    """After a capture that raised: end it if it is still open, and free
+    ``pool`` with its last reference.  A capture that ends is reset, which
+    lets go of the pool; one that fails to end leaves the pool held by the
+    graph and the capture's stream routed to it (torch 2.11 on the card),
+    so both are undone here."""
+    if torch.cuda.is_current_stream_capturing():
+        try:
+            graph.capture_end()
+        except Exception:  # noqa: BLE001 - the capture was spoiled
+            pass
+        else:
+            graph.reset()
+            return
+    index = device.index if device.index is not None else (
+        torch.cuda.current_device())
+    try:
+        torch._C._cuda_endAllocateToPool(index, pool.id)
+    except Exception:  # noqa: BLE001 - not routed
+        pass
+    while pool.use_count() > 1:
+        torch._C._cuda_releasePool(index, pool.id)
+
+
+def capture(fold: Callable, device: torch.device):
+    """``(graph, result, pool, pool bytes)``: ``fold()`` captured as one
+    CUDA graph on a side stream into a memory pool of its own
+    (``torch.cuda.MemPool``), which computes nothing until it is replayed,
+    and the bytes ``torch.cuda.memory_reserved`` grew by over the capture
+    (the pool, and whatever other threads reserved meanwhile).  The
+    capture is ``thread_local``: other threads' calls that may not run
+    during a capture (a cudaMalloc, a synchronize) neither raise nor spoil
+    it, though one that draws from the card's default random generator
+    raises while it lasts (torch's generator is in capture mode for every
+    thread).  Raises what the capture raised (a host sync or a copy from
+    host memory inside ``fold``, an op that cannot be captured), with the
+    pool freed."""
+    with torch.cuda.device(device):
+        pool = torch.cuda.MemPool()
+        before = torch.cuda.memory_reserved(device)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(torch.cuda.Stream(device)):
+            graph.capture_begin(pool=pool.id,
+                                capture_error_mode="thread_local")
+            try:
+                result = fold()
+                graph.capture_end()
+            except BaseException:
+                _abandon(graph, device, pool)
+                raise
+        return (graph, result, pool,
+                max(torch.cuda.memory_reserved(device) - before, 0))
+
+
+class CapturedLoop:
+    """A stream run's chunk loop, from its state's init to the last
+    chunk's fold, captured as one CUDA graph for one :func:`loop_key`.
+
+    ``state`` is the graph's output, in its memory pool: each replay
+    writes the folded state there again, so what a caller keeps is copied
+    out first (:meth:`LocalRun.__call__`).  Every replay launches the
+    capture's kernels in the capture's order with the same launch plans,
+    so its bits are the eager loop's.  ``tally`` holds what the capture
+    counted (``repro_torch.spans``: chunks, pairs, folds, launches), added
+    again on each replay.  The graph, its output and then its pool are
+    freed with the loop's last reference (:meth:`close`)."""
+
+    def __init__(self, key: tuple, fold: Callable, device: torch.device):
+        self.key = key
+        with spans.span("graph.capture"), spans.tally() as tally:
+            try:
+                self.graph, self.state, self.pool, self.pool_bytes = capture(
+                    fold, device)
+            except BaseException:
+                spans.credit(tally, -1)  # the eager loop counts it again
+                raise
+        self.tally = tally
+        spans.count("loop_captures")
+        spans.count("graph_pool_bytes", self.pool_bytes)
+        with spans.span("graph.replay"):  # the capture computed nothing
+            self.graph.replay()
+
+    def replay(self):
+        """The state folded again from what the items hold now."""
+        with spans.span("graph.replay"):
+            self.graph.replay()
+            spans.credit(self.tally)
+            spans.count("loop_replays")
+        return self.state
+
+    def close(self) -> None:
+        """Free the graph, then its output, then its pool: a pool that a
+        graph still holds cannot be freed (torch asserts it)."""
+        graph = getattr(self, "graph", None)
+        self.graph = None
+        if hasattr(graph, "reset"):
+            graph.reset()
+        del graph
+        self.state = self.pool = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:  # noqa: BLE001 - at exit the card may be gone
+            pass
+
+
+#: the bytes of graph pools the process holds: past them the least
+#: recently used captured loops are freed (the newest is held whatever its
+#: size)
+GRAPH_POOL_BYTES = 1 << 30
+#: the captured loops held, one a run (by its token), least recently used
+#: first; their pools sum to at most ``GRAPH_POOL_BYTES`` or one loop's
+_held: collections.OrderedDict[int, CapturedLoop] = collections.OrderedDict()
+_held_lock = threading.Lock()
+_tokens = itertools.count()
+atexit.register(_held.clear)  # while the card is up: each loop frees its pool
+
+
+def held_loop(token: int, use: bool = False) -> CapturedLoop | None:
+    """The loop run ``token`` holds; ``use`` marks it most recently used."""
+    with _held_lock:
+        loop = _held.get(token)
+        if use and loop is not None:
+            _held.move_to_end(token)
+        return loop
+
+
+def _hold(token: int, loop: CapturedLoop) -> None:
+    """Hold ``loop`` as run ``token``'s, then let go of the least recently
+    used loops while the pools pass ``GRAPH_POOL_BYTES``."""
+    with _held_lock:
+        dropped = [_held.pop(token, None)]
+        _held[token] = loop
+        while len(_held) > 1 and (sum(h.pool_bytes for h in _held.values())
+                                  > GRAPH_POOL_BYTES):
+            dropped.append(_held.popitem(last=False)[1])
+    del dropped  # freed outside the lock, as their last references go
+
+
+def _let_go(token: int) -> None:
+    """Free the loop run ``token`` holds (its graph and pool go with the
+    last reference: a call replaying it still has one)."""
+    with _held_lock:
+        loop = _held.pop(token, None)
+    del loop
+
+
+def _copied_out(out, state):
+    """``out`` with each tensor that shares storage with ``state`` (a
+    captured loop's output, which its next replay overwrites) copied."""
+    held = {t.untyped_storage().data_ptr() for t in pytree.tree_leaves(state)}
+    return pytree.tree_map(
+        lambda t: t.clone() if isinstance(t, torch.Tensor)
+        and t.untyped_storage().data_ptr() in held else t, out)
+
+
 class LocalRun:
     """One flow of one plan on one device, prepared to dispatch: the knobs
     resolved, the sort flow's radix plan checked, and the stream or sort
     collector built once per chunk size (kept for later calls).  Calling it
     maps and folds ``items`` (the first ``n_valid`` of them) and returns
     fresh ``(keys, values, counts)`` tensors.
+
+    On a CUDA card with the kernels on, a call of the stream flow over the
+    same items as the run's call before it (the same :func:`loop_key`:
+    the items' addresses and layout, their count and the app's
+    attributes) captures its chunk loop as one CUDA graph
+    (:class:`CapturedLoop`), and later calls with that key replay it.  So
+    the loop is captured only for items that repeat, as a dashboard's
+    GROUP BY over a resident column store does: a one-shot call, or calls
+    over items at new addresses each time, stay on the eager loop and pay
+    no capture.  A run holds one captured loop: capturing another frees
+    the old graph and its pool first.  The process holds at most
+    ``GRAPH_POOL_BYTES`` of pools over all runs (or one loop's), freeing
+    the least recently used loops past it; a run's loop is freed with the
+    run.  The loop runs eagerly on the CPU, with the kernels off, in the
+    sort flow, under a dispatch mode, and for good once a capture raised;
+    :meth:`tables` (the distributed and resilient paths) and seeded folds
+    (the streaming ingest) are always eager.  A captured map may read its
+    items and its app's attributes; what else it reads (a global, an
+    object changed in place) is frozen into the graph, so such state has
+    to reach it through the items or a new attribute.  ``loop_path`` says
+    which path the last call took; ``explain()`` prints it (``loop:``).
+    Calls from several threads take turns from the loop to the copy out
+    of the pool, which the next replay writes.
 
     ``plan`` (an ``ExecutionPlan``) is needed for the combine and reduce
     flows, whose runs record their lowering and fallbacks on it."""
@@ -262,6 +519,21 @@ class LocalRun:
         self._combiners: dict[int, col.CarriedTables] = {}
         #: :meth:`fold_lowering` by item count
         self._lowerings: dict[int, str] = {}
+        #: this run's captured loop among those the process holds
+        #: (:func:`held_loop`), freed with the run
+        self._token = next(_tokens)
+        weakref.finalize(self, _let_go, self._token)
+        #: the last call's :func:`loop_key`
+        self._last_key: tuple | None = None
+        #: why the loop stays eager for good (a capture raised)
+        self._no_capture = ""
+        self.loop_path = ""
+        self._lock = threading.Lock()
+
+    @property
+    def captured(self) -> CapturedLoop | None:
+        """The captured chunk loop this run holds, if any."""
+        return held_loop(self._token)
 
     def combiner(self, chunk_items: int) -> col.CarriedTables:
         """The collector of chunks of ``chunk_items`` items."""
@@ -312,25 +584,96 @@ class LocalRun:
                 combine_impl=self.combine_impl, use_kernels=self.use_kernels,
                 n_valid=n_valid, sinks=sinks)
             return keys, (vals if values else dead_values(vals, K)), counts
-        comb, tables, counts = self.tables(items, n_valid)
+        with self._lock:
+            return self._stream_call(items, n_valid, values, sinks)
+
+    def _stream_call(self, items, n_valid, values, sinks):
+        """The stream or sort flow's call (:meth:`__call__`)."""
+        K = self.app.key_space
         n_items = valid_items(items, n_valid)
+        ci = chunk_items_of(self.app, n_items, self.chunk_pairs)
+        comb = self.combiner(ci)
+        state, pooled = self._fold(comb, items, ci, n_items)
+        tables, counts = comb.tables_counts(state)
         lowering = self._lowerings.get(n_items)
         if lowering is None:
             lowering = self._lowerings[n_items] = self.fold_lowering(n_items)
-        if lowering:
-            for p in ((self.plan,) if sinks is None else sinks):
-                if p is not None:
+        for p in ((self.plan,) if sinks is None else sinks):
+            if p is not None:
+                p.loop = self.loop_path
+                if lowering:
                     p.lowering = lowering
         if values:
             with spans.span("finalize"):
                 grouped = col.finalize_tables(self.spec, tables, counts, K)
-            return grouped.keys, grouped.values, grouped.counts
-        # one row is finalized, for the values' shape and dtype only
-        one = col.finalize_tables(
-            self.spec, pytree.tree_map(lambda t: t[:1], tables),
-            counts[:1], 1)
-        keys = torch.arange(K, dtype=torch.int32, device=counts.device)
-        return keys, dead_values(one.values, K), counts
+            out = grouped.keys, grouped.values, grouped.counts
+        else:
+            # one row is finalized, for the values' shape and dtype only
+            one = col.finalize_tables(
+                self.spec, pytree.tree_map(lambda t: t[:1], tables),
+                counts[:1], 1)
+            keys = torch.arange(K, dtype=torch.int32, device=counts.device)
+            out = keys, dead_values(one.values, K), counts
+        return _copied_out(out, state) if pooled else out
+
+    def _fold(self, comb, items, ci: int, n_items: int):
+        """``(state, pooled)``: the carried state after the chunk loop over
+        the first ``n_items`` items, and whether it is a captured loop's
+        output (``pooled``), which the next replay overwrites."""
+        def fold():
+            return fold_items_chunked(self.app, comb, items, ci,
+                                      n_valid=n_items)
+
+        why = self._eager_reason(comb)
+        if not why:
+            key = loop_key(self.app, items, n_items)
+            repeat, self._last_key = key == self._last_key, key
+            loop = held_loop(self._token, use=True)
+            if loop is not None and loop.key == key:
+                self.loop_path = (f"cuda graph, replayed (pool "
+                                  f"{loop.pool_bytes / 2**20:.1f} MiB)")
+                return loop.replay(), True
+            if not repeat:
+                why = ("other items than the call before; the next call "
+                       "over the same items captures the loop")
+            else:
+                _let_go(self._token)  # frees the old graph and its pool
+                try:
+                    loop = CapturedLoop(key, fold, self.device)
+                except Exception as exc:  # noqa: BLE001 - any failure: eager
+                    msg = str(exc).strip().splitlines()
+                    self._no_capture = (
+                        f"capture failed: {type(exc).__name__}"
+                        + (f": {msg[0][:160]}" if msg else ""))
+                    spans.count("loop_fallbacks")
+                    why = self._no_capture
+                else:
+                    _hold(self._token, loop)
+                    self.loop_path = (f"cuda graph, captured (pool "
+                                      f"{loop.pool_bytes / 2**20:.1f} MiB)")
+                    return loop.state, True
+        self.loop_path = f"eager ({why})"
+        return fold(), False
+
+    def _eager_reason(self, comb) -> str:
+        """Why this call's chunk loop runs eagerly whatever its items; ""
+        where it may be captured or replayed."""
+        if self.flow != "stream":
+            return f"the {self.flow} flow"
+        if not graph_capturable(self.device):
+            return f"on a {self.device.type} device, not a CUDA card"
+        if not self.use_kernels:
+            return "kernels off"
+        if comb.mode == "sequential":
+            return "the sequential fold reads each key on the host"
+        if self._no_capture:
+            return self._no_capture
+        if _dispatch_mode_on():
+            return "under a dispatch mode (an op trace, fake tensors)"
+        if (self.device.type == "cuda"
+                and torch.cuda.is_current_stream_capturing()):
+            return "inside another capture"
+        return ""
 
 
     def launch_plan(self, n_items: int) -> str:

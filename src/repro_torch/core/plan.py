@@ -40,6 +40,10 @@ class ExecutionPlan:
     #: the lowering and kernels the combine flow's last run took (set by
     #: the collector at run time; empty before the first run)
     lowering: str = ""
+    #: the path the stream or sort flow's last run took through its chunk
+    #: loop (``engine.LocalRun``): a CUDA graph captured or replayed, or
+    #: the eager loop and why; empty before the first run
+    loop: str = ""
     #: the staged path's bookkeeping (``api.Lowered``/``Optimized``/
     #: ``Compiled``): the furthest stage this plan reached, the content key
     #: it was stored or looked up under, and how the lookup went ("hit" |
@@ -97,6 +101,8 @@ class ExecutionPlan:
                          "pass over the whole pair buffer)")
         if self.lowering:
             lines.append(f"lowering: {self.lowering}")
+        if self.loop:
+            lines.append(f"loop: {self.loop}")
         for decision in self.fusion:
             lines.append(f"fusion: {decision}")
         for line in self.skew:

@@ -20,6 +20,23 @@ device's ops.  The stamps are Unix nanoseconds (``time.time_ns``), the
 clock to which kineto converts the host's and the device's events, taken
 inside the range, so that a record and its range agree to a microsecond
 or so.  The recorder never synchronizes the device.
+
+A stream run whose chunk loop is captured as a CUDA graph
+(``core/engine.py``, :class:`~repro_torch.core.engine.CapturedLoop`) runs
+its Python once, in the ``graph.capture`` span, which records the eager
+loop's spans and counts (``init``, ``chunk``, ``map``, ``premap``,
+``fold``) but launches nothing: the graph runs in a ``graph.replay`` span
+after it, and in one in each later job.  So the device ops of a captured
+or replayed job fall under ``graph.replay``, not under ``chunk``, ``map``
+or ``fold``: a by-span device split (``portbench/program.py``) shows that
+split on an eager job only (a first run of an item count, or a run the
+loop cannot be captured in).  What the capture counted (:func:`tally`) is
+added again on each later replay (:func:`credit`), so the counters of
+every job are the eager loop's.
+The capture's own counters: ``loop_captures``, ``loop_replays``,
+``loop_fallbacks`` (a capture that raised, after which the run is eager)
+and ``graph_pool_bytes`` (the bytes ``torch.cuda.memory_reserved`` grew by
+over each capture: its graph's memory pool, summed over captures).
 """
 
 from __future__ import annotations
@@ -153,12 +170,35 @@ def count(name: str, n: int = 1, key=None) -> None:
     _totals[name] += n
     if key is not None:
         _keyed[name][key] += n
+    for t in getattr(_local, "tallies", ()):
+        t[name, key] += n
     rec = _recording
     if rec is not None:
         rec.counters[name] += n
         stack = getattr(_local, "stack", None)
         if stack:
             stack[-1].counters[name] += n
+
+
+@contextlib.contextmanager
+def tally():
+    """Yield a ``Counter`` of every count this thread adds in the ``with``
+    block, by ``(name, key)`` (``key`` None for a count made with none);
+    other threads' counts meanwhile are not in it."""
+    t: collections.Counter = collections.Counter()
+    open_ = _local.__dict__.setdefault("tallies", [])
+    open_.append(t)
+    try:
+        yield t
+    finally:
+        open_[:] = [u for u in open_ if u is not t]
+
+
+def credit(counts: collections.Counter, sign: int = 1) -> None:
+    """Count a :func:`tally` again (a replayed graph's work), or take it
+    back with ``sign`` -1 (a capture that failed)."""
+    for (name, key), n in counts.items():
+        count(name, sign * n, key)
 
 
 def total(name: str) -> int:

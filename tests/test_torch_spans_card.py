@@ -35,7 +35,13 @@ def card():
 
 
 @pytest.mark.cuda
-def test_a_traced_stream_job_is_attributed_to_its_spans(card):
+@pytest.mark.parametrize("loop", ["eager", "replayed"])
+def test_a_traced_stream_job_is_attributed_to_its_spans(loop, card,
+                                                        monkeypatch):
+    """Eager, a job's device ops go to the spans that launched them, the
+    fold's the most; replayed from its captured CUDA graph
+    (``engine.CapturedLoop``), to ``graph.replay``, with the capture's
+    counters credited to the job."""
     from portbench import program
 
     g = torch.Generator(device=card).manual_seed(0)
@@ -44,8 +50,11 @@ def test_a_traced_stream_job_is_attributed_to_its_spans(card):
              torch.rand((ITEMS, 8), device=card, generator=g))
     mr = MapReduce(apps.KeyedSum(K), flow="stream", device=card,
                    stream_chunk_pairs=CHUNK_PAIRS)
-    mr.lower(items).compile()
+    run = mr.lower(items).compile()._entry.executable
+    if loop == "eager":  # the cached run: held eager for this case only
+        monkeypatch.setattr(run, "_no_capture", "held eager by the test")
     mr.run(items)
+    mr.run(items)  # replayed: the capture
     torch.cuda.synchronize()
 
     def job(marks):
@@ -59,7 +68,10 @@ def test_a_traced_stream_job_is_attributed_to_its_spans(card):
     assert att.ops and len(att.ops) == len(trace.device_ops)
     dev = att.device_s()
     assert dev.get(None, 0.0) < 0.01 * sum(dev.values()), dev
-    assert dev["fold"] > 0.5 * sum(dev.values()), dev
+    top = "fold" if loop == "eager" else "graph.replay"
+    assert dev[top] > 0.5 * sum(dev.values()), dev
+    assert run.loop_path.startswith(
+        "eager" if loop == "eager" else "cuda graph, replayed")
     assert [j.counters["chunks"] for j in stretch.named("job")] == [2, 2]
 
     plan = ops.fold_plan(CHUNK_PAIRS, K, 2, "add", mr.tiling.key_block,
